@@ -7,11 +7,14 @@ over HTTP, and check what comes out.
 
 Phases (each prints one progress line with its wall time):
   1. device   the card's name and power limit; fails without CUDA
-  2. build    nvcc builds simple_sfod_tpu_torch/ops/csrc/nms.cu
+  2. build    nvcc builds simple_sfod_tpu_torch/ops/csrc/nms.cu; each
+              kernel's registers, shared memory and spills (-Xptxas -v)
   3. kernels  suppress_relation_bits and greedy_keep_from_bits against their
               plain versions on seeded boxes (ties, invalid and zero-area
-              boxes, class-offset boxes); bitmasks and keep masks must be
-              equal bit for bit
+              boxes, class-offset boxes, N up to 8192 and N = 4097) and on
+              cases built to break them (IoUs at the threshold's rounding
+              boundaries, a suppression chain, identical boxes, disjoint
+              boxes); bitmasks and keep masks must be equal bit for bit
   4. serve    the main configuration (VGG16-BN, 8 classes, 608x1216 canvas,
               bfloat16) with seeded weights behind the HTTP server; 4
               requests of seeded 600x1200 uint8 images, two of them
@@ -125,6 +128,99 @@ def case_boxes(rng: np.random.RandomState, n: int, n_valid: int, extent=(608.0, 
     return boxes_t, scores_t, valid_t
 
 
+def borderline_case(thr: float, pairs: int = 256, seed: int = 0):
+    """Box pairs whose float32 IoU lands on t, one ulp below and one above
+    it, each as close to its rounding midpoints as integer boxes get.
+
+    Pair k is [0, 2k, L, 2k+1] and [s, 2k, s+L, 2k+1] (L + s < 2^24, so the
+    intersection L - s, the areas L and the union L + s are exact and only
+    the division rounds): IoU = (L - s) / (L + s). Pairs lie in disjoint
+    bands, the first box of each scores higher, and the second is
+    suppressed iff fl(IoU) > t. -> boxes, scores, valid, expected keep."""
+    t = np.float32(thr)
+    targets = (np.nextafter(t, np.float32(-np.inf)), t, np.nextafter(t, np.float32(np.inf)))
+    L = np.arange(9_000_000, 9_400_000, dtype=np.int64)
+    s0 = np.round(L * (1 - float(t)) / (1 + float(t))).astype(np.int64)
+    L = np.tile(L, 7)
+    s = np.concatenate([s0 + d for d in range(-3, 4)])
+    ok = L + s < 2**24
+    L, s = L[ok], s[ok]
+    q32 = (L - s).astype(np.float32) / (L + s).astype(np.float32)
+    q64 = (L - s) / (L + s)
+    picked = []
+    for v in targets:
+        hit = np.nonzero(q32 == v)[0]
+        lo = (float(v) + float(np.nextafter(v, np.float32(-np.inf)))) / 2
+        hi = (float(v) + float(np.nextafter(v, np.float32(np.inf)))) / 2
+        picked += [hit[np.argmin(q64[hit] - lo)], hit[np.argmin(hi - q64[hit])]]
+    rng = np.random.RandomState(seed)
+    near = np.nonzero(np.isin(q32, np.asarray(targets)))[0]
+    picked = np.concatenate([picked, rng.choice(near, pairs - len(picked), replace=False)])
+    L, s, q32 = L[picked], s[picked], q32[picked]
+    band = 2.0 * np.arange(pairs)
+    a = np.stack([np.zeros(pairs), band, L, band + 1], 1)
+    b = np.stack([s, band, s + L, band + 1], 1)
+    boxes = np.stack([a, b], 1).reshape(-1, 4).astype(np.float32)
+    scores = np.linspace(1.0, 0.01, 2 * pairs).astype(np.float32)
+    keep = np.stack([np.ones(pairs, bool), q32 <= t], 1).reshape(-1)
+    perm = rng.permutation(2 * pairs)
+    return boxes[perm], scores[perm], np.ones(2 * pairs, bool), keep[perm]
+
+
+def chain_case(n: int, thr: float):
+    """n boxes of width 16 in a row, each shifted by d from the one before:
+    every box suppresses the next and not the one after (IoU (16-d)/(16+d)
+    above thr, (16-2d)/(16+2d) below), scores falling along the row. Greedy
+    NMS keeps every other box; the fixpoint needs n/2 rounds."""
+    d = {0.5: 4.0, 0.7: 2.0}[thr]
+    x = d * np.arange(n)
+    boxes = np.stack([x, np.zeros(n), x + 16.0, np.full(n, 16.0)], 1).astype(np.float32)
+    scores = np.linspace(1.0, 0.01, n).astype(np.float32)
+    return boxes, scores, np.ones(n, bool), np.arange(n) % 2 == 0
+
+
+def identical_case(n: int, seed: int = 0):
+    """n copies of one box, with tied scores: greedy NMS keeps one, the
+    first of the highest score."""
+    rng = np.random.RandomState(seed)
+    boxes = np.tile(np.float32([[10.0, 20.0, 110.0, 220.0]]), (n, 1))
+    scores = np.round(rng.uniform(0, 1, n), 2).astype(np.float32)
+    keep = np.zeros(n, bool)
+    keep[np.argmax(scores)] = True
+    return boxes, scores, np.ones(n, bool), keep
+
+
+def disjoint_case(n: int, seed: int = 0):
+    """n boxes on a grid, none touching another: greedy NMS keeps all."""
+    rng = np.random.RandomState(seed)
+    k = np.arange(n)
+    x, y = 10.0 * (k % 64), 10.0 * (k // 64)
+    boxes = np.stack([x, y, x + 8.0, y + 8.0], 1).astype(np.float32)
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    return boxes, scores, np.ones(n, bool), np.ones(n, bool)
+
+
+# label -> (function making boxes, scores, valid, expected keep; IoU threshold)
+EDGE_CASES = {
+    "borderline thr=0.5": (lambda: borderline_case(0.5), 0.5),
+    "borderline thr=0.7": (lambda: borderline_case(0.7), 0.7),
+    "chain N=4096 thr=0.7": (lambda: chain_case(4096, 0.7), 0.7),
+    "identical N=4096 thr=0.7": (lambda: identical_case(4096), 0.7),
+    "disjoint N=4096 thr=0.5": (lambda: disjoint_case(4096), 0.5),
+}
+
+
+def edge_cases():
+    """(label, boxes, scores, valid, thr, expected keep) of the cases built
+    to break the kernels: rounding at the threshold, a suppression chain,
+    all boxes equal, no box overlapping another."""
+    out = []
+    for label, (build, thr) in EDGE_CASES.items():
+        boxes, scores, valid, keep = build()
+        out.append((label, boxes, scores, valid, thr, keep))
+    return out
+
+
 def sorted_inputs(boxes, scores, valid):
     order = nms.score_order(scores, valid)
     return boxes[order].contiguous(), valid[order].contiguous()
@@ -140,7 +236,10 @@ def plain_keep(boxes, scores, valid, thr):
     return keep
 
 
-def check_kernels_against_plain(boxes, scores, valid, thr, label):
+def check_kernels_against_plain(boxes, scores, valid, thr, label, expected=None, cpu=True):
+    """Both kernels against their plain versions on the card, bit for bit;
+    the whole NMS against the plain path, the CPU path (unless cpu=False)
+    and, where given, the expected keep mask."""
     sb, sv = sorted_inputs(boxes, scores, valid)
     rel = nms.suppress_relation_plain(sb, sv, thr)
     bits_k = _kernels.launch_suppress_relation_bits(sb, sv, thr)
@@ -155,9 +254,12 @@ def check_kernels_against_plain(boxes, scores, valid, thr, label):
     if not torch.equal(keep_k, keep_p):
         raise AssertionError(f"{label}: greedy_keep_from_bits differs from plain")
     full_k = nms.nms_mask_matrix(boxes, scores, valid, thr)
-    full_cpu = nms.nms_mask_matrix(boxes.cpu(), scores.cpu(), valid.cpu(), thr)
-    if not torch.equal(full_k.cpu(), full_cpu) or not torch.equal(full_k, plain_keep(boxes, scores, valid, thr)):
+    if not torch.equal(full_k, plain_keep(boxes, scores, valid, thr)):
         raise AssertionError(f"{label}: nms_mask_matrix on the card differs from the plain path")
+    if cpu and not torch.equal(full_k.cpu(), nms.nms_mask_matrix(boxes.cpu(), scores.cpu(), valid.cpu(), thr)):
+        raise AssertionError(f"{label}: nms_mask_matrix on the card differs from the CPU path")
+    if expected is not None and not np.array_equal(full_k.cpu().numpy(), expected):
+        raise AssertionError(f"{label}: keep mask differs from the expected one")
     return int(keep_k.sum().item())
 
 
@@ -246,6 +348,13 @@ def main() -> int:
         path = _kernels.build("nms")
         _kernels.load_all()
         log(f"build: {path} in {time.perf_counter() - t0:.2f} s (nvcc {_kernels.BUILD_SECONDS.get('nms', 0.0):.2f} s)")
+        # registers, static shared memory and spills, from nvcc -Xptxas -v
+        ptxas = {}
+        for mangled, use in _kernels.resource_usage("nms").items():
+            name = next(k for k in _kernels.LAUNCHES if k + "_kernel" in mangled)
+            ptxas.setdefault(name, []).append(use)
+            log(f"  {name} ({mangled}): {use}")
+        check(set(ptxas) == set(_kernels.LAUNCHES), f"ptxas reported {sorted(ptxas)}")
 
     with Phase("kernels vs plain"):
         rng = np.random.RandomState(SEED)
@@ -255,11 +364,18 @@ def main() -> int:
             ("N=1000 thr=0.5", 1000, 1000, 0.5, 0),
             ("N=1 thr=0.5", 1, 1, 0.5, 0),
             ("N=257 thr=0.7 0 valid", 257, 0, 0.7, 0),
+            ("N=8192 thr=0.7", 8192, 8000, 0.7, 0),
+            ("N=4097 thr=0.7", 4097, 4000, 0.7, 0),
         ]
         for label, n, n_valid, thr, ncls in cases:
             b, s, v = case_boxes(rng, n, n_valid, classes=ncls)
-            kept = check_kernels_against_plain(b, s, v, thr, label)
+            kept = check_kernels_against_plain(b, s, v, thr, label, cpu=n <= 4097)
             log(f"  {label}: bit-equal, kept {kept}")
+        for label, b, s, v, thr, want in edge_cases():
+            t = lambda a: torch.from_numpy(a).cuda()
+            # the plain fixpoint needs n/2 rounds for the chain: too slow on the CPU
+            kept = check_kernels_against_plain(t(b), t(s), t(v), thr, label, want, cpu="chain" not in label)
+            log(f"  {label}: bit-equal and as expected, kept {kept}")
 
     with Phase("serve"):
         cfg = get_main_cfg()
@@ -470,6 +586,7 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in per),
             "bound_by": bound_by,
             "library_ms": None,
+            "ptxas": ptxas[name],
             "per_call": per,
         })
     log(f"total wall {time.perf_counter() - t_start:.2f} s")

@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,15 +26,19 @@ import threading
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
+    "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# csrc/nms.cu:kMaxWords * 64, the largest N whose three mask slices fit in a
+# block's shared memory
+GREEDY_MAX_N = 140 * 64
 
 # Launch counts of each kernel, by name. A run sets them to 0 before the
 # work it wants to account for and reads them after.
@@ -78,6 +84,8 @@ def build(name: str = "nms", build_dir: Optional[str] = None) -> str:
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
+        with open(out + ".ptxas.txt", "w") as f:
+            f.write(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -104,6 +112,34 @@ def _load(name: str) -> ctypes.CDLL:
                 lib.sfod_greedy_keep_from_bits.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def resource_usage(name: str = "nms") -> Dict[str, Dict[str, int]]:
+    """Registers, static shared memory and spill bytes of each kernel of
+    csrc/<name>.cu, by mangled name, from the `-Xptxas -v` report that
+    `build` keeps beside the library."""
+    with open(build(name) + ".ptxas.txt") as f:
+        text = f.read()
+    usage: Dict[str, Dict[str, int]] = {}
+    kernel = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            kernel = m.group(1)
+            usage.setdefault(kernel, {})
+            continue
+        if kernel is None:
+            continue
+        for key, pat in (
+            ("registers", r"Used (\d+) registers"),
+            ("smem_bytes", r"(\d+) bytes smem"),
+            ("spill_store_bytes", r"(\d+) bytes spill stores"),
+            ("spill_load_bytes", r"(\d+) bytes spill loads"),
+        ):
+            m = re.search(pat, line)
+            if m:
+                usage[kernel][key] = int(m.group(1))
+    return {k: v for k, v in usage.items() if "registers" in v}
 
 
 def load_all() -> None:
@@ -137,9 +173,13 @@ def launch_suppress_relation_bits(
     words = (n + 63) // 64
     _check_cuda("sboxes", sboxes, torch.float32, (n, 4))
     _check_cuda("svalid", svalid, torch.bool, (n,))
+    up = float(np.nextafter(np.float32(iou_threshold), np.float32(np.inf)))
+    if not math.isfinite(up):
+        raise ValueError(f"iou_threshold must be a float32 with a finite float above it, got {iou_threshold}")
     if sboxes.data_ptr() % 16:
         sboxes = sboxes.clone()
-    out = torch.zeros((n, words), dtype=torch.int64, device=sboxes.device)
+    # the kernel writes every word, the zeros below the diagonal included
+    out = torch.empty((n, words), dtype=torch.int64, device=sboxes.device)
     if n == 0:
         return out
     lib = _load("nms")
@@ -161,8 +201,10 @@ def launch_greedy_keep_from_bits(bits: torch.Tensor, svalid: torch.Tensor) -> to
     words = (n + 63) // 64
     _check_cuda("bits", bits, torch.int64, (n, words))
     _check_cuda("svalid", svalid, torch.bool, (n,))
-    if words * 8 > 48 * 1024:
-        raise ValueError(f"greedy_keep_from_bits takes N <= {48 * 1024 // 8 * 64}, got {n}")
+    if n > GREEDY_MAX_N:
+        raise ValueError(f"greedy_keep_from_bits takes N <= {GREEDY_MAX_N}, got {n}")
+    if bits.data_ptr() % 16:
+        bits = bits.clone()
     keep = torch.empty((n,), dtype=torch.bool, device=bits.device)
     if n == 0:
         return keep

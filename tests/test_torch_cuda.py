@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from simple_sfod_tpu_torch.ops import _kernels, nms
 
 pytestmark = pytest.mark.cuda
@@ -42,7 +43,8 @@ def case(seed, n, n_valid, classes=0):
 
 @pytest.mark.parametrize(
     "n,n_valid,thr,classes",
-    [(4096, 4000, 0.7, 0), (1024, 1000, 0.5, 8), (1000, 1000, 0.5, 0), (65, 60, 0.5, 0), (1, 1, 0.5, 0), (200, 0, 0.7, 0)],
+    [(4096, 4000, 0.7, 0), (1024, 1000, 0.5, 8), (1000, 1000, 0.5, 0), (65, 60, 0.5, 0), (1, 1, 0.5, 0), (200, 0, 0.7, 0),
+     (8192, 8000, 0.7, 0), (4097, 4000, 0.7, 0), (_kernels.GREEDY_MAX_N, 8800, 0.7, 0)],
 )
 def test_kernels_bit_equal_to_plain(cuda, n, n_valid, thr, classes):
     boxes, scores, valid = case(n, n, n_valid, classes)
@@ -58,6 +60,35 @@ def test_kernels_bit_equal_to_plain(cuda, n, n_valid, thr, classes):
     assert _kernels.LAUNCHES == {"suppress_relation_bits": 1, "greedy_keep_from_bits": 1}
     got = nms.nms_mask_matrix(boxes.to(cuda), scores.to(cuda), valid.to(cuda), thr)
     assert torch.equal(got.cpu(), nms.nms_mask_matrix(boxes, scores, valid, thr))
+
+
+@pytest.mark.parametrize("label", list(chip_smoke.EDGE_CASES))
+def test_kernels_on_edge_cases(cuda, label):
+    """Cases built to break the kernels: IoUs at the threshold's rounding
+    boundaries, a suppression chain, identical and disjoint boxes."""
+    build, thr = chip_smoke.EDGE_CASES[label]
+    boxes, scores, valid, want = (torch.from_numpy(a) for a in build())
+    order = nms.score_order(scores, valid)
+    sb, sv = boxes[order].contiguous(), valid[order].contiguous()
+    rel = nms.suppress_relation_plain(sb.to(cuda), sv.to(cuda), thr)
+    bits = _kernels.launch_suppress_relation_bits(sb.to(cuda), sv.to(cuda), thr)
+    keep = _kernels.launch_greedy_keep_from_bits(bits, sv.to(cuda))
+    assert torch.equal(bits, nms.pack_bits(rel))
+    assert torch.equal(keep, nms.greedy_keep_plain(rel, sv.to(cuda)))
+    got = nms.nms_mask_matrix(boxes.to(cuda), scores.to(cuda), valid.to(cuda), thr)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    n = _kernels.GREEDY_MAX_N + 1
+    words = (n + 63) // 64
+    sv = torch.ones(n, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="N <="):
+        _kernels.launch_greedy_keep_from_bits(torch.zeros((n, words), dtype=torch.int64, device=cuda), sv)
+    sb = torch.zeros((8, 4), device=cuda)
+    for thr in (float("nan"), float("inf"), float(np.finfo(np.float32).max)):
+        with pytest.raises(ValueError, match="iou_threshold"):
+            _kernels.launch_suppress_relation_bits(sb, sv[:8], thr)
 
 
 def test_detector_card_matches_cpu(cuda):

@@ -128,3 +128,84 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_kernels.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _kernels.build("nms", build_dir=str(tmp_path / "build"))
+
+
+# ---------------------------------------------------------------- cases built
+# to break the Hopper kernels (chip_smoke.py builds them; the card runs them
+# at full size through the kernels, the CPU here through the plain path)
+
+import chip_smoke  # noqa: E402
+
+EDGE = {
+    "borderline thr=0.5": (lambda: chip_smoke.borderline_case(0.5), 0.5),
+    "borderline thr=0.7": (lambda: chip_smoke.borderline_case(0.7), 0.7),
+    "chain N=256 thr=0.7": (lambda: chip_smoke.chain_case(256, 0.7), 0.7),
+    "chain N=512 thr=0.5": (lambda: chip_smoke.chain_case(512, 0.5), 0.5),
+    "identical N=1024 thr=0.7": (lambda: chip_smoke.identical_case(1024), 0.7),
+    "disjoint N=1024 thr=0.5": (lambda: chip_smoke.disjoint_case(1024), 0.5),
+}
+
+
+@pytest.mark.parametrize("label", list(EDGE))
+def test_edge_cases_match_jax_and_golden(label):
+    build, thr = EDGE[label]
+    boxes, scores, valid, want = build()
+    got = nms.nms_mask_matrix(t(boxes), t(scores), t(valid), thr).numpy()
+    np.testing.assert_array_equal(got, want)
+    jb, js, jv = jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid)
+    np.testing.assert_array_equal(got, np.asarray(jax_nms_mask_matrix(jb, js, jv, thr)))
+    if len(boxes) <= 512:  # interpret mode is slow
+        np.testing.assert_array_equal(got, np.asarray(nms_mask_pallas(jb, js, jv, thr, interpret=True)))
+    assert set(np.nonzero(got)[0].tolist()) == set(golden.greedy_nms(boxes, scores, thr).tolist())
+
+
+def test_n4097_matches_jax_and_golden():
+    """N not a multiple of 64, at the RPN's size and threshold."""
+    boxes, scores, valid = make_case(4097, 4097, extent=600.0)
+    got = nms.nms_mask_matrix(t(boxes), t(scores), t(valid), 0.7).numpy()
+    want = jax_nms_mask_matrix(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid), 0.7)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    idx = np.nonzero(valid)[0]
+    assert set(np.nonzero(got)[0].tolist()) == set(idx[golden.greedy_nms(boxes[idx], scores[idx], 0.7)].tolist())
+
+
+def division_free_gt(inter: torch.Tensor, uni: torch.Tensor, thr: float) -> torch.Tensor:
+    """csrc/nms.cu's relation test in float64: with t = float32(thr), t+ the
+    next float above it and m = (t + t+) / 2, fl(inter / uni) > t iff
+    inter > m * uni, or inter == m * uni when t+'s significand is even; the
+    IoU is 0 where uni <= 0 (or NaN)."""
+    t32 = np.float32(thr)
+    up = np.nextafter(t32, np.float32(np.inf))
+    m = (float(t32) + float(up)) / 2
+    p = m * uni.double()
+    hit = inter.double() >= p if int(up.view(np.uint32)) & 1 == 0 else inter.double() > p
+    return torch.where(uni > 0, hit, torch.tensor(0.0 > float(t32)))
+
+
+@pytest.mark.parametrize("thr", [0.3, 0.45, 0.5, 0.7, 0.0, -0.0, 1.0, 1e-40, -0.25])
+def test_division_free_relation_equals_division(thr):
+    """The kernel's rule against fl(inter / uni) > t in float32, on seeded
+    pairs within 4 ulps of the threshold over a wide range of unions, and on
+    zeros, infinities, NaN, negative and subnormal values."""
+    rng = np.random.RandomState(7)
+    t32 = np.float32(thr)
+    uni = (rng.uniform(1, 2, 60000) * 2.0 ** rng.randint(-140, 120, 60000)).astype(np.float32)
+    base = (t32 * uni).astype(np.float32)
+    inter = np.concatenate([base + k * np.spacing(np.abs(base)) for k in range(-4, 5)]).astype(np.float32)
+    uni = np.tile(uni, 9)
+    special = np.float32([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, 1e-40, 1.0, 2.0, -3.0, 3e38])
+    si, su = (a.ravel() for a in np.meshgrid(special, special))
+    # inter = +inf makes uni = area_r + area_c - inf either -inf or NaN, so the
+    # intersection never yields +inf over +inf (where the rule would differ)
+    reachable = ~((si == np.inf) & (su == np.inf))
+    inter = np.concatenate([inter, si[reachable], np.float32([2.0 ** -149])]).astype(np.float32)
+    uni = np.concatenate([uni, su[reachable], np.float32([2.0])]).astype(np.float32)
+    it, ut = torch.from_numpy(inter), torch.from_numpy(uni)
+    pos = ut > 0
+    iou = torch.where(pos, it / torch.where(pos, ut, torch.ones_like(ut)), torch.zeros_like(ut))
+    want = iou > torch.tensor(t32)
+    got = division_free_gt(it, ut, thr)
+    bad = torch.nonzero(got != want).flatten()[:5]
+    assert not bad.numel(), [(float(inter[i]), float(uni[i])) for i in bad]
+    # the near-boundary pairs do land on both sides of the threshold
+    assert want[: 9 * 60000].any() and not want[: 9 * 60000].all()
