@@ -30,6 +30,17 @@ Phases (each prints one progress line with its wall time):
   7. timing   each kernel on the captured inputs: its device time (profiler),
               its time a call (CUDA events over back-to-back calls), its
               plain version's time and its bound
+  8. train    the supervised source-training configuration
+              (configs/faster_rcnn_VGG_cityscapes_source_new.yaml: base
+              trainer, VGG16-BN, 608x1216, batch 1) at full width and depth
+              from seeded weights, with synthetic ground truth on a
+              600x1200 image: 12 steps on one repeated batch in float32 and
+              in bfloat16 (finite losses every step, a lower total loss
+              after 10 steps, one launch of each NMS kernel per image and
+              step, median step time of the last 10), the train-mode RPN
+              NMS inputs bit-equal between kernel and plain version, one
+              bfloat16 step under torch.profiler, and one float32 step on
+              the card against the same step on the CPU at 256x512
 
 Prints the card's name and power limit and a JSON line of the kernels'
 numbers, then, as the last line, {"ok": true, "device": {...}}. Any failure
@@ -49,8 +60,10 @@ import urllib.request
 import numpy as np
 import torch
 
-from simple_sfod_tpu_torch.config import detector_config_from_cfg, get_main_cfg
+from simple_sfod_tpu_torch.config import detector_config_from_cfg, get_main_cfg, get_source_cfg
+from simple_sfod_tpu_torch.data.synthetic import make_synthetic_records, synthetic_batch
 from simple_sfod_tpu_torch.engine.serve import DetectionService, serve_in_thread
+from simple_sfod_tpu_torch.engine.trainers.base import BaseTrainer
 from simple_sfod_tpu_torch.models.detector import Detector
 from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, init_weights
 from simple_sfod_tpu_torch.ops import _kernels, nms
@@ -62,6 +75,27 @@ IMAGE_HW = (600, 1200)  # Cityscapes' 1024x2048 after the shortest-edge-600 resi
 # outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+# training: steps on one repeated batch, of which the last TIMED are timed;
+# the loss must fall over the first 10 updates
+TRAIN_STEPS = 12
+TIMED = 10
+# the solver of the training phase: the source config's own, without its
+# 1000-step warmup (which would keep the LR near 0 for the whole phase)
+TRAIN_SOLVER = {"SOLVER.WARMUP_ITERS": "0", "SOLVER.BASE_LR": "0.01"}
+TRAIN_LOSSES = ("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg", "total_loss")
+# the card's float32 step against the CPU's: per-loss relative error (the
+# proposals inherit the RPN deltas' rounding scaled by anchors up to 512 px,
+# and the box-regression targets scale that again by 10 / proposal width);
+# each other parameter within PARAM_REL of its tensor's largest entry plus
+# PARAM_MOVE of how far the step moved it (a ReLU that flips sign on
+# rounding moves a channel's gradient by percents on small feature maps);
+# BatchNorm running statistics relative to their largest entry
+# (the conv biases that feed a BatchNorm have an exact gradient of 0: each
+# must move less than BN_FED_BIAS_TOL times as far as its conv's weight)
+LOSS_TOL = 1e-3
+PARAM_REL, PARAM_MOVE = 1e-4, 0.25
+BN_TOL = 1e-4
+BN_FED_BIAS_TOL = 1e-3
 # float32 operations per (i < j, both valid) pair of the relation: 2 max,
 # 2 min, 2 sub, 2 clamp, 1 mul (intersection), 2 add/sub (union), 1 div,
 # 1 compare; the areas are per box, not per pair
@@ -332,6 +366,135 @@ def kernel2_bound_ms(keep_sorted: torch.Tensor):
     return bytes_ / PEAK_BYTES_S * 1e3, "bytes"
 
 
+# ---------------------------------------------------------------- training
+def train_cfg(dtype: str, canvas=(608, 1216)):
+    """The source-training configuration with the phase's solver, seed 0."""
+    cfg = get_source_cfg()
+    opts = {"SEED": "0", "TPU.DTYPE": dtype, "TPU.CANVAS": repr(tuple(canvas)), **TRAIN_SOLVER}
+    cfg.merge_from_list([x for kv in opts.items() for x in kv])
+    return cfg
+
+
+def train_batch(cfg, image_hw, seed: int):
+    """One synthetic image of image_hw (1..6 boxes) on the config's canvas."""
+    recs = make_synthetic_records(1, tuple(image_hw), cfg.MODEL.ROI_HEADS.NUM_CLASSES, 6, seed=seed)
+    return synthetic_batch(recs, tuple(cfg.TPU.CANVAS), cfg.TPU.GT_CAPACITY)
+
+
+def card_vs_cpu_step(canvas=(256, 512), image_hw=(250, 500), seed: int = SEED):
+    """One float32 step (TF32 off, which the trainer sets) from the same
+    weights, batch and draws on the card and on the CPU. -> the errors:
+    each loss's relative error, whether the sample counts are equal, the
+    worst parameter difference relative to its tensor's largest entry and
+    the worst ratio of a parameter difference to its bound (with the
+    tensors' names), the worst BatchNorm statistic difference relative to
+    its largest entry, and the largest movement of a conv bias that feeds a
+    BatchNorm relative to its weight's movement (its exact gradient is 0)."""
+    cfg = train_cfg("float32", canvas)
+    state = init_weights(FasterRCNN(detector_config_from_cfg(cfg)), SEED).state_dict()
+    batch = train_batch(cfg, image_hw, seed)
+    cpu = BaseTrainer(cfg, device="cpu", state_dict=state)
+    card = BaseTrainer(cfg, device="cuda", state_dict=state)
+    draws = cpu.make_draws(1, tuple(canvas), cfg.TPU.GT_CAPACITY)
+    mc = {k: float(v) for k, v in cpu.run_step(batch, draws).items()}
+    mg = {k: float(v) for k, v in card.run_step(batch, draws).items()}
+    after = {"cpu": cpu.state.model.state_dict(), "cuda": {k: v.cpu() for k, v in card.state.model.state_dict().items()}}
+    out = {"loss": {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in TRAIN_LOSSES},
+           "counts_equal": all(mg[k] == mc[k] for k in ("num_fg", "num_sampled")),
+           "param": (0.0, ""), "param_bound": (0.0, ""), "bn": (0.0, ""), "bn_fed_bias": (0.0, ""),
+           "losses_cpu": mc}
+    for k, c in after["cpu"].items():
+        if k.endswith("num_batches_tracked") or k in ("pixel_mean", "pixel_std"):
+            continue
+        err = (after["cuda"][k] - c).abs().max().item()
+        scale = max(c.abs().max().item(), 1e-12)
+        if k.endswith(("running_mean", "running_var")):
+            out["bn"] = max(out["bn"], (err / scale, k))
+        elif k.startswith("backbone.") and k.endswith(".bias") and int(k.split(".")[-2]) % 3 == 0:
+            w = k[:-4] + "weight"
+            for side in ("cpu", "cuda"):
+                moved = (after[side][k] - state[k]).abs().max().item()
+                moved_w = (after[side][w] - state[w]).abs().max().item()
+                out["bn_fed_bias"] = max(out["bn_fed_bias"], (moved / max(moved_w, 1e-30), f"{k} ({side})"))
+        else:
+            moved = (c - state[k]).abs().max().item()
+            out["param"] = max(out["param"], (err / scale, k))
+            out["param_bound"] = max(out["param_bound"], (err / (PARAM_REL * scale + PARAM_MOVE * moved + 1e-8), k))
+    return out
+
+
+def card_step_ok(err) -> bool:
+    return (
+        max(err["loss"].values()) <= LOSS_TOL and err["counts_equal"] and err["param_bound"][0] <= 1.0
+        and err["bn"][0] <= BN_TOL and err["bn_fed_bias"][0] <= BN_FED_BIAS_TOL
+    )
+
+
+def train_run(dtype: str, captured: list):
+    """TRAIN_STEPS steps of the full-width trainer on one repeated batch.
+    Captures the RPN NMS inputs of the first step. -> (trainer, batch,
+    per-step metrics, per-step wall ms, per-step kernel launches)."""
+    cfg = train_cfg(dtype)
+    trainer = BaseTrainer(cfg)
+    batch = train_batch(cfg, IMAGE_HW, SEED + 3)
+    orig_nms = nms.nms_mask_matrix
+
+    def record(boxes, scores, valid, thr):
+        captured.append((boxes.clone(), scores.clone(), valid.clone(), thr))
+        return orig_nms(boxes, scores, valid, thr)
+
+    metrics, wall, launches = [], [], []
+    try:
+        for i in range(TRAIN_STEPS):
+            before = dict(_kernels.LAUNCHES)
+            if i == 0:
+                nms.nms_mask_matrix = record
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append(trainer.run_step(batch))
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            nms.nms_mask_matrix = orig_nms
+            launches.append({k: c - before[k] for k, c in _kernels.LAUNCHES.items()})
+    finally:
+        nms.nms_mask_matrix = orig_nms
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    return trainer, batch, metrics, wall, launches
+
+
+def kernel_rows(b, s, v, thr, site):
+    """Both kernels on one NMS call's inputs: device time (profiler), time a
+    call (CUDA events), plain version's time, bound, and the differences
+    from the plain version."""
+    sb, sv = sorted_inputs(b, s, v)
+    bits = _kernels.launch_suppress_relation_bits(sb, sv, thr)
+    keep = _kernels.launch_greedy_keep_from_bits(bits, sv)
+    rel = nms.suppress_relation_plain(sb, sv, thr)
+    call1 = time_ms(lambda: _kernels.launch_suppress_relation_bits(sb, sv, thr), 200)
+    p1 = time_ms(lambda: nms.pack_bits(nms.suppress_relation_plain(sb, sv, thr)), 20)
+    call2 = time_ms(lambda: _kernels.launch_greedy_keep_from_bits(bits, sv), 200)
+    p2 = time_ms(lambda: nms.greedy_keep_plain(rel, sv), 5, warmup=1)
+    # the kernels' own device time, from the profiler's kernel events
+    _, _, kern1, _ = profile(lambda: _kernels.launch_suppress_relation_bits(sb, sv, thr), 50)
+    _, _, kern2, _ = profile(lambda: _kernels.launch_greedy_keep_from_bits(bits, sv), 50)
+    k1 = sum(v for name, v in kern1.items() if "suppress_relation_bits_kernel" in name)
+    k2 = sum(v for name, v in kern2.items() if "greedy_keep_from_bits_kernel" in name)
+    check(k1 > 0 and k2 > 0, f"profiler saw no kernel time: {kern1} {kern2}")
+    b1, by1 = kernel1_bound_ms(sv)
+    b2, by2 = kernel2_bound_ms(keep)
+    err1 = int((bits != nms.pack_bits(rel)).sum().item())
+    err2 = int((keep != nms.greedy_keep_plain(rel, sv)).sum().item())
+    n = int(sb.shape[0])
+    log(f"  {site} N={n} valid={int(sv.sum())} kept={int(keep.sum())}: suppress_relation_bits {k1 * 1e3:.2f} us on the device, "
+        f"{call1 * 1e3:.1f} us a call (plain {p1 * 1e3:.1f} us, bound {b1 * 1e3:.2f} us {by1}); "
+        f"greedy_keep_from_bits {k2 * 1e3:.2f} us on the device, {call2 * 1e3:.1f} us a call "
+        f"(plain {p2 * 1e3:.1f} us, bound {b2 * 1e3:.3f} us {by2})")
+    return (
+        dict(site=site, n=n, thr=thr, ms=k1, call_ms=call1, plain_ms=p1, bound_ms=b1, bound_by=by1, err=err1),
+        dict(site=site, n=n, thr=thr, ms=k2, call_ms=call2, plain_ms=p2, bound_ms=b2, bound_by=by2, err=err2),
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -538,31 +701,67 @@ def main() -> int:
     with Phase("timing"):
         rows = {"suppress_relation_bits": [], "greedy_keep_from_bits": []}
         for (b, s, v, thr), site in zip(captured, ("rpn", "roi")):
-            sb, sv = sorted_inputs(b, s, v)
-            bits = _kernels.launch_suppress_relation_bits(sb, sv, thr)
-            keep = _kernels.launch_greedy_keep_from_bits(bits, sv)
-            rel = nms.suppress_relation_plain(sb, sv, thr)
-            call1 = time_ms(lambda: _kernels.launch_suppress_relation_bits(sb, sv, thr), 200)
-            p1 = time_ms(lambda: nms.pack_bits(nms.suppress_relation_plain(sb, sv, thr)), 20)
-            call2 = time_ms(lambda: _kernels.launch_greedy_keep_from_bits(bits, sv), 200)
-            p2 = time_ms(lambda: nms.greedy_keep_plain(rel, sv), 5, warmup=1)
-            # the kernels' own device time, from the profiler's kernel events
-            _, _, kern1, _ = profile(lambda: _kernels.launch_suppress_relation_bits(sb, sv, thr), 50)
-            _, _, kern2, _ = profile(lambda: _kernels.launch_greedy_keep_from_bits(bits, sv), 50)
-            k1 = sum(v for name, v in kern1.items() if "suppress_relation_bits_kernel" in name)
-            k2 = sum(v for name, v in kern2.items() if "greedy_keep_from_bits_kernel" in name)
-            check(k1 > 0 and k2 > 0, f"profiler saw no kernel time: {kern1} {kern2}")
-            b1, by1 = kernel1_bound_ms(sv)
-            b2, by2 = kernel2_bound_ms(keep)
-            err1 = int((bits != nms.pack_bits(rel)).sum().item())
-            err2 = int((keep != nms.greedy_keep_plain(rel, sv)).sum().item())
-            n = int(sb.shape[0])
-            rows["suppress_relation_bits"].append(dict(site=site, n=n, thr=thr, ms=k1, call_ms=call1, plain_ms=p1, bound_ms=b1, bound_by=by1, err=err1))
-            rows["greedy_keep_from_bits"].append(dict(site=site, n=n, thr=thr, ms=k2, call_ms=call2, plain_ms=p2, bound_ms=b2, bound_by=by2, err=err2))
-            log(f"  {site} N={n} valid={int(sv.sum())} kept={int(keep.sum())}: suppress_relation_bits {k1 * 1e3:.2f} us on the device, "
-                f"{call1 * 1e3:.1f} us a call (plain {p1 * 1e3:.1f} us, bound {b1 * 1e3:.2f} us {by1}); "
-                f"greedy_keep_from_bits {k2 * 1e3:.2f} us on the device, {call2 * 1e3:.1f} us a call "
-                f"(plain {p2 * 1e3:.1f} us, bound {b2 * 1e3:.3f} us {by2})")
+            r1, r2 = kernel_rows(b, s, v, thr, site)
+            rows["suppress_relation_bits"].append(r1)
+            rows["greedy_keep_from_bits"].append(r2)
+
+    with Phase("train"):
+        cfg = train_cfg("float32")
+        log(f"  solver: BASE_LR {cfg.SOLVER.BASE_LR}, WARMUP_ITERS {cfg.SOLVER.WARMUP_ITERS}, MOMENTUM "
+            f"{cfg.SOLVER.MOMENTUM}, WEIGHT_DECAY {cfg.SOLVER.WEIGHT_DECAY} (norm {cfg.SOLVER.WEIGHT_DECAY_NORM}), "
+            f"STEPS {cfg.SOLVER.STEPS}, FACTOR_LIST {cfg.SOLVER.FACTOR_LIST}; canvas {cfg.TPU.CANVAS}, batch 1, image {IMAGE_HW}")
+        train_captured = []
+        step_ms = {}
+        _kernels.reset_launches()
+        for dtype in ("float32", "bfloat16"):
+            trainer, batch, metrics, wall, per_step = train_run(dtype, train_captured)
+            for i, m in enumerate(metrics):
+                if not all(np.isfinite(m[k]) for k in TRAIN_LOSSES):
+                    raise AssertionError(f"{dtype} step {i}: non-finite loss {m}")
+            for i, d in enumerate(per_step):
+                if any(c != 1 for c in d.values()):
+                    raise AssertionError(f"{dtype} step {i}: kernel launches {d}, expected 1 of each per image")
+            first, tenth = metrics[0]["total_loss"], metrics[10]["total_loss"]
+            if not tenth < first:
+                raise AssertionError(f"{dtype}: total loss did not fall over 10 steps ({first:.4f} -> {tenth:.4f})")
+            step_ms[dtype] = float(np.median(wall[-TIMED:]))
+            log(f"  {dtype} [{smi}]: step {step_ms[dtype]:.2f} ms (median of the last {TIMED} of {TRAIN_STEPS}; first "
+                f"{wall[0]:.1f} ms), total loss {first:.4f} -> {tenth:.4f} after 10 steps, "
+                f"gt {int(batch['gt_valid'].sum())} boxes; step 10: " +
+                ", ".join(f"{k} {metrics[10][k]:.4f}" for k in TRAIN_LOSSES[:4]) +
+                f", num_fg {metrics[10]['num_fg']:.0f}, num_sampled {metrics[10]['num_sampled']:.0f}")
+        # one bfloat16 step (the SFAT main path's dtype) under the profiler
+        torch.cuda.reset_peak_memory_stats()
+        wall_p, dev_p, kern_p, ops_p = profile(lambda: trainer.run_step(batch), 3)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        train_launches = dict(_kernels.LAUNCHES)
+        nms_ms = sum(v for k, v in kern_p.items() if "suppress_relation_bits_kernel" in k or "greedy_keep_from_bits_kernel" in k)
+        log(f"  profile bfloat16 step [{smi}]: wall {wall_p:.2f} ms, device kernels {dev_p:.2f} ms, busy {dev_p / wall_p:.1%}, "
+            f"NMS kernels {nms_ms:.3f} ms ({nms_ms / dev_p:.1%} of device time), peak memory {peak_gib:.2f} GiB")
+        log(f"  top kernels (ms/step): {top(kern_p)}")
+        log(f"  top ops by device self time (ms/step): {top(ops_p, 10)}")
+        log(f"  launches on the train path: {train_launches} over {2 * TRAIN_STEPS + 4} steps")
+
+        if len(train_captured) != 2:
+            raise AssertionError(f"captured {len(train_captured)} train-mode NMS calls, expected 2")
+        for (b, s, v, thr), dtype in zip(train_captured, ("float32", "bfloat16")):
+            keep_k = nms.nms_mask_matrix(b, s, v, thr)
+            if not torch.equal(keep_k, plain_keep(b, s, v, thr)):
+                raise AssertionError(f"train-mode RPN NMS ({dtype}): kernel and plain keep masks differ")
+            log(f"  train-mode RPN NMS ({dtype}) N={b.shape[0]} thr={thr}: kernel == plain, kept {int(keep_k.sum())} of {int(v.sum())} valid")
+        train_rows = kernel_rows(*train_captured[1], "train rpn (bfloat16)")
+        del trainer
+
+        err = card_vs_cpu_step()
+        log(f"  card vs CPU, one float32 step at 256x512 (TF32 off): loss rel err " +
+            ", ".join(f"{k} {v:.3g}" for k, v in err["loss"].items()) + f" (tol {LOSS_TOL}); counts equal "
+            f"{err['counts_equal']}; param max rel diff {err['param'][0]:.3g} ({err['param'][1]}); worst diff / bound "
+            f"{err['param_bound'][0]:.3g} ({err['param_bound'][1]}; bound {PARAM_REL} x largest entry + {PARAM_MOVE} x "
+            f"movement + 1e-8, tol 1); BN stats rel err {err['bn'][0]:.3g} ({err['bn'][1]}, tol {BN_TOL}); "
+            f"BN-fed conv bias movement / weight movement {err['bn_fed_bias'][0]:.3g} ({err['bn_fed_bias'][1]}, "
+            f"tol {BN_FED_BIAS_TOL}); CPU losses " + ", ".join(f"{k} {err['losses_cpu'][k]:.4f}" for k in TRAIN_LOSSES))
+        if not card_step_ok(err):
+            raise AssertionError(f"card step differs from the CPU step: {err}")
 
     replaces = {
         "suppress_relation_bits": "simple_sfod_tpu/ops/pallas_kernels.py:26",
@@ -571,14 +770,16 @@ def main() -> int:
     kernels = []
     for name, per in rows.items():
         # one served image runs the kernel once per NMS call site: the
-        # numbers are the sum over both sites, on the inputs of request 1
+        # numbers are the sum over both sites, on the inputs of request 1;
+        # launches count the serve and the train path; train_per_step is
+        # one training step's (bfloat16) RPN NMS call
         bound_by = max(per, key=lambda r: r["bound_ms"])["bound_by"]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "simple_sfod_tpu_torch/ops/csrc/nms.cu",
             "replaces": replaces[name],
-            "launches": launches[name],
+            "launches": launches[name] + train_launches[name],
             "max_abs_err": float(max(r["err"] for r in per)),
             "ms": sum(r["ms"] for r in per),
             "call_ms": sum(r["call_ms"] for r in per),
@@ -588,6 +789,7 @@ def main() -> int:
             "library_ms": None,
             "ptxas": ptxas[name],
             "per_call": per,
+            "train_per_step": train_rows[0 if name == "suppress_relation_bits" else 1],
         })
     log(f"total wall {time.perf_counter() - t_start:.2f} s")
     print(smi, flush=True)

@@ -2,10 +2,14 @@
 `simple_sfod_tpu/config/defaults.py`).
 
 `get_cfg` holds every key and default of the JAX package's config, so the
-YAML files under `configs/` merge unchanged. `MAIN_CONFIG` holds the keys of
-`configs/faster_rcnn_VGG_cityscapes_foggy_adaptive_teacher_source_free.yaml`
-as Python values: `get_main_cfg()` builds that configuration without reading
-YAML (the GPU smoke run uses it; a CPU test holds it to `merge_from_file`).
+YAML files under `configs/` merge unchanged. Two configurations are also
+kept as Python values, so that they build without reading YAML (the GPU
+smoke run uses them; a CPU test holds each to `merge_from_file`):
+
+  MAIN_CONFIG    configs/faster_rcnn_VGG_cityscapes_foggy_adaptive_teacher_source_free.yaml
+                 (`get_main_cfg()`, served and adapted)
+  SOURCE_CONFIG  configs/faster_rcnn_VGG_cityscapes_source_new.yaml
+                 (`get_source_cfg()`, supervised source training)
 """
 
 from __future__ import annotations
@@ -276,6 +280,42 @@ MAIN_CONFIG: Dict[str, Any] = {
 }
 
 
+# configs/faster_rcnn_VGG_cityscapes_source_new.yaml as Python values; kept
+# in step with the file like MAIN_CONFIG.
+SOURCE_CONFIG_NAME = "faster_rcnn_VGG_cityscapes_source_new.yaml"
+SOURCE_CONFIG: Dict[str, Any] = {
+    "MODEL": {
+        "META_ARCHITECTURE": "GeneralizedRCNN",
+        "WEIGHTS": "",
+        "BACKBONE": {"NAME": "build_vgg_backbone"},
+        "ROI_HEADS": {"IN_FEATURES": ("vgg4",), "NAME": "StandardROIHeads", "NUM_CLASSES": 8},
+        "ROI_BOX_HEAD": {"NAME": "FastRCNNConvFCHead", "NUM_FC": 2, "POOLER_RESOLUTION": 7},
+        "RPN": {"IN_FEATURES": ("vgg4",), "PRE_NMS_TOPK_TEST": 6000, "POST_NMS_TOPK_TEST": 1000},
+    },
+    "INPUT": {"MIN_SIZE_TRAIN": (600,), "MIN_SIZE_TEST": 600},
+    "OUTPUT_DIR": "./output/train_cityscape_vgg_base",
+    "DATASETS": {
+        "TRAIN": ("cityscapes_instancesonly_train",),
+        "TRAIN_TARGET": ("cityscapes_instancesonly_foggy_train_foggy_beta_0.02",),
+        "TEST": ("cityscapes_instancesonly_val", "cityscapes_instancesonly_foggy_val_foggy_beta_0.02"),
+    },
+    "SOLVER": {
+        "STEPS": (60000, 80000, 90000, 360000),
+        "FACTOR_LIST": (1, 1, 1, 1, 1),
+        "MAX_ITER": 100000,
+        "WARMUP_ITERS": 1000,
+        "CHECKPOINT_PERIOD": 1000,
+        "IMS_PER_BATCH": 1,
+        "BASE_LR": 0.04,
+    },
+    "TEST": {"EVAL_PERIOD": 1000, "IMS_PER_BATCH": 1},
+    "TPU": {"CANVAS": (608, 1216)},
+    "VIS_PERIOD": 1000,
+    "SEED": 42,
+    "TRAINER": "base",
+}
+
+
 def config_opts(tree: Dict[str, Any], prefix: str = "") -> List[str]:
     """Flatten a nested key dict to `merge_from_list`'s KEY VALUE pairs."""
     opts: List[str] = []
@@ -292,6 +332,14 @@ def get_main_cfg() -> CfgNode:
     """The main configuration, built from `MAIN_CONFIG` without YAML."""
     cfg = get_cfg()
     cfg.merge_from_list(config_opts(MAIN_CONFIG))
+    return cfg
+
+
+def get_source_cfg() -> CfgNode:
+    """The supervised source-training configuration, built from
+    `SOURCE_CONFIG` without YAML."""
+    cfg = get_cfg()
+    cfg.merge_from_list(config_opts(SOURCE_CONFIG))
     return cfg
 
 
@@ -315,6 +363,11 @@ def detector_config_from_cfg(cfg: CfgNode) -> DetectorConfig:
     # unsupported-but-settable keys fail loudly instead of silently diverging
     if cfg.MODEL.ROI_BOX_HEAD.NUM_CONV:
         raise ValueError("MODEL.ROI_BOX_HEAD.NUM_CONV > 0 is not supported (reference heads are FC-only)")
+    if cfg.MODEL.ROI_BOX_HEAD.DROPOUT > 0:
+        raise NotImplementedError(
+            f"MODEL.ROI_BOX_HEAD.DROPOUT={cfg.MODEL.ROI_BOX_HEAD.DROPOUT} is not ported yet; "
+            "the port would train without it"
+        )
     if cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG:
         raise ValueError("MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG is not supported")
     if cfg.MODEL.PROPOSAL_GENERATOR.NAME not in ("RPN", "PseudoLabRPN"):

@@ -1,13 +1,16 @@
-"""Serving-side image preprocessing (the port of two functions of
-`simple_sfod_tpu/data/loader.py`): detectron2's shortest-edge output shape
-and the PIL bilinear resize. PIL is imported only when an image actually
-needs resizing."""
+"""Image preprocessing and batch views (the port of three functions of
+`simple_sfod_tpu/data/loader.py`): detectron2's shortest-edge output shape,
+the PIL bilinear resize, and the ground-truth view of an array batch. PIL
+is imported only when an image actually needs resizing."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Mapping, Tuple
 
 import numpy as np
+import torch
+
+from ..structures.instances import Instances
 
 
 def d2_output_shape(h: int, w: int, min_size: int, max_size: int) -> Tuple[int, int]:
@@ -39,3 +42,20 @@ def _resize_shortest_edge(img: np.ndarray, min_size: int, max_size: int) -> Tupl
     pil = Image.fromarray(img.astype(np.uint8))
     out = np.asarray(pil.resize((nw, nh), Image.BILINEAR), dtype=np.float32)
     return out, np.asarray([nw / w, nh / h], np.float32)
+
+
+def gt_instances(batch: Mapping[str, np.ndarray], device: torch.device) -> Instances:
+    """The padded ground truth of a batch in the loader's layout (gt_boxes
+    [B, M, 4], gt_classes [B, M], gt_valid [B, M]) as Instances on `device`,
+    with scores 1."""
+
+    def t(x, dtype):
+        return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
+
+    classes = t(batch["gt_classes"], torch.int32)
+    return Instances(
+        boxes=t(batch["gt_boxes"], torch.float32),
+        scores=torch.ones(classes.shape, dtype=torch.float32, device=device),
+        classes=classes,
+        valid=t(batch["gt_valid"], torch.bool),
+    )

@@ -1,0 +1,126 @@
+"""Supervised trainer (the port of the `base` trainer's step,
+`simple_sfod_tpu/engine/trainers/base.py:_build_train_step`).
+
+One step: uint8 images to float32, random horizontal flip of images and
+GT, supervised losses with train-mode BatchNorm (running statistics
+updated), backward, SGD, step + 1. Every random decision of a step comes
+from a `Draws` bundle, so a test can hand over the JAX package's draws;
+without one the trainer draws from its own seeded generator on the device.
+The step reads nothing back to the host: metrics come back as device
+tensors, for the caller to convert after the step.
+
+Loaders, checkpointing, hooks, writers and the CLI are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ...config.defaults import detector_config_from_cfg
+from ...data.loader import gt_instances
+from ...data.transforms import random_hflip
+from ...device import resolve_device
+from ...models.detector import DetectionBatch, Detector
+from ...models.faster_rcnn import anchors_for, init_weights, roi_pool_size
+from ...solver.build import build_optimizer
+from ...structures.instances import Instances
+from ..train_state import TrainState
+
+
+class Draws(NamedTuple):
+    """Every random decision of one training step."""
+
+    flip: torch.Tensor  # [B] bool: flip image i (bernoulli 0.5)
+    rpn: torch.Tensor  # [B, N_anchors] float32 uniform: RPN sampler priorities
+    roi: torch.Tensor  # [B, pool] float32 uniform: ROI sampler priorities
+
+
+def _flip_enabled(cfg) -> bool:
+    """INPUT.RANDOM_FLIP: "horizontal" or "none"; "vertical" is refused
+    rather than flipping the wrong axis."""
+    mode = cfg.INPUT.RANDOM_FLIP
+    if mode not in ("horizontal", "none"):
+        raise ValueError(f"INPUT.RANDOM_FLIP={mode!r} unsupported (horizontal|none)")
+    return mode != "none"
+
+
+def apply_weak_aug(
+    flip: torch.Tensor, images: torch.Tensor, sizes: torch.Tensor, gt: Instances, enabled: bool = True
+) -> Tuple[torch.Tensor, Instances]:
+    """Horizontal flip of image i and its GT boxes where flip[i] (the weak
+    augmentation). `enabled=False` (INPUT.RANDOM_FLIP "none") passes the
+    batch through."""
+    if not enabled:
+        return images, gt
+    out = [random_hflip(flip[i], images[i], gt.boxes[i], sizes[i, 1])[:2] for i in range(images.shape[0])]
+    return torch.stack([o[0] for o in out]), Instances(
+        boxes=torch.stack([o[1] for o in out]), scores=gt.scores, classes=gt.classes, valid=gt.valid
+    )
+
+
+class BaseTrainer:
+    """cfg.TRAINER = "base": supervised training of the detector.
+
+    `device=None` means CUDA and raises without a GPU; tests pass
+    `device="cpu"`. Weights come from `state_dict` (a port state dict, for
+    example from checkpoint/from_jax.py) or from `init_weights(max(cfg.SEED,
+    0))`. float32 work runs in full float32: TF32 is switched off for cuDNN
+    and cuBLAS when the trainer is built (bfloat16 runs under autocast,
+    `TPU.DTYPE`)."""
+
+    def __init__(self, cfg, device: Optional[Union[str, torch.device]] = None, state_dict=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.det_cfg = detector_config_from_cfg(cfg)
+        self.flip = _flip_enabled(cfg)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        seed = max(cfg.SEED, 0)
+        self.detector = Detector(self.det_cfg, self.device)
+        if state_dict is None:
+            init_weights(self.detector.model, seed)
+        else:
+            self.detector.load_state_dict(state_dict)
+        model = self.detector.model
+        self.state = TrainState(step=0, model=model, optimizer=build_optimizer(cfg, model))
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def make_draws(self, batch_size: int, canvas_hw: Tuple[int, int], gt_capacity: int) -> Draws:
+        """One step's draws from the trainer's generator, on the device."""
+        n = anchors_for(self.det_cfg, canvas_hw, torch.device("cpu")).shape[0]
+        pool = roi_pool_size(self.det_cfg, n, gt_capacity)
+        g, dev = self.generator, self.device
+        return Draws(
+            flip=torch.rand((batch_size,), generator=g, device=dev) < 0.5,
+            rpn=torch.rand((batch_size, n), generator=g, device=dev),
+            roi=torch.rand((batch_size, pool), generator=g, device=dev),
+        )
+
+    def run_step(self, batch: Mapping[str, np.ndarray], draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
+        """One training step on a batch in the loader's layout (images uint8
+        [B, H, W, 3], sizes [B, 2], gt_boxes, gt_classes, gt_valid). Returns
+        the metrics (losses, num_fg, num_sampled, total_loss) as tensors on
+        the device."""
+        dev = self.device
+        images = torch.as_tensor(np.asarray(batch["images"])).to(dev).to(torch.float32)
+        sizes = torch.as_tensor(np.asarray(batch["sizes"])).to(dev, torch.int32)
+        gt = gt_instances(batch, dev)
+        if draws is None:
+            draws = self.make_draws(images.shape[0], tuple(images.shape[1:3]), gt.boxes.shape[1])
+        images, gt = apply_weak_aug(draws.flip.to(dev), images, sizes, gt, self.flip)
+
+        state = self.state
+        for p in state.optimizer.params:
+            p.grad = None
+        total, metrics = self.detector.supervised_losses(
+            DetectionBatch(images, sizes, gt), draws.rpn.to(dev), draws.roi.to(dev)
+        )
+        total.backward()
+        state.optimizer.step()
+        state.step += 1
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["total_loss"] = total.detach()
+        return metrics

@@ -8,6 +8,11 @@ strides (2, 4, 8, 16, 32). The heads consume "vgg4" (stride 32).
 Parameter names follow Detectron2's VGG layout: stage s is
 `backbone.vgg{s}` = [conv, bn, relu] * k + [maxpool], so conv j of a stage is
 module 3j and its BatchNorm 3j+1.
+
+BatchNorm keeps the JAX package's (flax's) bookkeeping, not torch's: in
+train mode it normalises with the batch statistics and, when asked, moves
+the running statistics by momentum 0.9 toward the batch mean and the BIASED
+batch variance (`nn.BatchNorm2d` would write the unbiased one).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Dict, Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 STAGE_PLAN: Sequence[Sequence[int]] = (
     (64, 64),
@@ -36,10 +42,39 @@ class _MaxPool2x2(nn.Module):
         return max_pool_2x2(x)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with eps 1e-5 and flax's running-statistics update
+    (`simple_sfod_tpu/models/backbones/vgg.py`, `nn.BatchNorm(momentum=0.9)`):
+
+        running_mean = 0.9 * running_mean + 0.1 * mean(x)
+        running_var  = 0.9 * running_var  + 0.1 * var(x)     (biased)
+
+    The mode is an argument, not `self.training`: `train` selects batch
+    statistics, `update_stats` whether the running ones move. The parameter
+    and buffer names are nn.BatchNorm2d's; `num_batches_tracked` stays as
+    loaded (the JAX package has no such counter)."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor, train: bool = False, update_stats: bool = True) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if update_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+                keep = 1.0 - self.momentum
+                self.running_mean.mul_(keep).add_((1.0 - keep) * mean)
+                self.running_var.mul_(keep).add_((1.0 - keep) * var)
+        return y
+
+
 class VGG16Backbone(nn.Module):
     """x [B, 3, H, W] (mean-subtracted) -> {"vgg0": ..., ..., "vgg4": ...} NCHW.
 
-    BatchNorm in eval mode uses the running statistics with eps 1e-5."""
+    `train` runs BatchNorm on batch statistics (and `update_stats` moves the
+    running ones); otherwise it uses the running statistics."""
 
     def __init__(self, bn: bool = True):
         super().__init__()
@@ -54,17 +89,18 @@ class VGG16Backbone(nn.Module):
             for width in widths:
                 layers += [
                     nn.Conv2d(in_ch, width, 3, padding=1),
-                    nn.BatchNorm2d(width, eps=1e-5, momentum=0.1),
+                    BatchNorm2d(width),
                     nn.ReLU(inplace=True),
                 ]
                 in_ch = width
             layers.append(_MaxPool2x2())
             self.add_module(f"vgg{s}", nn.Sequential(*layers))
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False, update_stats: bool = True) -> Dict[str, torch.Tensor]:
         feats = {}
         for s in range(len(STAGE_PLAN)):
-            x = getattr(self, f"vgg{s}")(x)
+            for layer in getattr(self, f"vgg{s}"):
+                x = layer(x, train, update_stats) if isinstance(layer, BatchNorm2d) else layer(x)
             feats[f"vgg{s}"] = x
         return feats
 

@@ -1,16 +1,38 @@
-"""Detector inference API (the port of `simple_sfod_tpu/models/detector.py`,
-inference only: `infer` and `infer_from_feature`, eval-mode BatchNorm)."""
+"""Detector API (the port of `simple_sfod_tpu/models/detector.py`): the
+supervised losses (`supervised_losses`, `losses_from_feature`) with
+train-mode BatchNorm, and inference (`infer`, `infer_from_feature`) with
+eval-mode BatchNorm."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..structures.instances import Instances
-from .faster_rcnn import DetectorConfig, FasterRCNN, anchors_for, pool_rois, propose, roi_inference
+from .faster_rcnn import (
+    DetectorConfig,
+    FasterRCNN,
+    RPNOutput,
+    anchors_for,
+    label_and_sample_proposals,
+    pool_rois,
+    propose,
+    roi_inference,
+    roi_losses,
+    rpn_losses,
+)
+
+
+class DetectionBatch(NamedTuple):
+    """One training batch on the detector's device: images [B, H, W, 3]
+    raw pixels, sizes [B, 2] int32 true (h, w), gt padded Instances [B, M]."""
+
+    images: torch.Tensor
+    sizes: torch.Tensor
+    gt: Instances
 
 
 class Detector:
@@ -32,6 +54,59 @@ class Detector:
         """Load a port state dict strictly: every key present, no extra."""
         self.model.load_state_dict(state_dict, strict=True)
         return self
+
+    def losses_from_feature(
+        self,
+        feature: torch.Tensor,
+        batch: DetectionBatch,
+        rpn_priorities: torch.Tensor,
+        roi_priorities: torch.Tensor,
+        loss_weights: Optional[Dict[str, float]] = None,
+        with_bpc: bool = False,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Head-side supervised losses on a backbone feature [B, C, h, w].
+        rpn_priorities [B, N_anchors] and roi_priorities [B, pool] are the
+        samplers' uniform draws (`faster_rcnn.roi_pool_size` gives pool).
+        Returns (total, metrics): the total weights each loss by
+        `loss_weights` (default 1); metrics hold the unweighted losses,
+        num_fg and num_sampled, all tensors on the device."""
+        if with_bpc:
+            raise NotImplementedError("the BPC loss (losses/bpc.py) is not ported yet")
+        cfg = self.cfg
+        anchors = anchors_for(cfg, tuple(batch.images.shape[1:3]), feature.device)
+        rpn_out = self.model.rpn(feature)
+        losses = rpn_losses(cfg, anchors, rpn_out, batch.gt, rpn_priorities)
+        # proposal boxes carry no gradient (the JAX package's stop_gradient)
+        detached = RPNOutput(rpn_out.objectness.detach(), rpn_out.deltas.detach())
+        proposals = propose(cfg, anchors, detached, batch.sizes, training=True)
+        sampled = label_and_sample_proposals(cfg, proposals, batch.gt, roi_priorities)
+        scores, deltas = self.model.box(pool_rois(cfg, feature, sampled.boxes))
+        losses.update(roi_losses(cfg, scores, deltas, sampled))
+
+        weights = loss_weights or {}
+        total = sum(v * weights.get(k, 1.0) for k, v in losses.items())
+        metrics = dict(losses)
+        metrics["num_fg"] = sampled.is_fg.sum()
+        metrics["num_sampled"] = sampled.valid.sum()
+        return total, metrics
+
+    def supervised_losses(
+        self,
+        batch: DetectionBatch,
+        rpn_priorities: torch.Tensor,
+        roi_priorities: torch.Tensor,
+        update_bn: bool = True,
+        loss_weights: Optional[Dict[str, float]] = None,
+        with_bpc: bool = False,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The full supervised Faster R-CNN loss with train-mode BatchNorm.
+        With `update_bn` the BatchNorm running statistics move in place (the
+        JAX package returns them as new batch_stats); without it they stay
+        as they were. Returns (total, metrics) as `losses_from_feature`."""
+        feature = self.model.features(batch.images, train=True, update_bn=update_bn)
+        return self.losses_from_feature(
+            feature, batch, rpn_priorities, roi_priorities, loss_weights=loss_weights, with_bpc=with_bpc
+        )
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         if isinstance(x, np.ndarray):

@@ -10,23 +10,34 @@ plain functions on tensors carry the inference pipeline:
     scores, dl  = model.box(pooled)
     detections  = roi_inference(cfg, scores, dl, proposals, sizes)
 
-This slice ports the inference path of the single-level VGG16 detector;
-FPN, ResNet, losses, matching and sampling are not ported yet.
+and the supervised training functions (losses take their sampler
+priorities as inputs, so a caller can hand over the JAX package's draws):
+
+    proposals   = propose(cfg, anchors, rpn_out, sizes, training=True)
+    rpn         = rpn_losses(cfg, anchors, rpn_out, gt, rpn_priorities)
+    sampled     = label_and_sample_proposals(cfg, proposals, gt, roi_priorities)
+    roi         = roi_losses(cfg, scores, deltas, sampled)
+
+This covers the single-level VGG16-BN detector; FPN, ResNet and box-head
+dropout are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 from torch import nn
 
 from ..ops import nms
 from ..ops.anchors import generate_anchors
+from ..ops.losses import sigmoid_ce, smooth_l1, softmax_ce
+from ..ops.matcher import ROI_MATCHER, RPN_MATCHER, match_boxes
 from ..ops.roi_align import roi_align
-from ..structures.boxes import BoxTransform, clip_boxes, nonempty
+from ..ops.sampler import subsample_labels, subsample_labels_mask
+from ..structures.boxes import BoxTransform, clip_boxes, nonempty, pairwise_iou
 from ..structures.instances import Instances, topk_indices
 from .backbones.vgg import VGG16Backbone
 from .heads import FastRCNNConvFCHead, FastRCNNPredictor, RPNHead
@@ -86,6 +97,11 @@ class DetectorConfig:
                 f"only the single-level vgg16 detector is ported (got backbone="
                 f"{self.backbone!r}, fpn={self.fpn})"
             )
+        if self.box_head_dropout > 0:
+            raise NotImplementedError(
+                f"box-head dropout is not ported yet (box_head_dropout="
+                f"{self.box_head_dropout}); the port would train without it"
+            )
 
     @property
     def stride(self) -> int:
@@ -134,10 +150,12 @@ class FasterRCNN(nn.Module):
             device.type, dtype=torch.bfloat16, enabled=self.cfg.dtype == torch.bfloat16
         )
 
-    def features(self, images: torch.Tensor) -> torch.Tensor:
+    def features(self, images: torch.Tensor, train: bool = False, update_bn: bool = True) -> torch.Tensor:
         """images [B, H, W, 3] raw pixels (uint8 or float) -> in_feature
         [B, C, h, w]. Integer images become float32 BEFORE the mean is
-        subtracted (a uint8 subtraction would wrap around)."""
+        subtracted (a uint8 subtraction would wrap around). `train` runs
+        BatchNorm on batch statistics, and `update_bn` then moves the
+        running ones (models/backbones/vgg.py)."""
         x = images.permute(0, 3, 1, 2)
         if not x.is_floating_point():
             x = x.to(torch.float32)
@@ -145,14 +163,16 @@ class FasterRCNN(nn.Module):
         if x.device.type == "cuda":
             x = x.contiguous(memory_format=torch.channels_last)
         with self._autocast(x.device):
-            return self.backbone(x)[self.cfg.in_feature]
+            return self.backbone(x, train, update_bn)[self.cfg.in_feature]
 
     def rpn(self, feature: torch.Tensor) -> "RPNOutput":
         with self._autocast(feature.device):
             return RPNOutput(*self.proposal_generator.rpn_head(feature))
 
     def box(self, pooled: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """pooled [N, C, P, P] -> (scores [N, C+1], deltas [N, 4K]) float32."""
+        """pooled [N, C, P, P] -> (scores [N, C+1], deltas [N, 4K]) float32.
+        The same in training and inference: the box head's one train-mode
+        difference in the JAX package is dropout, which is not ported."""
         with self._autocast(pooled.device):
             return self.roi_heads.box_predictor(self.roi_heads.box_head(pooled))
 
@@ -204,6 +224,31 @@ class RPNOutput(NamedTuple):
     deltas: torch.Tensor  # [B, N_anchors, 4] float32
 
 
+class SampledProposals(NamedTuple):
+    """The ROI heads' training batch, all [B, S, ...]."""
+
+    boxes: torch.Tensor  # [B, S, 4] proposal boxes
+    gt_classes: torch.Tensor  # [B, S] int64; num_classes = background
+    reg_targets: torch.Tensor  # [B, S, 4] deltas to the matched GT
+    is_fg: torch.Tensor  # [B, S] bool
+    valid: torch.Tensor  # [B, S] bool
+
+
+def proposal_counts(cfg: DetectorConfig, num_anchors: int, training: bool) -> Tuple[int, int]:
+    """(pre-NMS, post-NMS) proposal counts of one image: the config's caps,
+    bounded by the anchor count."""
+    pre_k = cfg.rpn_pre_nms_topk_train if training else cfg.rpn_pre_nms_topk_test
+    post_k = cfg.rpn_post_nms_topk_train if training else cfg.rpn_post_nms_topk_test
+    pre_k = min(pre_k, num_anchors)
+    return pre_k, min(post_k, pre_k)
+
+
+def roi_pool_size(cfg: DetectorConfig, num_anchors: int, gt_capacity: int) -> int:
+    """Candidates per image that `label_and_sample_proposals` samples from:
+    the training proposals, plus the GT slots when they are appended."""
+    return proposal_counts(cfg, num_anchors, True)[1] + (gt_capacity if cfg.proposal_append_gt else 0)
+
+
 def anchors_for(cfg: DetectorConfig, canvas_hw: Tuple[int, int], device: torch.device) -> torch.Tensor:
     """Anchor grid [h*w*A, 4] of the padded canvas; the feature map is
     ceil(H / stride) x ceil(W / stride)."""
@@ -218,17 +263,17 @@ def propose(
     anchors: torch.Tensor,
     rpn_out: RPNOutput,
     image_sizes: torch.Tensor,
+    training: bool = False,
 ) -> Instances:
-    """Test-time RPN proposals (detectron2 find_top_rpn_proposals with fixed
-    shapes): pre-NMS top-k by objectness, decode, clip, NMS at
-    `rpn_nms_thresh`, post-NMS top-k. Returns Instances with a leading batch
-    dim: boxes [B, post_k, 4]."""
+    """RPN proposals (detectron2 find_top_rpn_proposals with fixed shapes):
+    pre-NMS top-k by objectness, decode, clip, NMS at `rpn_nms_thresh`,
+    post-NMS top-k, with the training or the test caps. Returns Instances
+    with a leading batch dim: boxes [B, post_k, 4]."""
     if rpn_out.objectness.shape[1] != anchors.shape[0]:
         raise ValueError(
             f"RPN prediction count {rpn_out.objectness.shape[1]} != anchor count {anchors.shape[0]}"
         )
-    pre_k = min(cfg.rpn_pre_nms_topk_test, anchors.shape[0])
-    post_k = min(cfg.rpn_post_nms_topk_test, pre_k)
+    pre_k, post_k = proposal_counts(cfg, anchors.shape[0], training)
     out = []
     for obj, deltas, size in zip(rpn_out.objectness, rpn_out.deltas, image_sizes):
         idx = topk_indices(obj, pre_k)
@@ -245,6 +290,97 @@ def propose(
         )
         out.append(inst.top_k(post_k))
     return Instances.stack(out)
+
+
+def rpn_losses(
+    cfg: DetectorConfig,
+    anchors: torch.Tensor,
+    rpn_out: RPNOutput,
+    gt: Instances,
+    priorities: torch.Tensor,
+) -> Dict[str, torch.Tensor]:
+    """RPN objectness and box-regression losses, each a sum over the sampled
+    anchors / (B * rpn_batch_size_per_image) (detectron2). gt: Instances
+    [B, M]; priorities [B, N_anchors], the sampler's uniform draws."""
+    b = rpn_out.objectness.shape[0]
+    labels, sel, sel_pos, reg_targets = [], [], [], []
+    for i in range(b):
+        iou = pairwise_iou(gt.boxes[i], anchors)  # [M, N]
+        matched_idx, lab = match_boxes(iou, gt.valid[i], RPN_MATCHER)
+        s, sp = subsample_labels_mask(lab, cfg.rpn_batch_size_per_image, cfg.rpn_positive_fraction, priorities[i])
+        labels.append(lab)
+        sel.append(s)
+        sel_pos.append(sp)
+        reg_targets.append(RPN_BOX_TRANSFORM.get_deltas(anchors, gt.boxes[i][matched_idx]))
+    labels, sel, sel_pos, reg_targets = (torch.stack(t) for t in (labels, sel, sel_pos, reg_targets))
+
+    normalizer = float(b * cfg.rpn_batch_size_per_image)
+    obj_loss = sigmoid_ce(rpn_out.objectness, (labels == 1).to(torch.float32))
+    loss_cls = torch.sum(obj_loss * sel.to(torch.float32)) / normalizer
+    reg = smooth_l1(rpn_out.deltas, reg_targets, cfg.rpn_smooth_l1_beta)
+    loss_loc = torch.sum(reg * sel_pos[..., None].to(torch.float32)) / normalizer
+    return {
+        "loss_rpn_cls": loss_cls * cfg.rpn_loss_weight,
+        "loss_rpn_loc": loss_loc * cfg.rpn_loss_weight,
+    }
+
+
+def label_and_sample_proposals(
+    cfg: DetectorConfig,
+    proposals: Instances,
+    gt: Instances,
+    priorities: torch.Tensor,
+) -> SampledProposals:
+    """Match proposals to the GT and sample the ROI heads' training batch
+    (detectron2 ROIHeads.label_and_sample_proposals with fixed shapes). The
+    GT boxes join the pool first when `proposal_append_gt`. proposals
+    [B, K], gt [B, M], priorities [B, K (+ M)]."""
+    s = cfg.roi_batch_size_per_image
+    out = []
+    for i in range(proposals.boxes.shape[0]):
+        prop_i = Instances(proposals.boxes[i], proposals.scores[i], proposals.classes[i], proposals.valid[i])
+        gt_i = Instances(gt.boxes[i], gt.scores[i], gt.classes[i], gt.valid[i])
+        pool = Instances.concatenate(prop_i, gt_i) if cfg.proposal_append_gt else prop_i
+        iou = pairwise_iou(gt_i.boxes, pool.boxes)
+        matched_idx, match_labels = match_boxes(iou, gt_i.valid, ROI_MATCHER)
+        # candidate labels: 1 foreground, 0 background, -1 ignored or padding
+        cand = torch.where(pool.valid, match_labels, torch.full_like(match_labels, -1))
+        idx, is_pos, valid = subsample_labels(cand, s, cfg.roi_positive_fraction, priorities[i])
+        boxes = pool.boxes[idx]
+        m_idx = matched_idx[idx]
+        background = torch.full_like(m_idx, cfg.num_classes)
+        classes = torch.where(is_pos & valid, gt_i.classes[m_idx].to(m_idx.dtype), background)
+        reg_targets = ROI_BOX_TRANSFORM.get_deltas(boxes, gt_i.boxes[m_idx])
+        out.append((boxes, classes, reg_targets, is_pos & valid, valid))
+    return SampledProposals(*(torch.stack(t) for t in zip(*out)))
+
+
+def roi_losses(
+    cfg: DetectorConfig,
+    scores: torch.Tensor,
+    deltas: torch.Tensor,
+    sampled: SampledProposals,
+) -> Dict[str, torch.Tensor]:
+    """Fast R-CNN classification and class-specific box-regression losses
+    (detectron2 FastRCNNOutputLayers.losses): cross-entropy averaged over
+    the sampled rows, smooth-L1 summed over the foreground rows, both
+    divided by the sampled count. scores [B*S, C+1], deltas [B*S, 4C]."""
+    classes = sampled.gt_classes.reshape(-1)
+    valid = sampled.valid.reshape(-1).to(torch.float32)
+    is_fg = sampled.is_fg.reshape(-1).to(torch.float32)
+    reg_targets = sampled.reg_targets.reshape(-1, 4)
+
+    ce = softmax_ce(scores, classes)
+    denom = torch.clamp_min(torch.sum(valid), 1.0)
+    loss_cls = torch.sum(ce * valid) / denom
+
+    k = deltas.shape[-1] // 4
+    deltas_k = deltas.reshape(-1, k, 4)
+    cls_idx = torch.clamp(classes, 0, k - 1)
+    fg_deltas = torch.gather(deltas_k, 1, cls_idx[:, None, None].expand(-1, 1, 4))[:, 0]
+    reg = smooth_l1(fg_deltas, reg_targets, 0.0)
+    loss_reg = torch.sum(reg * is_fg[:, None]) / denom
+    return {"loss_cls": loss_cls, "loss_box_reg": loss_reg}
 
 
 def pool_rois(cfg: DetectorConfig, feature: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:

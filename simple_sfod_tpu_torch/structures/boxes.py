@@ -46,17 +46,31 @@ def clip_boxes(boxes: torch.Tensor, image_size: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1, y1, x2, y2], dim=-1)
 
 
-def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
-    """IoU matrix. [N, 4] x [M, 4] -> [N, M]. 0 where union is 0."""
+def _pairwise_intersection(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Intersection areas. [N, 4] x [M, 4] -> [N, M]."""
     lt = torch.maximum(boxes1[:, None, :2], boxes2[None, :, :2])
     rb = torch.minimum(boxes1[:, None, 2:], boxes2[None, :, 2:])
     wh = (rb - lt).clamp_min(0.0)
-    inter = wh[..., 0] * wh[..., 1]
+    return wh[..., 0] * wh[..., 1]
+
+
+def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """IoU matrix. [N, 4] x [M, 4] -> [N, M]. 0 where union is 0."""
+    inter = _pairwise_intersection(boxes1, boxes2)
     a1 = area(boxes1)[:, None]
     a2 = area(boxes2)[None, :]
     union = a1 + a2 - inter
     pos = union > 0
     return torch.where(pos, inter / torch.where(pos, union, torch.ones_like(union)), torch.zeros_like(union))
+
+
+def pairwise_ioa(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Intersection over the area of boxes2. [N, 4] x [M, 4] -> [N, M]; 0
+    where that area is not positive."""
+    inter = _pairwise_intersection(boxes1, boxes2)
+    a2 = area(boxes2)[None, :]
+    pos = a2 > 0
+    return torch.where(pos, inter / torch.where(pos, a2, torch.ones_like(a2)), torch.zeros_like(inter))
 
 
 class BoxTransform(NamedTuple):
@@ -66,8 +80,38 @@ class BoxTransform(NamedTuple):
     weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
     scale_clamp: float = DEFAULT_SCALE_CLAMP
 
+    def get_deltas(self, src: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        return encode_deltas(src, target, self.weights)
+
     def apply_deltas(self, deltas: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         return decode_deltas(deltas, boxes, self.weights, self.scale_clamp)
+
+
+def encode_deltas(
+    src: torch.Tensor,
+    target: torch.Tensor,
+    weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0),
+) -> torch.Tensor:
+    """Target boxes as (dx, dy, dw, dh) deltas relative to src boxes, both
+    [..., 4] XYXY. The sides of both are floored at 1e-6 so degenerate boxes
+    give finite targets (callers mask them out); the target centre uses the
+    unfloored sides, in the JAX package's operation order."""
+    src_w = torch.clamp_min(src[..., 2] - src[..., 0], 1e-6)
+    src_h = torch.clamp_min(src[..., 3] - src[..., 1], 1e-6)
+    src_cx = src[..., 0] + 0.5 * src_w
+    src_cy = src[..., 1] + 0.5 * src_h
+
+    tgt_w = torch.clamp_min(target[..., 2] - target[..., 0], 1e-6)
+    tgt_h = torch.clamp_min(target[..., 3] - target[..., 1], 1e-6)
+    tgt_cx = target[..., 0] + 0.5 * (target[..., 2] - target[..., 0])
+    tgt_cy = target[..., 1] + 0.5 * (target[..., 3] - target[..., 1])
+
+    wx, wy, ww, wh = weights
+    dx = wx * (tgt_cx - src_cx) / src_w
+    dy = wy * (tgt_cy - src_cy) / src_h
+    dw = ww * torch.log(tgt_w / src_w)
+    dh = wh * torch.log(tgt_h / src_h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def decode_deltas(

@@ -61,6 +61,16 @@ class Instances:
         return self.take(topk_indices(key, k))
 
     @staticmethod
+    def concatenate(a: "Instances", b: "Instances") -> "Instances":
+        """Concatenate two unbatched sets along the capacity: N_a + N_b."""
+        return Instances(
+            boxes=torch.cat([a.boxes, b.boxes], dim=0),
+            scores=torch.cat([a.scores, b.scores], dim=0),
+            classes=torch.cat([a.classes, b.classes], dim=0),
+            valid=torch.cat([a.valid, b.valid], dim=0),
+        )
+
+    @staticmethod
     def stack(items: List["Instances"]) -> "Instances":
         """Per-image sets -> one batched set with a leading dim."""
         return Instances(

@@ -114,3 +114,42 @@ def test_detector_card_matches_cpu(cuda):
     assert torch.equal(got.classes.cpu()[gv], want.classes[gv])
     torch.testing.assert_close(got.boxes.cpu()[gv], want.boxes[gv], rtol=1e-5, atol=1e-2)
     torch.testing.assert_close(got.scores.cpu()[gv], want.scores[gv], rtol=0, atol=1e-4)
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """One float32 training step (TF32 off) on the card against the same
+    step on the CPU: same weights, batch and draws; chip_smoke's
+    tolerances."""
+    err = chip_smoke.card_vs_cpu_step(canvas=(128, 256), image_hw=(120, 250))
+    assert chip_smoke.card_step_ok(err), err
+
+
+def test_train_steps_launch_the_kernels_on_train_mode_nms_inputs(cuda):
+    """Train-mode RPN NMS runs on both kernels, once per image and step, and
+    they agree bit for bit with the plain versions on its inputs."""
+    from simple_sfod_tpu_torch.engine.trainers.base import BaseTrainer
+
+    cfg = chip_smoke.train_cfg("bfloat16", canvas=(256, 512))
+    cfg.merge_from_list(["SOLVER.IMS_PER_BATCH", "2"])
+    trainer = BaseTrainer(cfg)
+    recs = chip_smoke.make_synthetic_records(2, (250, 500), 8, 6, seed=1)
+    batch = chip_smoke.synthetic_batch(recs, (256, 512), cfg.TPU.GT_CAPACITY)
+    captured = []
+    orig = nms.nms_mask_matrix
+
+    def record(boxes, scores, valid, thr):
+        captured.append((boxes.clone(), scores.clone(), valid.clone(), thr))
+        return orig(boxes, scores, valid, thr)
+
+    _kernels.reset_launches()
+    nms.nms_mask_matrix = record
+    try:
+        metrics = trainer.run_step(batch)
+    finally:
+        nms.nms_mask_matrix = orig
+    assert _kernels.LAUNCHES == {"suppress_relation_bits": 2, "greedy_keep_from_bits": 2}
+    assert all(torch.isfinite(metrics[k]) for k in chip_smoke.TRAIN_LOSSES)
+    assert len(captured) == 2
+    for b, s, v, thr in captured:
+        assert b.is_cuda and thr == 0.7
+        assert torch.equal(nms.nms_mask_matrix(b, s, v, thr), chip_smoke.plain_keep(b, s, v, thr))
