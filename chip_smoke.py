@@ -11,7 +11,8 @@ Phases (each prints one progress line with its wall time):
               kernel's registers, shared memory and spills (-Xptxas -v)
   3. kernels  suppress_relation_bits and greedy_keep_from_bits against their
               plain versions on seeded boxes (ties, invalid and zero-area
-              boxes, class-offset boxes, N up to 8192 and N = 4097) and on
+              boxes, class-offset boxes, N up to 8192 and N = 4097, and
+              N = 12288, above the keep kernel's shared-memory route) and on
               cases built to break them (IoUs at the threshold's rounding
               boundaries, a suppression chain, identical boxes, disjoint
               boxes); bitmasks and keep masks must be equal bit for bit
@@ -41,6 +42,24 @@ Phases (each prints one progress line with its wall time):
               NMS inputs bit-equal between kernel and plain version, one
               bfloat16 step under torch.profiler, and one float32 step on
               the card against the same step on the CPU at 256x512
+  9. adapt    the main path: the source-free adaptive-teacher step at full
+              width from seeded weights (the class-1 logit bias raised by 4,
+              so random weights give pseudo-labels above 0.8; the student's
+              bbox_pred bias offset by 1e-2 from the teacher's) on one
+              synthetic 600x1200 target image: 12 bfloat16 steps of the main
+              variant on the adaptation benchmark's configuration (strong
+              view, adaptive threshold, fixed bfloat16 teacher), 12 on the
+              main configuration (domain classifiers built and zero-weighted),
+              6 of `source_free_adaptive_teacher_single` (EMA, float32
+              teacher); finite losses, pseudo-labels, the fixed teacher's
+              parameters unchanged and its statistics moved, the EMA rule,
+              exactly 3 launches of each NMS kernel per image and step, the
+              three NMS inputs of one step bit-equal between kernel and plain
+              version, the strong view against the CPU's on the same draws,
+              one step under set_sync_debug_mode("error"), one step under
+              torch.profiler, and one float32 step on the card against the
+              CPU's at 128x256 (and at 256x512, reported: random weights'
+              tied scores make the top-k cuts there differ)
 
 Prints the card's name and power limit and a JSON line of the kernels'
 numbers, then, as the last line, {"ok": true, "device": {...}}. Any failure
@@ -60,9 +79,13 @@ import urllib.request
 import numpy as np
 import torch
 
-from simple_sfod_tpu_torch.config import detector_config_from_cfg, get_main_cfg, get_source_cfg
-from simple_sfod_tpu_torch.data.synthetic import make_synthetic_records, synthetic_batch
+from simple_sfod_tpu_torch.config import detector_config_from_cfg, get_cfg, get_main_cfg, get_source_cfg
+from simple_sfod_tpu_torch.config.defaults import MAIN_CONFIG, SFAT_BENCH_CONFIG, config_opts
+from simple_sfod_tpu_torch.data import transforms
+from simple_sfod_tpu_torch.data.synthetic import make_synthetic_records, synthetic_batch, synthetic_bench_batch
 from simple_sfod_tpu_torch.engine.serve import DetectionService, serve_in_thread
+from simple_sfod_tpu_torch.engine.train_state import ema_tensors
+from simple_sfod_tpu_torch.engine.trainers import build_trainer
 from simple_sfod_tpu_torch.engine.trainers.base import BaseTrainer
 from simple_sfod_tpu_torch.models.detector import Detector
 from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, init_weights
@@ -96,6 +119,17 @@ LOSS_TOL = 1e-3
 PARAM_REL, PARAM_MOVE = 1e-4, 0.25
 BN_TOL = 1e-4
 BN_FED_BIAS_TOL = 1e-3
+# adaptation: steps of the main variant (the last TIMED timed) and of
+# `_single`; the cuts of the configurations: the adaptive threshold's warm-up
+# at 4 steps (100 in the configuration), so that its branch runs; no
+# 1000-step LR warmup, at the main YAML's LR 0.0025
+ADAPT_STEPS = 12
+SINGLE_STEPS = 6
+ADAPT_CUTS = {"ADAPTIVE_THRESHOLD.WARM_UP": "4", "SOLVER.WARMUP_ITERS": "0", "SOLVER.BASE_LR": "0.0025"}
+ADAPT_LOSSES = ("loss_rpn_cls_pseudo", "loss_rpn_loc_pseudo", "loss_cls_pseudo", "loss_box_reg_pseudo",
+                "loss_bpc_pseudo", "total_loss")
+CLS_BIAS_BOOST = 4.0  # added to the class-1 logit bias: softmax ~0.87 > BBOX_THRESHOLD 0.8
+BBOX_OFFSET = 1e-2  # the student's regression biases against the teacher's
 # float32 operations per (i < j, both valid) pair of the relation: 2 max,
 # 2 min, 2 sub, 2 clamp, 1 mul (intersection), 2 add/sub (union), 1 div,
 # 1 compare; the areas are per box, not per pair
@@ -239,6 +273,7 @@ EDGE_CASES = {
     "borderline thr=0.5": (lambda: borderline_case(0.5), 0.5),
     "borderline thr=0.7": (lambda: borderline_case(0.7), 0.7),
     "chain N=4096 thr=0.7": (lambda: chain_case(4096, 0.7), 0.7),
+    "chain N=12288 thr=0.7": (lambda: chain_case(12288, 0.7), 0.7),
     "identical N=4096 thr=0.7": (lambda: identical_case(4096), 0.7),
     "disjoint N=4096 thr=0.5": (lambda: disjoint_case(4096), 0.5),
 }
@@ -282,7 +317,7 @@ def check_kernels_against_plain(boxes, scores, valid, thr, label, expected=None,
     if not torch.equal(bits_k, bits_p):
         bad = (bits_k != bits_p).sum().item()
         raise AssertionError(f"{label}: suppress_relation_bits differs from plain in {bad} words")
-    keep_k = _kernels.launch_greedy_keep_from_bits(bits_k, sv)
+    keep_k = nms.greedy_keep_from_bits(bits_k, sv)  # the route N picks
     keep_p = nms.greedy_keep_plain(rel, sv)
     torch.cuda.synchronize()
     if not torch.equal(keep_k, keep_p):
@@ -398,23 +433,36 @@ def card_vs_cpu_step(canvas=(256, 512), image_hw=(250, 500), seed: int = SEED):
     draws = cpu.make_draws(1, tuple(canvas), cfg.TPU.GT_CAPACITY)
     mc = {k: float(v) for k, v in cpu.run_step(batch, draws).items()}
     mg = {k: float(v) for k, v in card.run_step(batch, draws).items()}
-    after = {"cpu": cpu.state.model.state_dict(), "cuda": {k: v.cpu() for k, v in card.state.model.state_dict().items()}}
     out = {"loss": {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in TRAIN_LOSSES},
            "counts_equal": all(mg[k] == mc[k] for k in ("num_fg", "num_sampled")),
-           "param": (0.0, ""), "param_bound": (0.0, ""), "bn": (0.0, ""), "bn_fed_bias": (0.0, ""),
            "losses_cpu": mc}
+    out.update(state_errors(state, cpu.state.model.state_dict(), card.state.model.state_dict()))
+    return out
+
+
+def state_errors(start, after_cpu, after_cuda):
+    """The card's state after a step against the CPU's, from the same start:
+    the worst parameter difference relative to its tensor's largest entry,
+    the worst ratio of a parameter difference to its bound, the worst
+    BatchNorm statistic difference relative to its largest entry, and the
+    largest movement of a conv bias that feeds a BatchNorm relative to its
+    weight's movement (with the tensors' names)."""
+    after = {"cpu": after_cpu, "cuda": {k: v.cpu() for k, v in after_cuda.items()}}
+    state = {k: v.cpu().float() for k, v in start.items()}
+    out = {"param": (0.0, ""), "param_bound": (0.0, ""), "bn": (0.0, ""), "bn_fed_bias": (0.0, "")}
     for k, c in after["cpu"].items():
         if k.endswith("num_batches_tracked") or k in ("pixel_mean", "pixel_std"):
             continue
-        err = (after["cuda"][k] - c).abs().max().item()
+        c = c.float()
+        err = (after["cuda"][k].float() - c).abs().max().item()
         scale = max(c.abs().max().item(), 1e-12)
         if k.endswith(("running_mean", "running_var")):
             out["bn"] = max(out["bn"], (err / scale, k))
         elif k.startswith("backbone.") and k.endswith(".bias") and int(k.split(".")[-2]) % 3 == 0:
             w = k[:-4] + "weight"
             for side in ("cpu", "cuda"):
-                moved = (after[side][k] - state[k]).abs().max().item()
-                moved_w = (after[side][w] - state[w]).abs().max().item()
+                moved = (after[side][k].float() - state[k]).abs().max().item()
+                moved_w = (after[side][w].float() - state[w]).abs().max().item()
                 out["bn_fed_bias"] = max(out["bn_fed_bias"], (moved / max(moved_w, 1e-30), f"{k} ({side})"))
         else:
             moved = (c - state[k]).abs().max().item()
@@ -427,7 +475,151 @@ def card_step_ok(err) -> bool:
     return (
         max(err["loss"].values()) <= LOSS_TOL and err["counts_equal"] and err["param_bound"][0] <= 1.0
         and err["bn"][0] <= BN_TOL and err["bn_fed_bias"][0] <= BN_FED_BIAS_TOL
+        and err.get("teacher_bn", (0.0, ""))[0] <= BN_TOL
     )
+
+
+def format_errors(err, losses) -> str:
+    return (", ".join(f"{k} {err['loss'][k]:.3g}" for k in losses) + f" (tol {LOSS_TOL}); counts equal "
+            f"{err['counts_equal']}; param max rel diff {err['param'][0]:.3g} ({err['param'][1]}); worst diff / bound "
+            f"{err['param_bound'][0]:.3g} ({err['param_bound'][1]}; bound {PARAM_REL} x largest entry + {PARAM_MOVE} x "
+            f"movement + 1e-8, tol 1); BN stats rel err {err['bn'][0]:.3g} ({err['bn'][1]}, tol {BN_TOL}); "
+            f"BN-fed conv bias movement / weight movement {err['bn_fed_bias'][0]:.3g} ({err['bn_fed_bias'][1]}, "
+            f"tol {BN_FED_BIAS_TOL})")
+
+
+# ---------------------------------------------------------------- adaptation
+def adapt_cfg(base, trainer: str = "source_free_adaptive_teacher", dtype: str = "bfloat16", canvas=(608, 1216)):
+    """An adaptation configuration (`SFAT_BENCH_CONFIG` or `MAIN_CONFIG`) with
+    the phase's cuts, seed 0."""
+    cfg = get_cfg()
+    opts = {"TRAINER": trainer, "SEED": "0", "TPU.DTYPE": dtype, "TPU.CANVAS": repr(tuple(canvas)), **ADAPT_CUTS}
+    cfg.merge_from_list(config_opts(base) + [x for kv in opts.items() for x in kv])
+    return cfg
+
+
+def adapt_trainer(cfg, device=None):
+    """The trainer from seeded weights with the class-1 logit bias raised
+    (teacher and student) and the student's bbox_pred bias offset from the
+    teacher's."""
+    model = init_weights(FasterRCNN(detector_config_from_cfg(cfg)), SEED)
+    with torch.no_grad():
+        model.roi_heads.box_predictor.cls_score.bias[1] += CLS_BIAS_BOOST
+    tr = build_trainer(cfg, device=device, state_dict=model.state_dict())
+    with torch.no_grad():
+        tr.state.model.roi_heads.box_predictor.bbox_pred.bias += BBOX_OFFSET
+    return tr
+
+
+def capture_nms(captured: list):
+    """A stand-in for nms.nms_mask_matrix that records its inputs."""
+    orig = nms.nms_mask_matrix
+
+    def record(boxes, scores, valid, thr):
+        captured.append((boxes.clone(), scores.clone(), valid.clone(), thr))
+        return orig(boxes, scores, valid, thr)
+
+    return orig, record
+
+
+def adapt_run(cfg, steps: int, captured: list):
+    """`steps` adaptation steps on the synthetic bench image (the draws the
+    trainer makes). Captures the NMS inputs of the first step, checks the
+    EMA rule (where the trainer has EMA) at the second. -> (trainer, batch,
+    per-step metrics, wall ms, launches, teacher parameters before, EMA
+    error)."""
+    tr = adapt_trainer(cfg)
+    batch = synthetic_bench_batch(cfg)
+    teacher0 = {k: v.clone() for k, v in tr.state.teacher.state_dict().items()}
+    orig, record = capture_nms(captured)
+    metrics, wall, launches, ema_err = [], [], [], None
+    try:
+        for i in range(steps):
+            before = dict(_kernels.LAUNCHES)
+            if i == 0:
+                nms.nms_mask_matrix = record
+            if i == 1 and tr.ema_enabled:
+                t_before = [t.clone() for t in ema_tensors(tr.state.teacher)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append(tr.run_step(batch))
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            nms.nms_mask_matrix = orig
+            launches.append({k: c - before[k] for k, c in _kernels.LAUNCHES.items()})
+            if i == 1 and tr.ema_enabled:
+                keep = np.float32(cfg.SEMISUPNET.EMA_KEEP_RATE)
+                ema_err = max(
+                    ((t1 - (keep * t0 + (np.float32(1) - keep) * s1)).abs().max() / s1.abs().max().clamp_min(1e-30)).item()
+                    for t0, t1, s1 in zip(t_before, ema_tensors(tr.state.teacher), ema_tensors(tr.state.model))
+                )
+    finally:
+        nms.nms_mask_matrix = orig
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    return tr, batch, metrics, wall, launches, teacher0, ema_err
+
+
+def check_adapt_run(label, tr, metrics, launches, teacher0, batch_size: int = 1):
+    for i, m in enumerate(metrics):
+        if not all(np.isfinite(m[k]) for k in ADAPT_LOSSES):
+            raise AssertionError(f"{label} step {i}: non-finite loss {m}")
+    for i, d in enumerate(launches):
+        if any(c != 3 * batch_size for c in d.values()):
+            raise AssertionError(f"{label} step {i}: kernel launches {d}, expected 3 of each per image")
+    if not any(m["num_pseudo"] > 0 for m in metrics):
+        raise AssertionError(f"{label}: no pseudo-labels in any step")
+    if not tr.ema_enabled:
+        after = tr.state.teacher.state_dict()
+        for k, v in teacher0.items():
+            if k.endswith(("running_mean", "running_var")):
+                check(not torch.equal(after[k], v) and after[k].dtype == torch.float32, f"{label}: teacher {k} did not move")
+            elif not k.endswith("num_batches_tracked"):
+                check(torch.equal(after[k], v), f"{label}: fixed teacher {k} changed")
+
+
+def strong_view_card_vs_cpu(image, size, draws):
+    """The strong view of one image on the card and on the CPU from the same
+    draws. -> (max difference, pixels more than 1 step apart, pixels)."""
+    got = transforms.strong_augment(image, draws, 0, size).cpu()
+    want = transforms.strong_augment(image.cpu(), draws.to("cpu"), 0, size.cpu())
+    err = (got - want).abs()
+    return float(err.max()), int((err > 1.0).sum()), err.numel()
+
+
+def card_vs_cpu_adapt_step(canvas=(128, 256), image_hw=(120, 250)):
+    """One float32 main-variant step (strong view, adaptive threshold; TF32
+    off, which the trainer sets) on the card and on the CPU from the same
+    weights, batch and draws. -> the errors of `state_errors`, the losses'
+    and the pseudo-label counts', and the teacher statistics' (which its
+    pseudo forward moved).
+
+    Held at 128x256: there every top-k of the step keeps all its candidates.
+    At 256x512 the teacher's 1000 test-mode proposals are cut from about
+    1400 kept by NMS and its 100 detections from more than 100 above the
+    threshold, among scores of random weights that tie to rounding, so the
+    card and the CPU keep sets that differ by a box or two: the counts stay
+    equal and loss_box_reg or loss_rpn_loc moves by 0.5-4% (measured)."""
+    cfg = adapt_cfg(SFAT_BENCH_CONFIG, dtype="float32", canvas=canvas)
+    cpu = adapt_trainer(cfg, device="cpu")
+    card = adapt_trainer(cfg, device="cuda")
+    start = {k: v.clone() for k, v in cpu.state.model.state_dict().items()}
+    batch = synthetic_bench_batch(cfg)
+    batch["sizes"][:] = image_hw
+    batch["images"][:, image_hw[0]:] = 0
+    batch["images"][:, :, image_hw[1]:] = 0
+    draws = cpu.make_draws(1, tuple(canvas))
+    mc = {k: float(v) for k, v in cpu.run_step(batch, draws).items()}
+    mg = {k: float(v) for k, v in card.run_step(batch, draws.to("cuda")).items()}
+    out = {"loss": {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in ADAPT_LOSSES},
+           "counts_equal": all(mg[k] == mc[k] for k in ("num_fg_pseudo", "num_sampled_pseudo", "num_pseudo")),
+           "losses_cpu": mc}
+    out.update(state_errors(start, cpu.state.model.state_dict(), card.state.model.state_dict()))
+    tc, tg = cpu.state.teacher.state_dict(), card.state.teacher.state_dict()
+    out["teacher_bn"] = max(
+        (((tg[k].cpu() - tc[k]).abs().max() / tc[k].abs().max().clamp_min(1e-12)).item(), k)
+        for k in tc if k.endswith(("running_mean", "running_var"))
+    )
+    return out
 
 
 def train_run(dtype: str, captured: list):
@@ -437,12 +629,7 @@ def train_run(dtype: str, captured: list):
     cfg = train_cfg(dtype)
     trainer = BaseTrainer(cfg)
     batch = train_batch(cfg, IMAGE_HW, SEED + 3)
-    orig_nms = nms.nms_mask_matrix
-
-    def record(boxes, scores, valid, thr):
-        captured.append((boxes.clone(), scores.clone(), valid.clone(), thr))
-        return orig_nms(boxes, scores, valid, thr)
-
+    orig_nms, record = capture_nms(captured)
     metrics, wall, launches = [], [], []
     try:
         for i in range(TRAIN_STEPS):
@@ -462,23 +649,24 @@ def train_run(dtype: str, captured: list):
     return trainer, batch, metrics, wall, launches
 
 
-def kernel_rows(b, s, v, thr, site):
+def kernel_rows(b, s, v, thr, site, plain_reps=(20, 5)):
     """Both kernels on one NMS call's inputs: device time (profiler), time a
-    call (CUDA events), plain version's time, bound, and the differences
-    from the plain version."""
+    call (CUDA events), plain version's time (over plain_reps calls of each,
+    after a warm-up call), bound, and the differences from the plain
+    version."""
     sb, sv = sorted_inputs(b, s, v)
     bits = _kernels.launch_suppress_relation_bits(sb, sv, thr)
-    keep = _kernels.launch_greedy_keep_from_bits(bits, sv)
+    keep = nms.greedy_keep_from_bits(bits, sv)  # the route N picks
     rel = nms.suppress_relation_plain(sb, sv, thr)
     call1 = time_ms(lambda: _kernels.launch_suppress_relation_bits(sb, sv, thr), 200)
-    p1 = time_ms(lambda: nms.pack_bits(nms.suppress_relation_plain(sb, sv, thr)), 20)
-    call2 = time_ms(lambda: _kernels.launch_greedy_keep_from_bits(bits, sv), 200)
-    p2 = time_ms(lambda: nms.greedy_keep_plain(rel, sv), 5, warmup=1)
+    p1 = time_ms(lambda: nms.pack_bits(nms.suppress_relation_plain(sb, sv, thr)), plain_reps[0])
+    call2 = time_ms(lambda: nms.greedy_keep_from_bits(bits, sv), 200)
+    p2 = time_ms(lambda: nms.greedy_keep_plain(rel, sv), plain_reps[1], warmup=1)
     # the kernels' own device time, from the profiler's kernel events
     _, _, kern1, _ = profile(lambda: _kernels.launch_suppress_relation_bits(sb, sv, thr), 50)
-    _, _, kern2, _ = profile(lambda: _kernels.launch_greedy_keep_from_bits(bits, sv), 50)
+    _, _, kern2, _ = profile(lambda: nms.greedy_keep_from_bits(bits, sv), 50)
     k1 = sum(v for name, v in kern1.items() if "suppress_relation_bits_kernel" in name)
-    k2 = sum(v for name, v in kern2.items() if "greedy_keep_from_bits_kernel" in name)
+    k2 = sum(v for name, v in kern2.items() if "greedy_keep_from_bits" in name)
     check(k1 > 0 and k2 > 0, f"profiler saw no kernel time: {kern1} {kern2}")
     b1, by1 = kernel1_bound_ms(sv)
     b2, by2 = kernel2_bound_ms(keep)
@@ -514,7 +702,8 @@ def main() -> int:
         # registers, static shared memory and spills, from nvcc -Xptxas -v
         ptxas = {}
         for mangled, use in _kernels.resource_usage("nms").items():
-            name = next(k for k in _kernels.LAUNCHES if k + "_kernel" in mangled)
+            # greedy_keep_from_bits has two routes: its kernel and the row walk
+            name = next(k for k in _kernels.LAUNCHES if k in mangled)
             ptxas.setdefault(name, []).append(use)
             log(f"  {name} ({mangled}): {use}")
         check(set(ptxas) == set(_kernels.LAUNCHES), f"ptxas reported {sorted(ptxas)}")
@@ -529,16 +718,23 @@ def main() -> int:
             ("N=257 thr=0.7 0 valid", 257, 0, 0.7, 0),
             ("N=8192 thr=0.7", 8192, 8000, 0.7, 0),
             ("N=4097 thr=0.7", 4097, 4000, 0.7, 0),
+            # above the keep kernel's shared-memory route: its row walk
+            ("N=12288 thr=0.7", 12288, 12000, 0.7, 0),
         ]
+        large_n = {}
         for label, n, n_valid, thr, ncls in cases:
             b, s, v = case_boxes(rng, n, n_valid, classes=ncls)
             kept = check_kernels_against_plain(b, s, v, thr, label, cpu=n <= 4097)
             log(f"  {label}: bit-equal, kept {kept}")
+            if n > _kernels.GREEDY_MAX_N:
+                large_n[label] = (b, s, v, thr)
         for label, b, s, v, thr, want in edge_cases():
             t = lambda a: torch.from_numpy(a).cuda()
             # the plain fixpoint needs n/2 rounds for the chain: too slow on the CPU
             kept = check_kernels_against_plain(t(b), t(s), t(v), thr, label, want, cpu="chain" not in label)
             log(f"  {label}: bit-equal and as expected, kept {kept}")
+            if len(b) > _kernels.GREEDY_MAX_N:
+                large_n[label] = (t(b), t(s), t(v), thr)
 
     with Phase("serve"):
         cfg = get_main_cfg()
@@ -549,7 +745,7 @@ def main() -> int:
         service = DetectionService(cfg, state, batch=2, max_wait_ms=10.0, config_name="main")
         srv, url = serve_in_thread(service)
         captured = []
-        orig_nms = nms.nms_mask_matrix
+        orig_nms, record = capture_nms(captured)
         try:
             rng = np.random.RandomState(SEED + 1)
             bodies, imgs = [], []
@@ -569,10 +765,6 @@ def main() -> int:
 
             info = json.loads(urllib.request.urlopen(f"{url}/", timeout=60).read())
             check(info["canvas"] == [608, 1216] and info["platforms"] == ["cuda"], f"service info {info}")
-
-            def record(boxes, scores, valid, thr):
-                captured.append((boxes.clone(), scores.clone(), valid.clone(), thr))
-                return orig_nms(boxes, scores, valid, thr)
 
             results = [None] * N_REQUESTS
             latency = [0.0] * N_REQUESTS
@@ -704,6 +896,14 @@ def main() -> int:
             r1, r2 = kernel_rows(b, s, v, thr, site)
             rows["suppress_relation_bits"].append(r1)
             rows["greedy_keep_from_bits"].append(r2)
+        # N above the keep kernel's shared-memory route (its row walk)
+        large_rows = {"suppress_relation_bits": [], "greedy_keep_from_bits": []}
+        for label, (b, s, v, thr) in large_n.items():
+            # the plain fixpoint takes N/2 rounds on the chain: one timed call
+            r1, r2 = kernel_rows(b, s, v, thr, label, plain_reps=(2, 1))
+            large_rows["suppress_relation_bits"].append(r1)
+            large_rows["greedy_keep_from_bits"].append(r2)
+        del large_n
 
     with Phase("train"):
         cfg = train_cfg("float32")
@@ -753,34 +953,123 @@ def main() -> int:
         del trainer
 
         err = card_vs_cpu_step()
-        log(f"  card vs CPU, one float32 step at 256x512 (TF32 off): loss rel err " +
-            ", ".join(f"{k} {v:.3g}" for k, v in err["loss"].items()) + f" (tol {LOSS_TOL}); counts equal "
-            f"{err['counts_equal']}; param max rel diff {err['param'][0]:.3g} ({err['param'][1]}); worst diff / bound "
-            f"{err['param_bound'][0]:.3g} ({err['param_bound'][1]}; bound {PARAM_REL} x largest entry + {PARAM_MOVE} x "
-            f"movement + 1e-8, tol 1); BN stats rel err {err['bn'][0]:.3g} ({err['bn'][1]}, tol {BN_TOL}); "
-            f"BN-fed conv bias movement / weight movement {err['bn_fed_bias'][0]:.3g} ({err['bn_fed_bias'][1]}, "
-            f"tol {BN_FED_BIAS_TOL}); CPU losses " + ", ".join(f"{k} {err['losses_cpu'][k]:.4f}" for k in TRAIN_LOSSES))
+        log("  card vs CPU, one float32 step at 256x512 (TF32 off): loss rel err " + format_errors(err, TRAIN_LOSSES) +
+            "; CPU losses " + ", ".join(f"{k} {err['losses_cpu'][k]:.4f}" for k in TRAIN_LOSSES))
         if not card_step_ok(err):
             raise AssertionError(f"card step differs from the CPU step: {err}")
+
+    with Phase("adapt"):
+        # the main path: the main variant on the adaptation benchmark's
+        # configuration (bfloat16, strong view, adaptive threshold, fixed
+        # bfloat16 teacher), then on the main configuration, then _single
+        adapt_captured = []
+        _kernels.reset_launches()
+        for i, (label, base, trainer, steps) in enumerate((
+            ("main variant, SFAT_BENCH_CONFIG", SFAT_BENCH_CONFIG, "source_free_adaptive_teacher", ADAPT_STEPS),
+            ("main variant, MAIN_CONFIG", MAIN_CONFIG, "source_free_adaptive_teacher", ADAPT_STEPS),
+            ("_single, SFAT_BENCH_CONFIG", SFAT_BENCH_CONFIG, "source_free_adaptive_teacher_single", SINGLE_STEPS),
+        )):
+            cfg = adapt_cfg(base, trainer)
+            tr, batch, metrics, wall, per_step, teacher0, ema_err = adapt_run(cfg, steps, adapt_captured if i == 0 else [])
+            check_adapt_run(label, tr, metrics, per_step, teacher0)
+            if tr.ema_enabled:
+                check(ema_err is not None and ema_err <= 1e-6, f"{label}: EMA rule off by {ema_err}")
+            med = float(np.median(wall[-TIMED:])) if steps > TIMED else float(np.median(wall[1:]))
+            log(f"  {label} [{smi}]: {type(tr).__name__}, teacher {next(tr.state.teacher.parameters()).dtype}, "
+                f"step {med:.2f} ms (median of the last {min(TIMED, steps - 1)} of {steps}; first {wall[0]:.1f} ms); "
+                f"num_pseudo per step {[int(m['num_pseudo']) for m in metrics]}; step {steps - 1}: " +
+                ", ".join(f"{k} {metrics[-1][k]:.4f}" for k in ADAPT_LOSSES) +
+                (f"; EMA rule error {ema_err:.3g}" if ema_err is not None else "; teacher parameters unchanged, statistics moved"))
+            if i == 0:
+                main_tr, main_batch = tr, batch
+            del tr
+        adapt_launches = dict(_kernels.LAUNCHES)
+        total_steps = 2 * ADAPT_STEPS + SINGLE_STEPS
+        log(f"  launches on the adaptation path: {adapt_launches} over {total_steps} steps at batch 1")
+        check(all(c == 3 * total_steps for c in adapt_launches.values()), f"adaptation launches {adapt_launches}")
+
+        # the three NMS inputs of the first step: kernel == plain
+        check(len(adapt_captured) == 3, f"captured {len(adapt_captured)} NMS calls in one adaptation step, expected 3")
+        adapt_sites = ("teacher rpn (test mode)", "teacher detection", "student rpn (train mode)")
+        for (b, s_, v, thr), site in zip(adapt_captured, adapt_sites):
+            keep_k = nms.nms_mask_matrix(b, s_, v, thr)
+            check(torch.equal(keep_k, plain_keep(b, s_, v, thr)), f"{site} NMS: kernel and plain keep masks differ")
+            log(f"  {site} NMS N={b.shape[0]} thr={thr}: kernel == plain, kept {int(keep_k.sum())} of {int(v.sum())} valid")
+
+        # the strong view on the card against the CPU's, on the trainer's
+        # draws and on draws that apply every op
+        images, sizes = main_tr.stage(main_batch)
+        draws = main_tr.make_draws(1, tuple(images.shape[1:3]))
+        every_op = draws.strong._replace(do=torch.ones_like(draws.strong.do))
+        for what, d in (("drawn", draws.strong), ("every op", every_op)):
+            err, n_over, n_px = strong_view_card_vs_cpu(images[0].float(), sizes[0], d)
+            log(f"  strong view card vs CPU ({what}: ops {d.do[0].int().tolist()}): max diff {err:.4g}, "
+                f"{n_over} of {n_px} values more than 1 uint8 step apart")
+            check(err <= 2.0 and n_over <= 1e-4 * n_px, f"strong view ({what}): card vs CPU {err}, {n_over} over 1 step")
+
+        # the bfloat16 step reads nothing back to the host
+        images, sizes = main_tr.stage(main_batch)
+        draws = main_tr.make_draws(1, tuple(images.shape[1:3]))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            m = main_tr.step_on_device(images, sizes, draws)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(all(np.isfinite(float(m[k])) for k in ADAPT_LOSSES), "sync-checked step: non-finite loss")
+        log("  step_on_device (bfloat16, batch on the device) ran under set_sync_debug_mode('error')")
+
+        # one bfloat16 step under the profiler
+        torch.cuda.reset_peak_memory_stats()
+        wall_a, dev_a, kern_a, ops_a = profile(lambda: main_tr.run_step(main_batch), 3)
+        peak_a = torch.cuda.max_memory_allocated() / 2**30
+        nms_a = sum(v for k, v in kern_a.items() if "suppress_relation_bits" in k or "greedy_keep_from_bits" in k)
+        log(f"  profile bfloat16 adaptation step [{smi}]: wall {wall_a:.2f} ms, device kernels {dev_a:.2f} ms, "
+            f"busy {dev_a / wall_a:.1%}, NMS kernels {nms_a:.3f} ms ({nms_a / dev_a:.1%} of device time), "
+            f"peak memory {peak_a:.2f} GiB")
+        log(f"  top kernels (ms/step): {top(kern_a)}")
+        log(f"  top ops by device self time (ms/step): {top(ops_a, 12)}")
+        del main_tr
+
+        # the kernels on the step's three NMS inputs
+        adapt_rows = {"suppress_relation_bits": [], "greedy_keep_from_bits": []}
+        for (b, s_, v, thr), site in zip(adapt_captured, adapt_sites):
+            r1, r2 = kernel_rows(b, s_, v, thr, site)
+            adapt_rows["suppress_relation_bits"].append(r1)
+            adapt_rows["greedy_keep_from_bits"].append(r2)
+
+        for canvas, image_hw, held in (((128, 256), (120, 250), True), ((256, 512), (250, 500), False)):
+            err = card_vs_cpu_adapt_step(canvas, image_hw)
+            log(f"  card vs CPU, one float32 adaptation step at {canvas[0]}x{canvas[1]} (TF32 off"
+                f"{'' if held else '; reported, not held: see card_vs_cpu_adapt_step'}): loss rel err " +
+                format_errors(err, ADAPT_LOSSES) + f"; teacher BN stats rel err {err['teacher_bn'][0]:.3g} "
+                f"({err['teacher_bn'][1]}); CPU " + ", ".join(f"{k} {err['losses_cpu'][k]:.4f}" for k in ADAPT_LOSSES) +
+                f", num_pseudo {err['losses_cpu']['num_pseudo']:.0f}")
+            if held:
+                check(card_step_ok(err), f"adaptation step on the card differs from the CPU's: {err}")
 
     replaces = {
         "suppress_relation_bits": "simple_sfod_tpu/ops/pallas_kernels.py:26",
         "greedy_keep_from_bits": "simple_sfod_tpu/ops/pallas_kernels.py:123",
     }
     kernels = []
-    for name, per in rows.items():
-        # one served image runs the kernel once per NMS call site: the
-        # numbers are the sum over both sites, on the inputs of request 1;
-        # launches count the serve and the train path; train_per_step is
-        # one training step's (bfloat16) RPN NMS call
+    for name in rows:
+        # the main path, one adaptation step (batch 1): the kernel once per
+        # NMS call site (teacher RPN, teacher detection, student RPN); the
+        # numbers are the sum over the three sites, on the first step's
+        # inputs. launches count every path: serve, train and adapt.
+        # per_call: one served image's two calls; train_per_step: one
+        # supervised step's RPN call; large_n: N above the keep kernel's
+        # shared-memory route (the row walk)
+        per = adapt_rows[name]
         bound_by = max(per, key=lambda r: r["bound_ms"])["bound_by"]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "simple_sfod_tpu_torch/ops/csrc/nms.cu",
             "replaces": replaces[name],
-            "launches": launches[name] + train_launches[name],
-            "max_abs_err": float(max(r["err"] for r in per)),
+            "launches": launches[name] + train_launches[name] + adapt_launches[name],
+            "max_abs_err": float(max(r["err"] for r in per + rows[name] + large_rows[name])),
             "ms": sum(r["ms"] for r in per),
             "call_ms": sum(r["call_ms"] for r in per),
             "plain_ms": sum(r["plain_ms"] for r in per),
@@ -788,8 +1077,11 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": None,
             "ptxas": ptxas[name],
-            "per_call": per,
+            "launches_by_path": {"serve": launches[name], "train": train_launches[name], "adapt": adapt_launches[name]},
+            "adapt_per_step": per,
+            "per_call": rows[name],
             "train_per_step": train_rows[0 if name == "suppress_relation_bits" else 1],
+            "large_n": large_rows[name],
         })
     log(f"total wall {time.perf_counter() - t_start:.2f} s")
     print(smi, flush=True)

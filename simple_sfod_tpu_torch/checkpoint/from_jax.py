@@ -11,11 +11,16 @@ module keeps its own copy of the layout conversions:
                  flattens NCHW [C, P, P], so the input dim is un-permuted
   BatchNorm      scale/bias/mean/var -> weight/bias/running_mean/running_var,
                  num_batches_tracked = 0
+
+`teacher_student_from_jax` carries a whole adaptation state: the student
+and the teacher (the keys of the JAX package's `export_ensemble` without
+their modelStudent./modelTeacher. prefixes), the domain classifiers and the
+adaptive-threshold statistics.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -89,3 +94,49 @@ def state_dict_from_jax(variables: Dict[str, Any], cfg) -> Dict[str, torch.Tenso
     sd["pixel_mean"] = np.asarray(cfg.pixel_mean, np.float32).reshape(3, 1, 1)
     sd["pixel_std"] = np.asarray(cfg.pixel_std, np.float32).reshape(3, 1, 1)
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
+
+
+class TeacherStudentWeights(NamedTuple):
+    """An adaptation state in the port's layout (float32 tensors; the
+    threshold's reserve int32 and its cursor an int)."""
+
+    student: Dict[str, torch.Tensor]
+    teacher: Dict[str, torch.Tensor]
+    dc: Dict[str, Dict[str, torch.Tensor]]  # "dc" (image) and "dc_ins" (instance), where built
+    thresh: Dict[str, Any]  # reserve [RESERVE, C], classwise_acc [C], cursor
+
+
+_DC_LAYERS = {"dc": ("conv1", "conv2", "conv3", "classifier"), "dc_ins": ("fc1", "fc2", "fc3")}
+
+
+def _get(tree, key):
+    return tree[key] if isinstance(tree, dict) else getattr(tree, key)
+
+
+def dc_state_dict_from_jax(tree: Dict[str, Any], name: str) -> Dict[str, torch.Tensor]:
+    """The flax parameters of a domain classifier ("dc": FCDiscriminatorImg,
+    "dc_ins": DAInsHead) -> the port module's state dict."""
+    sd = {}
+    for layer in _DC_LAYERS[name]:
+        kernel = tree[layer]["kernel"]
+        sd[f"{layer}.weight"] = _conv(kernel) if np.ndim(kernel) == 4 else _dense(kernel)
+        sd[f"{layer}.bias"] = _f32(tree[layer]["bias"])
+    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
+
+
+def teacher_student_from_jax(state_tree, cfg) -> TeacherStudentWeights:
+    """A JAX `TeacherStudentState` with numpy leaves (a bfloat16 teacher
+    included) -> TeacherStudentWeights. `cfg` is the port's DetectorConfig."""
+    params = _get(state_tree, "params")
+    student = state_dict_from_jax({"params": params["det"], "batch_stats": _get(state_tree, "batch_stats")}, cfg)
+    teacher = state_dict_from_jax(
+        {"params": _get(state_tree, "teacher_params"), "batch_stats": _get(state_tree, "teacher_stats")}, cfg
+    )
+    dc = {name: dc_state_dict_from_jax(params[name], name) for name in _DC_LAYERS if name in params}
+    th = _get(state_tree, "thresh")
+    thresh = {
+        "reserve": torch.from_numpy(np.array(_get(th, "reserve"), dtype=np.int32)),
+        "classwise_acc": torch.from_numpy(np.array(_get(th, "classwise_acc"), dtype=np.float32)),
+        "cursor": int(_get(th, "cursor")),
+    }
+    return TeacherStudentWeights(student, teacher, dc, thresh)

@@ -10,6 +10,9 @@ smoke run uses them; a CPU test holds each to `merge_from_file`):
                  (`get_main_cfg()`, served and adapted)
   SOURCE_CONFIG  configs/faster_rcnn_VGG_cityscapes_source_new.yaml
                  (`get_source_cfg()`, supervised source training)
+
+and the adaptation benchmark's configuration, `SFAT_BENCH_CONFIG`
+(`get_sfat_bench_cfg()`), which has no YAML.
 """
 
 from __future__ import annotations
@@ -314,6 +317,37 @@ SOURCE_CONFIG: Dict[str, Any] = {
     "SEED": 42,
     "TRAINER": "base",
 }
+
+
+# The adaptation benchmark's configuration: the port's copy of
+# `simple_sfod_tpu/utils/bench.py:sfat_bench_cfg`, on get_cfg's defaults
+# (WEAK_STRONG_AUGMENT and ADAPTIVE_THRESHOLD.ENABLED on, domain classifiers
+# off): the main SFAT step on VGG16-BN, 8 classes, bfloat16 at 608x1216,
+# batch 1, BBOX_THRESHOLD 0.8 and EMA keep rate 0.9996 as the main YAML.
+SFAT_BENCH_CONFIG: Dict[str, Any] = {
+    "TRAINER": "source_free_adaptive_teacher",
+    "MODEL": {
+        "BACKBONE": {"NAME": "build_vgg_backbone"},
+        "RPN": {"IN_FEATURES": ("vgg4",)},
+        "ROI_HEADS": {"IN_FEATURES": ("vgg4",), "NUM_CLASSES": 8},
+    },
+    "VGG": {"BN": True},
+    "SEMISUPNET": {"BBOX_THRESHOLD": 0.8, "EMA_KEEP_RATE": 0.9996},
+    "SOLVER": {"IMS_PER_BATCH_TARGET": 1, "CHECKPOINT_PERIOD": 0},
+    "TPU": {"CANVAS": (608, 1216), "DTYPE": "bfloat16"},
+    "SEED": 0,
+    "TEST": {"EVAL_PERIOD": 0},
+}
+
+
+def get_sfat_bench_cfg(output_dir: str = "./output/sfat_bench") -> CfgNode:
+    """The adaptation benchmark's configuration (`SFAT_BENCH_CONFIG`), frozen,
+    writing to `output_dir`."""
+    cfg = get_cfg()
+    cfg.merge_from_list(config_opts(SFAT_BENCH_CONFIG))
+    cfg.OUTPUT_DIR = output_dir
+    cfg.freeze()
+    return cfg
 
 
 def config_opts(tree: Dict[str, Any], prefix: str = "") -> List[str]:

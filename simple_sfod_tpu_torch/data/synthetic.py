@@ -1,7 +1,9 @@
 """Synthetic detection data (the port's numpy copy of
 `simple_sfod_tpu/data/synthetic.py:make_synthetic_records` and of the
 synthetic branch of the loader's image rendering): rectangles on noise with
-exact ground truth, so a trainer runs without a dataset."""
+exact ground truth, so a trainer runs without a dataset; and the adaptation
+benchmark's target batch (`synthetic_bench_batch`, from
+`simple_sfod_tpu/utils/bench.py`), images and sizes without ground truth."""
 
 from __future__ import annotations
 
@@ -80,3 +82,15 @@ def synthetic_batch(records: Sequence[dict], canvas_hw: Tuple[int, int], gt_capa
         batch["gt_classes"][i, :k] = rec["classes"]
         batch["gt_valid"][i, :k] = True
     return batch
+
+
+def synthetic_bench_batch(cfg, n: int = None) -> Dict[str, np.ndarray]:
+    """The adaptation benchmark's target batch: n (default
+    SOLVER.IMS_PER_BATCH_TARGET) uniform-noise uint8 canvases of TPU.CANVAS
+    from RandomState(0), each with a 600x1200 content size."""
+    n = n or cfg.SOLVER.IMS_PER_BATCH_TARGET
+    rs = np.random.RandomState(0)
+    return {
+        "images": rs.uniform(0, 255, (n, *cfg.TPU.CANVAS, 3)).astype(np.uint8),
+        "sizes": np.tile(np.asarray([[600, 1200]], np.int32), (n, 1)),
+    }

@@ -28,6 +28,7 @@ from ...models.faster_rcnn import anchors_for, init_weights, roi_pool_size
 from ...solver.build import build_optimizer
 from ...structures.instances import Instances
 from ..train_state import TrainState
+from . import register_trainer
 
 
 class Draws(NamedTuple):
@@ -61,6 +62,7 @@ def apply_weak_aug(
     )
 
 
+@register_trainer("base")
 class BaseTrainer:
     """cfg.TRAINER = "base": supervised training of the detector.
 
@@ -84,9 +86,12 @@ class BaseTrainer:
             init_weights(self.detector.model, seed)
         else:
             self.detector.load_state_dict(state_dict)
-        model = self.detector.model
-        self.state = TrainState(step=0, model=model, optimizer=build_optimizer(cfg, model))
+        self.state = self._init_state()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _init_state(self) -> TrainState:
+        model = self.detector.model
+        return TrainState(step=0, model=model, optimizer=build_optimizer(self.cfg, model))
 
     def make_draws(self, batch_size: int, canvas_hw: Tuple[int, int], gt_capacity: int) -> Draws:
         """One step's draws from the trainer's generator, on the device."""

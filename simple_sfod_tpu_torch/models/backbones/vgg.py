@@ -52,15 +52,31 @@ class BatchNorm2d(nn.BatchNorm2d):
     The mode is an argument, not `self.training`: `train` selects batch
     statistics, `update_stats` whether the running ones move. The parameter
     and buffer names are nn.BatchNorm2d's; `num_batches_tracked` stays as
-    loaded (the JAX package has no such counter)."""
+    loaded (the JAX package has no such counter).
+
+    The weight and bias may be bfloat16 (the fixed teacher's, under
+    `TPU.DTYPE: bfloat16`) while the running statistics stay float32: they
+    are normalised in the input's dtype in train mode, in float32 against
+    the float32 statistics in eval mode, and the update writes float32."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
+    def _affine(self, dtype: torch.dtype):
+        """weight and bias in `dtype` where they are reduced precision and
+        `dtype` is not (torch's batch norm takes reduced-precision input with
+        float32 parameters, not the other way round)."""
+        w, b = self.weight, self.bias
+        if w.dtype != dtype and w.dtype != torch.float32:
+            w, b = w.to(dtype), b.to(dtype)
+        return w, b
+
     def forward(self, x: torch.Tensor, train: bool = False, update_stats: bool = True) -> torch.Tensor:
         if not train:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            w, b = self._affine(self.running_mean.dtype)
+            return F.batch_norm(x, self.running_mean, self.running_var, w, b, False, 0.0, self.eps)
+        w, b = self._affine(x.dtype)
+        y = F.batch_norm(x, None, None, w, b, True, 0.0, self.eps)
         if update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)

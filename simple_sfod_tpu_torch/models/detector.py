@@ -1,7 +1,11 @@
 """Detector API (the port of `simple_sfod_tpu/models/detector.py`): the
-supervised losses (`supervised_losses`, `losses_from_feature`) with
-train-mode BatchNorm, and inference (`infer`, `infer_from_feature`) with
-eval-mode BatchNorm."""
+supervised losses (`supervised_losses`, `losses_from_feature`, with the BPC
+loss logged on request) with train-mode BatchNorm; inference (`infer`,
+`infer_from_feature`) under `torch.inference_mode`, with eval-mode or
+batch-statistics BatchNorm; and the teacher's side of adaptation:
+`pseudo_labels`, a train-mode-BN forward that moves the running statistics
+and returns detections made under `torch.no_grad` (tensors that autograd may
+save, as the student's losses do with them), and `bn_update`."""
 
 from __future__ import annotations
 
@@ -12,11 +16,13 @@ import torch
 
 from ..device import resolve_device
 from ..structures.instances import Instances
+from ..losses.bpc import bpc_loss
 from .faster_rcnn import (
     DetectorConfig,
     FasterRCNN,
     RPNOutput,
     anchors_for,
+    bpc_candidates,
     label_and_sample_proposals,
     pool_rois,
     propose,
@@ -69,9 +75,8 @@ class Detector:
         samplers' uniform draws (`faster_rcnn.roi_pool_size` gives pool).
         Returns (total, metrics): the total weights each loss by
         `loss_weights` (default 1); metrics hold the unweighted losses,
-        num_fg and num_sampled, all tensors on the device."""
-        if with_bpc:
-            raise NotImplementedError("the BPC loss (losses/bpc.py) is not ported yet")
+        num_fg and num_sampled (and `loss_bpc` with `with_bpc`), all
+        tensors on the device."""
         cfg = self.cfg
         anchors = anchors_for(cfg, tuple(batch.images.shape[1:3]), feature.device)
         rpn_out = self.model.rpn(feature)
@@ -88,6 +93,12 @@ class Detector:
         metrics = dict(losses)
         metrics["num_fg"] = sampled.is_fg.sum()
         metrics["num_sampled"] = sampled.valid.sum()
+        if with_bpc:
+            # logged only, outside the total and without a gradient: every
+            # (sampled proposal, class) pair, no threshold, no NMS
+            with torch.no_grad():
+                preds = bpc_candidates(cfg, scores.detach(), deltas.detach(), sampled, batch.sizes)
+                metrics["loss_bpc"] = bpc_loss(preds, batch.gt)
         return total, metrics
 
     def supervised_losses(
@@ -113,15 +124,9 @@ class Detector:
             x = torch.from_numpy(np.ascontiguousarray(x))
         return x.to(self.device, dtype=dtype) if dtype else x.to(self.device)
 
-    @torch.inference_mode()
-    def infer_from_feature(
-        self,
-        feature: torch.Tensor,
-        sizes: torch.Tensor,
-        canvas_hw: Tuple[int, int],
-    ) -> Instances:
+    def detect(self, feature: torch.Tensor, sizes, canvas_hw: Tuple[int, int]) -> Instances:
         """Head-side inference on a backbone feature [B, C, h, w] computed
-        from a padded canvas of size canvas_hw."""
+        from a padded canvas of size canvas_hw, in the caller's grad mode."""
         cfg = self.cfg
         sizes = self._tensor(sizes, torch.int32)
         anchors = anchors_for(cfg, canvas_hw, self.device)
@@ -139,10 +144,39 @@ class Detector:
         )
 
     @torch.inference_mode()
-    def infer(self, images, sizes) -> Instances:
+    def infer_from_feature(
+        self,
+        feature: torch.Tensor,
+        sizes: torch.Tensor,
+        canvas_hw: Tuple[int, int],
+    ) -> Instances:
+        """`detect` under inference mode."""
+        return self.detect(feature, sizes, canvas_hw)
+
+    @torch.inference_mode()
+    def infer(self, images, sizes, train_mode_bn: bool = False) -> Instances:
         """images [B, H, W, 3] (uint8 canvases, the loader's layout), sizes
         [B, 2] int32 true (h, w) -> detections [B, topk]: boxes, scores,
-        classes, valid."""
+        classes, valid. `train_mode_bn` normalises by the batch statistics
+        without moving the running ones (the JAX package's AdaBN probe)."""
         images = self._tensor(images)
-        feature = self.model.features(images)
-        return self.infer_from_feature(feature, sizes, tuple(images.shape[1:3]))
+        feature = self.model.features(images, train=train_mode_bn, update_bn=False)
+        return self.detect(feature, sizes, tuple(images.shape[1:3]))
+
+    @torch.no_grad()
+    def pseudo_labels(self, images: torch.Tensor, sizes: torch.Tensor) -> Instances:
+        """The adaptive teacher's forward: train-mode BatchNorm on the batch
+        statistics, which also moves the running statistics (the JAX
+        package's mutable train-mode `_features` whose batch_stats become the
+        new teacher statistics), then inference. The detections are made
+        under no_grad, not inference mode, so the student's losses can save
+        them for backward."""
+        images = self._tensor(images)
+        feature = self.model.features(images, train=True, update_bn=True)
+        return self.detect(feature, sizes, tuple(images.shape[1:3]))
+
+    @torch.no_grad()
+    def bn_update(self, images) -> None:
+        """One AdaBN accumulation step: a train-mode forward that moves the
+        running statistics in place (the JAX package returns them)."""
+        self.model.features(self._tensor(images), train=True, update_bn=True)

@@ -25,6 +25,7 @@ dropout are not ported yet and raise.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Tuple
 
@@ -249,13 +250,22 @@ def roi_pool_size(cfg: DetectorConfig, num_anchors: int, gt_capacity: int) -> in
     return proposal_counts(cfg, num_anchors, True)[1] + (gt_capacity if cfg.proposal_append_gt else 0)
 
 
+@functools.lru_cache(maxsize=32)
+def _anchor_grid(feature_hw, stride, sizes, ratios, device: torch.device) -> torch.Tensor:
+    return generate_anchors(feature_hw, stride, sizes, ratios, device=device)
+
+
 def anchors_for(cfg: DetectorConfig, canvas_hw: Tuple[int, int], device: torch.device) -> torch.Tensor:
     """Anchor grid [h*w*A, 4] of the padded canvas; the feature map is
-    ceil(H / stride) x ceil(W / stride)."""
+    ceil(H / stride) x ceil(W / stride). Built on the host and copied to the
+    device once per canvas and device, then shared (callers must not write
+    to it): a step reads it without a host-to-device copy."""
     stride = cfg.stride
     fh = (canvas_hw[0] + stride - 1) // stride
     fw = (canvas_hw[1] + stride - 1) // stride
-    return generate_anchors((fh, fw), stride, cfg.anchor_sizes, cfg.anchor_ratios, device=device)
+    return _anchor_grid(
+        (fh, fw), stride, tuple(cfg.anchor_sizes), tuple(cfg.anchor_ratios), torch.device(device)
+    )
 
 
 def propose(
@@ -383,6 +393,41 @@ def roi_losses(
     return {"loss_cls": loss_cls, "loss_box_reg": loss_reg}
 
 
+def bpc_candidates(
+    cfg: DetectorConfig,
+    scores: torch.Tensor,
+    deltas: torch.Tensor,
+    sampled: SampledProposals,
+    image_sizes: torch.Tensor,
+) -> Instances:
+    """The BPC loss's input: every (sampled proposal, foreground class) pair
+    as one candidate, S*C per image, with no score filter and no NMS.
+    scores [B*S, C+1] logits, deltas [B*S, 4C] -> Instances [B, S*C].
+
+    The reference first replaces each proposal box by its decoded box of the
+    matched GT class, then decodes every class's deltas relative to that
+    box: the double decode is kept. Scores are softmax probabilities with
+    the background dropped; boxes are clipped to the image."""
+    b, s = sampled.gt_classes.shape
+    c = scores.shape[-1] - 1
+    probs = torch.softmax(scores, dim=-1)[:, :-1]  # [B*S, C]
+    k = deltas.shape[-1] // 4
+    deltas_k = deltas.reshape(-1, k, 4)
+    prop = sampled.boxes.reshape(-1, 4)
+    gt_cls = torch.clamp(sampled.gt_classes.reshape(-1), 0, k - 1)
+    gt_deltas = torch.gather(deltas_k, 1, gt_cls[:, None, None].expand(-1, 1, 4))[:, 0]
+    base = ROI_BOX_TRANSFORM.apply_deltas(gt_deltas, prop)  # [B*S, 4]
+    boxes_all = ROI_BOX_TRANSFORM.apply_deltas(deltas, base).reshape(b, s * c, 4)
+    boxes_all = clip_boxes(boxes_all, image_sizes)
+    classes = torch.arange(c, dtype=torch.int32, device=scores.device).repeat(b, s)
+    return Instances(
+        boxes=boxes_all.detach(),
+        scores=probs.reshape(b, s * c),
+        classes=classes,
+        valid=sampled.valid[:, :, None].expand(b, s, c).reshape(b, s * c),
+    )
+
+
 def pool_rois(cfg: DetectorConfig, feature: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     """feature [B, C, h, w], boxes [B, R, 4] -> pooled [B*R, C, P, P]."""
     scale = 1.0 / cfg.stride
@@ -417,7 +462,7 @@ def roi_inference(
         flat_boxes = boxes_k.reshape(r * num_classes, 4)
         flat_scores = probs.reshape(r * num_classes)
         flat_classes = torch.arange(num_classes, dtype=torch.int32, device=sc.device).repeat(r)
-        valid = prop_valid.repeat_interleave(num_classes) & nonempty(flat_boxes)
+        valid = prop_valid[:, None].expand(r, num_classes).reshape(-1) & nonempty(flat_boxes)
         valid = valid & (flat_scores > cfg.score_thresh_test)
         cap = min(flat_scores.shape[0], max(8 * topk, 1024))
         key = torch.where(valid, flat_scores, torch.full_like(flat_scores, -float("inf")))

@@ -37,8 +37,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 # csrc/nms.cu:kMaxWords * 64, the largest N whose three mask slices fit in a
-# block's shared memory
+# block's shared memory; above it greedy_keep_from_bits takes its row-walk
+# route, up to csrc/nms.cu:kRowWalkMaxWords * 64
 GREEDY_MAX_N = 140 * 64
+ROWWALK_MAX_N = 224 * 1024 // 8 * 64
 
 # Launch counts of each kernel, by name. A run sets them to 0 before the
 # work it wants to account for and reads them after.
@@ -110,6 +112,8 @@ def _load(name: str) -> ctypes.CDLL:
                     ctypes.c_void_p, ctypes.c_void_p,
                 ]
                 lib.sfod_greedy_keep_from_bits.restype = ctypes.c_int
+                lib.sfod_greedy_keep_from_bits_rowwalk.argtypes = lib.sfod_greedy_keep_from_bits.argtypes
+                lib.sfod_greedy_keep_from_bits_rowwalk.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 
@@ -194,15 +198,13 @@ def launch_suppress_relation_bits(
     return out
 
 
-def launch_greedy_keep_from_bits(bits: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
-    """Kernel 2. bits int64 [N, ceil(N/64)] from kernel 1 and svalid bool [N]
-    on CUDA -> keep bool [N] in the same (score) order."""
+def _launch_greedy(entry: str, max_n: int, bits: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
     n = svalid.shape[0]
     words = (n + 63) // 64
     _check_cuda("bits", bits, torch.int64, (n, words))
     _check_cuda("svalid", svalid, torch.bool, (n,))
-    if n > GREEDY_MAX_N:
-        raise ValueError(f"greedy_keep_from_bits takes N <= {GREEDY_MAX_N}, got {n}")
+    if n > max_n:
+        raise ValueError(f"{entry} takes N <= {max_n}, got {n}")
     if bits.data_ptr() % 16:
         bits = bits.clone()
     keep = torch.empty((n,), dtype=torch.bool, device=bits.device)
@@ -211,9 +213,22 @@ def launch_greedy_keep_from_bits(bits: torch.Tensor, svalid: torch.Tensor) -> to
     lib = _load("nms")
     with torch.cuda.device(bits.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sfod_greedy_keep_from_bits(
+        err = getattr(lib, f"sfod_{entry}")(
             bits.data_ptr(), svalid.data_ptr(), n, words, keep.data_ptr(), stream
         )
-    _raise_on(err, "greedy_keep_from_bits launch")
+    _raise_on(err, f"{entry} launch")
     LAUNCHES["greedy_keep_from_bits"] += 1
     return keep
+
+
+def launch_greedy_keep_from_bits(bits: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
+    """Kernel 2. bits int64 [N, ceil(N/64)] from kernel 1 and svalid bool [N]
+    on CUDA -> keep bool [N] in the same (score) order. N <= GREEDY_MAX_N."""
+    return _launch_greedy("greedy_keep_from_bits", GREEDY_MAX_N, bits, svalid)
+
+
+def launch_greedy_keep_from_bits_rowwalk(bits: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
+    """Kernel 2's second route, the row walk, for N above GREEDY_MAX_N (it
+    takes any N up to ROWWALK_MAX_N); the same arguments and result, counted
+    as a launch of greedy_keep_from_bits."""
+    return _launch_greedy("greedy_keep_from_bits_rowwalk", ROWWALK_MAX_N, bits, svalid)

@@ -418,6 +418,71 @@ size_t greedy_smem_bytes(int words) {
          sizeof(u64);
 }
 
+// Kernel 2, second route: greedy_keep_from_bits for N above kMaxWords * 64,
+// where kernel 2's three slices of rows no longer fit in shared memory.
+//
+// The same exact greedy sweep, one block, one launch, no host round trip,
+// with the removed words of every column in shared memory (8 bytes a word:
+// 48 KiB at N = 393216) and nothing else of the mask kept there. For each
+// group of 64 rows: the group's diagonal words and valid bits are loaded,
+// thread 0 walks the 64 rows in order (a row is kept iff it is valid and its
+// bit of the removed word is clear, and a kept row ORs its diagonal word in),
+// then every thread ORs the kept rows' words of its columns right of the
+// diagonal into the removed words, reading them from global memory (the
+// threads of a warp read consecutive words of one row). This is the row walk
+// of the first slice's kernel; it reads only the kept rows right of the
+// diagonal, as kernel 2 does, but without kernel 2's look-ahead, so the chain
+// waits on each group's loads.
+constexpr int kRowWalkThreads = 256;
+// 224 KiB of removed words: the static shared memory stays under the card's
+// 227 KiB a block
+constexpr int kRowWalkMaxWords = 224 * 1024 / 8;
+
+__global__ void __launch_bounds__(kRowWalkThreads)
+greedy_keep_from_bits_rowwalk_kernel(const u64* __restrict__ bits, const uint8_t* __restrict__ valid,
+                                     int n, int words, uint8_t* __restrict__ keep) {
+  extern __shared__ u64 removed[];  // [words]
+  __shared__ u64 diag[kWord];
+  __shared__ unsigned vhalf[2];
+  __shared__ u64 kept_word;
+  const int t = threadIdx.x;
+  for (int w = t; w < words; w += kRowWalkThreads) removed[w] = 0ull;
+  for (int b = 0; b < words; ++b) {
+    const int row0 = b * kWord;
+    if (t < kWord) {
+      const int row = row0 + t;
+      diag[t] = row < n ? bits[(size_t)row * words + b] : 0ull;
+      const unsigned ballot = __ballot_sync(kFull, row < n && valid[row]);
+      if ((t & 31) == 0) vhalf[t >> 5] = ballot;
+    }
+    __syncthreads();
+    if (t == 0) {
+      u64 cur = removed[b];
+      const u64 v = ((u64)vhalf[1] << 32) | vhalf[0];
+      u64 kw = 0ull;
+      for (int r = 0; r < kWord; ++r) {
+        if (((v >> r) & 1ull) && !((cur >> r) & 1ull)) {
+          kw |= 1ull << r;
+          cur |= diag[r];
+        }
+      }
+      kept_word = kw;
+    }
+    __syncthreads();
+    const u64 kw = kept_word;
+    if (t < kWord && row0 + t < n) keep[row0 + t] = (uint8_t)((kw >> t) & 1ull);
+    for (int w = b + 1 + t; w < words; w += kRowWalkThreads) {
+      u64 acc = 0ull;
+      for (u64 rest = kw; rest; rest &= rest - 1) {
+        const int r = __ffsll((long long)rest) - 1;
+        acc |= bits[(size_t)(row0 + r) * words + w];
+      }
+      removed[w] |= acc;
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -448,7 +513,7 @@ int sfod_suppress_relation_bits(const void* boxes, const void* valid, float thr,
 
 // bits: uint64 [n, words] from sfod_suppress_relation_bits, 16-byte aligned;
 // valid: uint8 [n]; keep: uint8 [n] (0/1), written in sorted order.
-// words <= 144 (n <= 9216).
+// words <= kMaxWords (n <= 8960); larger n take the row-walk route below.
 int sfod_greedy_keep_from_bits(const void* bits, const void* valid, int n, int words,
                                void* keep, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
@@ -460,6 +525,24 @@ int sfod_greedy_keep_from_bits(const void* bits, const void* valid, int n, int w
     if (err != cudaSuccess) return (int)err;
   }
   greedy_keep_from_bits_kernel<<<1, kGreedyThreads, smem, (cudaStream_t)stream>>>(
+      (const u64*)bits, (const uint8_t*)valid, n, words, (uint8_t*)keep);
+  return (int)cudaGetLastError();
+}
+
+// The second route of sfod_greedy_keep_from_bits, for any words (the caller
+// takes it above kMaxWords); the removed words must fit in shared memory:
+// words <= 28672 (n <= 1835008).
+int sfod_greedy_keep_from_bits_rowwalk(const void* bits, const void* valid, int n, int words,
+                                       void* keep, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const size_t smem = (size_t)words * sizeof(u64);
+  if (words > kRowWalkMaxWords) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        greedy_keep_from_bits_rowwalk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  greedy_keep_from_bits_rowwalk_kernel<<<1, kRowWalkThreads, smem, (cudaStream_t)stream>>>(
       (const u64*)bits, (const uint8_t*)valid, n, words, (uint8_t*)keep);
   return (int)cudaGetLastError();
 }

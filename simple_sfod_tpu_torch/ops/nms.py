@@ -86,10 +86,13 @@ def suppress_relation_bits(sboxes: torch.Tensor, svalid: torch.Tensor, iou_thres
 
 def greedy_keep_from_bits(bits: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
     """Keep mask [N] bool in score order: Hopper kernel 2 on CUDA (one launch,
-    no host round trip), the plain fixpoint on the CPU."""
+    no host round trip), the plain fixpoint on the CPU. On CUDA the route
+    follows N: kernel 2 up to `_kernels.GREEDY_MAX_N`, its row walk above."""
     if bits.device.type == "cpu":
         return greedy_keep_plain(unpack_bits(bits, svalid.shape[0]), svalid)
-    return _kernels.launch_greedy_keep_from_bits(bits, svalid)
+    if svalid.shape[0] <= _kernels.GREEDY_MAX_N:
+        return _kernels.launch_greedy_keep_from_bits(bits, svalid)
+    return _kernels.launch_greedy_keep_from_bits_rowwalk(bits, svalid)
 
 
 def score_order(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

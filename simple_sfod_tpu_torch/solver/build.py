@@ -130,9 +130,11 @@ class SGD:
         self.count += 1
 
 
-def build_optimizer(cfg, model: nn.Module) -> SGD:
+def build_optimizer(cfg, model: nn.Module, extra: Optional[Dict[str, nn.Module]] = None) -> SGD:
     """SGD over the model's trainable parameters from cfg.SOLVER (and
-    MODEL.BACKBONE.FREEZE_AT, which selects nothing on VGG)."""
+    MODEL.BACKBONE.FREEZE_AT, which selects nothing on VGG). `extra` adds
+    other modules' parameters under their name's prefix (the adaptation
+    trainer's domain classifiers), decayed by the same rule."""
     s = cfg.SOLVER
     schedule = warmup_multistep_schedule(
         s.BASE_LR,
@@ -146,6 +148,9 @@ def build_optimizer(cfg, model: nn.Module) -> SGD:
     frozen = backbone_freeze_mask(model, int(cfg.MODEL.BACKBONE.FREEZE_AT))
     norm = norm_param_mask(model)
     params = {n: p for n, p in model.named_parameters() if not frozen[n]}
+    for prefix, module in (extra or {}).items():
+        norm.update({f"{prefix}.{n}": v for n, v in norm_param_mask(module).items()})
+        params.update({f"{prefix}.{n}": p for n, p in module.named_parameters()})
     decay = {n: float(s.WEIGHT_DECAY_NORM) if norm[n] else float(s.WEIGHT_DECAY) for n in params}
     clip = float(s.CLIP_GRADIENTS.CLIP_VALUE) if s.CLIP_GRADIENTS.ENABLED else None
     return SGD(params, schedule, float(s.MOMENTUM), decay, clip)

@@ -44,16 +44,19 @@ def case(seed, n, n_valid, classes=0):
 @pytest.mark.parametrize(
     "n,n_valid,thr,classes",
     [(4096, 4000, 0.7, 0), (1024, 1000, 0.5, 8), (1000, 1000, 0.5, 0), (65, 60, 0.5, 0), (1, 1, 0.5, 0), (200, 0, 0.7, 0),
-     (8192, 8000, 0.7, 0), (4097, 4000, 0.7, 0), (_kernels.GREEDY_MAX_N, 8800, 0.7, 0)],
+     (8192, 8000, 0.7, 0), (4097, 4000, 0.7, 0), (_kernels.GREEDY_MAX_N, 8800, 0.7, 0),
+     (12288, 12000, 0.7, 0), (16384, 16000, 0.7, 0)],
 )
 def test_kernels_bit_equal_to_plain(cuda, n, n_valid, thr, classes):
+    """Both kernels through the call that picks the keep route by N (the
+    row walk above GREEDY_MAX_N), against the plain versions."""
     boxes, scores, valid = case(n, n, n_valid, classes)
     order = nms.score_order(scores, valid)
     sb, sv = boxes[order].contiguous(), valid[order].contiguous()
     rel = nms.suppress_relation_plain(sb, sv, thr)
     _kernels.reset_launches()
     bits = _kernels.launch_suppress_relation_bits(sb.to(cuda), sv.to(cuda), thr)
-    keep = _kernels.launch_greedy_keep_from_bits(bits, sv.to(cuda))
+    keep = nms.greedy_keep_from_bits(bits, sv.to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(bits.cpu(), nms.pack_bits(rel))
     assert torch.equal(keep.cpu(), nms.greedy_keep_plain(rel, sv))
@@ -65,14 +68,15 @@ def test_kernels_bit_equal_to_plain(cuda, n, n_valid, thr, classes):
 @pytest.mark.parametrize("label", list(chip_smoke.EDGE_CASES))
 def test_kernels_on_edge_cases(cuda, label):
     """Cases built to break the kernels: IoUs at the threshold's rounding
-    boundaries, a suppression chain, identical and disjoint boxes."""
+    boundaries, a suppression chain (also above GREEDY_MAX_N, on the keep's
+    row-walk route), identical and disjoint boxes."""
     build, thr = chip_smoke.EDGE_CASES[label]
     boxes, scores, valid, want = (torch.from_numpy(a) for a in build())
     order = nms.score_order(scores, valid)
     sb, sv = boxes[order].contiguous(), valid[order].contiguous()
     rel = nms.suppress_relation_plain(sb.to(cuda), sv.to(cuda), thr)
     bits = _kernels.launch_suppress_relation_bits(sb.to(cuda), sv.to(cuda), thr)
-    keep = _kernels.launch_greedy_keep_from_bits(bits, sv.to(cuda))
+    keep = nms.greedy_keep_from_bits(bits, sv.to(cuda))
     assert torch.equal(bits, nms.pack_bits(rel))
     assert torch.equal(keep, nms.greedy_keep_plain(rel, sv.to(cuda)))
     got = nms.nms_mask_matrix(boxes.to(cuda), scores.to(cuda), valid.to(cuda), thr)
@@ -153,3 +157,28 @@ def test_train_steps_launch_the_kernels_on_train_mode_nms_inputs(cuda):
     for b, s, v, thr in captured:
         assert b.is_cuda and thr == 0.7
         assert torch.equal(nms.nms_mask_matrix(b, s, v, thr), chip_smoke.plain_keep(b, s, v, thr))
+
+
+def test_adaptation_step_launches_three_of_each_kernel_per_image(cuda):
+    """The main variant's adaptation step (strong view, adaptive threshold,
+    bfloat16 with a bfloat16 fixed teacher) at batch 2 and 256x512: finite
+    losses, pseudo-labels, and 3 launches of each NMS kernel per image (the
+    teacher's RPN and detection NMS, the student's RPN NMS)."""
+    cfg = chip_smoke.adapt_cfg(chip_smoke.SFAT_BENCH_CONFIG, canvas=(256, 512))
+    cfg.merge_from_list(["SOLVER.IMS_PER_BATCH_TARGET", "2"])
+    trainer = chip_smoke.adapt_trainer(cfg)
+    batch = chip_smoke.synthetic_bench_batch(cfg)
+    batch["sizes"][:] = (250, 500)
+    for _ in range(2):
+        _kernels.reset_launches()
+        metrics = trainer.run_step(batch)
+        assert _kernels.LAUNCHES == {"suppress_relation_bits": 6, "greedy_keep_from_bits": 6}
+        assert all(torch.isfinite(metrics[k]) for k in chip_smoke.ADAPT_LOSSES)
+    assert int(metrics["num_pseudo"]) > 0
+
+
+def test_adaptation_step_card_matches_cpu(cuda):
+    """One float32 adaptation step (TF32 off) on the card against the same
+    step on the CPU: chip_smoke's tolerances."""
+    err = chip_smoke.card_vs_cpu_adapt_step(canvas=(128, 256), image_hw=(120, 250))
+    assert chip_smoke.card_step_ok(err), err

@@ -169,6 +169,21 @@ def test_n4097_matches_jax_and_golden():
     assert set(np.nonzero(got)[0].tolist()) == set(idx[golden.greedy_nms(boxes[idx], scores[idx], 0.7)].tolist())
 
 
+def test_n12288_matches_jax_and_golden():
+    """N above the card's shared-memory keep route (`_kernels.GREEDY_MAX_N`),
+    which the card serves by its row-walk route: the plain keep (what the
+    card is held to bit for bit) equals the JAX NMS and the golden one."""
+    n = 12288
+    assert n > _kernels.GREEDY_MAX_N
+    boxes, scores, valid = make_case(n, n, extent=1200.0)
+    got = nms.nms_mask_matrix(t(boxes), t(scores), t(valid), 0.7).numpy()
+    want = jax_nms_mask_matrix(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid), 0.7)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    idx = np.nonzero(valid)[0]
+    assert set(np.nonzero(got)[0].tolist()) == set(idx[golden.greedy_nms(boxes[idx], scores[idx], 0.7)].tolist())
+    assert 0 < got.sum() < valid.sum()
+
+
 def division_free_gt(inter: torch.Tensor, uni: torch.Tensor, thr: float) -> torch.Tensor:
     """csrc/nms.cu's relation test in float64: with t = float32(thr), t+ the
     next float above it and m = (t + t+) / 2, fl(inter / uni) > t iff

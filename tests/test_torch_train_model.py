@@ -314,8 +314,15 @@ def test_supervised_losses_on_jax_draws(pair, update_bn):
     want = bn_buffers(state_dict_from_jax({"params": variables["params"], "batch_stats": stats}, pcfg))
     for k, v in bn_buffers(det.model.state_dict()).items():
         np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=0, atol=bn_tolerance(k) * np.abs(want[k].numpy()).max(), err_msg=k)
-    with pytest.raises(NotImplementedError, match="BPC"):
-        det.supervised_losses(batch, T(rpn), T(roi), with_bpc=True)
+    # with_bpc logs the BPC loss, outside the total and without a gradient
+    _, jm_bpc, _ = jax.jit(
+        lambda v, im, sz, g, r: jdet.supervised_losses(v, JaxBatch(im, sz, g), r, update_bn=False, with_bpc=True)
+    )(variables, jnp.asarray(pair["images"], jnp.float32), jnp.asarray(pair["sizes"]), jgt, rng)
+    det = Detector(pcfg, device="cpu").load_state_dict(state_dict_from_jax(variables, pcfg))
+    bpc_total, bpc = det.supervised_losses(batch, T(rpn), T(roi), update_bn=False, with_bpc=True)
+    np.testing.assert_allclose(bpc_total.item(), float(total), rtol=1e-4)
+    assert not bpc["loss_bpc"].requires_grad and float(jm_bpc["loss_bpc"]) > 0
+    np.testing.assert_allclose(bpc["loss_bpc"].item(), float(jm_bpc["loss_bpc"]), rtol=1e-4)
 
 
 def test_rpn_head_gradients_on_the_same_feature(pair):
