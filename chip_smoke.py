@@ -7,8 +7,10 @@ over HTTP, and check what comes out.
 
 Phases (each prints one progress line with its wall time):
   1. device   the card's name and power limit; fails without CUDA
-  2. build    nvcc builds simple_sfod_tpu_torch/ops/csrc/nms.cu; each
-              kernel's registers, shared memory and spills (-Xptxas -v)
+  2. build    nvcc builds simple_sfod_tpu_torch/ops/csrc/nms.cu while g++
+              builds the host libraries (the image codec, the C++ COCO
+              evaluator); each kernel's registers, shared memory and spills
+              (-Xptxas -v)
   3. kernels  suppress_relation_bits and greedy_keep_from_bits against their
               plain versions on seeded boxes (ties, invalid and zero-area
               boxes, class-offset boxes, N up to 8192 and N = 4097, and
@@ -19,9 +21,10 @@ Phases (each prints one progress line with its wall time):
   4. serve    the main configuration (VGG16-BN, 8 classes, 608x1216 canvas,
               bfloat16) with seeded weights behind the HTTP server; 4
               requests of seeded 600x1200 uint8 images, two of them
-              concurrent; both NMS kernels must launch for every image, and
-              on the NMS inputs captured from one request kernel and plain
-              keep masks must be equal
+              concurrent, then a 1024x2048 frame sent as a PNG file (decoded
+              and resized by the native codec); both NMS kernels must launch
+              for every image, and on the NMS inputs captured from one
+              request kernel and plain keep masks must be equal
   5. profile  the served detector without HTTP: median latency at batch 1
               and 2, then one image under torch.profiler (device time, busy
               share, top kernels and ops, peak memory)
@@ -60,6 +63,23 @@ Phases (each prints one progress line with its wall time):
               torch.profiler, and one float32 step on the card against the
               CPU's at 128x256 (and at 256x512, reported: random weights'
               tied scores make the top-k cuts there differ)
+ 10. eval     the target domain from disk: 16 synthetic
+              1024x2048 records written as PNG with a COCO JSON, registered
+              as the main configuration's two DATASETS.TEST names and its
+              TRAIN_TARGET; the first PNG decode bit-equal to the array
+              written; 4 bfloat16 adaptation steps of the main variant on
+              MAIN_CONFIG from trainer.build_train_loader() (decoded and
+              resized natively to 600x1200 on the 608x1216 canvas); then
+              trainer.test(): student and teacher on both datasets, exactly
+              2 launches of each NMS kernel per image and evaluated model
+              (128 of each), eval_results.json with 4 entries of finite AP,
+              AP50 and F1; the native COCO result equal to the plain
+              coco_map on the same records (1e-9); a dispatch under
+              set_sync_debug_mode("error"); images/s of the whole eval loop
+              at pipeline depth 1 and 4, one pass under torch.profiler (busy
+              share), peak memory, host decode+resize ms an image; and a
+              float32 eval loop on 4 images at 128x256 on the card against
+              the CPU's
 
 Prints the card's name and power limit and a JSON line of the kernels'
 numbers, then, as the last line, {"ok": true, "device": {...}}. Any failure
@@ -70,20 +90,30 @@ from __future__ import annotations
 
 import io
 import json
+import os
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
+import zlib
 
 import numpy as np
 import torch
 
+from simple_sfod_tpu_torch import host_libs
 from simple_sfod_tpu_torch.config import detector_config_from_cfg, get_cfg, get_main_cfg, get_source_cfg
 from simple_sfod_tpu_torch.config.defaults import MAIN_CONFIG, SFAT_BENCH_CONFIG, config_opts
-from simple_sfod_tpu_torch.data import transforms
-from simple_sfod_tpu_torch.data.synthetic import make_synthetic_records, synthetic_batch, synthetic_bench_batch
+from simple_sfod_tpu_torch.data import native_codec, transforms
+from simple_sfod_tpu_torch.data.datasets import CITYSCAPES_THING_CLASSES, register_dataset
+from simple_sfod_tpu_torch.data.loader import build_test_loader
+from simple_sfod_tpu_torch.data.synthetic import make_synthetic_records, synthetic_batch, synthetic_bench_batch, synthetic_image
+from simple_sfod_tpu_torch.engine.eval_loop import Staging, inference_on_dataset
 from simple_sfod_tpu_torch.engine.serve import DetectionService, serve_in_thread
+from simple_sfod_tpu_torch.evaluation import COCOEvaluator, F1Evaluator, coco_map
+from simple_sfod_tpu_torch.evaluation.native import coco_map_native
 from simple_sfod_tpu_torch.engine.train_state import ema_tensors
 from simple_sfod_tpu_torch.engine.trainers import build_trainer
 from simple_sfod_tpu_torch.engine.trainers.base import BaseTrainer
@@ -94,6 +124,7 @@ from simple_sfod_tpu_torch.ops import _kernels, nms
 SEED = 0
 N_REQUESTS = 4
 IMAGE_HW = (600, 1200)  # Cityscapes' 1024x2048 after the shortest-edge-600 resize
+FRAME_HW = (1024, 2048)  # a Cityscapes frame
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
 # outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -130,6 +161,11 @@ ADAPT_LOSSES = ("loss_rpn_cls_pseudo", "loss_rpn_loc_pseudo", "loss_cls_pseudo",
                 "loss_bpc_pseudo", "total_loss")
 CLS_BIAS_BOOST = 4.0  # added to the class-1 logit bias: softmax ~0.87 > BBOX_THRESHOLD 0.8
 BBOX_OFFSET = 1e-2  # the student's regression biases against the teacher's
+# eval: the target domain on disk, Cityscapes-sized; steps adapted from the
+# loader before trainer.test(); the float32 card-vs-CPU eval loop's size
+EVAL_IMAGES = 16
+EVAL_STEPS = 4
+EVAL_SMALL = dict(images=4, hw=(100, 200), canvas=(128, 256), min_size=120)
 # float32 operations per (i < j, both valid) pair of the relation: 2 max,
 # 2 min, 2 sub, 2 clamp, 1 mul (intersection), 2 add/sub (union), 1 div,
 # 1 compare; the areas are per box, not per pair
@@ -622,6 +658,123 @@ def card_vs_cpu_adapt_step(canvas=(128, 256), image_hw=(120, 250)):
     return out
 
 
+# ---------------------------------------------------------------- eval data
+def png_bytes(rgb: np.ndarray, level: int = 1) -> bytes:
+    """An 8-bit RGB PNG of rgb [H, W, 3] uint8, written with the standard
+    library (zlib, struct): the rows filtered by types 0-4 in turn, so that
+    a decoder meets every filter."""
+    h, w, _ = rgb.shape
+    x = rgb.reshape(h, w * 3).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 3:] = x[:, :-3]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 3:] = x[:-1, :-3]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = (np.zeros_like(x), a, b, (a + b) // 2, paeth)
+    ft = np.arange(h) % 5
+    rows = np.empty((h, w * 3 + 1), np.uint8)
+    rows[:, 0] = ft
+    for t, pred in enumerate(preds):
+        rows[ft == t, 1:] = ((x - pred)[ft == t] % 256).astype(np.uint8)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return native_codec.PNG_MAGIC + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + chunk(b"IEND", b"")
+
+
+def write_eval_dataset(root: str, n: int, hw, seed: int = SEED):
+    """n synthetic records of size hw (1..6 boxes of Cityscapes' 8 classes),
+    rendered as the loader's synthetic images, written as PNG files with a
+    COCO JSON (category ids 1..8) under root. -> (JSON path, records, the
+    first image as written, RGB uint8)."""
+    recs = make_synthetic_records(n, tuple(hw), len(CITYSCAPES_THING_CLASSES), 6, seed=seed)
+    images, anns, first = [], [], None
+    for r in recs:
+        rgb = np.clip(synthetic_image(r), 0, 255).astype(np.uint8)
+        first = rgb if first is None else first
+        fname = f"frame_{r['image_id']:04d}.png"
+        with open(os.path.join(root, fname), "wb") as f:
+            f.write(png_bytes(rgb))
+        images.append({"id": r["image_id"], "file_name": fname, "height": hw[0], "width": hw[1]})
+        for box, cls in zip(r["boxes"], r["classes"]):
+            x1, y1, x2, y2 = box
+            anns.append({"id": len(anns) + 1, "image_id": r["image_id"], "category_id": cls + 1,
+                         "bbox": [x1, y1, x2 - x1, y2 - y1], "iscrowd": 0})
+    cats = [{"id": k + 1, "name": name} for k, name in enumerate(CITYSCAPES_THING_CLASSES)]
+    path = os.path.join(root, "annotations.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+    return path, recs, first
+
+
+def match_dumps(a, b):
+    """Two COCO detection dumps of the same images, paired per image one to
+    one by category and nearest box (closest pairs first). -> (entries
+    without a partner, largest box difference in px, largest score
+    difference)."""
+    def by_image(dump):
+        out = {}
+        for e in dump:
+            out.setdefault(e["image_id"], []).append(e)
+        return out
+
+    ai, bi = by_image(a), by_image(b)
+    unpaired, box_err, score_err = 0, 0.0, 0.0
+    for img in set(ai) | set(bi):
+        p, q = ai.get(img, []), bi.get(img, [])
+        unpaired += abs(len(p) - len(q))
+        if not p or not q:
+            continue
+        pb, qb = np.asarray([e["bbox"] for e in p]), np.asarray([e["bbox"] for e in q])
+        pc, qc = np.asarray([e["category_id"] for e in p]), np.asarray([e["category_id"] for e in q])
+        dist = np.abs(pb[:, None] - qb[None]).max(-1) + np.where(pc[:, None] != qc[None], np.inf, 0.0)
+        taken = np.zeros(len(q), bool)
+        for i in np.argsort(dist.min(axis=1), kind="stable")[: min(len(p), len(q))]:
+            k = int(np.argmin(np.where(taken, np.inf, dist[i])))
+            if not np.isfinite(dist[i, k]):
+                unpaired += 1
+                continue
+            taken[k] = True
+            box_err = max(box_err, float(dist[i, k]))
+            score_err = max(score_err, abs(p[i]["score"] - q[k]["score"]))
+    return unpaired, box_err, score_err
+
+
+def card_vs_cpu_eval(root: str):
+    """A float32 eval loop (TF32 off) on EVAL_SMALL's 4 PNG images at
+    128x256 (100x200 files resized to 120x240) on the card and on the CPU,
+    seeded weights. -> (card results, CPU results, match_dumps of the two
+    dumps, detections on the CPU)."""
+    path, _, _ = write_eval_dataset(root, EVAL_SMALL["images"], EVAL_SMALL["hw"], seed=SEED + 5)
+    register_dataset("eval_small", path, root, CITYSCAPES_THING_CLASSES)
+    cfg = get_main_cfg()
+    ms = EVAL_SMALL["min_size"]
+    cfg.merge_from_list(["TPU.DTYPE", "float32", "TPU.CANVAS", repr(EVAL_SMALL["canvas"]), "INPUT.MIN_SIZE_TEST", str(ms),
+                         "INPUT.MAX_SIZE_TEST", str(EVAL_SMALL["canvas"][1]), "TEST.IMS_PER_BATCH", "2"])
+    dcfg = detector_config_from_cfg(cfg)
+    sd = init_weights(FasterRCNN(dcfg), SEED).state_dict()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            dump = os.path.join(root, f"dump_{dev}.json")
+            det = Detector(dcfg, device=dev).load_state_dict(sd)
+            res = inference_on_dataset(det, build_test_loader(cfg, "eval_small"), CITYSCAPES_THING_CLASSES,
+                                       dump_json=dump, pipeline_depth=2)
+            with open(dump) as f:
+                out[dev] = (res, json.load(f))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return out["cuda"][0], out["cpu"][0], match_dumps(out["cuda"][1], out["cpu"][1]), len(out["cpu"][1])
+
+
 def train_run(dtype: str, captured: list):
     """TRAIN_STEPS steps of the full-width trainer on one repeated batch.
     Captures the RPN NMS inputs of the first step. -> (trainer, batch,
@@ -695,10 +848,18 @@ def main() -> int:
         log(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     with Phase("build"):
+        # nvcc for the kernels and g++ for the two host libraries, together
+        from concurrent.futures import ThreadPoolExecutor
+
         t0 = time.perf_counter()
-        path = _kernels.build("nms")
+        with ThreadPoolExecutor(3) as pool:
+            futures = {"nms": pool.submit(_kernels.build, "nms")}
+            futures.update({name: pool.submit(host_libs.build, name) for name in ("imgcodec", "cocoeval")})
+            built = {name: f.result() for name, f in futures.items()}
         _kernels.load_all()
-        log(f"build: {path} in {time.perf_counter() - t0:.2f} s (nvcc {_kernels.BUILD_SECONDS.get('nms', 0.0):.2f} s)")
+        log(f"build: {built['nms']} in {time.perf_counter() - t0:.2f} s with the host libraries (nvcc "
+            f"{_kernels.BUILD_SECONDS.get('nms', 0.0):.2f} s; g++ imgcodec {host_libs.BUILD_SECONDS.get('imgcodec', 0.0):.2f} s, "
+            f"cocoeval {host_libs.BUILD_SECONDS.get('cocoeval', 0.0):.2f} s)")
         # registers, static shared memory and spills, from nvcc -Xptxas -v
         ptxas = {}
         for mangled, use in _kernels.resource_usage("nms").items():
@@ -797,6 +958,15 @@ def main() -> int:
                     raise AssertionError("a concurrent request did not finish")
             if errors:
                 raise errors[0]
+            # a Cityscapes frame sent as a PNG file: native decode and resize
+            big = rng.randint(0, 256, FRAME_HW + (3,)).astype(np.uint8)
+            before = dict(_kernels.LAUNCHES)
+            big_res, big_ms = post(png_bytes(big))
+            check("error" not in big_res, f"{FRAME_HW} request: {big_res.get('error')}")
+            for k, c in _kernels.LAUNCHES.items():
+                check(c - before[k] == 2, f"{FRAME_HW} request: {k} launched {c - before[k]} times, expected 2")
+            big_prep = service._prepare(big[:, :, ::-1].copy())
+            check(big_prep[1] == (600, 1200), f"{FRAME_HW} frame resized to {big_prep[1]}, expected (600, 1200)")
             launches = dict(_kernels.LAUNCHES)
         finally:
             nms.nms_mask_matrix = orig_nms
@@ -805,8 +975,15 @@ def main() -> int:
             service.close()
 
         for k, c in launches.items():
-            if c < 2 * N_REQUESTS:
-                raise AssertionError(f"{k} launched {c} times for {N_REQUESTS} images, expected >= {2 * N_REQUESTS}")
+            if c < 2 * (N_REQUESTS + 1):
+                raise AssertionError(f"{k} launched {c} times for {N_REQUESTS + 1} images, expected >= {2 * (N_REQUESTS + 1)}")
+        check(big_res["width"] == FRAME_HW[1] and big_res["height"] == FRAME_HW[0], f"{FRAME_HW} request: size {big_res}")
+        for d in big_res["detections"]:
+            x0, y0, x1, y1 = d["box"]
+            check(np.isfinite(d["score"]) and 0 <= x0 <= x1 <= FRAME_HW[1] and 0 <= y0 <= y1 <= FRAME_HW[0],
+                  f"{FRAME_HW} request: detection {d}")
+        log(f"  request {N_REQUESTS} ({FRAME_HW[0]}x{FRAME_HW[1]} PNG, resized to {big_prep[1]}): {big_ms:.1f} ms, "
+            f"{len(big_res['detections'])} detections")
         for i, res in enumerate(results):
             if "error" in res:
                 raise AssertionError(f"request {i}: {res['error']}")
@@ -1048,6 +1225,119 @@ def main() -> int:
             if held:
                 check(card_step_ok(err), f"adaptation step on the card differs from the CPU's: {err}")
 
+    with Phase("eval"):
+        # the host libraries, built in the build phase from the checkout's sources
+        for name in ("imgcodec", "cocoeval"):
+            log(f"  host library {name}: {os.path.basename(built[name])}, g++ {host_libs.BUILD_SECONDS.get(name, 0.0):.2f} s")
+        log(f"  JPEG decode built in: {native_codec.has_jpeg()} (PNG decode needs no library)")
+        eval_dir = tempfile.TemporaryDirectory(prefix="sfod_eval_")
+        root = eval_dir.name
+        try:
+            t0 = time.perf_counter()
+            path, recs, first = write_eval_dataset(root, EVAL_IMAGES, FRAME_HW)
+            log(f"  wrote {EVAL_IMAGES} {FRAME_HW[0]}x{FRAME_HW[1]} PNG frames and their COCO JSON in "
+                f"{time.perf_counter() - t0:.2f} s")
+            got = native_codec.decode(os.path.join(root, "frame_0001.png"))
+            check(got.shape == first.shape and np.array_equal(got, first), "first PNG decode differs from the array written")
+            cfg = adapt_cfg(MAIN_CONFIG)
+            cfg.OUTPUT_DIR = os.path.join(root, "output")
+            for name in (*cfg.DATASETS.TEST, *cfg.DATASETS.TRAIN_TARGET):
+                register_dataset(name, path, root, CITYSCAPES_THING_CLASSES)
+            tr = adapt_trainer(cfg)
+            loader = tr.build_train_loader()
+            # host decode + resize, one thread, every record
+            t0 = time.perf_counter()
+            preps = [loader._prep_image(r) for r in loader.records]
+            decode_ms = (time.perf_counter() - t0) * 1e3 / len(preps)
+            check(all(p[0].shape == (600, 1200, 3) for p in preps), f"resized to {preps[0][0].shape}")
+            log(f"  host decode + resize (PNG {FRAME_HW[0]}x{FRAME_HW[1]} -> 600x1200) [{smi}]: {decode_ms:.2f} ms an image "
+                "(one thread)")
+            del preps
+            it = iter(loader)
+            steps = []
+            for _ in range(EVAL_STEPS):
+                batch = next(it)
+                check(tuple(batch["sizes"][0]) == (600, 1200), f"train batch size {batch['sizes']}")
+                steps.append({k: float(v) for k, v in tr.run_step(batch).items()})
+            it.close()
+            check(all(np.isfinite(m[k]) for m in steps for k in ADAPT_LOSSES), f"adaptation losses {steps}")
+            log(f"  {EVAL_STEPS} adaptation steps from trainer.build_train_loader(): total loss "
+                f"{[round(m['total_loss'], 4) for m in steps]}, num_pseudo {[int(m['num_pseudo']) for m in steps]}")
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            results = tr.test()
+            torch.cuda.synchronize()
+            test_s = time.perf_counter() - t0
+            eval_launches = dict(_kernels.LAUNCHES)
+            peak_eval = torch.cuda.max_memory_allocated() / 2**30
+            n_eval = 2 * len(cfg.DATASETS.TEST) * EVAL_IMAGES
+            check(all(c == 2 * n_eval for c in eval_launches.values()),
+                  f"test(): launches {eval_launches}, expected {2 * n_eval} of each (2 per image and model)")
+            with open(os.path.join(cfg.OUTPUT_DIR, "eval_results.json")) as f:
+                written = json.load(f)
+            check(len(written) == 4 and all(
+                isinstance(v.get(k), (int, float)) and np.isfinite(v[k]) for v in written.values() for k in ("AP", "AP50", "F1")
+            ), f"eval_results.json: {written}")
+            log(f"  trainer.test() [{smi}]: {test_s:.2f} s for {n_eval} images ({n_eval / test_s:.2f} images/s, the host "
+                f"decode included), launches {eval_launches}, peak memory {peak_eval:.2f} GiB")
+            for key, v in written.items():
+                log(f"    {key}: AP {v['AP']:.4f} AP50 {v['AP50']:.4f} F1 {v['F1']:.4f} DECE {v['DECE']}")
+
+            # the whole eval loop (loader, dispatch, read-back, evaluators) by
+            # pipeline depth, on the teacher (the fixed bfloat16 one)
+            name = cfg.DATASETS.TEST[0]
+            rate = {}
+            for depth in (1, 4, 1, 4):
+                coco = COCOEvaluator(CITYSCAPES_THING_CLASSES)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                inference_on_dataset(tr.teacher, build_test_loader(cfg, name), CITYSCAPES_THING_CLASSES,
+                                     [coco, F1Evaluator()], pipeline_depth=depth)
+                rate.setdefault(depth, []).append(EVAL_IMAGES / (time.perf_counter() - t0))
+            log(f"  eval loop [{smi}]: depth 1 {rate[1]} images/s, depth 4 {rate[4]} images/s ({EVAL_IMAGES} images, "
+                f"batch {cfg.TEST.IMS_PER_BATCH}, {cfg.DATALOADER.NUM_WORKERS} decode threads)")
+            native, plain = coco_map_native(coco._dets, coco._gts, 8), coco_map(coco._dets, coco._gts, 8)
+            diff = max(abs(native[k] - plain[k]) for k in ("AP", "AP50", "AP75", "AR100") if np.isfinite(plain[k]))
+            check(diff <= 1e-9 and all(np.isfinite(native[k]) == np.isfinite(plain[k]) for k in native if k.startswith("A")),
+                  f"native COCO vs coco_map: {diff}")
+            n_dets = sum(len(d["scores"]) for d in coco._dets.values())
+            log(f"  native COCO evaluator vs plain coco_map on {n_dets} detections: max difference {diff:.3g} (tol 1e-9)")
+
+            wall_e, dev_e, kern_e, ops_e = profile(
+                lambda: inference_on_dataset(tr.teacher, build_test_loader(cfg, name), CITYSCAPES_THING_CLASSES,
+                                             pipeline_depth=4), 1)
+            nms_e = sum(v for k, v in kern_e.items() if "suppress_relation_bits" in k or "greedy_keep_from_bits" in k)
+            log(f"  profile eval loop, depth 4 [{smi}]: wall {wall_e:.2f} ms, device kernels {dev_e:.2f} ms, busy "
+                f"{dev_e / wall_e:.1%}, NMS kernels {nms_e:.3f} ms ({nms_e / EVAL_IMAGES:.3f} ms an image)")
+            log(f"  top kernels (ms/pass): {top(kern_e)}")
+
+            # a dispatch reads nothing back to the host
+            staging = Staging(tr.teacher.device, 1)
+            batch = next(iter(build_test_loader(cfg, name)))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                images, sizes = staging.stage(0, batch)
+                dets = tr.teacher.infer(images, sizes)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            check(bool(torch.isfinite(dets.scores).all()), "sync-checked dispatch: non-finite scores")
+            log("  staging + Detector.infer ran under set_sync_debug_mode('error')")
+
+            res_card, res_cpu, (unpaired, box_err, score_err), n_small = card_vs_cpu_eval(root)
+            metric_err = max(abs(res_card[k] - res_cpu[k]) for k in ("AP", "AP50", "F1"))
+            log(f"  card vs CPU, float32 eval loop on {EVAL_SMALL['images']} images at {EVAL_SMALL['canvas']}: "
+                f"{n_small} detections, {unpaired} unpaired, box err {box_err:.3g} px, score err {score_err:.3g}, "
+                f"AP/AP50/F1 err {metric_err:.3g}")
+            check(n_small > 0 and unpaired == 0 and box_err <= 1e-2 and score_err <= 1e-4 and metric_err <= 1e-6,
+                  "card eval loop differs from the CPU's")
+            del tr
+        finally:
+            eval_dir.cleanup()
+
     replaces = {
         "suppress_relation_bits": "simple_sfod_tpu/ops/pallas_kernels.py:26",
         "greedy_keep_from_bits": "simple_sfod_tpu/ops/pallas_kernels.py:123",
@@ -1057,7 +1347,8 @@ def main() -> int:
         # the main path, one adaptation step (batch 1): the kernel once per
         # NMS call site (teacher RPN, teacher detection, student RPN); the
         # numbers are the sum over the three sites, on the first step's
-        # inputs. launches count every path: serve, train and adapt.
+        # inputs. launches count every path: serve, train, adapt and eval
+        # (trainer.test(), 2 per image and evaluated model).
         # per_call: one served image's two calls; train_per_step: one
         # supervised step's RPN call; large_n: N above the keep kernel's
         # shared-memory route (the row walk)
@@ -1068,7 +1359,7 @@ def main() -> int:
             "route": "cuda",
             "source": "simple_sfod_tpu_torch/ops/csrc/nms.cu",
             "replaces": replaces[name],
-            "launches": launches[name] + train_launches[name] + adapt_launches[name],
+            "launches": launches[name] + train_launches[name] + adapt_launches[name] + eval_launches[name],
             "max_abs_err": float(max(r["err"] for r in per + rows[name] + large_rows[name])),
             "ms": sum(r["ms"] for r in per),
             "call_ms": sum(r["call_ms"] for r in per),
@@ -1077,7 +1368,8 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": None,
             "ptxas": ptxas[name],
-            "launches_by_path": {"serve": launches[name], "train": train_launches[name], "adapt": adapt_launches[name]},
+            "launches_by_path": {"serve": launches[name], "train": train_launches[name], "adapt": adapt_launches[name],
+                                 "eval": eval_launches[name]},
             "adapt_per_step": per,
             "per_call": rows[name],
             "train_per_step": train_rows[0 if name == "suppress_relation_bits" else 1],

@@ -1,7 +1,8 @@
 """Synthetic detection data (the port's numpy copy of
 `simple_sfod_tpu/data/synthetic.py:make_synthetic_records` and of the
 synthetic branch of the loader's image rendering): rectangles on noise with
-exact ground truth, so a trainer runs without a dataset; and the adaptation
+exact ground truth, so a trainer runs without a dataset; `register_synthetic`,
+which registers such records as a dataset; and the adaptation
 benchmark's target batch (`synthetic_bench_batch`, from
 `simple_sfod_tpu/utils/bench.py`), images and sizes without ground truth."""
 
@@ -56,6 +57,28 @@ def synthetic_image(rec: dict) -> np.ndarray:
         x1, y1, x2, y2 = [int(v) for v in box]
         img[y1:y2, x1:x2] = 120.0 + 15.0 * (cls + 1)
     return img
+
+
+def register_synthetic(
+    name: str = "synthetic_train",
+    num_images: int = 16,
+    image_hw: Tuple[int, int] = (128, 256),
+    num_classes: int = 8,
+    seed: int = 0,
+) -> List[dict]:
+    """Register `make_synthetic_records(...)` under `name` (classes "c0",
+    "c1", ...); a loader renders them with `synthetic=True`."""
+    from .datasets import DATASET_REGISTRY, register_dataset
+
+    records = make_synthetic_records(num_images, image_hw, num_classes, seed=seed)
+    classes = [f"c{i}" for i in range(num_classes)]
+    register_dataset(name, json_file="", image_root="", thing_classes=classes)
+    DATASET_REGISTRY[name]["_cache"] = {
+        "records": records,
+        "thing_classes": classes,
+        "id_map": {i: i for i in range(num_classes)},
+    }
+    return records
 
 
 def synthetic_batch(records: Sequence[dict], canvas_hw: Tuple[int, int], gt_capacity: int) -> Dict[str, np.ndarray]:

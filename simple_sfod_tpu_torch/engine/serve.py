@@ -4,11 +4,12 @@ Where the JAX service loads an exported StableHLO artifact, this one builds
 the detector from a config and a port state dict (a `torch.save` file or an
 in-memory dict) and runs it eagerly on the card. Preprocessing and
 postprocessing are the JAX service's: shortest-edge resize and canvas
-placement as the test loader does, boxes mapped back to file coordinates
-by the per-axis inverse scale and clipped.
+placement as the test loader does (the native codec's Pillow-exact resample,
+so no PIL), boxes mapped back to file coordinates by the per-axis inverse
+scale and clipped.
 
   GET  /          serving info (canvas, batch, classes, platforms)
-  POST /predict   body = image file (anything PIL opens) or a raw .npy
+  POST /predict   body = a PNG or JPEG file (data/native_codec.py) or a raw .npy
                   HxWx3 uint8 array; optional ?min_score=S
                   -> {"width", "height", "detections": [{"box" xyxy in file
                      coords, "score", "class", "class_name"}, ...]}
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ..config import CfgNode, detector_config_from_cfg
+from ..data import native_codec
 from ..data.loader import _resize_shortest_edge
 from ..models.detector import Detector
 
@@ -214,14 +216,12 @@ class DetectionService:
         return {"width": ow, "height": oh, "detections": dets}
 
     def predict_bytes(self, raw: bytes, min_score: float = 0.0) -> Dict:
-        """Decode an image file (PIL) or a .npy uint8 array, then predict."""
+        """Decode a PNG or JPEG file (the native codec) or a .npy uint8
+        array, then predict."""
         if raw[:6] == b"\x93NUMPY":
             arr = np.load(io.BytesIO(raw), allow_pickle=False)
         else:
-            from PIL import Image
-
-            with Image.open(io.BytesIO(raw)) as im:
-                arr = np.asarray(im.convert("RGB"))
+            arr = native_codec.decode_bytes(raw, "request body")
             if self.image_format == "BGR":
                 arr = arr[:, :, ::-1]
         arr = np.ascontiguousarray(arr, np.uint8)

@@ -9,24 +9,33 @@ without one the trainer draws from its own seeded generator on the device.
 The step reads nothing back to the host: metrics come back as device
 tensors, for the caller to convert after the step.
 
-Loaders, checkpointing, hooks, writers and the CLI are not ported yet.
+`build_train_loader` gives the trainer's loader over DATASETS.TRAIN, and
+`test` evaluates the model on each of DATASETS.TEST (engine/eval_loop.py),
+writing `eval_results.json` and the detections under cfg.OUTPUT_DIR.
+The train loop, checkpointing, hooks (PreciseBN among them), event
+writers and the CLI are not ported yet.
 """
 
 from __future__ import annotations
 
+import json
+import math
+import os
 from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ...config.defaults import detector_config_from_cfg
-from ...data.loader import gt_instances
+from ...data.datasets import get_dataset
+from ...data.loader import build_test_loader, build_train_loader, gt_instances
 from ...data.transforms import random_hflip
 from ...device import resolve_device
 from ...models.detector import DetectionBatch, Detector
 from ...models.faster_rcnn import anchors_for, init_weights, roi_pool_size
 from ...solver.build import build_optimizer
 from ...structures.instances import Instances
+from ..eval_loop import inference_on_dataset
 from ..train_state import TrainState
 from . import register_trainer
 
@@ -73,9 +82,15 @@ class BaseTrainer:
     and cuBLAS when the trainer is built (bfloat16 runs under autocast,
     `TPU.DTYPE`)."""
 
-    def __init__(self, cfg, device: Optional[Union[str, torch.device]] = None, state_dict=None):
+    def __init__(
+        self,
+        cfg,
+        device: Optional[Union[str, torch.device]] = None,
+        state_dict=None,
+    ):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.output_dir = cfg.OUTPUT_DIR
         self.det_cfg = detector_config_from_cfg(cfg)
         self.flip = _flip_enabled(cfg)
         torch.backends.cudnn.allow_tf32 = False
@@ -129,3 +144,84 @@ class BaseTrainer:
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()
         return metrics
+
+    # -- data and evaluation --------------------------------------------------
+    def build_train_loader(self):
+        return build_train_loader(self.cfg)
+
+    def _maybe_precise_bn(self):
+        """TEST.PRECISE_BN recomputes the BatchNorm statistics before an
+        evaluation; the hook is not ported yet, so the key is refused rather
+        than ignored."""
+        if self.cfg.TEST.PRECISE_BN.ENABLED:
+            raise NotImplementedError("TEST.PRECISE_BN (the precise_bn hook) is not ported yet")
+
+    def _evaluate(self, detector: Detector, name: str, **kw) -> Dict:
+        """One dataset through the eval loop with its evaluators."""
+        from ...evaluation.build import build_evaluators
+
+        ds = get_dataset(name)
+        return inference_on_dataset(
+            detector,
+            build_test_loader(self.cfg, name),
+            ds["thing_classes"],
+            build_evaluators(self.cfg, name, ds["thing_classes"]),
+            pipeline_depth=self.cfg.TPU.EVAL_PIPELINE_DEPTH,
+            **kw,
+        )
+
+    def _write_results(self, results: Dict) -> None:
+        os.makedirs(self.output_dir, exist_ok=True)
+        with open(os.path.join(self.output_dir, "eval_results.json"), "w") as f:
+            json.dump(_jsonable(results), f, indent=2)
+
+    def test(self, dataset_names=None) -> Dict:
+        """Evaluate the model on each dataset (default DATASETS.TEST): COCO
+        detections to `inference/coco_instances_results.json` under
+        OUTPUT_DIR (`inference/<name>/` with several datasets), an `[eval]`
+        line and the per-class table for each, and every result to
+        `eval_results.json`."""
+        self._maybe_precise_bn()
+        results = {}
+        names = list(dataset_names or self.cfg.DATASETS.TEST)
+        for name in names:
+            id_map = get_dataset(name).get("id_map") or {}
+            inf_dir = os.path.join(self.output_dir, "inference", *([name] if len(names) > 1 else []))
+            res = self._evaluate(
+                self.detector,
+                name,
+                dump_json=os.path.join(inf_dir, "coco_instances_results.json"),
+                category_ids={v: k for k, v in id_map.items()},
+            )
+            results[name] = res
+            ap_line = {k: res.get(k) for k in ("AP", "AP50", "AP75", "F1")}
+            print(f"[eval] {name}: {ap_line}", flush=True)
+            print_per_class_table(res)
+        self._write_results(results)
+        return results
+
+
+def print_per_class_table(res: Dict):
+    """Per-class AP / AP50 table."""
+    per_class = res.get("per_class")
+    if not per_class:
+        return
+    name_w = max(len(n) for n in per_class) + 2
+    print(f"{'class':<{name_w}}{'AP':>8}{'AP50':>8}")
+    for name, vals in per_class.items():
+        ap = vals.get("AP", float("nan"))
+        ap50 = vals.get("AP50", float("nan"))
+        print(f"{name:<{name_w}}{ap:8.2f}{ap50:8.2f}")
+
+
+def _jsonable(obj):
+    """Results as JSON: string keys, NaN as null, numpy scalars as Python's."""
+    if isinstance(obj, dict):
+        return {str(k): _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, float) and math.isnan(obj):
+        return None
+    if isinstance(obj, (np.floating, np.integer)):
+        return obj.item()
+    return obj

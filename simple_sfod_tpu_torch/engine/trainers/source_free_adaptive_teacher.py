@@ -33,6 +33,11 @@ hand over the JAX package's draws. `run_step` stages a numpy batch on the
 device; `step_on_device` runs the step and reads nothing back to the host
 (the strong view's scalar decisions are CPU tensors, read without a sync).
 
+`build_train_loader` reads the target domain (DATASETS.TRAIN_TARGET, else
+DATASETS.TRAIN) at SOLVER.IMS_PER_BATCH_TARGET; `test` evaluates both the
+student and the teacher on each of DATASETS.TEST into `<name>/student` and
+`<name>/teacher` of `eval_results.json` under OUTPUT_DIR.
+
 Not ported yet, and refused: STYLE.ENABLED (AdaIN style enhancement), and
 weighted domain-classifier losses (DOMAIN_CLASSIFIER.IMAGE or INSTANCE).
 """
@@ -45,6 +50,7 @@ import numpy as np
 import torch
 
 from ...checkpoint.from_jax import TeacherStudentWeights
+from ...data.loader import build_train_loader
 from ...data.transforms import StrongDraws, make_strong_draws, strong_augment_batch
 from ...models.dann import DAInsHead, FCDiscriminatorImg, init_dc_weights
 from ...models.detector import DetectionBatch, Detector
@@ -293,6 +299,32 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         metrics["total_loss"] = total.detach()
         metrics.update(pstats)
         return metrics
+
+    # -- data and evaluation --------------------------------------------------
+    def build_train_loader(self):
+        """The unlabelled target domain is the train set (source-free)."""
+        return build_train_loader(
+            self.cfg,
+            dataset_names=self.cfg.DATASETS.TRAIN_TARGET or self.cfg.DATASETS.TRAIN,
+            batch_size=self.cfg.SOLVER.IMS_PER_BATCH_TARGET,
+        )
+
+    def test(self, dataset_names=None) -> Dict:
+        """Evaluate the student (`self.detector`) and the teacher
+        (`self.teacher`, with its bfloat16 parameters where the fixed teacher
+        has them) on each dataset (default DATASETS.TEST): results under
+        `<name>/student` and `<name>/teacher`, an `[eval:<tag>]` line each,
+        all written to `eval_results.json`."""
+        self._maybe_precise_bn()
+        results = {}
+        for tag, detector in (("student", self.detector), ("teacher", self.teacher)):
+            for name in dataset_names or self.cfg.DATASETS.TEST:
+                res = self._evaluate(detector, name)
+                results[f"{name}/{tag}"] = res
+                ap_line = {k: res.get(k) for k in ("AP", "AP50", "VOC_AP50", "F1") if res.get(k) is not None}
+                print(f"[eval:{tag}] {name}: {ap_line}", flush=True)
+        self._write_results(results)
+        return results
 
     def stage(self, batch: Mapping[str, np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
         """A target batch in the loader's layout (images uint8 [B, H, W, 3],

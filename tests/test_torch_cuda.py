@@ -182,3 +182,35 @@ def test_adaptation_step_card_matches_cpu(cuda):
     step on the CPU: chip_smoke's tolerances."""
     err = chip_smoke.card_vs_cpu_adapt_step(canvas=(128, 256), image_hw=(120, 250))
     assert chip_smoke.card_step_ok(err), err
+
+
+def test_eval_loop_card_matches_cpu(cuda, tmp_path):
+    """The float32 eval loop (TF32 off) on 4 PNG images at 128x256 on the
+    card against the CPU's: every detection paired, boxes 1e-2 px, scores
+    1e-4, AP/AP50/F1 1e-6 (chip_smoke's eval phase)."""
+    res_card, res_cpu, (unpaired, box_err, score_err), n = chip_smoke.card_vs_cpu_eval(str(tmp_path))
+    assert n > 0 and unpaired == 0 and box_err <= 1e-2 and score_err <= 1e-4, (unpaired, box_err, score_err)
+    for k in ("AP", "AP50", "F1"):
+        assert abs(res_card[k] - res_cpu[k]) <= 1e-6, k
+
+
+def test_native_decode_and_resize_of_written_frames(cuda, tmp_path):
+    """On the card's host: PNG frames written with every filter type decode
+    to the arrays written, and the native resize of a 1024x2048 frame to
+    600x1200 is within one uint8 step of torch's antialiased bilinear (an
+    independent implementation of PIL's filter, rounded differently)."""
+    from simple_sfod_tpu_torch.data import native_codec
+
+    path, recs, first = chip_smoke.write_eval_dataset(str(tmp_path), 2, chip_smoke.FRAME_HW)
+    np.testing.assert_array_equal(native_codec.decode(str(tmp_path / "frame_0001.png")), first)
+    out = native_codec.resize_bilinear(first, 600, 1200)
+    ref = torch.nn.functional.interpolate(
+        torch.from_numpy(first).permute(2, 0, 1)[None].float(), size=(600, 1200), mode="bilinear",
+        antialias=True, align_corners=False,
+    )[0].permute(1, 2, 0).round().clamp(0, 255).numpy()
+    assert out.shape == (600, 1200, 3)
+    assert np.abs(out.astype(np.float32) - ref).max() <= 1.0
+    if not native_codec.has_jpeg():
+        (tmp_path / "a.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
+        with pytest.raises(RuntimeError, match="libjpeg"):
+            native_codec.decode(str(tmp_path / "a.jpg"))

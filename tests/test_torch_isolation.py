@@ -55,6 +55,11 @@ def test_scanner_flags_module_level_imports():
 def test_package_files_were_scanned():
     names = {os.path.relpath(p, PKG) for p in FILES}
     assert {"ops/nms.py", "ops/_kernels.py", "engine/serve.py", "models/faster_rcnn.py"} <= names
+    assert {
+        "host_libs.py", "data/coco.py", "data/datasets.py", "data/voc.py", "data/native_codec.py", "data/loader.py",
+        "data/synthetic.py", "evaluation/coco_eval.py", "evaluation/native.py", "evaluation/f1.py",
+        "evaluation/dece.py", "evaluation/voc.py", "evaluation/build.py", "engine/eval_loop.py",
+    } <= names
 
 
 POISONED = r"""
