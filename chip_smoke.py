@@ -80,6 +80,31 @@ Phases (each prints one progress line with its wall time):
               share), peak memory, host decode+resize ms an image; and a
               float32 eval loop on 4 images at 128x256 on the card against
               the CPU's
+ 11. cli      the adaptation CLI on the main YAML, as a user runs it:
+              `python -m simple_sfod_tpu_torch.tools.train_net_mt
+              --config-file configs/faster_rcnn_VGG_cityscapes_foggy_adaptive_teacher_source_free.yaml`
+              (no YAML package needed) in subprocesses, on 16 synthetic
+              1024x2048 PNG frames written where register_all_datasets
+              finds the YAML's TRAIN_TARGET under a temporary SFOD_DATASETS,
+              and 4 of them as each of its two TEST sets; MODEL.WEIGHTS a
+              .pth of seeded weights (class-1 logit bias raised by 4); the
+              eval phase's cuts with MAX_ITER 24, CHECKPOINT_PERIOD 8,
+              EVAL_PERIOD 12, VIS_PERIOD 0 (8 where a TensorBoard backend
+              imports). Run 1: metrics.json at 19 and 23 with finite losses,
+              model_0000007/15/23 and model_final with the marker, two
+              test() passes with their AP50 scalars, the validation loss at
+              11 and 23, and each NMS kernel launched exactly as counted
+              from the code. The restored state equals model_final.pth bit
+              for bit; run 2 resumes to MAX_ITER 32; run 3 is stopped by
+              SIGTERM after its first metrics line, saves model_preempt_*,
+              exits 0 and resumes for 4 steps. In the script: AdaBN on the
+              base trainer (16 batches: statistics moved from reset,
+              adabn.pth, eval_results.json); two 4-step loops against one
+              saved and resumed after step 2 (the resumed run within the
+              spread of the two); the loop's ms a step from disk and from a
+              repeated batch beside the bare step, host syncs a step,
+              a non-blocking save's blocking and write time, the file's
+              size, the resume's load time, peak memory
 
 Prints the card's name and power limit and a JSON line of the kernels'
 numbers, then, as the last line, {"ok": true, "device": {...}}. Any failure
@@ -91,6 +116,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import signal
 import struct
 import subprocess
 import sys
@@ -98,16 +124,19 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 import zlib
 
 import numpy as np
 import torch
 
 from simple_sfod_tpu_torch import host_libs
+from simple_sfod_tpu_torch.checkpoint.checkpointer import Checkpointer
 from simple_sfod_tpu_torch.config import detector_config_from_cfg, get_cfg, get_main_cfg, get_source_cfg
 from simple_sfod_tpu_torch.config.defaults import MAIN_CONFIG, SFAT_BENCH_CONFIG, config_opts
 from simple_sfod_tpu_torch.data import native_codec, transforms
 from simple_sfod_tpu_torch.data.datasets import CITYSCAPES_THING_CLASSES, register_dataset
+from simple_sfod_tpu_torch.engine.events import tensorboard_summary_writer
 from simple_sfod_tpu_torch.data.loader import build_test_loader
 from simple_sfod_tpu_torch.data.synthetic import make_synthetic_records, synthetic_batch, synthetic_bench_batch, synthetic_image
 from simple_sfod_tpu_torch.engine.eval_loop import Staging, inference_on_dataset
@@ -120,6 +149,7 @@ from simple_sfod_tpu_torch.engine.trainers.base import BaseTrainer
 from simple_sfod_tpu_torch.models.detector import Detector
 from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, init_weights
 from simple_sfod_tpu_torch.ops import _kernels, nms
+from simple_sfod_tpu_torch.tools import train_net
 
 SEED = 0
 N_REQUESTS = 4
@@ -166,6 +196,19 @@ BBOX_OFFSET = 1e-2  # the student's regression biases against the teacher's
 EVAL_IMAGES = 16
 EVAL_STEPS = 4
 EVAL_SMALL = dict(images=4, hw=(100, 200), canvas=(128, 256), min_size=120)
+# cli: the adaptation CLI on the main YAML; TRAIN_TARGET frames, and the
+# frames of each TEST set (cut from Cityscapes val's 500); the eval phase's
+# cuts and the loop's schedule
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_YAML = "configs/faster_rcnn_VGG_cityscapes_foggy_adaptive_teacher_source_free.yaml"
+CLI_TRAIN_FRAMES = 16
+CLI_TEST_FRAMES = 4
+CLI_OPTS = {"SEED": "0", **ADAPT_CUTS, "SOLVER.MAX_ITER": "24", "SOLVER.CHECKPOINT_PERIOD": "8", "TEST.EVAL_PERIOD": "12"}
+CLI_VIS_PERIOD = 8  # where a TensorBoard backend imports
+CLI_TIMEOUT_S = 300
+LOOP_STEPS, LOOP_WINDOW = 24, (4, 24)  # the loop timing: steps run, the window timed
+DET_STEPS, DET_SPLIT = 4, 2  # the determinism runs: steps, and where one saves and resumes
+ADABN_BATCHES = 16  # the refinement's batches (1400 in the reference)
 # float32 operations per (i < j, both valid) pair of the relation: 2 max,
 # 2 min, 2 sub, 2 clamp, 1 mul (intersection), 2 add/sub (union), 1 div,
 # 1 compare; the areas are per box, not per pair
@@ -836,6 +879,405 @@ def kernel_rows(b, s, v, thr, site, plain_reps=(20, 5)):
     )
 
 
+# ---------------------------------------------------------------- cli
+def write_cli_datasets(root: str) -> None:
+    """CLI_TRAIN_FRAMES synthetic 1024x2048 PNG frames under
+    root/cityscapes_foggy/leftImg8bit_foggy, with COCO JSONs where
+    register_all_datasets looks for the main YAML's TRAIN_TARGET (every
+    frame) and its two TEST sets (the first CLI_TEST_FRAMES)."""
+    frames = os.path.join(root, "cityscapes_foggy", "leftImg8bit_foggy")
+    os.makedirs(frames)
+    path, _, _ = write_eval_dataset(frames, CLI_TRAIN_FRAMES, FRAME_HW)
+    with open(path) as f:
+        coco = json.load(f)
+    for base, split, prefix, n in (
+        ("cityscapes_foggy", "train_foggy_beta_0.02", "leftImg8bit_foggy/", CLI_TRAIN_FRAMES),
+        ("cityscapes_foggy", "val_foggy_beta_0.02", "leftImg8bit_foggy/", CLI_TEST_FRAMES),
+        ("cityscapes", "val", "../cityscapes_foggy/leftImg8bit_foggy/", CLI_TEST_FRAMES),
+    ):
+        images = coco["images"][:n]
+        ids = {im["id"] for im in images}
+        out = os.path.join(root, base, "annotations", f"instancesonly_filtered_gtFine_{split}.json")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"images": [dict(im, file_name=prefix + im["file_name"]) for im in images],
+                       "annotations": [a for a in coco["annotations"] if a["image_id"] in ids],
+                       "categories": coco["categories"]}, f)
+
+
+def register_cli_datasets(root: str) -> None:
+    """The main YAML's dataset names in this process, at write_cli_datasets'
+    paths (register_all_datasets keeps names registered before)."""
+    for name, base, split in (
+        ("cityscapes_instancesonly_foggy_train_foggy_beta_0.02", "cityscapes_foggy", "train_foggy_beta_0.02"),
+        ("cityscapes_instancesonly_foggy_val_foggy_beta_0.02", "cityscapes_foggy", "val_foggy_beta_0.02"),
+        ("cityscapes_instancesonly_val", "cityscapes", "val"),
+    ):
+        register_dataset(name, os.path.join(root, base, "annotations", f"instancesonly_filtered_gtFine_{split}.json"),
+                         os.path.join(root, base), CITYSCAPES_THING_CLASSES)
+
+
+def write_cli_weights(path: str) -> None:
+    """A source detector's .pth: seeded weights with the class-1 logit bias
+    raised (random weights then make pseudo-labels)."""
+    model = init_weights(FasterRCNN(detector_config_from_cfg(get_main_cfg())), SEED)
+    with torch.no_grad():
+        model.roi_heads.box_predictor.cls_score.bias[1] += CLS_BIAS_BOOST
+    torch.save({"model": model.state_dict()}, path)
+
+
+def cli_argv(out: str, weights: str, vis: int, *opts: str, flags=()) -> list:
+    """train_net's arguments: the main YAML, `flags`, then the phase's
+    KEY VALUE opts, MODEL.WEIGHTS, OUTPUT_DIR, VIS_PERIOD and `opts` (later
+    keys override earlier ones)."""
+    kv = {**CLI_OPTS, "MODEL.WEIGHTS": weights, "OUTPUT_DIR": out, "VIS_PERIOD": str(vis)}
+    return ["--config-file", os.path.join(ROOT, CLI_YAML), *flags, *[x for item in kv.items() for x in item], *opts]
+
+
+def cli_env(data_root: str) -> dict:
+    return dict(os.environ, SFOD_DATASETS=data_root, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+
+
+def cli_cmd(argv: list) -> list:
+    return [sys.executable, "-m", "simple_sfod_tpu_torch.tools.train_net_mt", *argv]
+
+
+def cli_launches(stdout: str) -> dict:
+    """The NMS launch counts that the CLI prints as its last line."""
+    last = stdout.strip().splitlines()[-1]
+    check(last.startswith("[launches] "), f"CLI's last line: {last!r}")
+    return json.loads(last[len("[launches] "):])
+
+
+def run_cli(argv: list, data_root: str, label: str):
+    """One CLI run to its end. -> (stdout, wall s, launches)."""
+    t0 = time.perf_counter()
+    out = subprocess.run(cli_cmd(argv), cwd=ROOT, env=cli_env(data_root), capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"{label}: exit code {out.returncode}\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout, wall, cli_launches(out.stdout)
+
+
+def metrics_lines(out: str) -> list:
+    path = os.path.join(out, "metrics.json")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def expected_cli_launches(steps: int, tests: int, val_images: int, vis_images: int) -> int:
+    """Launches of each NMS kernel, counted from the code: 3 an adaptation
+    step (teacher RPN, teacher detection, student RPN), 2 an image and
+    model in test() (RPN, detection) over student and teacher on both TEST
+    sets, 1 a validation-loss image (train-mode RPN), 2 a visualised image
+    (the teacher's inference)."""
+    return 3 * steps + 2 * 2 * 2 * CLI_TEST_FRAMES * tests + val_images + 2 * vis_images
+
+
+def cli_trainer(argv: list, resume: bool):
+    """The CLI's trainer, in this process: setup, build, resume_or_load."""
+    cfg = train_net.setup(train_net.default_argument_parser().parse_args(argv))
+    tr = build_trainer(cfg)
+    tr.resume_or_load(resume=resume)
+    return tr
+
+
+def host_state(data) -> dict:
+    """Every tensor of a checkpoint's content, by path, on the host."""
+    out = {}
+
+    def walk(prefix, v):
+        if isinstance(v, dict):
+            for k, x in v.items():
+                walk(f"{prefix}/{k}", x)
+        elif isinstance(v, torch.Tensor):
+            out[prefix] = v.detach().cpu()
+        else:
+            out[prefix] = v
+
+    walk("", data)
+    return out
+
+
+def state_diff(a: dict, b: dict) -> float:
+    """max over the floating tensors of max |a - b| / max |b|."""
+    check(a.keys() == b.keys(), "checkpoint contents differ in their keys")
+    worst = 0.0
+    for k, y in b.items():
+        if isinstance(y, torch.Tensor) and y.is_floating_point():
+            worst = max(worst, ((a[k].float() - y.float()).abs().max() / y.float().abs().max().clamp_min(1e-30)).item())
+    return worst
+
+
+class RepeatBatch:
+    """A train loader that yields one batch forever."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def __iter__(self):
+        while True:
+            yield self.batch
+
+
+def timed_loop(tr, window):
+    """tr.train() with a synchronise before step window[0] and after step
+    window[1] - 1, and the implicit host syncs of every step counted under
+    set_sync_debug_mode("warn"). -> (ms a step over the window, syncs by
+    step)."""
+    step, marks, starts = tr.step_staged, {}, {}
+    caught = []
+
+    def wrapped(staged, draws=None):
+        i = tr.state.step
+        starts[i] = len(caught)
+        if i == window[0]:
+            torch.cuda.synchronize()
+            marks["t0"] = time.perf_counter()
+        out = step(staged, draws)
+        if i == window[1] - 1:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+        return out
+
+    tr.step_staged = wrapped
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tr.train()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    ends = {i: starts.get(i + 1, len(caught)) for i in starts}
+    syncs = {i: sum("synchroniz" in str(w.message) for w in caught[starts[i]:ends[i]]) for i in starts}
+    return (marks["t1"] - marks["t0"]) * 1e3 / (window[1] - window[0]), syncs
+
+
+
+def cli_phase(smi: str, adapt_step_ms: dict) -> dict:
+    """The cli phase (module docstring); `adapt_step_ms` the adapt phase's
+    step medians by run. -> the NMS launches of the path."""
+    try:
+        tensorboard_summary_writer()
+        vis = CLI_VIS_PERIOD
+    except ImportError:
+        vis = 0
+    log(f"  TensorBoard backend: {'found, VIS_PERIOD ' + str(vis) if vis else 'none, VIS_PERIOD 0'}")
+    cli_dir = tempfile.TemporaryDirectory(prefix="sfod_cli_")
+    root = cli_dir.name
+    data_root = os.path.join(root, "datasets")
+    weights = os.path.join(root, "source.pth")
+    cli_launch_total = {k: 0 for k in _kernels.LAUNCHES}
+
+    def add_launches(d):
+        for k in cli_launch_total:
+            cli_launch_total[k] += d[k]
+
+    try:
+        t0 = time.perf_counter()
+        write_cli_datasets(data_root)
+        write_cli_weights(weights)
+        log(f"  wrote {CLI_TRAIN_FRAMES} {FRAME_HW[0]}x{FRAME_HW[1]} PNG frames, 3 COCO JSONs and {weights} in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # run 1: adapt, evaluate, checkpoint
+        out1 = os.path.join(root, "run1")
+        argv1 = cli_argv(out1, weights, vis)
+        stdout, wall, got = run_cli(argv1, data_root, "run 1")
+        add_launches(got)
+        lines = metrics_lines(out1)
+        check([m["iteration"] for m in lines] == [19, 23], f"run 1 metrics.json iterations {[m['iteration'] for m in lines]}")
+        for m in lines:
+            check(all(np.isfinite(v) for k, v in m.items() if k.startswith("loss") or k == "total_loss"),
+                  f"run 1: non-finite loss in {m}")
+        names = sorted(f for f in os.listdir(out1) if f.endswith(".pth"))
+        check(names == ["model_0000007.pth", "model_0000015.pth", "model_0000023.pth", "model_final.pth"],
+              f"run 1 checkpoints {names}")
+        with open(os.path.join(out1, "last_checkpoint")) as f:
+            check(f.read() == "model_final.pth", "run 1 marker")
+        n_eval = {tag: sum(line.startswith(f"[eval:{tag}]") for line in stdout.splitlines()) for tag in ("student", "teacher")}
+        check(n_eval == {"student": 4, "teacher": 4}, f"run 1 eval lines {n_eval}: expected 2 test() passes x 2 sets")
+        test_names = ("cityscapes_instancesonly_val", "cityscapes_instancesonly_foggy_val_foggy_beta_0.02")
+        ap_keys = {f"{n}/{t}/AP50" for n in test_names for t in ("student", "teacher")}
+        val_keys = {"loss_rpn_cls_val", "loss_rpn_loc_val", "loss_cls_val", "loss_box_reg_val"}
+        check(all(ap_keys | val_keys <= set(m) for m in lines), f"run 1 scalars: {sorted(lines[0])}")
+        check(all(np.isfinite(m[k]) for m in lines for k in val_keys), "run 1: non-finite validation loss")
+        # the writers run before test() and the validation loss of their own
+    # iteration (the JAX loop's order): both lines carry iteration 11's
+    # scalars, and the firings at 23 show in the eval lines and the launches
+        want = expected_cli_launches(24, 2, 2, 3 if vis else 0)
+        check(all(c == want for c in got.values()), f"run 1 launches {got}, expected {want} of each")
+        log(f"  run 1 (train_net_mt, 24 steps) [{smi}]: rc 0 in {wall:.2f} s; metrics at 19 and 23, total loss "
+            f"{[round(m['total_loss'], 4) for m in lines]}, AP50 " +
+            ", ".join(f"{k.rsplit('/', 1)[0]} {lines[1][k]:.4f}" for k in sorted(ap_keys)) +
+            f"; checkpoints {names}; launches {got} (expected {want})")
+
+        # the restored state equals model_final.pth bit for bit
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = cli_trainer(argv1, resume=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        saved = host_state(torch.load(os.path.join(out1, "model_final.pth"), weights_only=True))
+        restored = host_state(tr.checkpoint_state())
+        check(saved.keys() == restored.keys(), "restored checkpoint keys differ")
+        for k, v in saved.items():
+            same = torch.equal(restored[k], v) if isinstance(v, torch.Tensor) else restored[k] == v
+            check(same, f"restored {k} differs from model_final.pth")
+        check(tr.state.step == 24 and next(tr.state.teacher.parameters()).dtype == tr.det_cfg.dtype, "restored step/teacher dtype")
+        # a non-blocking save's cost to the loop, and its write
+        ck = Checkpointer(os.path.join(root, "save_timing"))  # not run 1's directory: its marker stays
+        ck.save("timing", tr.checkpoint_state(), block=False)
+        ck.wait()
+        save = ck.last_save
+        log(f"  resume [{smi}]: trainer built and model_final.pth restored in {load_s:.2f} s, {len(saved)} entries "
+            f"bit-equal; a non-blocking save: loop blocked {save['blocking_s'] * 1e3:.1f} ms (snapshot to host), "
+            f"write {save['write_s']:.2f} s on its thread, {save['bytes'] / 2**20:.1f} MiB")
+        del tr, saved, restored
+
+        # run 2: --resume to 32
+        stdout, wall, got = run_cli(cli_argv(out1, weights, vis, "SOLVER.MAX_ITER", "32", flags=("--resume",)),
+                                    data_root, "run 2")
+        add_launches(got)
+        check("[checkpoint] resumed from model_final.pth at iteration 24" in stdout, "run 2 did not resume at 24")
+        lines = metrics_lines(out1)
+        check([m["iteration"] for m in lines] == [19, 23, 31], f"run 2 metrics iterations {[m['iteration'] for m in lines]}")
+        names = sorted(f for f in os.listdir(out1) if f.endswith(".pth"))
+        check("model_0000031.pth" in names, f"run 2 checkpoints {names}")
+        want = expected_cli_launches(8, 1, 0, 1 if vis else 0)
+        check(all(c == want for c in got.values()), f"run 2 launches {got}, expected {want} of each")
+        log(f"  run 2 (--resume, to 32) [{smi}]: rc 0 in {wall:.2f} s, iterations 24-31, final test(); launches {got}")
+        for f in names:
+            os.remove(os.path.join(out1, f))
+
+        # run 3: SIGTERM after the first metrics line, then --resume
+        out3 = os.path.join(root, "run3")
+        argv3 = cli_argv(out3, weights, vis, "SOLVER.MAX_ITER", "100000")
+        log_path = os.path.join(root, "run3.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log_f:
+            proc = subprocess.Popen(cli_cmd(argv3), cwd=ROOT, env=cli_env(data_root), stdout=log_f,
+                                    stderr=subprocess.STDOUT)
+            try:
+                while not metrics_lines(out3):
+                    check(proc.poll() is None, f"run 3 ended before its first metrics line: rc {proc.returncode}")
+                    check(time.perf_counter() - t0 < CLI_TIMEOUT_S, "run 3: no metrics line in time")
+                    time.sleep(0.1)
+                proc.send_signal(signal.SIGTERM)
+                rc = proc.wait(timeout=CLI_TIMEOUT_S)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        with open(log_path) as f:
+            stdout = f.read()
+        check(rc == 0, f"run 3 after SIGTERM: exit code {rc}\n{stdout[-3000:]}")
+        add_launches(cli_launches(stdout))
+        with open(os.path.join(out3, "last_checkpoint")) as f:
+            marker = f.read()
+        check(marker.startswith("model_preempt_") and os.path.exists(os.path.join(out3, marker)), f"run 3 marker {marker}")
+        stopped = int(marker[len("model_preempt_"):-len(".pth")]) + 1
+        stdout, wall, got = run_cli(cli_argv(out3, weights, vis, "SOLVER.MAX_ITER", str(stopped + 4), flags=("--resume",)),
+                                    data_root, "run 3 resume")
+        add_launches(got)
+        check(f"resumed from {marker} at iteration {stopped}" in stdout, "run 3 did not resume from its preempt file")
+        check(metrics_lines(out3)[-1]["iteration"] == stopped + 3, "run 3 resume did not reach its MAX_ITER")
+        log(f"  run 3 (SIGTERM after the first metrics line) [{smi}]: rc 0, {marker} at {stopped} steps, resumed for "
+            f"4 steps in {wall:.2f} s")
+        for f in os.listdir(out3):
+            if f.endswith(".pth"):
+                os.remove(os.path.join(out3, f))
+
+        # in this process: the datasets, then AdaBN on the base trainer
+        register_cli_datasets(data_root)
+        out_a = os.path.join(root, "adabn")
+        train_set = '("cityscapes_instancesonly_foggy_train_foggy_beta_0.02",)'
+        tr = cli_trainer(cli_argv(out_a, weights, 0, "TRAINER", "base", "DATASETS.TRAIN", train_set), resume=False)
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = tr.adabn_refinement(max_batches=ADABN_BATCHES)
+        torch.cuda.synchronize()
+        adabn_s = time.perf_counter() - t0
+        got = dict(_kernels.LAUNCHES)
+        add_launches(got)
+        want = 2 * 2 * CLI_TEST_FRAMES
+        check(all(c == want for c in got.values()), f"AdaBN test(): launches {got}, expected {want}")
+        bns = [m for m in tr.detector.model.modules() if hasattr(m, "running_var")]
+        check(all(m.running_mean.abs().max() > 0 and (m.running_var - 1).abs().max() > 0 for m in bns),
+              "AdaBN: running statistics did not move from reset")
+        check(os.path.exists(os.path.join(out_a, "adabn.pth")) and os.path.exists(os.path.join(out_a, "eval_results.json")),
+              "AdaBN: adabn.pth or eval_results.json missing")
+        log(f"  AdaBN (base trainer, reset + {ADABN_BATCHES} batches + test() + adabn.pth) [{smi}]: {adabn_s:.2f} s, "
+            f"{len(bns)} BatchNorms moved from reset, AP50 " +
+            ", ".join(f"{k} {v['AP50']:.4f}" for k, v in res.items()))
+        del tr
+
+        # determinism: two 4-step loops, and one saved and resumed after 2
+        first_batch = next(iter(build_test_loader(get_main_cfg(), "cityscapes_instancesonly_foggy_val_foggy_beta_0.02")))
+        _kernels.reset_launches()
+        finals = {}
+        for label in ("a", "b", "split"):
+            out_d = os.path.join(root, f"det_{label}")
+            steps = DET_SPLIT if label == "split" else DET_STEPS
+            opts = ("SOLVER.MAX_ITER", str(steps), "TEST.EVAL_PERIOD", "0", "SOLVER.CHECKPOINT_PERIOD", "0")
+            tr = cli_trainer(cli_argv(out_d, weights, 0, *opts), resume=False)
+            tr.train_loader = RepeatBatch(first_batch)
+            tr.train()
+            if label == "split":
+                tr = cli_trainer(cli_argv(out_d, weights, 0, *opts[:1], str(DET_STEPS), *opts[2:]), resume=True)
+                check(tr.state.step == DET_SPLIT, "determinism: resume step")
+                tr.train_loader = RepeatBatch(first_batch)
+                tr.train()
+            check(tr.state.step == DET_STEPS, "determinism: steps")
+            finals[label] = host_state(tr.checkpoint_state())
+            del tr
+        det_launches = dict(_kernels.LAUNCHES)
+        add_launches(det_launches)
+        check(all(c == 3 * 3 * DET_STEPS for c in det_launches.values()), f"determinism launches {det_launches}")
+        spread = state_diff(finals["b"], finals["a"])
+        resumed = state_diff(finals["split"], finals["a"])
+        gens = all(torch.equal(finals[x]["/trainer/generator"], finals["a"]["/trainer/generator"]) for x in finals)
+        log(f"  determinism [{smi}]: two {DET_STEPS}-step loops differ by {spread:.3g} (relative to each tensor's "
+            f"largest entry: the spread), the one saved and resumed after step {DET_SPLIT} by {resumed:.3g}; "
+            f"generator states equal: {gens}")
+        check(gens and resumed <= 2 * spread, f"resumed run off by {resumed}, spread {spread}")
+        del finals
+
+        # the loop's time a step, from disk and from a repeated batch
+        loop = {}
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        for label in ("disk", "repeated batch"):
+            opts = ("SOLVER.MAX_ITER", str(LOOP_STEPS), "TEST.EVAL_PERIOD", "0", "SOLVER.CHECKPOINT_PERIOD", "0")
+            tr = cli_trainer(cli_argv(os.path.join(root, f"loop_{len(loop)}"), weights, 0, *opts), resume=False)
+            if label == "repeated batch":
+                tr.train_loader = RepeatBatch(first_batch)
+            loop[label] = timed_loop(tr, LOOP_WINDOW)
+            del tr
+        peak_loop = torch.cuda.max_memory_allocated() / 2**30
+        loop_launches = dict(_kernels.LAUNCHES)
+        add_launches(loop_launches)
+        check(all(c == 3 * 2 * LOOP_STEPS for c in loop_launches.values()), f"loop launches {loop_launches}")
+        log_steps = {i for i in range(LOOP_STEPS) if (i + 1) % 20 == 0 or i == LOOP_STEPS - 1}
+        for label, (ms, syncs) in loop.items():
+            other = [syncs[i] for i in range(*LOOP_WINDOW) if i not in log_steps]
+            log(f"  train loop, {label} [{smi}]: {ms:.2f} ms a step over steps {LOOP_WINDOW[0]}-{LOOP_WINDOW[1] - 1} "
+                "(the adapt phase's run_step medians: " +
+                ", ".join(f"{k} {v:.2f} ms" for k, v in adapt_step_ms.items()) + "); host syncs a step: "
+                f"{max(other)} on steps without a log, {[syncs[i] for i in sorted(log_steps)]} on the log steps "
+                f"{sorted(log_steps)} (one a metric read; the last step's count includes model_final's snapshot, "
+                "one copy a tensor)")
+        log(f"  peak memory over the two loops [{smi}]: {peak_loop:.2f} GiB")
+    finally:
+        cli_dir.cleanup()
+    log(f"  launches on the cli path: {cli_launch_total}")
+    return cli_launch_total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1140,6 +1582,7 @@ def main() -> int:
         # configuration (bfloat16, strong view, adaptive threshold, fixed
         # bfloat16 teacher), then on the main configuration, then _single
         adapt_captured = []
+        adapt_step_ms = {}
         _kernels.reset_launches()
         for i, (label, base, trainer, steps) in enumerate((
             ("main variant, SFAT_BENCH_CONFIG", SFAT_BENCH_CONFIG, "source_free_adaptive_teacher", ADAPT_STEPS),
@@ -1157,6 +1600,7 @@ def main() -> int:
                 f"num_pseudo per step {[int(m['num_pseudo']) for m in metrics]}; step {steps - 1}: " +
                 ", ".join(f"{k} {metrics[-1][k]:.4f}" for k in ADAPT_LOSSES) +
                 (f"; EMA rule error {ema_err:.3g}" if ema_err is not None else "; teacher parameters unchanged, statistics moved"))
+            adapt_step_ms[label] = med
             if i == 0:
                 main_tr, main_batch = tr, batch
             del tr
@@ -1338,6 +1782,9 @@ def main() -> int:
         finally:
             eval_dir.cleanup()
 
+    with Phase("cli"):
+        cli_launches_total = cli_phase(smi, adapt_step_ms)
+
     replaces = {
         "suppress_relation_bits": "simple_sfod_tpu/ops/pallas_kernels.py:26",
         "greedy_keep_from_bits": "simple_sfod_tpu/ops/pallas_kernels.py:123",
@@ -1348,7 +1795,8 @@ def main() -> int:
         # NMS call site (teacher RPN, teacher detection, student RPN); the
         # numbers are the sum over the three sites, on the first step's
         # inputs. launches count every path: serve, train, adapt and eval
-        # (trainer.test(), 2 per image and evaluated model).
+        # (trainer.test(), 2 per image and evaluated model) and cli (the
+        # CLI's subprocesses and the phase's loops, AdaBN included).
         # per_call: one served image's two calls; train_per_step: one
         # supervised step's RPN call; large_n: N above the keep kernel's
         # shared-memory route (the row walk)
@@ -1359,7 +1807,8 @@ def main() -> int:
             "route": "cuda",
             "source": "simple_sfod_tpu_torch/ops/csrc/nms.cu",
             "replaces": replaces[name],
-            "launches": launches[name] + train_launches[name] + adapt_launches[name] + eval_launches[name],
+            "launches": launches[name] + train_launches[name] + adapt_launches[name] + eval_launches[name] +
+                        cli_launches_total[name],
             "max_abs_err": float(max(r["err"] for r in per + rows[name] + large_rows[name])),
             "ms": sum(r["ms"] for r in per),
             "call_ms": sum(r["call_ms"] for r in per),
@@ -1369,7 +1818,7 @@ def main() -> int:
             "library_ms": None,
             "ptxas": ptxas[name],
             "launches_by_path": {"serve": launches[name], "train": train_launches[name], "adapt": adapt_launches[name],
-                                 "eval": eval_launches[name]},
+                                 "eval": eval_launches[name], "cli": cli_launches_total[name]},
             "adapt_per_step": per,
             "per_call": rows[name],
             "train_per_step": train_rows[0 if name == "suppress_relation_bits" else 1],

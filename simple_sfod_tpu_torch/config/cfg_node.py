@@ -2,15 +2,19 @@
 `simple_sfod_tpu/config/cfg_node.py`).
 
 Same merge semantics as the JAX package's node, so every YAML under
-`configs/` merges to the same key tree in both packages. `yaml` is imported
-only inside `merge_from_file`: the serving path builds its
-config from Python keys and never needs it.
+`configs/` merges to the same key tree in both packages. Files are read by
+the port's own reader of the YAML subset the configs are written in
+(`yaml_subset.py`), so no YAML package is needed.
 """
 
 from __future__ import annotations
 
 import ast
+import copy
+import os
 from typing import Any, List
+
+from . import yaml_subset
 
 
 class CfgNode(dict):
@@ -47,6 +51,9 @@ class CfgNode(dict):
             if isinstance(v, CfgNode):
                 v.defrost()
 
+    def clone(self) -> "CfgNode":
+        return copy.deepcopy(self)
+
     # merging -----------------------------------------------------------------
     @staticmethod
     def _decode(value: Any, old: Any) -> Any:
@@ -78,14 +85,9 @@ class CfgNode(dict):
                 self[k] = self._decode(v, self[k])
 
     def merge_from_file(self, path: str, allow_new: bool = False):
-        import yaml
-
-        with open(path) as f:
-            data = yaml.safe_load(f) or {}
+        data = yaml_subset.load(path) or {}
         base = data.pop("_BASE_", None)
         if base:
-            import os
-
             if not base.startswith("/"):
                 base = os.path.join(os.path.dirname(path), base)
             self.merge_from_file(base, allow_new)

@@ -43,6 +43,15 @@ class AdaptiveThresholdState:
             cursor=0,
         )
 
+    def state_dict(self) -> dict:
+        return {"reserve": self.reserve, "classwise_acc": self.classwise_acc, "cursor": self.cursor}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore `state_dict()` in place (the tensors keep their device)."""
+        self.reserve = state["reserve"].to(self.reserve.device, self.reserve.dtype)
+        self.classwise_acc = state["classwise_acc"].to(self.classwise_acc.device, self.classwise_acc.dtype)
+        self.cursor = int(state["cursor"])
+
 
 @dataclasses.dataclass
 class TeacherStudentState(TrainState):

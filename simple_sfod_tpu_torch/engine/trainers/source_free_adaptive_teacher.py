@@ -36,7 +36,14 @@ device; `step_on_device` runs the step and reads nothing back to the host
 `build_train_loader` reads the target domain (DATASETS.TRAIN_TARGET, else
 DATASETS.TRAIN) at SOLVER.IMS_PER_BATCH_TARGET; `test` evaluates both the
 student and the teacher on each of DATASETS.TEST into `<name>/student` and
-`<name>/teacher` of `eval_results.json` under OUTPUT_DIR.
+`<name>/teacher` of `eval_results.json` under OUTPUT_DIR, after PreciseBN
+of the student where TEST.PRECISE_BN is on. The train loop, checkpoints and
+AdaBN are BaseTrainer's: a checkpoint holds the teacher and the student
+(modelTeacher.* / modelStudent.*), the domain classifiers, the threshold
+statistics and both generators; MODEL.WEIGHTS loads a source detector into
+both; AdaBN and PreciseBN work on the student's statistics. Every
+VIS_PERIOD steps of the loop the teacher's pseudo-labels of the step's
+first image go to TensorBoard.
 
 Not ported yet, and refused: STYLE.ENABLED (AdaIN style enhancement), and
 weighted domain-classifier losses (DOMAIN_CLASSIFIER.IMAGE or INSTANCE).
@@ -49,6 +56,7 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ...checkpoint.checkpointer import overlay_state_dict
 from ...checkpoint.from_jax import TeacherStudentWeights
 from ...data.loader import build_train_loader
 from ...data.transforms import StrongDraws, make_strong_draws, strong_augment_batch
@@ -59,7 +67,7 @@ from ...solver.build import build_optimizer
 from ...structures.instances import Instances
 from ..train_state import AdaptiveThresholdState, TeacherStudentState, ema_tensors, ema_update
 from . import register_trainer
-from .base import BaseTrainer, apply_weak_aug
+from .base import BaseTrainer, apply_weak_aug, float_state_dict, to_device
 
 # Cityscapes classes 0 (person) and 2 (car) are pinned to acc = 1 by the
 # reference's adaptive threshold: dominant classes whose counts would
@@ -97,6 +105,7 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         device: Optional[Union[str, torch.device]] = None,
         state_dict=None,
         weights: Optional[TeacherStudentWeights] = None,
+        synthetic: bool = False,
     ):
         if cfg.SEMISUPNET.PSEUDO_BBOX_SAMPLE != "thresholding":
             raise ValueError(f"Unknown pseudo label boxes methods {cfg.SEMISUPNET.PSEUDO_BBOX_SAMPLE}")
@@ -119,7 +128,9 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
                     f"feature {in_feature!r} (single-level: the heads' in-feature)"
                 )
         self._weights = weights
-        super().__init__(cfg, device=device, state_dict=weights.student if weights is not None else state_dict)
+        super().__init__(
+            cfg, device=device, state_dict=weights.student if weights is not None else state_dict, synthetic=synthetic
+        )
         self._weights = None
         s = cfg.SEMISUPNET
         self.bbox_threshold = float(s.BBOX_THRESHOLD)
@@ -132,6 +143,7 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         self.warm_up = int(cfg.ADAPTIVE_THRESHOLD.WARM_UP)
         # the strong view's scalar decisions: a CPU generator of its own
         self.host_generator = torch.Generator().manual_seed(self.generator.initial_seed() + 1)
+        self._vis_hook = None
 
     # -- state ---------------------------------------------------------------
     def _init_state(self) -> TeacherStudentState:
@@ -176,6 +188,48 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
             dc=dc,
             thresh=thresh,
         )
+
+    # -- checkpoints -------------------------------------------------------
+    def checkpoint_state(self) -> Dict:
+        """BaseTrainer's file with the teacher beside the student, both
+        float32 (modelTeacher.* then modelStudent.*, as the JAX package's
+        export_ensemble writes them), and under "trainer" the domain
+        classifiers, the threshold statistics and the strong view's host
+        generator."""
+        data = super().checkpoint_state()
+        st = self.state
+        model = {f"modelTeacher.{k}": v for k, v in float_state_dict(st.teacher).items()}
+        model.update({f"modelStudent.{k}": v for k, v in data["model"].items()})
+        data["model"] = model
+        data["trainer"].update(
+            host_generator=self.host_generator.get_state(),
+            dc={name: m.state_dict() for name, m in st.dc.items()},
+            thresh=st.thresh.state_dict(),
+        )
+        return data
+
+    def load_checkpoint(self, data: Dict) -> None:
+        """Restore a `checkpoint_state()`: the teacher from the file's
+        teacher (cast back to its dtype), the student and the rest exactly."""
+        st = self.state
+        model = data["model"]
+        student = {k[len("modelStudent."):]: v for k, v in model.items() if k.startswith("modelStudent.")}
+        teacher = {k[len("modelTeacher."):]: v for k, v in model.items() if k.startswith("modelTeacher.")}
+        st.teacher.load_state_dict(teacher, strict=True)
+        super().load_checkpoint({**data, "model": student})
+        tr = data["trainer"]
+        for name, m in st.dc.items():
+            m.load_state_dict(tr["dc"][name], strict=True)
+        st.thresh.load_state_dict(tr["thresh"])
+        self.host_generator.set_state(tr["host_generator"])
+
+    def load_weights(self, sd: Dict[str, torch.Tensor]) -> list:
+        """A source detector (MODEL.WEIGHTS) into the student and the
+        teacher both, non-strictly; the domain classifiers and the threshold
+        statistics keep their initialisation."""
+        kept = super().load_weights(sd)
+        overlay_state_dict(self.state.teacher, sd)
+        return kept
 
     # -- draws ---------------------------------------------------------------
     def make_draws(self, batch_size: int, canvas_hw: Tuple[int, int]) -> AdaptDraws:
@@ -307,6 +361,7 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
             self.cfg,
             dataset_names=self.cfg.DATASETS.TRAIN_TARGET or self.cfg.DATASETS.TRAIN,
             batch_size=self.cfg.SOLVER.IMS_PER_BATCH_TARGET,
+            synthetic=self.synthetic,
         )
 
     def test(self, dataset_names=None) -> Dict:
@@ -314,7 +369,8 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         (`self.teacher`, with its bfloat16 parameters where the fixed teacher
         has them) on each dataset (default DATASETS.TEST): results under
         `<name>/student` and `<name>/teacher`, an `[eval:<tag>]` line each,
-        all written to `eval_results.json`."""
+        `<name>/<tag>/AP50` into the storage, all written to
+        `eval_results.json`."""
         self._maybe_precise_bn()
         results = {}
         for tag, detector in (("student", self.detector), ("teacher", self.teacher)):
@@ -323,22 +379,71 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
                 results[f"{name}/{tag}"] = res
                 ap_line = {k: res.get(k) for k in ("AP", "AP50", "VOC_AP50", "F1") if res.get(k) is not None}
                 print(f"[eval:{tag}] {name}: {ap_line}", flush=True)
+                ap50 = res.get("AP50")
+                self.storage.put_scalar(f"{name}/{tag}/AP50", float("nan") if ap50 is None else ap50)
         self._write_results(results)
         return results
 
     def stage(self, batch: Mapping[str, np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
         """A target batch in the loader's layout (images uint8 [B, H, W, 3],
-        sizes [B, 2]) on the device."""
-        images = torch.as_tensor(np.asarray(batch["images"])).to(self.device)
-        sizes = torch.as_tensor(np.asarray(batch["sizes"])).to(self.device, torch.int32)
-        return images, sizes
+        sizes [B, 2]) on the device, copied without blocking."""
+        return to_device(batch["images"], self.device), to_device(batch["sizes"], self.device, torch.int32)
 
-    def run_step(self, batch: Mapping[str, np.ndarray], draws: Optional[AdaptDraws] = None) -> Dict[str, torch.Tensor]:
-        """Stage the batch, draw (unless `draws` is given) and step."""
-        images, sizes = self.stage(batch)
+    def step_staged(self, staged, draws: Optional[AdaptDraws] = None) -> Dict[str, torch.Tensor]:
+        """Draw (unless `draws` is given) and step on a staged batch."""
+        images, sizes = staged
         if draws is None:
             draws = self.make_draws(images.shape[0], tuple(images.shape[1:3]))
         return self.step_on_device(images, sizes, draws)
+
+    def run_step(self, batch: Mapping[str, np.ndarray], draws: Optional[AdaptDraws] = None) -> Dict[str, torch.Tensor]:
+        """Stage the batch, draw (unless `draws` is given) and step."""
+        return self.step_staged(self.stage(batch), draws)
+
+    # -- visualisation ---------------------------------------------------------
+    def _check_before_train(self) -> None:
+        """VIS_PERIOD > 0 writes to TensorBoard: the hook is built here, so a
+        machine without a backend fails before the first step (the JAX
+        package fails at step VIS_PERIOD - 1)."""
+        if self.cfg.VIS_PERIOD > 0 and self._vis_hook is None:
+            from ...utils.visualize import VisualizationHook
+
+            try:
+                self._vis_hook = VisualizationHook(self.output_dir, self.cfg.VIS_PERIOD, input_format=self.cfg.INPUT.FORMAT)
+            except ImportError as e:
+                raise RuntimeError(
+                    f"VIS_PERIOD {self.cfg.VIS_PERIOD} writes pseudo-labels to TensorBoard, but neither tensorboardX "
+                    "nor torch.utils.tensorboard imports; set VIS_PERIOD 0"
+                ) from e
+
+    def _close_writers(self) -> None:
+        super()._close_writers()
+        if self._vis_hook is not None:
+            self._vis_hook.close()
+            self._vis_hook = None
+
+    def _after_steps(self, batch) -> None:
+        self._maybe_visualize(batch)
+
+    def _maybe_visualize(self, batch) -> None:
+        """Every VIS_PERIOD steps, the teacher's detections on the batch's
+        first image above BBOX_THRESHOLD to TensorBoard (the only read-back
+        of those steps)."""
+        hook = self._vis_hook
+        if hook is None or not hook.fires(self.storage.iter):
+            return
+        dets = self.teacher.infer(batch["images"][:1], batch["sizes"][:1])
+        valid = dets.valid[0].cpu().numpy()
+        scores = dets.scores[0].float().cpu().numpy()
+        keep = valid & (scores > self.bbox_threshold)
+        hook.after_step(
+            self.storage.iter,
+            batch["images"][0],
+            dets.boxes[0].float().cpu().numpy()[keep],
+            dets.classes[0].cpu().numpy()[keep],
+            scores[keep],
+            tag="train/teacher_pseudo_labels",
+        )
 
 
 @register_trainer("source_free_adaptive_teacher")

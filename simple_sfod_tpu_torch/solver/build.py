@@ -9,7 +9,8 @@ chain's order:
     p  = p - lr(count) * mu                        count = steps taken so far
 
 The JAX package's `SOLVER.FUSED` flat-buffer variant computes the same
-function; the port has this one implementation.
+function; the port has this one implementation. `auto_scale_workers` is
+detectron2's linear-scaling rule for SOLVER.REFERENCE_WORLD_SIZE.
 """
 
 from __future__ import annotations
@@ -59,6 +60,32 @@ def warmup_multistep_schedule(
         return f32(base_lr) * factor * warm
 
     return schedule
+
+
+def auto_scale_workers(cfg, new_world_size: int):
+    """The linear-scaling rule (detectron2's auto_scale_workers): when
+    SOLVER.REFERENCE_WORLD_SIZE is set and differs from the data-parallel
+    width, scale the LR and the global batch sizes by new / reference and
+    MAX_ITER, WARMUP_ITERS, STEPS, EVAL_PERIOD and CHECKPOINT_PERIOD by its
+    inverse. Returns a new, defrosted config (or `cfg` itself when nothing
+    scales)."""
+    old = cfg.SOLVER.REFERENCE_WORLD_SIZE or 0
+    if old == 0 or old == new_world_size:
+        return cfg
+    scale = new_world_size / old
+    cfg = cfg.clone()
+    cfg.defrost()
+    s = cfg.SOLVER
+    s.BASE_LR = s.BASE_LR * scale
+    s.IMS_PER_BATCH = int(round(s.IMS_PER_BATCH * scale))
+    s.IMS_PER_BATCH_TARGET = int(round(s.IMS_PER_BATCH_TARGET * scale))
+    s.MAX_ITER = int(round(s.MAX_ITER / scale))
+    s.WARMUP_ITERS = int(round(s.WARMUP_ITERS / scale))
+    s.STEPS = tuple(int(round(x / scale)) for x in s.STEPS)
+    cfg.TEST.EVAL_PERIOD = int(round(cfg.TEST.EVAL_PERIOD / scale))
+    s.CHECKPOINT_PERIOD = int(round(s.CHECKPOINT_PERIOD / scale))
+    s.REFERENCE_WORLD_SIZE = new_world_size
+    return cfg
 
 
 def norm_param_mask(model: nn.Module) -> Dict[str, bool]:
@@ -128,6 +155,23 @@ class SGD:
         torch._foreach_add_(self.mu, grads)
         torch._foreach_add_(self.params, self.mu, alpha=-self.lr())
         self.count += 1
+
+    def state_dict(self) -> Dict:
+        """The momentum buffers by parameter name, and `count`."""
+        return {"count": self.count, "mu": dict(zip(self.names, self.mu))}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore `state_dict()`'s momentum (copied into the buffers, in
+        their dtype and device) and count; the parameter names must be the
+        optimizer's own."""
+        mu = state["mu"]
+        if set(mu) != set(self.names):
+            raise KeyError(f"optimizer state names differ: missing {sorted(set(self.names) - set(mu))}, "
+                           f"unexpected {sorted(set(mu) - set(self.names))}")
+        for name, buf in zip(self.names, self.mu):
+            buf.copy_(mu[name])
+        self.count = int(state["count"])
 
 
 def build_optimizer(cfg, model: nn.Module, extra: Optional[Dict[str, nn.Module]] = None) -> SGD:

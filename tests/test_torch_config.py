@@ -1,19 +1,24 @@
 """The port's config (simple_sfod_tpu_torch/config) against the JAX
 package's: every YAML under configs/ merges to the same key tree and lowers
 to the same DetectorConfig, and the main configuration built from Python
-keys equals merge_from_file of its YAML."""
+keys equals merge_from_file of its YAML. The port's YAML reader
+(config/yaml_subset.py) gives what yaml.safe_load gives on every file
+under configs/ and on the subset's scalars, and refuses, naming the line,
+what lies outside the subset."""
 
 import dataclasses
 import glob
+import math
 import os
 
 import jax.numpy as jnp
 import pytest
 import torch
+import yaml
 
 from simple_sfod_tpu.config import detector_config_from_cfg as jax_lower
 from simple_sfod_tpu.config import get_cfg as jax_get_cfg
-from simple_sfod_tpu_torch.config import MAIN_CONFIG, detector_config_from_cfg, get_cfg, get_main_cfg
+from simple_sfod_tpu_torch.config import MAIN_CONFIG, detector_config_from_cfg, get_cfg, get_main_cfg, yaml_subset
 from simple_sfod_tpu_torch.config.defaults import MAIN_CONFIG_NAME, config_opts
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
@@ -67,3 +72,64 @@ def test_config_opts_round_trip():
     cfg.merge_from_list(config_opts({"TPU": {"CANVAS": (64, 128)}, "MODEL": {"RPN": {"NMS_THRESH": 0.6}}}))
     assert cfg.TPU.CANVAS == (64, 128) and cfg.MODEL.RPN.NMS_THRESH == 0.6
     assert MAIN_CONFIG["TPU"]["DTYPE"] == "bfloat16"
+
+
+def same(a, b):
+    """Equal values of equal types (bool is not int), NaN equal to NaN."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    if isinstance(a, float) and math.isnan(a):
+        return math.isnan(b)
+    return a == b
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=IDS)
+def test_reader_equals_safe_load(path):
+    with open(path) as f:
+        want = yaml.safe_load(f)
+    assert same(yaml_subset.load(path), want)
+
+
+SCALARS = [
+    "0", "-7", "+12", "1.0", "0.0025", "1.", "-.5", ".5", "1.0e-3", "1.5E+2", ".inf", "-.Inf", ".nan", "True", "false",
+    "yes", "No", "ON", "off", "~", "null", "NULL", "1e-3", "08", "(608, 1216)", '("a", "b",)', "./output/x_1",
+    "build_vgg_backbone", "[]", "[1, 2.5, [3, [x]], 'y']", "[ [ 64, 128 ] ]", "[a, b, ]", '"quoted # not a comment"',
+    "'it''s'", '"tab\\there \\"q\\""', "plain # comment", "value   # comment with 'quotes'", "",
+]
+
+
+@pytest.mark.parametrize("value", SCALARS)
+def test_reader_scalars_equal_safe_load(value):
+    text = f"ROOT:\n  KEY: {value}\n  OTHER: 1\n"
+    assert same(yaml_subset.loads(text), yaml.safe_load(text)), value
+
+
+OUTSIDE = {
+    "block sequence": "A:\n  - 1\n  - 2\n",
+    "flow mapping": "A: {b: 1}\n",
+    "anchor": "A: &x 1\n",
+    "alias": "A: *x\n",
+    "tag": "A: !!str 1\n",
+    "block scalar": "A: |\n  text\n",
+    "multi-line flow": "A: [1,\n  2]\n",
+    "octal": "A: 0755\n",
+    "hex": "A: 0x1F\n",
+    "underscored int": "A: 1_000\n",
+    "sexagesimal": "A: 1:30\n",
+    "timestamp": "A: 2020-01-02\n",
+    "document marker": "---\nA: 1\n",
+    "bad indentation": "A:\n    B: 1\n  C: 2\n",
+    "tab indentation": "A:\n\tB: 1\n",
+    "duplicate key": "A: 1\nA: 2\n",
+    "unterminated quote": "A: 'x\n",
+}
+
+
+@pytest.mark.parametrize("text", OUTSIDE.values(), ids=OUTSIDE.keys())
+def test_reader_refuses_outside_the_subset(text):
+    with pytest.raises(ValueError, match=r"^cfg\.yaml:\d+: "):
+        yaml_subset.loads(text, "cfg.yaml")

@@ -214,3 +214,31 @@ def test_native_decode_and_resize_of_written_frames(cuda, tmp_path):
         (tmp_path / "a.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
         with pytest.raises(RuntimeError, match="libjpeg"):
             native_codec.decode(str(tmp_path / "a.jpg"))
+
+
+def test_train_loop_saves_reloads_and_resumes(cuda, tmp_path):
+    """The adaptation loop on the card (main variant on the main YAML's
+    keys, bfloat16 with its bfloat16 fixed teacher, 256x512, a repeated
+    batch): 2 steps end in model_final.pth; a new trainer resumes it, every
+    restored tensor equals the file's bit for bit, and it runs on to 4."""
+    cfg = chip_smoke.adapt_cfg(chip_smoke.MAIN_CONFIG, canvas=(256, 512))
+    cfg.merge_from_list(["SOLVER.MAX_ITER", "2", "TEST.EVAL_PERIOD", "0", "SOLVER.CHECKPOINT_PERIOD", "0",
+                         "VIS_PERIOD", "0"])
+    cfg.OUTPUT_DIR = str(tmp_path)
+    batch = chip_smoke.synthetic_bench_batch(cfg)
+    batch["sizes"][:] = (250, 500)
+    tr = chip_smoke.adapt_trainer(cfg)
+    tr.train_loader = chip_smoke.RepeatBatch(batch)
+    tr.train()
+    saved = chip_smoke.host_state(torch.load(tmp_path / "model_final.pth", weights_only=True))
+    cfg.SOLVER.MAX_ITER = 4
+    tr2 = chip_smoke.build_trainer(cfg)
+    tr2.resume_or_load(resume=True)
+    restored = chip_smoke.host_state(tr2.checkpoint_state())
+    assert saved.keys() == restored.keys()
+    for k, v in saved.items():
+        assert torch.equal(restored[k], v) if isinstance(v, torch.Tensor) else restored[k] == v, k
+    assert next(tr2.state.teacher.parameters()).dtype == torch.bfloat16
+    tr2.train_loader = chip_smoke.RepeatBatch(batch)
+    tr2.train()
+    assert tr2.state.step == 4 and tr2.checkpointer.last_checkpoint() == "model_final.pth"

@@ -265,7 +265,22 @@ def test_sfat_build_train_loader_reads_target(world, tmp_path):
 
 @pytest.mark.parametrize("trainer", ["base", "source_free_adaptive_teacher"])
 def test_precise_bn_is_refused(world, tmp_path, trainer):
-    pcfg = make_cfg(get_cfg, tmp_path, ["TRAINER", trainer, "TEST.PRECISE_BN.ENABLED", "True"])
+    """TEST.PRECISE_BN is not ignored: test() first sets the trained
+    model's BatchNorm statistics to precise_bn over NUM_ITER batches of the
+    train loader (held to the JAX package in test_torch_adabn.py); an
+    adaptation teacher keeps its own."""
+    from simple_sfod_tpu_torch.engine.hooks import precise_bn
+
+    pcfg = make_cfg(get_cfg, tmp_path, ["TRAINER", trainer, "TEST.PRECISE_BN.ENABLED", "True",
+                                        "TEST.PRECISE_BN.NUM_ITER", "2", "DATASETS.TRAIN", repr((NAMES[0],))])
     tr = build_trainer(pcfg, device="cpu", state_dict=world["pdet"].model.state_dict())
-    with pytest.raises(NotImplementedError, match="PRECISE_BN"):
-        tr.test()
+    ref = build_trainer(pcfg, device="cpu", state_dict=world["pdet"].model.state_dict())
+    teacher = {k: v.clone() for k, v in getattr(tr.state, "teacher", tr.state.model).state_dict().items()}
+    tr.test()
+    assert precise_bn(ref.detector, ref.build_train_loader(), 2) == 2
+    want = ref.state.model.state_dict()
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    assert all(torch.equal(tr.state.model.state_dict()[k], want[k]) for k in stats)
+    assert not all(torch.equal(want[k], teacher[k]) for k in stats)
+    if trainer != "base":
+        assert all(torch.equal(tr.state.teacher.state_dict()[k], teacher[k]) for k in stats)

@@ -1,7 +1,7 @@
 """The port stands alone: simple_sfod_tpu_torch/ and chip_smoke.py import
 nothing of JAX or of the JAX package, import yaml and PIL only inside
-functions, import and serve with those modules poisoned, and refuse to run
-on the CPU unless asked to."""
+functions, import, read the main YAML and serve with those modules
+poisoned, and refuse to run on the CPU unless asked to."""
 
 import ast
 import os
@@ -60,6 +60,10 @@ def test_package_files_were_scanned():
         "data/synthetic.py", "evaluation/coco_eval.py", "evaluation/native.py", "evaluation/f1.py",
         "evaluation/dece.py", "evaluation/voc.py", "evaluation/build.py", "engine/eval_loop.py",
     } <= names
+    assert {
+        "config/yaml_subset.py", "engine/events.py", "engine/hooks.py", "utils/visualize.py",
+        "checkpoint/checkpointer.py", "tools/train_net.py", "tools/train_net_mt.py",
+    } <= names
 
 
 POISONED = r"""
@@ -71,9 +75,13 @@ import simple_sfod_tpu_torch
 for m in pkgutil.walk_packages(simple_sfod_tpu_torch.__path__, "simple_sfod_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-# the serving path at canvas size needs neither yaml nor PIL
+# the main YAML reads without yaml, and the serving path at canvas size
+# needs neither yaml nor PIL
 import numpy as np
-from simple_sfod_tpu_torch.config import get_main_cfg, detector_config_from_cfg
+from simple_sfod_tpu_torch.config import get_cfg, get_main_cfg, detector_config_from_cfg
+main_yaml = get_cfg()
+main_yaml.merge_from_file("configs/faster_rcnn_VGG_cityscapes_foggy_adaptive_teacher_source_free.yaml")
+assert main_yaml == get_main_cfg(), "main YAML"
 from simple_sfod_tpu_torch.engine.serve import DetectionService
 from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, init_weights
 cfg = get_main_cfg()
