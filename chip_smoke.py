@@ -105,6 +105,25 @@ Phases (each prints one progress line with its wall time):
               repeated batch beside the bare step, host syncs a step,
               a non-blocking save's blocking and write time, the file's
               size, the resume's load time, peak memory
+ 12. r101     ResNet-101 C4 (full depth, seeded weights): features and
+              detections on the card against the CPU's at 128x256 (FC_DIM
+              64, float32) for NORM BN in eval and train mode and FrozenBN;
+              AdaBN from the CLI in a process of its own
+              (train_net_mt --eval-only on configs/r_101_c4_cs_foggy_adabn.yaml,
+              the cli phase's 1024x2048 PNG datasets, a seeded R101 .pth,
+              the refinement cut to 8 batches and each TEST set to 4 frames):
+              live BN statistics moved from reset and finite, both TEST sets
+              in eval_results.json, finite detections, NMS launches as
+              counted; the refinement's batches/s and test()'s images/s in
+              this process; 8 SFAT steps on
+              configs/r101_c4_cs_foggy_adaptive_teacher_source_free.yaml
+              (bfloat16, 608x1216, batch 1): finite losses, 3 launches of
+              each kernel a step, stem and res2 bit-identical, a step under
+              set_sync_debug_mode("error"), run_step median, a profiled
+              step, peak memory, the three NMS inputs kernel == plain and
+              timed; 6 base steps on configs/r_101_c4_cs_source_frozen.yaml
+              (FrozenBN, IMS_PER_BATCH 4): finite losses, stem, res2 and
+              every FrozenBN buffer bit-identical
 
 Prints the card's name and power limit and a JSON line of the kernels'
 numbers, then, as the last line, {"ok": true, "device": {...}}. Any failure
@@ -1278,6 +1297,315 @@ def cli_phase(smi: str, adapt_step_ms: dict) -> dict:
     return cli_launch_total
 
 
+# ---------------------------------------------------------------- r101
+R101_ADABN_YAML = "configs/r_101_c4_cs_foggy_adabn.yaml"
+R101_SFAT_YAML = "configs/r101_c4_cs_foggy_adaptive_teacher_source_free.yaml"
+R101_SOURCE_YAML = "configs/r_101_c4_cs_source_frozen.yaml"
+R101_ADABN_BATCHES = 8  # the CLI's refinement batches (1400 in the reference)
+R101_TIMED_BATCHES = 16  # the in-script refinement's timed batches
+R101_SFAT_STEPS = 8
+R101_BASE_STEPS = 6
+R101_CALIBRATION = 30  # train-mode forwards that give the FrozenBN weights their statistics
+# the card-vs-CPU cells: a 128x256 canvas, a narrow box head, float32
+R101_SMALL = {"MODEL.ROI_BOX_HEAD.FC_DIM": "64", "TPU.DTYPE": "float32", "TPU.CANVAS": "(128, 256)"}
+# train_net_mt --eval-only with the refinement cut to argv[1] batches: the
+# CLI's own parser and main, in a process of its own
+ADABN_CLI = ("import sys\n"
+             "from simple_sfod_tpu_torch.engine.trainers import base\n"
+             "base.ADABN_MAX_BATCHES = int(sys.argv[1])\n"
+             "from simple_sfod_tpu_torch.tools import train_net\n"
+             "train_net.main(train_net.default_argument_parser().parse_args(sys.argv[2:]), eval_mode='adabn')\n")
+
+
+def r101_cfg(yaml: str, **opts):
+    """A ResNet-101 YAML of configs/ with KEY VALUE overrides, seed 0."""
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, yaml))
+    cfg.merge_from_list([x for kv in {"SEED": "0", **opts}.items() for x in kv])
+    return cfg
+
+
+def frozen_norms(model) -> set:
+    return {n for n, m in model.named_modules() if type(m).__name__ == "FrozenBatchNorm2d"}
+
+
+def frozen_state(model) -> dict:
+    """The stem's and res2's parameters, and every FrozenBN buffer but its
+    counter, on the host: what FREEZE_AT 2 and FrozenBN leave bit-identical
+    (33 parameters under BN; 11 under FrozenBN, whose affine is buffers, and
+    4 buffers in each of its 94 norms)."""
+    out = {k: v.detach().cpu().clone() for k, v in model.named_parameters() if k.startswith(("backbone.stem.", "backbone.res2."))}
+    norms = frozen_norms(model)
+    out.update({k: v.detach().cpu().clone() for k, v in model.named_buffers()
+                if k.rsplit(".", 1)[0] in norms and not k.endswith("num_batches_tracked")})
+    return out
+
+
+def pair_detections(g, c):
+    """Card detections against the CPU's, per image: equal counts, each card
+    detection paired with the CPU detection of its class nearest in box.
+    -> (unpaired, max box difference px, max score difference, pairs)."""
+    unpaired, box_err, score_err, pairs = 0, 0.0, 0.0, 0
+    for i in range(c.valid.shape[0]):
+        gv, cv = g.valid[i].cpu(), c.valid[i]
+        gb, gs, gc = g.boxes[i].cpu()[gv], g.scores[i].cpu()[gv], g.classes[i].cpu()[gv]
+        cb, cs, cc = c.boxes[i][cv], c.scores[i][cv], c.classes[i][cv]
+        unpaired += abs(int(gv.sum()) - int(cv.sum()))
+        for j in range(gb.shape[0]):
+            same = (cc == gc[j]).nonzero().flatten()
+            if same.numel() == 0:
+                unpaired += 1
+                continue
+            d = (cb[same] - gb[j]).abs().max(dim=1).values
+            k = int(same[int(d.argmin())])
+            box_err = max(box_err, float(d.min()))
+            score_err = max(score_err, abs(float(cs[k] - gs[j])))
+            pairs += 1
+    return unpaired, box_err, score_err, pairs
+
+
+def r101_card_vs_cpu(smi: str) -> None:
+    """ResNet-101 (full depth) features and detections on the card against
+    the CPU's, from one set of seeded weights with random running
+    statistics and norm scales: NORM BN in eval and train mode, FrozenBN.
+    Held: res4 in every mode, detections with running statistics. With
+    batch statistics the detections are reported, not held: normalising by
+    the batch's statistics through 33 blocks leaves res4 about 2e-4 apart
+    (measured), and the top-100 cut among random weights' near-tied scores
+    then keeps different boxes on the two devices."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(SEED + 7)
+    img = rng.randint(0, 256, (2, 128, 256, 3)).astype(np.uint8)
+    sizes = np.asarray([[120, 250], [128, 200]], np.int32)
+    for norm, train in (("BN", False), ("BN", True), ("FrozenBN", False)):
+        det_cfg = detector_config_from_cfg(r101_cfg(R101_ADABN_YAML, **R101_SMALL, **{"MODEL.RESNETS.NORM": norm}))
+        model = init_weights(FasterRCNN(det_cfg), SEED)
+        g = torch.Generator().manual_seed(SEED + 5)
+        with torch.no_grad():
+            model.roi_heads.box_predictor.cls_score.bias[1] += CLS_BIAS_BOOST
+            for m in model.modules():
+                if isinstance(getattr(m, "running_var", None), torch.Tensor):
+                    m.running_mean.normal_(0.0, 0.1, generator=g)
+                    m.running_var.uniform_(0.5, 2.0, generator=g)
+                    # scales below 1 keep 33 residual blocks from growing the
+                    # activations until the head's logits drown the class bias
+                    m.weight.uniform_(0.2, 0.5, generator=g)
+        sd = model.state_dict()
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            d = Detector(det_cfg, device=dev).load_state_dict(sd)
+            with torch.inference_mode():
+                feat = d.model.features(torch.from_numpy(img).to(dev), train=train, update_bn=False).float().cpu()
+            outs[dev] = (feat, d.infer(img, sizes, train_mode_bn=train))
+        fg, fc = outs["cuda"][0], outs["cpu"][0]
+        ferr = ((fg - fc).abs().max() / fc.abs().max().clamp_min(1e-12)).item()
+        ftol = 1e-3 if train else 1e-4
+        unpaired, berr, serr, pairs = pair_detections(outs["cuda"][1], outs["cpu"][1])
+        log(f"  card vs CPU, R101 {norm} {'train' if train else 'eval'}-mode norms, float32 at 128x256: res4 "
+            f"{tuple(fg.shape)} rel err {ferr:.3g} (tol {ftol}); {pairs} detections paired, {unpaired} unpaired, "
+            f"box err {berr:.3g} px, score err {serr:.3g}")
+        check(bool(torch.isfinite(fg).all()) and ferr <= ftol, f"R101 {norm} res4: card vs CPU {ferr}")
+        if not train:  # train mode: reported (see the docstring)
+            check(pairs > 0 and unpaired == 0 and berr <= 1e-2 and serr <= 1e-4, f"R101 {norm} detections: card vs CPU")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def r101_phase(smi: str):
+    """The r101 phase (module docstring). -> (launches of each kernel on the
+    path, kernel rows on the SFAT step's three NMS inputs)."""
+    r101_card_vs_cpu(smi)
+    total = {k: 0 for k in _kernels.LAUNCHES}
+
+    def add(d):
+        for k in total:
+            total[k] += d[k]
+
+    tmp = tempfile.TemporaryDirectory(prefix="sfod_r101_")
+    root = tmp.name
+    data_root = os.path.join(root, "datasets")
+    try:
+        # AdaBN from the CLI, in a process of its own
+        t0 = time.perf_counter()
+        write_cli_datasets(data_root)
+        weights = os.path.join(root, "r101_source.pth")
+        model = init_weights(FasterRCNN(detector_config_from_cfg(r101_cfg(R101_ADABN_YAML))), SEED)
+        with torch.no_grad():
+            model.roi_heads.box_predictor.cls_score.bias[1] += CLS_BIAS_BOOST
+        torch.save({"model": model.state_dict()}, weights)
+        del model
+        log(f"  wrote {CLI_TRAIN_FRAMES} {FRAME_HW[0]}x{FRAME_HW[1]} PNG frames, 3 COCO JSONs and a seeded R101 .pth "
+            f"({os.path.getsize(weights) / 2**20:.1f} MiB) in {time.perf_counter() - t0:.2f} s")
+        out = os.path.join(root, "adabn")
+        argv = ["--config-file", os.path.join(ROOT, R101_ADABN_YAML), "--eval-only", "MODEL.WEIGHTS", weights,
+                "OUTPUT_DIR", out, "SEED", "0", "VIS_PERIOD", "0"]
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", ADABN_CLI, str(R101_ADABN_BATCHES), *argv], cwd=ROOT,
+                             env=cli_env(data_root), capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        check(res.returncode == 0, f"R101 AdaBN CLI: exit code {res.returncode}\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        got = cli_launches(res.stdout)
+        add(got)
+        test_names = ("cityscapes_instancesonly_val", "cityscapes_instancesonly_foggy_val_foggy_beta_0.02")
+        want = 2 * len(test_names) * CLI_TEST_FRAMES  # test(): RPN and detection NMS an image; refining has none
+        check(all(c == want for c in got.values()), f"R101 AdaBN CLI launches {got}, expected {want} of each")
+        check(f"refined over {R101_ADABN_BATCHES} batches" in res.stdout, "R101 AdaBN CLI: refinement batches")
+        saved = torch.load(os.path.join(out, "adabn.pth"), weights_only=True)["model"]
+        stats = {k: v for k, v in saved.items() if k.startswith("backbone.") and k.endswith(("running_mean", "running_var"))}
+        check(len(stats) == 2 * 94 and all(bool(torch.isfinite(v).all()) for v in stats.values()) and
+              all(not torch.equal(v, torch.zeros_like(v) if k.endswith("mean") else torch.ones_like(v))
+                  for k, v in stats.items()), "R101 AdaBN: live BN statistics not moved from reset, or not finite")
+        with open(os.path.join(out, "eval_results.json")) as f:
+            written = json.load(f)
+        check(set(written) == set(test_names) and all(
+            isinstance(v.get(k), (int, float)) and np.isfinite(v[k]) for v in written.values() for k in ("AP", "AP50", "F1")
+        ), f"R101 AdaBN eval_results.json: {written}")
+        n_dets = 0
+        for name in test_names:
+            with open(os.path.join(out, "inference", name, "coco_instances_results.json")) as f:
+                dets = json.load(f)
+            check(all(np.isfinite(d["bbox"]).all() and np.isfinite(d["score"]) for d in dets), f"{name}: non-finite detections")
+            n_dets += len(dets)
+        check(n_dets > 0, "R101 AdaBN: no detections")
+        log(f"  R101 AdaBN CLI (train_net_mt --eval-only on {R101_ADABN_YAML}, {R101_ADABN_BATCHES} batches, 2 TEST "
+            f"sets of {CLI_TEST_FRAMES}) [{smi}]: rc 0 in {wall:.2f} s; 94 BatchNorms moved from reset; {n_dets} finite "
+            f"detections; AP50 " + ", ".join(f"{k} {v['AP50']:.4f}" for k, v in written.items()) + f"; launches {got}")
+        del saved, stats
+
+        # the same AdaBN in this process: the refinement's and test()'s rates
+        register_cli_datasets(data_root)
+        cfg = train_net.setup(train_net.default_argument_parser().parse_args(argv))
+        tr = build_trainer(cfg)
+        tr.resume_or_load(resume=False)
+        tr.reset_bn_stats()
+        batch = next(iter(tr.build_train_loader()))
+        rates = {}
+        for label, loader, n in (("repeated batch", RepeatBatch(batch), R101_TIMED_BATCHES),
+                                 ("from disk", None, R101_ADABN_BATCHES)):
+            tr.refine_bn_stats(max_batches=1, loader=RepeatBatch(batch))  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            taken = tr.refine_bn_stats(max_batches=n, loader=loader)
+            torch.cuda.synchronize()
+            rates[label] = taken / (time.perf_counter() - t0)
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.test()
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        got = dict(_kernels.LAUNCHES)
+        add(got)
+        check(all(c == want for c in got.values()), f"R101 test(): launches {got}, expected {want}")
+        n_img = len(test_names) * CLI_TEST_FRAMES
+        log(f"  R101 AdaBN refinement (bfloat16, batch 1, 608x1216) [{smi}]: {rates['repeated batch']:.2f} batches/s on "
+            f"a repeated batch, {rates['from disk']:.2f} batches/s from disk; test() {n_img} images in {test_s:.2f} s "
+            f"({n_img / test_s:.2f} images/s, the host decode included), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del tr
+
+        # SFAT steps on the R101 adaptation YAML (bfloat16, 608x1216, batch 1)
+        cfg = r101_cfg(R101_SFAT_YAML, **ADAPT_CUTS)
+        det_cfg = detector_config_from_cfg(cfg)
+        check(det_cfg.backbone == "resnet101" and det_cfg.dtype == torch.bfloat16 and det_cfg.resnet_norm == "BN",
+              f"R101 SFAT config: {det_cfg}")
+        init = frozen_state(init_weights(FasterRCNN(det_cfg), SEED))  # adapt_trainer's student before any step
+        captured = []
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        tr, sbatch, metrics, wall, per_step, teacher0, _ = adapt_run(cfg, R101_SFAT_STEPS, captured)
+        check_adapt_run("R101 SFAT", tr, metrics, per_step, teacher0)
+        images, sizes = tr.stage(sbatch)
+        draws = tr.make_draws(1, tuple(images.shape[1:3]))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            m = tr.step_on_device(images, sizes, draws)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(all(np.isfinite(float(m[k])) for k in ADAPT_LOSSES), "R101 sync-checked step: non-finite loss")
+        wall_p, dev_p, kern_p, _ = profile(lambda: tr.run_step(sbatch), 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = dict(_kernels.LAUNCHES)
+        add(got)
+        n_steps = R101_SFAT_STEPS + 1 + 4  # the steps, the sync-checked one, the profiler's warm-up and 3
+        check(all(c == 3 * n_steps for c in got.values()), f"R101 SFAT launches {got}, expected {3 * n_steps}")
+        after = frozen_state(tr.state.model)
+        check(init.keys() == after.keys() and len(init) == 33 and all(torch.equal(after[k], v) for k, v in init.items()),
+              "R101 SFAT: stem or res2 parameters changed")
+        med = float(np.median(wall[1:]))
+        nms_p = sum(v for k, v in kern_p.items() if "suppress_relation_bits" in k or "greedy_keep_from_bits" in k)
+        log(f"  R101 SFAT ({R101_SFAT_YAML}, main variant, fixed bfloat16 teacher) [{smi}]: run_step {med:.2f} ms "
+            f"(median of steps 1-{R101_SFAT_STEPS - 1}; first {wall[0]:.1f} ms); num_pseudo {[int(x['num_pseudo']) for x in metrics]}; "
+            f"step {R101_SFAT_STEPS - 1}: " + ", ".join(f"{k} {metrics[-1][k]:.4f}" for k in ADAPT_LOSSES) +
+            f"; stem and res2 bit-identical; step_on_device ran under set_sync_debug_mode('error'); profile: wall "
+            f"{wall_p:.2f} ms, device kernels {dev_p:.2f} ms, busy {dev_p / wall_p:.1%}, NMS kernels {nms_p:.3f} ms; "
+            f"peak memory {peak:.2f} GiB; launches {got}")
+        log(f"  top kernels (ms/step): {top(kern_p)}")
+        del tr
+
+        sites = ("r101 teacher rpn (test mode)", "r101 teacher detection", "r101 student rpn (train mode)")
+        check(len(captured) == 3, f"R101: captured {len(captured)} NMS calls in one adaptation step, expected 3")
+        for (b, s_, v, thr), site in zip(captured, sites):
+            keep_k = nms.nms_mask_matrix(b, s_, v, thr)
+            check(torch.equal(keep_k, plain_keep(b, s_, v, thr)), f"{site} NMS: kernel and plain keep masks differ")
+        r101_rows = {"suppress_relation_bits": [], "greedy_keep_from_bits": []}
+        for (b, s_, v, thr), site in zip(captured, sites):
+            r1, r2 = kernel_rows(b, s_, v, thr, site)
+            r101_rows["suppress_relation_bits"].append(r1)
+            r101_rows["greedy_keep_from_bits"].append(r2)
+
+        # base steps on the R101 FrozenBN source YAML (IMS_PER_BATCH 4)
+        cfg = r101_cfg(R101_SOURCE_YAML)
+        n_img = cfg.SOLVER.IMS_PER_BATCH
+        recs = make_synthetic_records(n_img, IMAGE_HW, cfg.MODEL.ROI_HEADS.NUM_CLASSES, 6, seed=SEED + 9)
+        bbatch = synthetic_batch(recs, tuple(cfg.TPU.CANVAS), cfg.TPU.GT_CAPACITY)
+        # frozen statistics that normalise, as a source checkpoint's do: the
+        # seeded weights with live BN, their statistics accumulated over
+        # R101_CALIBRATION train-mode forwards on the batch (FrozenBN at
+        # mean 0, var 1 would let 30 residual blocks grow the activations
+        # until the first steps diverge)
+        calib = Detector(detector_config_from_cfg(r101_cfg(R101_SOURCE_YAML, **{"MODEL.RESNETS.NORM": "BN"})))
+        init_weights(calib.model, SEED)
+        images = torch.from_numpy(bbatch["images"]).cuda()
+        with torch.no_grad():
+            for _ in range(R101_CALIBRATION):
+                calib.bn_update(images)
+        tr = BaseTrainer(cfg, state_dict=calib.model.state_dict())
+        del calib
+        check(tr.det_cfg.resnet_norm == "FrozenBN" and n_img == 4 and len(frozen_norms(tr.state.model)) == 94,
+              f"R101 source config: {tr.det_cfg.resnet_norm}, batch {n_img}")
+        before = frozen_state(tr.state.model)
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, wall = [], []
+        for _ in range(R101_BASE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append({k: float(v) for k, v in tr.run_step(bbatch).items()})
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = dict(_kernels.LAUNCHES)
+        add(got)
+        check(all(c == n_img * R101_BASE_STEPS for c in got.values()), f"R101 base launches {got}")
+        check(all(np.isfinite(x[k]) for x in metrics for k in TRAIN_LOSSES), f"R101 base losses {metrics}")
+        after = frozen_state(tr.state.model)
+        check(len(before) == 11 + 4 * 94 and all(torch.equal(after[k], v) for k, v in before.items()),
+              "R101 base: stem, res2 or FrozenBN buffers changed")
+        med = float(np.median(wall[1:]))
+        log(f"  R101 base ({R101_SOURCE_YAML}, FrozenBN, batch {n_img}) [{smi}]: step {med:.2f} ms (median of steps "
+            f"1-{R101_BASE_STEPS - 1}; first {wall[0]:.1f} ms; {n_img * 1e3 / med:.2f} images/s); step "
+            f"{R101_BASE_STEPS - 1}: " + ", ".join(f"{k} {metrics[-1][k]:.4f}" for k in TRAIN_LOSSES) +
+            f"; stem, res2 and 376 FrozenBN buffers bit-identical; peak memory {peak:.2f} GiB; launches {got}")
+        del tr
+    finally:
+        tmp.cleanup()
+    log(f"  launches on the r101 path: {total}")
+    return total, r101_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1785,6 +2113,9 @@ def main() -> int:
     with Phase("cli"):
         cli_launches_total = cli_phase(smi, adapt_step_ms)
 
+    with Phase("r101"):
+        r101_launches, r101_rows = r101_phase(smi)
+
     replaces = {
         "suppress_relation_bits": "simple_sfod_tpu/ops/pallas_kernels.py:26",
         "greedy_keep_from_bits": "simple_sfod_tpu/ops/pallas_kernels.py:123",
@@ -1795,8 +2126,10 @@ def main() -> int:
         # NMS call site (teacher RPN, teacher detection, student RPN); the
         # numbers are the sum over the three sites, on the first step's
         # inputs. launches count every path: serve, train, adapt and eval
-        # (trainer.test(), 2 per image and evaluated model) and cli (the
-        # CLI's subprocesses and the phase's loops, AdaBN included).
+        # (trainer.test(), 2 per image and evaluated model), cli (the
+        # CLI's subprocesses and the phase's loops, AdaBN included) and r101
+        # (its AdaBN CLI and test(), SFAT and base steps). r101_per_step: the
+        # ResNet-101 adaptation step's three calls.
         # per_call: one served image's two calls; train_per_step: one
         # supervised step's RPN call; large_n: N above the keep kernel's
         # shared-memory route (the row walk)
@@ -1808,7 +2141,7 @@ def main() -> int:
             "source": "simple_sfod_tpu_torch/ops/csrc/nms.cu",
             "replaces": replaces[name],
             "launches": launches[name] + train_launches[name] + adapt_launches[name] + eval_launches[name] +
-                        cli_launches_total[name],
+                        cli_launches_total[name] + r101_launches[name],
             "max_abs_err": float(max(r["err"] for r in per + rows[name] + large_rows[name])),
             "ms": sum(r["ms"] for r in per),
             "call_ms": sum(r["call_ms"] for r in per),
@@ -1818,8 +2151,10 @@ def main() -> int:
             "library_ms": None,
             "ptxas": ptxas[name],
             "launches_by_path": {"serve": launches[name], "train": train_launches[name], "adapt": adapt_launches[name],
-                                 "eval": eval_launches[name], "cli": cli_launches_total[name]},
+                                 "eval": eval_launches[name], "cli": cli_launches_total[name],
+                                 "r101": r101_launches[name]},
             "adapt_per_step": per,
+            "r101_per_step": r101_rows[name],
             "per_call": rows[name],
             "train_per_step": train_rows[0 if name == "suppress_relation_bits" else 1],
             "large_n": large_rows[name],

@@ -10,7 +10,8 @@ module keeps its own copy of the layout conversions:
   box-head fc1   the JAX head flattens pooled NHWC [P, P, C]; the port
                  flattens NCHW [C, P, P], so the input dim is un-permuted
   BatchNorm      scale/bias/mean/var -> weight/bias/running_mean/running_var,
-                 num_batches_tracked = 0
+                 num_batches_tracked = 0 (ResNet: a live BN's leaves sit one
+                 level deeper, under BatchNorm_0; a FrozenBN's do not)
 
 `teacher_student_from_jax` carries a whole adaptation state: the student
 and the teacher (the keys of the JAX package's `export_ensemble` without
@@ -25,6 +26,7 @@ from typing import Any, Dict, NamedTuple
 import numpy as np
 import torch
 
+from ..models.backbones import resnet
 from ..models.backbones.vgg import STAGE_PLAN
 
 
@@ -47,30 +49,67 @@ def _fc0(w, pool: int, channels: int) -> np.ndarray:
     return np.transpose(w, (0, 3, 1, 2)).reshape(out_dim, channels * pool * pool)
 
 
-def state_dict_from_jax(variables: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """{"params": ..., "batch_stats": ...} of the JAX FasterRCNN (numpy
-    leaves) -> the port's state dict (float32 tensors). `cfg` is the port's
-    DetectorConfig; only the single-level VGG16-BN detector is ported."""
-    if cfg.backbone != "vgg16" or not cfg.vgg_bn or cfg.fpn:
-        raise NotImplementedError("state_dict_from_jax carries the single-level VGG16-BN detector only")
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    sd: Dict[str, np.ndarray] = {}
+def _bn(sd: Dict[str, np.ndarray], key: str, scale, bias, mean, var) -> None:
+    sd[f"{key}.weight"] = _f32(scale)
+    sd[f"{key}.bias"] = _f32(bias)
+    sd[f"{key}.running_mean"] = _f32(mean)
+    sd[f"{key}.running_var"] = _f32(var)
+    sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
 
-    bp, bs = params["backbone"], stats["backbone"]
+
+def _vgg(sd: Dict[str, np.ndarray], bp, bs) -> None:
     conv_i = 0
     for stage, widths in enumerate(STAGE_PLAN):
         for j in range(len(widths)):
             key = f"backbone.vgg{stage}.{3 * j}"
             sd[f"{key}.weight"] = _conv(bp[f"conv{conv_i}"]["kernel"])
             sd[f"{key}.bias"] = _f32(bp[f"conv{conv_i}"]["bias"])
-            bn = f"backbone.vgg{stage}.{3 * j + 1}"
-            sd[f"{bn}.weight"] = _f32(bp[f"bn{conv_i}"]["scale"])
-            sd[f"{bn}.bias"] = _f32(bp[f"bn{conv_i}"]["bias"])
-            sd[f"{bn}.running_mean"] = _f32(bs[f"bn{conv_i}"]["mean"])
-            sd[f"{bn}.running_var"] = _f32(bs[f"bn{conv_i}"]["var"])
-            sd[f"{bn}.num_batches_tracked"] = np.zeros((), np.int64)
+            p, s = bp[f"bn{conv_i}"], bs[f"bn{conv_i}"]
+            _bn(sd, f"backbone.vgg{stage}.{3 * j + 1}", p["scale"], p["bias"], s["mean"], s["var"])
             conv_i += 1
+
+
+def _resnet(sd: Dict[str, np.ndarray], bp, bs, cfg) -> None:
+    """Detectron2's backbone.stem / backbone.res{s}.{b} keys from the flax
+    `stem_*` and `res{s}_block{b}` modules, up to the heads' stage."""
+    frozen = cfg.resnet_norm == "FrozenBN"
+
+    def conv_norm(key: str, p, s, conv: str, norm: str) -> None:
+        sd[f"{key}.weight"] = _conv(p[conv]["kernel"])
+        pn, sn = p[norm], s[norm]
+        if not frozen:
+            pn, sn = pn["BatchNorm_0"], sn["BatchNorm_0"]
+        _bn(sd, f"{key}.norm", pn["scale"], pn["bias"], sn["mean"], sn["var"])
+
+    conv_norm("backbone.stem.conv1", bp, bs, "stem_conv", "stem_norm")
+    deepest = int(cfg.in_feature[3])
+    depth = 50 if cfg.backbone == "resnet50" else 101
+    for stage, n_blocks in enumerate(resnet.BLOCK_COUNTS[depth], start=2):
+        if stage > deepest:
+            break
+        for b in range(n_blocks):
+            p, s = bp[f"res{stage}_block{b}"], bs[f"res{stage}_block{b}"]
+            key = f"backbone.res{stage}.{b}"
+            for i in (1, 2, 3):
+                conv_norm(f"{key}.conv{i}", p, s, f"conv{i}", f"norm{i}")
+            if "shortcut" in p:
+                conv_norm(f"{key}.shortcut", p, s, "shortcut", "shortcut_norm")
+
+
+def state_dict_from_jax(variables: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """{"params": ..., "batch_stats": ...} of the JAX FasterRCNN (numpy
+    leaves) -> the port's state dict (float32 tensors). `cfg` is the port's
+    DetectorConfig: the single-level VGG16-BN or ResNet-50/101 detector."""
+    if cfg.fpn or cfg.backbone not in ("vgg16", "resnet50", "resnet101") or (cfg.backbone == "vgg16" and not cfg.vgg_bn):
+        raise NotImplementedError(
+            "state_dict_from_jax carries the single-level VGG16-BN and ResNet-50/101 detectors only")
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, np.ndarray] = {}
+    if cfg.backbone == "vgg16":
+        _vgg(sd, params["backbone"], stats["backbone"])
+    else:
+        _resnet(sd, params["backbone"], stats["backbone"], cfg)
 
     rpn = params["rpn_head"]
     for ours, theirs in (

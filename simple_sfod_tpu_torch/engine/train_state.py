@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.backbones.resnet import FrozenBatchNorm2d
 from ..solver.build import SGD
 
 
@@ -65,11 +66,14 @@ class TeacherStudentState(TrainState):
 
 
 def ema_tensors(model: nn.Module) -> List[torch.Tensor]:
-    """What the EMA blends, in a fixed order: every parameter, then every
-    BatchNorm running mean and variance (not num_batches_tracked, which the
-    JAX package does not have)."""
+    """What the EMA blends, in a fixed order: every parameter (frozen ones
+    included), every FrozenBN weight and bias (parameters in the JAX
+    package), then every BatchNorm and FrozenBN running mean and variance
+    (not num_batches_tracked, which the JAX package does not have): the JAX
+    package blends its whole params and batch_stats trees."""
+    frozen_affine = [t for m in model.modules() if isinstance(m, FrozenBatchNorm2d) for t in (m.weight, m.bias)]
     buffers = [b for n, b in model.named_buffers() if n.endswith(("running_mean", "running_var"))]
-    return [p.data for p in model.parameters()] + buffers
+    return [p.data for p in model.parameters()] + frozen_affine + buffers
 
 
 @torch.no_grad()

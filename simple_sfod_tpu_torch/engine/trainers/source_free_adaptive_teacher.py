@@ -60,6 +60,7 @@ from ...checkpoint.checkpointer import overlay_state_dict
 from ...checkpoint.from_jax import TeacherStudentWeights
 from ...data.loader import build_train_loader
 from ...data.transforms import StrongDraws, make_strong_draws, strong_augment_batch
+from ...models.backbones.resnet import FrozenBatchNorm2d
 from ...models.dann import DAInsHead, FCDiscriminatorImg, init_dc_weights
 from ...models.detector import DetectionBatch, Detector
 from ...models.faster_rcnn import anchors_for, roi_pool_size
@@ -160,6 +161,9 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         if not self.ema_enabled and det_cfg.dtype == torch.bfloat16:
             for p in self.teacher.model.parameters():
                 p.data = p.data.to(torch.bfloat16)
+            for m in self.teacher.model.modules():  # a FrozenBN affine is a parameter in the JAX package
+                if isinstance(m, FrozenBatchNorm2d):
+                    m.weight, m.bias = m.weight.to(torch.bfloat16), m.bias.to(torch.bfloat16)
         for p in self.teacher.model.parameters():
             p.requires_grad_(False)
         dc: Dict[str, torch.nn.Module] = {}

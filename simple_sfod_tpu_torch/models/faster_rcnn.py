@@ -18,8 +18,9 @@ priorities as inputs, so a caller can hand over the JAX package's draws):
     sampled     = label_and_sample_proposals(cfg, proposals, gt, roi_priorities)
     roi         = roi_losses(cfg, scores, deltas, sampled)
 
-This covers the single-level VGG16-BN detector; FPN, ResNet and box-head
-dropout are not ported yet and raise.
+This covers the single-level detector on VGG16-BN or ResNet-50/101 (C4:
+the heads on "res4", BN or FrozenBN); FPN and box-head dropout are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from ..ops.roi_align import roi_align
 from ..ops.sampler import subsample_labels, subsample_labels_mask
 from ..structures.boxes import BoxTransform, clip_boxes, nonempty, pairwise_iou
 from ..structures.instances import Instances, topk_indices
+from .backbones.resnet import FrozenBatchNorm2d, ResNetBackbone
 from .backbones.vgg import VGG16Backbone
 from .heads import FastRCNNConvFCHead, FastRCNNPredictor, RPNHead
 
@@ -93,9 +95,9 @@ class DetectorConfig:
         return len(self.anchor_sizes) * len(self.anchor_ratios)
 
     def _check_ported(self) -> None:
-        if self.fpn or self.backbone != "vgg16":
+        if self.fpn or self.backbone not in _BACKBONES:
             raise NotImplementedError(
-                f"only the single-level vgg16 detector is ported (got backbone="
+                f"only the single-level vgg16, resnet50 and resnet101 detectors are ported (got backbone="
                 f"{self.backbone!r}, fpn={self.fpn})"
             )
         if self.box_head_dropout > 0:
@@ -107,12 +109,23 @@ class DetectorConfig:
     @property
     def stride(self) -> int:
         self._check_ported()
-        return VGG16Backbone.out_strides()[self.in_feature]
+        return _BACKBONES[self.backbone].out_strides()[self.in_feature]
 
     @property
     def feature_channels(self) -> int:
         self._check_ported()
-        return VGG16Backbone.out_channels()[self.in_feature]
+        return _BACKBONES[self.backbone].out_channels()[self.in_feature]
+
+
+_BACKBONES = {"vgg16": VGG16Backbone, "resnet50": ResNetBackbone, "resnet101": ResNetBackbone}
+
+
+def build_backbone(cfg: DetectorConfig) -> nn.Module:
+    """The backbone of `cfg`, as the JAX FasterRCNN.setup builds it."""
+    if cfg.backbone == "vgg16":
+        return VGG16Backbone(bn=cfg.vgg_bn)
+    depth = 50 if cfg.backbone == "resnet50" else 101
+    return ResNetBackbone(depth=depth, norm=cfg.resnet_norm, out_features=(cfg.in_feature,))
 
 
 RPN_BOX_TRANSFORM = BoxTransform((1.0, 1.0, 1.0, 1.0))
@@ -134,7 +147,7 @@ class FasterRCNN(nn.Module):
         super().__init__()
         cfg._check_ported()
         self.cfg = cfg
-        self.backbone = VGG16Backbone(bn=cfg.vgg_bn)
+        self.backbone = build_backbone(cfg)
         self.proposal_generator = _Namespace()
         self.proposal_generator.rpn_head = RPNHead(cfg.feature_channels, cfg.num_anchors)
         self.roi_heads = _Namespace()
@@ -156,7 +169,8 @@ class FasterRCNN(nn.Module):
         [B, C, h, w]. Integer images become float32 BEFORE the mean is
         subtracted (a uint8 subtraction would wrap around). `train` runs
         BatchNorm on batch statistics, and `update_bn` then moves the
-        running ones (models/backbones/vgg.py)."""
+        running ones (models/backbones/vgg.py; a FrozenBN layer has one
+        mode)."""
         x = images.permute(0, 3, 1, 2)
         if not x.is_floating_point():
             x = x.to(torch.float32)
@@ -182,8 +196,8 @@ class FasterRCNN(nn.Module):
 def init_weights(model: FasterRCNN, seed: int) -> FasterRCNN:
     """Seeded random weights with the JAX package's initialiser scales:
     convs normal with std 1/sqrt(fan_in), RPN convs normal(0.01), box-head FCs fan-in uniform,
-    cls_score normal(0.01), bbox_pred normal(0.001), zero biases, BN
-    scale 1 / bias 0 / mean 0 / var 1. Drawn on the CPU from one
+    cls_score normal(0.01), bbox_pred normal(0.001), zero biases, BN and
+    FrozenBN scale 1 / bias 0 / mean 0 / var 1. Drawn on the CPU from one
     torch.Generator, so a seed gives the same weights on every machine."""
     g = torch.Generator().manual_seed(seed)
 
@@ -210,8 +224,9 @@ def init_weights(model: FasterRCNN, seed: int) -> FasterRCNN:
                 fill(m.weight, std=1.0 / math.sqrt(fan_in))
             else:
                 fill(m.weight, bound=math.sqrt(3.0 / fan_in))
-            m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+            if m.bias is not None:  # the ResNet convs have none
+                m.bias.zero_()
+        elif isinstance(m, (nn.BatchNorm2d, FrozenBatchNorm2d)):
             m.weight.fill_(1.0)
             m.bias.zero_()
             m.running_mean.zero_()

@@ -15,6 +15,7 @@ detectron2's linear-scaling rule for SOLVER.REFERENCE_WORLD_SIZE.
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -92,7 +93,8 @@ def norm_param_mask(model: nn.Module) -> Dict[str, bool]:
     """Parameter name -> True for BatchNorm affine parameters, which decay at
     SOLVER.WEIGHT_DECAY_NORM (detectron2's get_default_optimizer_params).
     Selected by module type: the JAX package selects the same leaves by its
-    flax names (`bn<i>`), which the Detectron2 names do not carry."""
+    flax names (`bn<i>`, `*norm*`), which the Detectron2 names do not all
+    carry. A FrozenBN layer has no parameters (its affine is buffers)."""
     norm = {
         f"{mod_name}.{p_name}" if mod_name else p_name
         for mod_name, mod in model.named_modules()
@@ -102,14 +104,33 @@ def norm_param_mask(model: nn.Module) -> Dict[str, bool]:
     return {name: name in norm for name, _ in model.named_parameters()}
 
 
+_RESNET_STAGE = re.compile(r"^backbone\.(?:stem|res(\d))\.")
+
+
 def backbone_freeze_mask(model: nn.Module, freeze_at: int) -> Dict[str, bool]:
-    """Parameter name -> True when MODEL.BACKBONE.FREEZE_AT freezes it.
-    detectron2 freezes the ResNet stem and res stages up to FREEZE_AT; a VGG
-    backbone has neither, so for vgg16 (the one ported backbone) nothing is
-    frozen, whatever FREEZE_AT says, as in the JAX package."""
-    if model.cfg.backbone != "vgg16":
-        raise NotImplementedError(f"FREEZE_AT for backbone {model.cfg.backbone!r} is not ported")
-    return {name: False for name, _ in model.named_parameters()}
+    """Parameter name -> True when MODEL.BACKBONE.FREEZE_AT freezes it
+    (detectron2's ResNet.freeze): stage 1 is the ResNet stem, stage s >= 2
+    is res{s}, and every stage <= FREEZE_AT is frozen. A VGG backbone has
+    neither, so nothing of it is frozen, as in the JAX package. The JAX
+    package also freezes FrozenBN's affine at every stage; here it is
+    buffers, which no optimizer sees."""
+    mask = {}
+    for name, _ in model.named_parameters():
+        m = _RESNET_STAGE.match(name)
+        stage = None if m is None else (1 if m.group(1) is None else int(m.group(1)))
+        mask[name] = stage is not None and stage <= freeze_at
+    return mask
+
+
+def freeze_backbone(model: nn.Module, freeze_at: int) -> Dict[str, bool]:
+    """`backbone_freeze_mask`, with requires_grad switched off on the frozen
+    parameters, so autograd runs no backward through the frozen stages (the
+    JAX package's stop_frozen_gradients). Returns the mask."""
+    mask = backbone_freeze_mask(model, freeze_at)
+    for name, p in model.named_parameters():
+        if mask[name]:
+            p.requires_grad_(False)
+    return mask
 
 
 class SGD:
@@ -175,8 +196,9 @@ class SGD:
 
 
 def build_optimizer(cfg, model: nn.Module, extra: Optional[Dict[str, nn.Module]] = None) -> SGD:
-    """SGD over the model's trainable parameters from cfg.SOLVER (and
-    MODEL.BACKBONE.FREEZE_AT, which selects nothing on VGG). `extra` adds
+    """SGD over the model's trainable parameters from cfg.SOLVER. The stages
+    that MODEL.BACKBONE.FREEZE_AT freezes (nothing on VGG) get no gradient,
+    no step, no weight decay and no momentum (`freeze_backbone`). `extra` adds
     other modules' parameters under their name's prefix (the adaptation
     trainer's domain classifiers), decayed by the same rule."""
     s = cfg.SOLVER
@@ -189,7 +211,7 @@ def build_optimizer(cfg, model: nn.Module, extra: Optional[Dict[str, nn.Module]]
         s.WARMUP_FACTOR,
         s.WARMUP_METHOD,
     )
-    frozen = backbone_freeze_mask(model, int(cfg.MODEL.BACKBONE.FREEZE_AT))
+    frozen = freeze_backbone(model, int(cfg.MODEL.BACKBONE.FREEZE_AT))
     norm = norm_param_mask(model)
     params = {n: p for n, p in model.named_parameters() if not frozen[n]}
     for prefix, module in (extra or {}).items():

@@ -21,6 +21,9 @@ weights (checkpoint/from_jax.py) on the same 4 batches.
     thread, 9.5e-5 with 2, 4.6e-5 with 4, 2.5e-5 with 8).
 Both tolerances are twice the worst of those measurements, so that the
 tests hold on a machine of any core count.
+On a cut ResNet-101 the refinement is held the same way for NORM BN; for
+FrozenBN the port departs from the JAX package on purpose (the frozen
+statistics stay as loaded; the JAX reset zeroes them).
 Evaluation after a refinement is held to the JAX eval loop by
 test_torch_eval_loop.py; here both write their results and the port its
 `adabn.pth`.
@@ -155,3 +158,63 @@ def test_precise_bn_runs_before_test(tmp_path, monkeypatch):
     assert precise_bn(ref.detector, ref.build_train_loader(), 2) == 2
     assert_stats_close(bn_stats(tr.state.model.state_dict()), bn_stats(ref.state.model.state_dict()), 0.0)
     assert_stats_close(bn_stats(tr.state.teacher.state_dict()), teacher, 0.0)
+
+
+# ResNet-101 C4 through the tiny config: the backbone and its norm swapped
+# in, the block plan cut to (1, 1, 2) stages up to res4
+R101_OPTS = ["MODEL.BACKBONE.NAME", "build_resnet_backbone", "MODEL.RESNETS.DEPTH", "101",
+             "MODEL.ROI_HEADS.IN_FEATURES", "('res4',)", "MODEL.RPN.IN_FEATURES", "('res4',)",
+             "MODEL.ROI_BOX_HEAD.FC_DIM", "64"]
+R101_CUT = (1, 1, 2, 1)
+
+
+def cut_r101(monkeypatch):
+    """Both packages' ResNet-101 block plans cut to R101_CUT."""
+    from simple_sfod_tpu.checkpoint import torch_import
+    from simple_sfod_tpu.models.backbones import resnet as jax_resnet
+    from simple_sfod_tpu_torch.models.backbones import resnet
+
+    for blocks in (jax_resnet.BLOCK_COUNTS, torch_import._RESNET_BLOCKS, resnet.BLOCK_COUNTS):
+        monkeypatch.setitem(blocks, 101, R101_CUT)
+
+
+@pytest.mark.parametrize("norm", ["BN", "FrozenBN"])
+def test_adabn_on_resnet_against_jax(tmp_path, monkeypatch, norm):
+    """AdaBN (reset, then refine over 4 batches) on a cut ResNet-101 from the
+    same weights and random statistics. BN: every statistic as the JAX
+    package's within REFINE_TOL, the stem and res2 included (FREEZE_AT
+    freezes their parameters, not their statistics, in both packages). FrozenBN:
+    the JAX reset zeroes the frozen statistics and nothing recomputes them
+    (the reference's fault, simple_sfod_tpu/engine/trainers/base.py:646-656);
+    the port keeps them as loaded and refines nothing, as Detectron2's
+    FrozenBatchNorm2d, which AdaBN does not touch."""
+    cut_r101(monkeypatch)
+    register_tiny()
+    opts = R101_OPTS + ["MODEL.RESNETS.NORM", norm]
+    jtr = jax_build_trainer(tiny_cfg(jax_get_cfg, tmp_path / "jax", *opts), synthetic=True)
+    rs = np.random.RandomState(5)
+    jtr.state = jtr.state.replace(batch_stats=jax.tree_util.tree_map(
+        lambda x: rs.uniform(0.5, 2.0, x.shape).astype(np.float32), jtr.state.batch_stats))
+    variables = jax.tree_util.tree_map(np.asarray, jtr.state.variables())
+    tr = trainers.build_trainer(tiny_cfg(get_cfg, tmp_path / "port", *opts), device="cpu", synthetic=True)
+    tr.state.model.load_state_dict(state_dict_from_jax(variables, tr.det_cfg))
+    loaded = bn_stats({k: v.clone() for k, v in tr.state.model.state_dict().items()})
+    assert len(loaded) == 2 * (1 + 3 * sum(R101_CUT[:3]) + 3)
+
+    jtr.reset_bn_stats()
+    jtr.refine_bn_stats(max_batches=BATCHES, loader=batches())
+    tr.reset_bn_stats()
+    assert tr.refine_bn_stats(max_batches=BATCHES, loader=batches()) == BATCHES
+    got = bn_stats(tr.state.model.state_dict())
+    want = bn_stats(state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jtr.state.variables()), tr.det_cfg))
+    if norm == "BN":
+        assert len(tr._batchnorms()) == len(loaded) // 2
+        assert_stats_close(got, want, REFINE_TOL)
+        stem = [k for k in got if k.startswith(("backbone.stem.", "backbone.res2."))]
+        assert stem and all(not torch.equal(got[k], torch.zeros_like(got[k]) if k.endswith("mean")
+                                            else torch.ones_like(got[k])) for k in stem)
+    else:
+        assert tr._batchnorms() == []
+        assert_stats_close(got, loaded, 0.0)
+        assert all(torch.equal(v, torch.zeros_like(v) if k.endswith("mean") else torch.ones_like(v))
+                   for k, v in want.items())

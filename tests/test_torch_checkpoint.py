@@ -218,3 +218,69 @@ def test_bfloat16_teacher_resumes_bit_for_bit(tmp_path):
     for k, v in tr2.state.teacher.state_dict().items():
         assert v.dtype == want[k].dtype and torch.equal(v, want[k]), k
     assert next(tr2.state.teacher.parameters()).dtype == torch.bfloat16
+
+
+R101_OPTS = ["MODEL.BACKBONE.NAME", "build_resnet_backbone", "MODEL.RESNETS.DEPTH", "101",
+             "MODEL.ROI_HEADS.IN_FEATURES", "('res4',)", "MODEL.RPN.IN_FEATURES", "('res4',)",
+             "MODEL.ROI_BOX_HEAD.FC_DIM", "64"]
+
+
+@pytest.mark.parametrize("norm", ["BN", "FrozenBN"])
+def test_detectron2_r101_pth_loads_strictly(tmp_path, norm):
+    """A Detectron2 ResNet-101 C4 file at full depth: its keys (without the
+    pixel mean and std, which Detectron2 does not persist, and without a
+    FrozenBatchNorm2d's counter, which it does not have) are exactly the
+    model's, so resume_or_load takes every tensor and keeps no
+    initialisation, and a strict load_state_dict takes the file."""
+    opts = [*R101_OPTS, "MODEL.RESNETS.NORM", norm]
+    src = build_trainer(tiny_cfg(get_cfg, tmp_path / "src", *opts), device="cpu")
+    g = torch.Generator().manual_seed(4)
+    frozen = {n for n, m in src.state.model.named_modules() if type(m).__name__ == "FrozenBatchNorm2d"}
+    sd = {}
+    for k, v in src.state.model.state_dict().items():
+        if k in ("pixel_mean", "pixel_std") or (k.endswith("num_batches_tracked") and k.rsplit(".", 1)[0] in frozen):
+            continue
+        sd[k] = v + torch.rand(v.shape, generator=g) if v.is_floating_point() else v
+    assert (len(frozen) == 94) == (norm == "FrozenBN")  # the stem, 3 in each of 30 blocks, 3 shortcuts
+    path = str(tmp_path / "R-101-C4.pth")
+    torch.save({"model": sd, "__author__": "Detectron2"}, path)
+
+    tr = build_trainer(tiny_cfg(get_cfg, tmp_path / "port", *opts, "MODEL.WEIGHTS", path), device="cpu")
+    kind, data = tr.checkpointer.resume_or_load(path, resume=False)
+    assert kind == "weights" and set(data) == set(sd)
+    assert tr.load_weights(data) == []
+    got = tr.state.model.state_dict()
+    assert all(torch.equal(got[k], v) for k, v in sd.items())
+    fresh = build_trainer(tiny_cfg(get_cfg, tmp_path / "fresh", *opts), device="cpu").state.model
+    fresh.load_state_dict({**data, "pixel_mean": got["pixel_mean"], "pixel_std": got["pixel_std"]}, strict=True)
+
+
+def test_r101_teacher_student_resumes_bit_for_bit(tmp_path, monkeypatch):
+    """The adaptation state of a cut ResNet-101 (FrozenBN, FREEZE_AT 2, a
+    fixed bfloat16 teacher whose FrozenBN affine is bfloat16 too) saved
+    after one step and resumed by a new trainer: everything restored bit for
+    bit, and the next step of both equal bit for bit."""
+    from test_torch_adabn import cut_r101
+
+    cut_r101(monkeypatch)
+    opts = [*SFAT_OPTS, *R101_OPTS, "MODEL.RESNETS.NORM", "FrozenBN", "SEMISUPNET.DIS_TYPE", "res4",
+            "TPU.DTYPE", "bfloat16"]
+    from simple_sfod_tpu_torch.data.synthetic import make_synthetic_records, synthetic_batch
+
+    batch = synthetic_batch(make_synthetic_records(2, (120, 250), 4, 6, seed=2), (128, 256), 8)
+    tr = build_trainer(tiny_cfg(get_cfg, tmp_path, *opts), device="cpu")
+    teacher_frozen = tr.state.teacher.backbone.stem.conv1.norm
+    assert teacher_frozen.weight.dtype == torch.bfloat16 and teacher_frozen.running_var.dtype == torch.float32
+    tr.run_step(batch)
+    tr.checkpointer.save("model_0000000", tr.checkpoint_state())
+    tr2 = build_trainer(tiny_cfg(get_cfg, tmp_path, *opts), device="cpu")
+    tr2.resume_or_load(resume=True)
+    for a, b in ((tr.state.model, tr2.state.model), (tr.state.teacher, tr2.state.teacher)):
+        want = a.state_dict()
+        for k, v in b.state_dict().items():
+            assert v.dtype == want[k].dtype and torch.equal(v, want[k]), k
+    m1, m2 = tr.run_step(batch), tr2.run_step(batch)
+    assert all(torch.equal(m1[k], m2[k]) for k in m1)
+    want = tr.state.model.state_dict()
+    assert all(torch.equal(v, want[k]) for k, v in tr2.state.model.state_dict().items())
+    assert all(torch.equal(a, b) for a, b in zip(tr.state.optimizer.mu, tr2.state.optimizer.mu))

@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -80,3 +81,68 @@ def test_raises_without_a_gpu(tmp_path, monkeypatch):
 def test_multi_device_settings_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP item 6.9"):
         train_net.main(args(tmp_path, *extra))
+
+
+# the three ResNet-101 C4 workloads, cut to the CPU: a 64x128 canvas, a
+# narrow box head, 2 steps or 2 AdaBN batches; full depth, the YAMLs' norms,
+# FREEZE_AT and bfloat16
+R101_CLI = {
+    "adabn": ("r_101_c4_cs_foggy_adabn.yaml", "train_net_mt", ["--eval-only"]),
+    "sfat": ("r101_c4_cs_foggy_adaptive_teacher_source_free.yaml", "train_net_mt", []),
+    "source_frozen": ("r_101_c4_cs_source_frozen.yaml", "train_net", []),
+}
+R101_CUTS = ["TPU.CANVAS", "(64, 128)", "INPUT.MIN_SIZE_TRAIN", "(60,)", "INPUT.MIN_SIZE_TEST", "60",
+             "MODEL.ROI_BOX_HEAD.FC_DIM", "64", "SOLVER.MAX_ITER", "2", "SOLVER.CHECKPOINT_PERIOD", "0",
+             "TEST.EVAL_PERIOD", "0", "VIS_PERIOD", "0", "SOLVER.WARMUP_ITERS", "0"]
+
+
+@pytest.mark.parametrize("workload", list(R101_CLI))
+def test_r101_workloads_through_the_clis(tmp_path, monkeypatch, workload):
+    """configs/r_101_c4_cs_foggy_adabn.yaml through train_net_mt --eval-only
+    (AdaBN: live BN statistics reset and refined, both TEST sets evaluated),
+    r101_c4_cs_foggy_adaptive_teacher_source_free.yaml through train_net_mt
+    (SFAT steps) and r_101_c4_cs_source_frozen.yaml through train_net (base
+    steps at IMS_PER_BATCH 4, FrozenBN): the stem and res2 parameters are
+    bit-identical after training, FrozenBN buffers too, losses finite."""
+    yaml, cli, flags = R101_CLI[workload]
+    monkeypatch.setattr(base, "ADABN_MAX_BATCHES", 2)
+    argv = ["--config-file", os.path.join(ROOT, "configs", yaml), "--synthetic", "--device", "cpu", *flags,
+            *R101_CUTS, "OUTPUT_DIR", str(tmp_path)]
+    built = []
+    build = base.BaseTrainer.__init__
+
+    def keep(self, *a, **kw):
+        build(self, *a, **kw)
+        built.append(self)
+
+    monkeypatch.setattr(base.BaseTrainer, "__init__", keep)
+    resets = []
+    reset = base.BaseTrainer.reset_bn_stats
+    monkeypatch.setattr(base.BaseTrainer, "reset_bn_stats", lambda self: resets.append(1) or reset(self))
+    # train_net_mt is train_net whose --eval-only runs AdaBN
+    results = train_net.main(train_net.default_argument_parser().parse_args(argv),
+                             eval_mode="adabn" if cli == "train_net_mt" else "test")
+    tr, = built
+    assert tr.det_cfg.backbone == "resnet101" and tr.det_cfg.dtype == torch.bfloat16
+    if workload == "adabn":
+        assert resets == [1]
+        assert set(results) == {"cityscapes_instancesonly_val", "cityscapes_instancesonly_foggy_val_foggy_beta_0.02"}
+        bns = tr._batchnorms()
+        assert len(bns) == 94 and all(torch.isfinite(m.running_var).all() and not torch.all(m.running_var == 1.0)
+                                      for m in bns)
+        assert os.path.exists(tmp_path / "adabn.pth")
+        return
+    data = torch.load(tmp_path / "model_final.pth", weights_only=True)
+    assert data["iteration"] == 2
+    with open(tmp_path / "metrics.json") as f:
+        line = json.loads(f.read().strip().splitlines()[-1])
+    assert line["iteration"] == 1 and all(np.isfinite(v) for k, v in line.items() if k.startswith("loss"))
+    start = type(tr)(tr.cfg, device="cpu").state.model.state_dict()  # the same seeded weights
+    got = tr.state.model.state_dict()
+    frozen = [k for k in got if k.startswith(("backbone.stem.", "backbone.res2."))
+              and not (workload == "sfat" and k.endswith(("running_mean", "running_var", "num_batches_tracked")))]
+    assert frozen and all(torch.equal(got[k], start[k]) for k in frozen)
+    if workload == "source_frozen":
+        buffers = [k for k in got if ".norm." in k]
+        assert len(buffers) == 5 * 94 and all(torch.equal(got[k], start[k]) for k in buffers)
+    assert not all(torch.equal(got[k], start[k]) for k in got if k.startswith("backbone.res4."))

@@ -242,3 +242,21 @@ def test_train_loop_saves_reloads_and_resumes(cuda, tmp_path):
     tr2.train_loader = chip_smoke.RepeatBatch(batch)
     tr2.train()
     assert tr2.state.step == 4 and tr2.checkpointer.last_checkpoint() == "model_final.pth"
+
+
+def test_resnet101_card_matches_cpu(cuda):
+    """ResNet-101 C4 features and detections on the card against the CPU
+    (chip_smoke.r101_card_vs_cpu: BN in eval and train mode, FrozenBN)."""
+    chip_smoke.r101_card_vs_cpu("")
+
+
+def test_resnet101_sfat_step_keeps_frozen_stages(cuda):
+    """Two full-width bfloat16 adaptation steps of the R101 YAML: three
+    launches of each kernel a step, stem and res2 bit-identical."""
+    cfg = chip_smoke.r101_cfg(chip_smoke.R101_SFAT_YAML, **chip_smoke.ADAPT_CUTS)
+    init = chip_smoke.frozen_state(chip_smoke.init_weights(
+        chip_smoke.FasterRCNN(chip_smoke.detector_config_from_cfg(cfg)), chip_smoke.SEED))
+    tr, _, metrics, _, per_step, teacher0, _ = chip_smoke.adapt_run(cfg, 2, [])
+    chip_smoke.check_adapt_run("r101", tr, metrics, per_step, teacher0)
+    after = chip_smoke.frozen_state(tr.state.model)
+    assert len(init) == 33 and all(torch.equal(after[k], v) for k, v in init.items())

@@ -64,6 +64,7 @@ def test_package_files_were_scanned():
         "config/yaml_subset.py", "engine/events.py", "engine/hooks.py", "utils/visualize.py",
         "checkpoint/checkpointer.py", "tools/train_net.py", "tools/train_net_mt.py",
     } <= names
+    assert "models/backbones/resnet.py" in names
 
 
 POISONED = r"""

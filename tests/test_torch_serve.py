@@ -202,3 +202,40 @@ def test_resize_matches_jax(hw):
     want, ws = jax_resize(img.astype(np.float32), 64, 128)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(gs, ws)
+
+
+def test_serve_cli_on_the_r101_adabn_yaml(tmp_path):
+    """`python -m simple_sfod_tpu_torch.engine.serve --config-file
+    configs/r_101_c4_cs_foggy_adabn.yaml` (ResNet-101 C4, full depth; a
+    narrow box head and a 64x128 canvas on the CPU) answers a request."""
+    import os
+    import subprocess
+    import sys
+
+    from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, init_weights
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    yaml = os.path.join(root, "configs", "r_101_c4_cs_foggy_adabn.yaml")
+    cfg = get_cfg()
+    cfg.merge_from_file(yaml)
+    opts = ["MODEL.ROI_BOX_HEAD.FC_DIM", "64", "TPU.CANVAS", str(CANVAS), "INPUT.MIN_SIZE_TEST", "60"]
+    cfg.merge_from_list(opts)
+    path = str(tmp_path / "r101.pth")
+    torch.save({"model": init_weights(FasterRCNN(detector_config_from_cfg(cfg)), 0).state_dict()}, path)
+    cmd = [sys.executable, "-m", "simple_sfod_tpu_torch.engine.serve", "--config-file", yaml, "--weights", path,
+           "--device", "cpu", "--port", "0", *opts]
+    proc = subprocess.Popen(cmd, cwd=root, env=dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="2"),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "r_101_c4_cs_foggy_adabn.yaml" in line and " on http://" in line, (line, proc.stderr.read()[-2000:])
+        url = line.strip().rsplit(" on ", 1)[1].rstrip("/")
+        buf = io.BytesIO()
+        np.save(buf, np.random.RandomState(0).randint(0, 256, (60, 120, 3)).astype(np.uint8))
+        req = urllib.request.Request(f"{url}/predict", data=buf.getvalue(), method="POST")
+        got = json.loads(urllib.request.urlopen(req, timeout=120).read())
+        assert "detections" in got, got
+        assert all(np.isfinite(d["box"]).all() and np.isfinite(d["score"]) for d in got["detections"])
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)

@@ -1,7 +1,7 @@
 """The port's solver (simple_sfod_tpu_torch/solver/build.py) against the
 JAX package's on the CPU: schedule values over a grid of steps, the
 BatchNorm weight-decay mask and the FREEZE_AT mask key for key through the
-Detectron2 names, and parameters after 5 steps on identical gradients
+Detectron2 names (VGG16-BN, and ResNet-101 with BN and FrozenBN), and parameters after 5 steps on identical gradients
 against optax (`SOLVER.FUSED` False and True, clipping on and off).
 
 Tolerances: schedule values exactly equal to the JAX schedule run op by op
@@ -142,3 +142,37 @@ def test_five_steps_on_identical_gradients(jax_params, extra):
     for name, p in named.items():
         w = want[name].numpy()
         np.testing.assert_allclose(p.detach().numpy(), w, rtol=0, atol=1e-6 * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("norm", ["BN", "FrozenBN"])
+@pytest.mark.parametrize("freeze_at", [0, 2, 5])
+def test_freeze_mask_on_resnet101_key_for_key(norm, freeze_at):
+    """ResNet-101 C4: the JAX mask (stem at FREEZE_AT >= 1, res{s} at
+    s <= FREEZE_AT, and FrozenBN's affine always) carried to Detectron2 names
+    equals the port's on its parameters; the FrozenBN affine, frozen in the
+    JAX package, is buffers in the port (never a parameter). The norm mask
+    selects the live BN affine of the stem, the blocks and the shortcuts."""
+    from test_torch_resnet import cfg_pair, seeded_variables
+
+    pcfg_node, jcfg = cfg_pair("MODEL.RESNETS.NORM", norm)
+    variables = seeded_variables(jcfg)
+    pcfg = detector_config_from_cfg(pcfg_node)
+    model = FasterRCNN(pcfg)
+    jmask = jax_solver.backbone_freeze_mask(variables["params"], freeze_at)
+    as_arrays = jax.tree_util.tree_map(lambda m, p: np.full(p.shape, m, np.float32), jmask, variables["params"])
+    want = {k: bool(v.numpy().all()) for k, v in to_port(as_arrays, variables, pcfg).items()
+            if k not in ("pixel_mean", "pixel_std")}
+    got = solver.backbone_freeze_mask(model, freeze_at)
+    params = {n for n, _ in model.named_parameters()}
+    assert set(got) == params and {k: want[k] for k in params} == got
+    frozen_affine = {k for k in want if ".norm." in k and k.endswith((".weight", ".bias"))}
+    if norm == "FrozenBN":
+        assert frozen_affine and not frozen_affine & params and all(want[k] for k in frozen_affine)
+    stages = {k.split(".")[1] for k, v in got.items() if v}
+    assert stages == {1: set(), 2: {"stem", "res2"}, 5: {"stem", "res2", "res3", "res4"}}.get(freeze_at, set())
+    nmask = jax_solver.norm_param_mask(variables["params"])
+    n_arrays = jax.tree_util.tree_map(lambda m, p: np.full(p.shape, m, np.float32), nmask, variables["params"])
+    n_want = {k: bool(v.numpy().all()) for k, v in to_port(n_arrays, variables, pcfg).items() if k in params}
+    assert solver.norm_param_mask(model) == n_want
+    assert sum(n_want.values()) == (2 * 94 if norm == "BN" else 0)
+

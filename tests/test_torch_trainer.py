@@ -184,3 +184,83 @@ def test_box_head_dropout_is_refused():
     with pytest.raises(NotImplementedError, match="dropout"):
         FasterRCNN(DetectorConfig(box_head_dropout=0.5, fc_dim=16))
     FasterRCNN(DetectorConfig(box_head_dropout=0.0, fc_dim=16))
+
+
+R101_SOURCE_YAML = "r_101_c4_cs_source_frozen.yaml"
+R101_LOCKSTEP_OPTS = {
+    **LOCKSTEP_OPTS,
+    "TPU": {**LOCKSTEP_OPTS["TPU"], "DTYPE": "float32"},
+    "INPUT": {"MIN_SIZE_TRAIN": (60,)},
+}
+
+
+@pytest.mark.parametrize("norm", ["FrozenBN", "BN"])
+def test_lockstep_resnet101_base_step_against_jax(tmp_path, monkeypatch, norm):
+    """Two base steps of configs/r_101_c4_cs_source_frozen.yaml (FREEZE_AT
+    2; NORM FrozenBN as the YAML says, and BN) on a cut block plan, float32,
+    against the JAX BaseTrainer's _step_fn_raw on its draws, from the same
+    weights with random statistics; the lockstep's tolerances above. The
+    stem and res2 parameters are bit-identical after the steps in both
+    packages and the port ran no backward through them (no gradient, none
+    required); FrozenBN buffers are bit-identical. Under BN the stem's and
+    res2's running statistics move in both packages: the JAX package
+    freezes only their parameters, where Detectron2 would have converted
+    those layers to FrozenBN (a deviation from Detectron2, followed)."""
+    import os
+
+    from test_torch_adabn import cut_r101
+
+    cut_r101(monkeypatch)
+    yaml = os.path.join(os.path.dirname(__file__), "..", "configs", R101_SOURCE_YAML)
+    cfgs = []
+    for get in (jax_get_cfg, get_cfg):
+        cfg = get()
+        cfg.merge_from_file(yaml)
+        cfg.merge_from_list(config_opts(R101_LOCKSTEP_OPTS) + ["MODEL.RESNETS.NORM", norm])
+        cfg.OUTPUT_DIR = str(tmp_path)
+        cfgs.append(cfg)
+    jtr = JaxBaseTrainer(cfgs[0])
+    rs = np.random.RandomState(9)
+    jtr.state = jtr.state.replace(batch_stats=jax.tree_util.tree_map_with_path(
+        lambda path, x: (rs.normal(0, 0.1, x.shape) if str(path[-1].key) == "mean" else rs.uniform(0.5, 2.0, x.shape))
+        .astype(np.float32), jtr.state.batch_stats))
+    jax_step = jax.jit(jtr._step_fn_raw)
+    pcfg = detector_config_from_cfg(cfgs[1])
+    assert pcfg.backbone == "resnet101" and pcfg.resnet_norm == norm
+    init = jax.tree_util.tree_map(np.asarray, jtr.state.variables())
+    start = state_dict_from_jax(init, pcfg)
+    ptr = BaseTrainer(cfgs[1], device="cpu", state_dict=start)
+    frozen = {n for n, p in ptr.state.model.named_parameters() if n.startswith(("backbone.stem.", "backbone.res2."))}
+    assert frozen and all(not p.requires_grad for n, p in ptr.state.model.named_parameters() if n in frozen)
+    assert not frozen & set(ptr.state.optimizer.names)
+
+    n = anchors_for(pcfg, CANVAS, torch.device("cpu")).shape[0]
+    pool = roi_pool_size(pcfg, n, GT_CAP)
+    records = make_synthetic_records(BATCH * 2, (60, 120), 8, 6, seed=5)
+    state = jtr.state
+    for step in range(2):
+        batch = synthetic_batch(records[step * BATCH:(step + 1) * BATCH], CANVAS, GT_CAP)
+        state, jm = jax_step(state, jnp.asarray(batch["images"]), jnp.asarray(batch["sizes"]), jax_gt_instances(batch), jtr.base_rng)
+        pm = ptr.run_step(batch, jax_step_draws(jtr.base_rng, step, BATCH, n, pool))
+        for k in LOSSES:
+            assert rel_err(float(pm[k]), float(jm[k])) <= 1e-4, (step, k, float(pm[k]), float(jm[k]))
+        for k in ("num_fg", "num_sampled"):
+            assert int(pm[k]) == int(jm[k]), (step, k)
+    assert all(p.grad is None for n, p in ptr.state.model.named_parameters() if n in frozen)
+
+    want = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, state.variables()), pcfg)
+    got = ptr.state.model.state_dict()
+    bad = [k for k in want if not k.endswith("num_batches_tracked") and not within_tolerance(got[k], want[k], start[k])]
+    assert not bad, bad
+    stem_res2 = [k for k in want if k.startswith(("backbone.stem.", "backbone.res2.")) and not k.endswith("num_batches_tracked")]
+    for k in stem_res2:
+        stat = k.endswith(("running_mean", "running_var"))
+        if stat and norm == "BN":  # moved by the train-mode forwards, in both packages
+            assert not torch.equal(got[k], start[k]) and not torch.equal(want[k], start[k]), k
+        else:  # frozen parameters and FrozenBN buffers: bit-identical in both
+            assert torch.equal(got[k], start[k]) and torch.equal(want[k], start[k]), k
+    if norm == "FrozenBN":
+        buffers = [k for k in got if ".norm." in k and not k.endswith("num_batches_tracked")]
+        assert buffers and all(torch.equal(got[k], start[k]) for k in buffers)
+    moved = [k for k in want if np.abs((want[k] - start[k]).numpy()).max() > 1e-3 * np.abs(want[k].numpy()).max()]
+    assert len(moved) > 20
