@@ -124,6 +124,27 @@ Phases (each prints one progress line with its wall time):
               timed; 6 base steps on configs/r_101_c4_cs_source_frozen.yaml
               (FrozenBN, IMS_PER_BATCH 4): finite losses, stem, res2 and
               every FrozenBN buffer bit-identical
+ 13. wq       fixed-pseudo-label self-training: mosaic_batch, mixup_batch
+              (content-aware, with the companion flip, without and with the
+              scale jitter) and random_affine_batch on the card against the
+              CPU at 128x256 on the same draws (gathers and blends bit for
+              bit, the bilinear warp within 1e-4*255 and 1e-3 px); an AdaBN
+              dump (8 batches) of seeded weights on the cli phase's PNG
+              frames, spliced at 0.7 by the port's prediction_to_gt into
+              cityscapes_instancesonly_foggy_train_adabn; the four WQ YAMLs
+              (configs/faster_rcnn_VGG_cityscapes_foggy_source_{wq,mosaic,
+              mixup,mosaic_wq_new}.yaml: batch 4, 608x1216, float32) and
+              mosaic with INPUT.MOSAIC.RANDOM_AFFINE, 6 steps each from the
+              loader (no LR warmup, seed 0): finite losses, the weights
+              moved, 4 launches of each kernel a step, the first step's NMS
+              inputs kernel == plain, a step under
+              set_sync_debug_mode("error"), the step's median, peak memory,
+              a profiled step and the augmentation's device time alone;
+              the _mosaic_wq_new YAML through `python -m
+              simple_sfod_tpu_torch.tools.train_net` (8 steps, test() at
+              8, launches as counted); the 5-stage run_workflow_synthetic
+              at --iters 1000 --retrain-iters 150 (every stage exits 0,
+              a nonzero splice; AP/AP50 and wall of each stage)
 
 Prints the card's name and power limit and a JSON line of the kernels'
 numbers, then, as the last line, {"ok": true, "device": {...}}. Any failure
@@ -153,7 +174,7 @@ from simple_sfod_tpu_torch import host_libs
 from simple_sfod_tpu_torch.checkpoint.checkpointer import Checkpointer
 from simple_sfod_tpu_torch.config import detector_config_from_cfg, get_cfg, get_main_cfg, get_source_cfg
 from simple_sfod_tpu_torch.config.defaults import MAIN_CONFIG, SFAT_BENCH_CONFIG, config_opts
-from simple_sfod_tpu_torch.data import native_codec, transforms
+from simple_sfod_tpu_torch.data import mosaic, native_codec, transforms
 from simple_sfod_tpu_torch.data.datasets import CITYSCAPES_THING_CLASSES, register_dataset
 from simple_sfod_tpu_torch.engine.events import tensorboard_summary_writer
 from simple_sfod_tpu_torch.data.loader import build_test_loader
@@ -168,7 +189,8 @@ from simple_sfod_tpu_torch.engine.trainers.base import BaseTrainer
 from simple_sfod_tpu_torch.models.detector import Detector
 from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, init_weights
 from simple_sfod_tpu_torch.ops import _kernels, nms
-from simple_sfod_tpu_torch.tools import train_net
+from simple_sfod_tpu_torch.structures.instances import Instances
+from simple_sfod_tpu_torch.tools import prediction_to_gt, run_workflow_synthetic, train_net
 
 SEED = 0
 N_REQUESTS = 4
@@ -864,6 +886,20 @@ def train_run(dtype: str, captured: list):
     return trainer, batch, metrics, wall, launches
 
 
+def kernel_device_ms(fn, kernel: str, reps: int = 50, tries: int = 2):
+    """The device ms a call of the kernels whose name holds `kernel`, from
+    the profiler's kernel events over `reps` calls of fn. -> (ms, every
+    kernel's ms). A window in which the profiler recorded no event of the
+    kernel (it happened on the card, with the kernel launched: CUPTI's
+    buffers can come back empty) is profiled again, up to `tries` windows."""
+    for _ in range(tries):
+        _, _, kern, _ = profile(fn, reps)
+        ms = sum(v for name, v in kern.items() if kernel in name)
+        if ms > 0:
+            break
+    return ms, kern
+
+
 def kernel_rows(b, s, v, thr, site, plain_reps=(20, 5)):
     """Both kernels on one NMS call's inputs: device time (profiler), time a
     call (CUDA events), plain version's time (over plain_reps calls of each,
@@ -878,10 +914,8 @@ def kernel_rows(b, s, v, thr, site, plain_reps=(20, 5)):
     call2 = time_ms(lambda: nms.greedy_keep_from_bits(bits, sv), 200)
     p2 = time_ms(lambda: nms.greedy_keep_plain(rel, sv), plain_reps[1], warmup=1)
     # the kernels' own device time, from the profiler's kernel events
-    _, _, kern1, _ = profile(lambda: _kernels.launch_suppress_relation_bits(sb, sv, thr), 50)
-    _, _, kern2, _ = profile(lambda: nms.greedy_keep_from_bits(bits, sv), 50)
-    k1 = sum(v for name, v in kern1.items() if "suppress_relation_bits_kernel" in name)
-    k2 = sum(v for name, v in kern2.items() if "greedy_keep_from_bits" in name)
+    k1, kern1 = kernel_device_ms(lambda: _kernels.launch_suppress_relation_bits(sb, sv, thr), "suppress_relation_bits_kernel")
+    k2, kern2 = kernel_device_ms(lambda: nms.greedy_keep_from_bits(bits, sv), "greedy_keep_from_bits")
     check(k1 > 0 and k2 > 0, f"profiler saw no kernel time: {kern1} {kern2}")
     b1, by1 = kernel1_bound_ms(sv)
     b2, by2 = kernel2_bound_ms(keep)
@@ -1308,13 +1342,6 @@ R101_BASE_STEPS = 6
 R101_CALIBRATION = 30  # train-mode forwards that give the FrozenBN weights their statistics
 # the card-vs-CPU cells: a 128x256 canvas, a narrow box head, float32
 R101_SMALL = {"MODEL.ROI_BOX_HEAD.FC_DIM": "64", "TPU.DTYPE": "float32", "TPU.CANVAS": "(128, 256)"}
-# train_net_mt --eval-only with the refinement cut to argv[1] batches: the
-# CLI's own parser and main, in a process of its own
-ADABN_CLI = ("import sys\n"
-             "from simple_sfod_tpu_torch.engine.trainers import base\n"
-             "base.ADABN_MAX_BATCHES = int(sys.argv[1])\n"
-             "from simple_sfod_tpu_torch.tools import train_net\n"
-             "train_net.main(train_net.default_argument_parser().parse_args(sys.argv[2:]), eval_mode='adabn')\n")
 
 
 def r101_cfg(yaml: str, **opts):
@@ -1438,11 +1465,11 @@ def r101_phase(smi: str):
         log(f"  wrote {CLI_TRAIN_FRAMES} {FRAME_HW[0]}x{FRAME_HW[1]} PNG frames, 3 COCO JSONs and a seeded R101 .pth "
             f"({os.path.getsize(weights) / 2**20:.1f} MiB) in {time.perf_counter() - t0:.2f} s")
         out = os.path.join(root, "adabn")
-        argv = ["--config-file", os.path.join(ROOT, R101_ADABN_YAML), "--eval-only", "MODEL.WEIGHTS", weights,
-                "OUTPUT_DIR", out, "SEED", "0", "VIS_PERIOD", "0"]
+        argv = ["--config-file", os.path.join(ROOT, R101_ADABN_YAML), "--eval-only", "--adabn-batches",
+                str(R101_ADABN_BATCHES), "MODEL.WEIGHTS", weights, "OUTPUT_DIR", out, "SEED", "0", "VIS_PERIOD", "0"]
         t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-c", ADABN_CLI, str(R101_ADABN_BATCHES), *argv], cwd=ROOT,
-                             env=cli_env(data_root), capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+        res = subprocess.run(cli_cmd(argv), cwd=ROOT, env=cli_env(data_root), capture_output=True, text=True,
+                             timeout=CLI_TIMEOUT_S)
         wall = time.perf_counter() - t0
         check(res.returncode == 0, f"R101 AdaBN CLI: exit code {res.returncode}\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
         got = cli_launches(res.stdout)
@@ -1604,6 +1631,271 @@ def r101_phase(smi: str):
         tmp.cleanup()
     log(f"  launches on the r101 path: {total}")
     return total, r101_rows
+
+
+# ---------------------------------------------------------------- wq
+WQ_AUGS = ("wq", "mosaic", "mixup", "mosaic_wq_new")
+WQ_YAML = "configs/faster_rcnn_VGG_cityscapes_foggy_source_{}.yaml"
+WQ_STEPS = 6
+# the cuts of the phase's runs: seed 0 (42), no LR warmup (1000 steps, which
+# would keep the weights all but still for 6 steps)
+WQ_OPTS = ["SEED", "0", "SOLVER.WARMUP_ITERS", "0"]
+WQ_CLI_AUG = "mosaic_wq_new"
+WQ_CLI_ITERS = 8
+WQ_ADABN_BATCHES = 8  # the AdaBN dump's refinement (1400 in the reference)
+WQ_OPS_CANVAS = (128, 256)
+# the bilinear warp on the card against the CPU (mixup's scale jitter, the
+# affine): the same float32 formula, whose last bits the card's kernels may
+# round otherwise; gathers and blends are held bit for bit
+WARP_IMAGE_TOL = 1e-4 * 255
+WARP_BOX_TOL = 1e-3
+# the 5-stage workflow on the card: the JAX package's recorded run (WORKFLOWS.md
+# section 10), uncut
+WORKFLOW_ARGS = ["--iters", "1000", "--retrain-iters", "150"]
+FOGGY_TRAIN = "cityscapes_instancesonly_foggy_train_foggy_beta_0.02"
+SPLICED = "cityscapes_instancesonly_foggy_train_adabn"
+
+
+def wq_ops_card_vs_cpu(seed: int = SEED) -> dict:
+    """mosaic_batch (content-aware), mixup_batch (content-aware with the
+    companion flip, without and with the scale jitter) and
+    random_affine_batch on the card and on the CPU, at 128x256 with 4
+    images whose content is smaller than the canvas, from the same draws.
+    -> {op: (max image difference, max box difference, masks equal)}."""
+    rs = np.random.RandomState(seed)
+    b, n = 4, 16
+    h, w = WQ_OPS_CANVAS
+    sizes = np.asarray([(120, 250), (128, 256), (100, 200), (90, 256)], np.int32)
+    images = rs.randint(0, 256, (b, h, w, 3)).astype(np.float32)
+    for i, (sh, sw) in enumerate(sizes):
+        images[i, sh:] = 0
+        images[i, :, sw:] = 0
+    xy = rs.uniform(0, 1, (b, n, 2)) * (sizes[:, None, ::-1] - 20)
+    boxes = np.concatenate([xy, np.minimum(xy + rs.uniform(3, 60, (b, n, 2)), sizes[:, None, ::-1])], -1)
+    gt = (boxes.astype(np.float32), rs.uniform(0.5, 1, (b, n)).astype(np.float32), rs.randint(0, 8, (b, n)).astype(np.int32),
+          rs.uniform(size=(b, n)) < 0.8)
+    g = torch.Generator().manual_seed(seed)
+    u = {k: torch.rand(shape, generator=g) for k, shape in
+         (("centre", (b, 2)), ("affine", (b, 6)), ("jitter", (b,)), ("offset", (b, 2)), ("crop", (b, 2)))}
+    flip = torch.tensor([True, False, True, False])
+
+    def run(dev):
+        t = lambda a: (torch.from_numpy(a) if isinstance(a, np.ndarray) else a).to(dev)  # noqa: E731
+        im, sz, inst = t(images), t(sizes), Instances(*(t(a) for a in gt))
+        d = {k: v.to(dev) for k, v in u.items()}
+        return {
+            "mosaic": mosaic.mosaic_batch(d["centre"], im, inst, sizes=sz),
+            "mixup": mosaic.mixup_batch(im, inst, flip=t(flip), crop=d["crop"], sizes=sz),
+            "mixup_jitter": mosaic.mixup_batch(im, inst, flip=t(flip), scale_jitter=(0.5, 1.5), jitter=d["jitter"],
+                                               jitter_offset=d["offset"], crop=d["crop"], sizes=sz),
+            "affine": mosaic.random_affine_batch(d["affine"], im, inst),
+        }
+
+    cpu, card = run("cpu"), run("cuda")
+    out = {}
+    for k, (im_c, gt_c) in cpu.items():
+        im_g, gt_g = card[k]
+        out[k] = (float((im_g.cpu() - im_c).abs().max()), float((gt_g.boxes.cpu() - gt_c.boxes).abs().max()),
+                  torch.equal(gt_g.valid.cpu(), gt_c.valid) and torch.equal(gt_g.scores.cpu(), gt_c.scores)
+                  and torch.equal(gt_g.classes.cpu(), gt_c.classes))
+    return out
+
+
+def wq_ops_ok(err: dict) -> bool:
+    """Gathers and blends bit-equal; the warp within its tolerance; masks,
+    classes and scores equal."""
+    exact = all(err[k][0] == 0.0 and err[k][1] == 0.0 for k in ("mosaic", "mixup"))
+    warp = all(err[k][0] <= WARP_IMAGE_TOL and err[k][1] <= WARP_BOX_TOL for k in ("mixup_jitter", "affine"))
+    return exact and warp and all(e[2] for e in err.values())
+
+
+def wq_cfg(aug: str, out: str, weights: str, *opts: str):
+    """A WQ YAML of configs/ with the phase's cuts, MODEL.WEIGHTS and OUTPUT_DIR."""
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, WQ_YAML.format(aug)), allow_new=True)
+    cfg.merge_from_list([*WQ_OPTS, "MODEL.WEIGHTS", weights, "OUTPUT_DIR", out, *opts])
+    return cfg
+
+
+def wq_run(cfg, smi: str, label: str) -> dict:
+    """WQ_STEPS steps of the trainer of `cfg` on batches from its train
+    loader (the spliced pseudo-GT, decoded from disk), each timed alone;
+    finite losses, 4 launches of each kernel a step, the weights moved, a
+    step under set_sync_debug_mode("error"), and one step and its
+    augmentation alone under torch.profiler. -> the first step's NMS
+    inputs (that step's wall includes the capture)."""
+    tr = build_trainer(cfg)
+    tr.resume_or_load()
+    b = cfg.SOLVER.IMS_PER_BATCH
+    check(b == 4 and tuple(cfg.TPU.CANVAS) == (608, 1216) and tr.det_cfg.dtype == torch.float32,
+          f"{label}: batch {b}, canvas {cfg.TPU.CANVAS}, {tr.det_cfg.dtype}")
+    before = {k: v.clone() for k, v in tr.state.model.named_parameters()}
+    it = iter(tr.build_train_loader())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, wall, launches, captured = [], [], [], []
+    orig, record = capture_nms(captured)
+    for i in range(WQ_STEPS):
+        batch = next(it)
+        staged = tr.stage(batch)
+        start = dict(_kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nms.nms_mask_matrix = record if i == 0 else orig  # the first step's NMS inputs
+        try:
+            m = tr.step_staged(staged)
+        finally:
+            nms.nms_mask_matrix = orig
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        launches.append({k: c - start[k] for k, c in _kernels.LAUNCHES.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(x[k]) for x in metrics for k in TRAIN_LOSSES), f"{label}: losses {metrics}")
+    check(all(c == b for d in launches for c in d.values()), f"{label}: launches a step {launches}, expected {b} of each")
+    after = dict(tr.state.model.named_parameters())
+    moved = sum(not torch.equal(after[k], v) for k, v in before.items())
+    check(moved >= 0.9 * len(before), f"{label}: {moved} of {len(before)} parameters moved")
+    # a step reads nothing back to the host
+    staged = tr.stage(next(it))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.step_staged(staged)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # one step, and its augmentation alone on the same batch and draws
+    wall_p, dev_p, kern_p, ops_p = profile(lambda: tr.step_staged(staged), 1)
+    images, sizes, gt = staged
+    draws = tr.make_draws(images.shape[0], tuple(images.shape[1:3]), gt.boxes.shape[1])
+    imf = images.to(torch.float32)
+    _, dev_a, kern_a, _ = profile(lambda: tr.augment(imf, sizes, gt, draws), 3)
+    it.close()
+    med = float(np.median(wall[1:]))
+    log(f"  {label} ({tr.__class__.__name__}, aug {tr.aug}, batch {b}, 608x1216, float32) [{smi}]: step "
+        f"{med:.2f} ms (median of steps 1-{WQ_STEPS - 1}; first {wall[0]:.1f} ms; {b * 1e3 / med:.2f} images/s), "
+        f"peak {peak:.2f} GiB; total loss {[round(x['total_loss'], 4) for x in metrics]}; {moved}/{len(before)} "
+        f"parameters moved; launches "
+        f"{b} of each a step; a step under set_sync_debug_mode('error'); profiled step: wall {wall_p:.2f} ms, device "
+        f"{dev_p:.2f} ms, busy {dev_p / wall_p:.1%}; augmentation alone {dev_a:.3f} ms on the device "
+        f"({dev_a / dev_p:.1%} of the step's)")
+    log(f"    top kernels of the step (ms): {top(kern_p)}")
+    log(f"    top kernels of the augmentation (ms/call): {top(kern_a)}")
+    del tr
+    return captured
+
+
+def wq_phase(smi: str):
+    """The wq phase (module docstring). -> the launches of each kernel on
+    the path."""
+    err = wq_ops_card_vs_cpu()
+    log(f"  card vs CPU at {WQ_OPS_CANVAS[0]}x{WQ_OPS_CANVAS[1]}, 4 images, content < canvas (max image / box "
+        f"difference, masks equal): " + "; ".join(f"{k} {e[0]:.3g} / {e[1]:.3g} / {e[2]}" for k, e in err.items()) +
+        f" (mosaic and mixup held to 0, the warp to {WARP_IMAGE_TOL:.4g} / {WARP_BOX_TOL:g})")
+    check(wq_ops_ok(err), f"mosaic/mixup/affine on the card differ from the CPU's: {err}")
+
+    total = {k: 0 for k in _kernels.LAUNCHES}
+
+    def add(d):
+        for k in total:
+            total[k] += d[k]
+
+    tmp = tempfile.TemporaryDirectory(prefix="sfod_wq_")
+    root = tmp.name
+    data_root = os.path.join(root, "datasets")
+    captured = {}
+    try:
+        t0 = time.perf_counter()
+        write_cli_datasets(data_root)
+        register_cli_datasets(data_root)
+        weights = os.path.join(root, "source.pth")
+        write_cli_weights(weights)
+        log(f"  wrote {CLI_TRAIN_FRAMES} {FRAME_HW[0]}x{FRAME_HW[1]} PNG frames, their COCO JSONs and a seeded "
+            f".pth in {time.perf_counter() - t0:.2f} s")
+        # the pseudo-GT: an AdaBN model's detections on the foggy train split, spliced
+        _kernels.reset_launches()
+        adabn_out = os.path.join(root, "adabn")
+        cfg = wq_cfg("wq", adabn_out, weights, "DATASETS.TRAIN", f"('{FOGGY_TRAIN}',)", "DATASETS.TEST", f"('{FOGGY_TRAIN}',)")
+        tr = build_trainer(cfg)
+        tr.resume_or_load()
+        t0 = time.perf_counter()
+        res = tr.adabn_refinement(max_batches=WQ_ADABN_BATCHES)[FOGGY_TRAIN]
+        adabn_s = time.perf_counter() - t0
+        del tr
+        got = dict(_kernels.LAUNCHES)
+        add(got)
+        check(all(c == 2 * CLI_TRAIN_FRAMES for c in got.values()), f"AdaBN dump: launches {got}")
+        ann = os.path.join(data_root, "cityscapes_foggy", "annotations", "instancesonly_filtered_gtFine_{}.json")
+        n_pseudo = prediction_to_gt.main(["--predictions", os.path.join(adabn_out, "inference", "coco_instances_results.json"),
+                                          "--annotations", ann.format("train_foggy_beta_0.02"),
+                                          "--output", ann.format("train_adabn")])
+        check(n_pseudo > 0, "the splice found no detection at score 0.7")
+        register_dataset(SPLICED, ann.format("train_adabn"), os.path.join(data_root, "cityscapes_foggy"),
+                         CITYSCAPES_THING_CLASSES)
+        log(f"  AdaBN ({WQ_ADABN_BATCHES} batches) and test() on the foggy train split in {adabn_s:.2f} s (AP50 "
+            f"{res['AP50']:.4f}); prediction_to_gt spliced {n_pseudo} pseudo-GT boxes at 0.7 into {SPLICED}")
+
+        # the four YAMLs, and mosaic with the affine, in this process
+        _kernels.reset_launches()
+        for aug, opts in [(a, ()) for a in WQ_AUGS] + [("mosaic", ("INPUT.MOSAIC.RANDOM_AFFINE", "True"))]:
+            label = aug + ("+affine" if opts else "")
+            cfg = wq_cfg(aug, os.path.join(root, label), weights, *opts)
+            check(cfg.DATASETS.TRAIN == (SPLICED,), f"{label}: DATASETS.TRAIN {cfg.DATASETS.TRAIN}")
+            captured[label] = wq_run(cfg, smi, label)
+        add(dict(_kernels.LAUNCHES))
+        # each run's first-step NMS inputs (the train-mode RPN of each image):
+        # kernels against the plain versions, after the count was taken
+        for label, calls in captured.items():
+            check(len(calls) == 4, f"{label}: {len(calls)} NMS calls captured in a step")
+            kept = [check_kernels_against_plain(b, s, v, thr, f"{label} image {i}", cpu=i == 0)
+                    for i, (b, s, v, thr) in enumerate(calls)]
+            log(f"  {label}: the step's 4 RPN NMS inputs (N {[int(c[0].shape[0]) for c in calls]}), kernels bit-equal "
+                f"to the plain versions, kept {kept}")
+
+        # one YAML through the CLI
+        out = os.path.join(root, "cli")
+        argv = ["--config-file", os.path.join(ROOT, WQ_YAML.format(WQ_CLI_AUG)), *WQ_OPTS, "MODEL.WEIGHTS", weights,
+                "OUTPUT_DIR", out, "SOLVER.MAX_ITER", str(WQ_CLI_ITERS), "TEST.EVAL_PERIOD", str(WQ_CLI_ITERS)]
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "simple_sfod_tpu_torch.tools.train_net", *argv], cwd=ROOT,
+                             env=cli_env(data_root), capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+        cli_s = time.perf_counter() - t0
+        check(res.returncode == 0, f"WQ CLI: exit code {res.returncode}\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        got = cli_launches(res.stdout)
+        add(got)
+        # 4 a step, 2 an image of the two TEST sets in test(), 1 for the
+        # validation loss's one batch of one image (TEST.IMS_PER_BATCH 1)
+        want = 4 * WQ_CLI_ITERS + 2 * 2 * CLI_TEST_FRAMES + 1
+        check(all(c == want for c in got.values()), f"WQ CLI: launches {got}, expected {want} of each")
+        lines = metrics_lines(out)
+        check(lines and lines[-1]["iteration"] == WQ_CLI_ITERS - 1 and np.isfinite(lines[-1]["total_loss"]),
+              f"WQ CLI metrics.json: {lines[-1:]}")
+        with open(os.path.join(out, "eval_results.json")) as f:
+            ev = json.load(f)
+        check(len(ev) == 2 and all(np.isfinite(v["AP50"]) for v in ev.values()), f"WQ CLI eval_results.json: {ev}")
+        check(os.path.exists(os.path.join(out, "model_final.pth")), "WQ CLI: no model_final.pth")
+        log(f"  train_net on {WQ_YAML.format(WQ_CLI_AUG)} ({WQ_CLI_ITERS} steps, test() at {WQ_CLI_ITERS}) [{smi}]: "
+            f"{cli_s:.2f} s, total loss {lines[-1]['total_loss']:.4f}, AP50 "
+            f"{[round(v['AP50'], 4) for v in ev.values()]}, launches {got}")
+
+        # the 5-stage workflow through the port's CLIs
+        t0 = time.perf_counter()
+        wf = run_workflow_synthetic.main(["--root", os.path.join(root, "workflow"), *WORKFLOW_ARGS])
+        wf_s = time.perf_counter() - t0
+        n_wf = wf.summary["3_splice"]["pseudo_annotations"]
+        check(n_wf > 0 and len(wf.summary) == 5, f"workflow summary {wf.summary}")
+        for d in wf.launches.values():
+            add(d)
+        log(f"  run_workflow_synthetic {' '.join(WORKFLOW_ARGS)} [{smi}]: {wf_s:.2f} s, every stage exit 0, "
+            f"{n_wf} pseudo-GT boxes spliced")
+        for stage, wall in wf.walls.items():
+            s = wf.summary[stage]
+            ap = ", ".join(f"{k} {v}" for k, v in s.items())
+            log(f"    {stage}: {ap}; {wall:.2f} s")
+    finally:
+        tmp.cleanup()
+    log(f"  launches on the wq path: {total}")
+    return total
 
 
 def main() -> int:
@@ -2116,6 +2408,9 @@ def main() -> int:
     with Phase("r101"):
         r101_launches, r101_rows = r101_phase(smi)
 
+    with Phase("wq"):
+        wq_launches = wq_phase(smi)
+
     replaces = {
         "suppress_relation_bits": "simple_sfod_tpu/ops/pallas_kernels.py:26",
         "greedy_keep_from_bits": "simple_sfod_tpu/ops/pallas_kernels.py:123",
@@ -2127,8 +2422,10 @@ def main() -> int:
         # numbers are the sum over the three sites, on the first step's
         # inputs. launches count every path: serve, train, adapt and eval
         # (trainer.test(), 2 per image and evaluated model), cli (the
-        # CLI's subprocesses and the phase's loops, AdaBN included) and r101
-        # (its AdaBN CLI and test(), SFAT and base steps). r101_per_step: the
+        # CLI's subprocesses and the phase's loops, AdaBN included), r101
+        # (its AdaBN CLI and test(), SFAT and base steps) and wq (the AdaBN
+        # dump's test(), the WQ steps, the WQ CLI and the workflow's
+        # CLIs). r101_per_step: the
         # ResNet-101 adaptation step's three calls.
         # per_call: one served image's two calls; train_per_step: one
         # supervised step's RPN call; large_n: N above the keep kernel's
@@ -2141,7 +2438,7 @@ def main() -> int:
             "source": "simple_sfod_tpu_torch/ops/csrc/nms.cu",
             "replaces": replaces[name],
             "launches": launches[name] + train_launches[name] + adapt_launches[name] + eval_launches[name] +
-                        cli_launches_total[name] + r101_launches[name],
+                        cli_launches_total[name] + r101_launches[name] + wq_launches[name],
             "max_abs_err": float(max(r["err"] for r in per + rows[name] + large_rows[name])),
             "ms": sum(r["ms"] for r in per),
             "call_ms": sum(r["call_ms"] for r in per),
@@ -2152,7 +2449,7 @@ def main() -> int:
             "ptxas": ptxas[name],
             "launches_by_path": {"serve": launches[name], "train": train_launches[name], "adapt": adapt_launches[name],
                                  "eval": eval_launches[name], "cli": cli_launches_total[name],
-                                 "r101": r101_launches[name]},
+                                 "r101": r101_launches[name], "wq": wq_launches[name]},
             "adapt_per_step": per,
             "r101_per_step": r101_rows[name],
             "per_call": rows[name],

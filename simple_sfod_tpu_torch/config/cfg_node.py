@@ -2,7 +2,8 @@
 `simple_sfod_tpu/config/cfg_node.py`).
 
 Same merge semantics as the JAX package's node, so every YAML under
-`configs/` merges to the same key tree in both packages. Files are read by
+`configs/` merges to the same key tree in both packages, except a node of
+SWITCH_NODES given as one bool (below). Files are read by
 the port's own reader of the YAML subset the configs are written in
 (`yaml_subset.py`), so no YAML package is needed.
 """
@@ -15,6 +16,21 @@ import os
 from typing import Any, List
 
 from . import yaml_subset
+
+
+# Nodes that a config may give as one bool, by path: the bool sets the named
+# switch and turns the node's other bool keys off. Two SFAT YAMLs write
+# `DOMAIN_CLASSIFIER: False`; the JAX package's node takes the bool in place
+# of the node, and its SFAT trainer then raises AttributeError on
+# `DOMAIN_CLASSIFIER.ENABLED` (a fault of the reference the port does not copy).
+SWITCH_NODES = {"DOMAIN_CLASSIFIER": "ENABLED"}
+
+
+def _set_switch(node: "CfgNode", switch: str, value: bool) -> None:
+    for k, v in node.items():
+        if isinstance(v, bool):
+            node[k] = False
+    node[switch] = value
 
 
 class CfgNode(dict):
@@ -81,6 +97,8 @@ class CfgNode(dict):
                 continue
             if isinstance(v, dict) and isinstance(self[k], CfgNode):
                 self[k]._merge_dict(v, allow_new, full)
+            elif isinstance(v, bool) and full in SWITCH_NODES and isinstance(self[k], CfgNode):
+                _set_switch(self[k], SWITCH_NODES[full], v)
             else:
                 self[k] = self._decode(v, self[k])
 
@@ -108,4 +126,7 @@ class CfgNode(dict):
                 parsed = ast.literal_eval(value)
             except (ValueError, SyntaxError):
                 parsed = value
-            node[leaf] = self._decode(parsed, node[leaf])
+            if isinstance(parsed, bool) and key in SWITCH_NODES and isinstance(node[leaf], CfgNode):
+                _set_switch(node[leaf], SWITCH_NODES[key], parsed)
+            else:
+                node[leaf] = self._decode(parsed, node[leaf])

@@ -278,6 +278,14 @@ class BaseTrainer:
         )
         return to_device(batch["images"], dev), to_device(batch["sizes"], dev, torch.int32), gt
 
+    def augment(
+        self, images: torch.Tensor, sizes: torch.Tensor, gt: Instances, draws: Draws
+    ) -> Tuple[torch.Tensor, torch.Tensor, Instances]:
+        """The step's augmentation of float images, sizes and GT: the weak
+        flip. -> (images, sizes, GT) that the losses see."""
+        images, gt = apply_weak_aug(draws.flip.to(self.device), images, sizes, gt, self.flip)
+        return images, sizes, gt
+
     def step_staged(self, staged, draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
         """One training step on a staged batch. Returns the metrics (losses,
         num_fg, num_sampled, total_loss) as tensors on the device."""
@@ -286,7 +294,7 @@ class BaseTrainer:
         images = images.to(torch.float32)
         if draws is None:
             draws = self.make_draws(images.shape[0], tuple(images.shape[1:3]), gt.boxes.shape[1])
-        images, gt = apply_weak_aug(draws.flip.to(dev), images, sizes, gt, self.flip)
+        images, sizes, gt = self.augment(images, sizes, gt, draws)
 
         state = self.state
         for p in state.optimizer.params:

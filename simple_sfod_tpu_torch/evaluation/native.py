@@ -1,6 +1,6 @@
-"""ctypes binding of the repo's C++ COCO evaluator (`native/cocoeval.cpp`,
-built by host_libs.py): the port's own binding, with the contract of
-`simple_sfod_tpu/evaluation/native.py`.
+"""ctypes binding of the port's C++ COCO evaluator (`csrc/cocoeval.cpp`, a
+copy of the repo's `native/cocoeval.cpp`, built by host_libs.py), with the
+contract of `simple_sfod_tpu/evaluation/native.py`.
 
 The C ABI carries int64 image ids; records keyed by other ids (the
 file-stem strings of the VOC tooling) take the plain `coco_map` instead

@@ -3,8 +3,9 @@
   imgcodec  data/csrc/imgcodec.cpp: Pillow-exact bilinear resize, PNG
             scanline reconstruction, and JPEG decode where libjpeg's header
             is found (data/native_codec.py binds it)
-  cocoeval  the repo's native/cocoeval.cpp, built as it is: the COCO metric
-            in C++ (evaluation/native.py binds it)
+  cocoeval  evaluation/csrc/cocoeval.cpp (the port's copy of the repo's
+            native/cocoeval.cpp): the COCO metric in C++ (evaluation/native.py
+            binds it)
 
 Each library is compiled at first use with `g++ -O3 -fPIC -std=c++17
 -shared` into `simple_sfod_tpu_torch/_build/` (listed in .gitignore), keyed by
@@ -30,7 +31,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 SOURCES = {
     "imgcodec": os.path.join(_PKG, "data", "csrc", "imgcodec.cpp"),
-    "cocoeval": os.path.join(os.path.dirname(_PKG), "native", "cocoeval.cpp"),
+    "cocoeval": os.path.join(_PKG, "evaluation", "csrc", "cocoeval.cpp"),
 }
 
 BUILD_SECONDS: Dict[str, float] = {}

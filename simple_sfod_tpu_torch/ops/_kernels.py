@@ -30,6 +30,8 @@ import numpy as np
 import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+# the CUDA source of each kernel library, by name
+SOURCES = {"nms": os.path.join(_CSRC, "nms.cu")}
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -67,9 +69,9 @@ def _nvcc() -> str:
 
 
 def build(name: str = "nms", build_dir: Optional[str] = None) -> str:
-    """Compile csrc/<name>.cu into <build_dir>/libsfod_<name>-<hash>.so unless
+    """Compile SOURCES[name] into <build_dir>/libsfod_<name>-<hash>.so unless
     that file exists; returns its path. Raises with nvcc's output on failure."""
-    src = os.path.join(_CSRC, f"{name}.cu")
+    src = SOURCES[name]
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     build_dir = build_dir or BUILD_DIR
@@ -148,7 +150,8 @@ def resource_usage(name: str = "nms") -> Dict[str, Dict[str, int]]:
 
 def load_all() -> None:
     """Build (if needed) and load every kernel library."""
-    _load("nms")
+    for name in SOURCES:
+        _load(name)
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:

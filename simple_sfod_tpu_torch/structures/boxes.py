@@ -22,11 +22,11 @@ def area(boxes: torch.Tensor) -> torch.Tensor:
     return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
 
 
-def nonempty(boxes: torch.Tensor) -> torch.Tensor:
-    """Mask of boxes with both sides > 0. [..., 4] -> [...] bool."""
+def nonempty(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
+    """Mask of boxes with both sides > threshold. [..., 4] -> [...] bool."""
     w = boxes[..., 2] - boxes[..., 0]
     h = boxes[..., 3] - boxes[..., 1]
-    return (w > 0) & (h > 0)
+    return (w > threshold) & (h > threshold)
 
 
 def clip_boxes(boxes: torch.Tensor, image_size: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,7 @@
 `tools/train_net.py`):
 
     python -m simple_sfod_tpu_torch.tools.train_net --config-file configs/X.yaml \
-        [--eval-only] [--resume] [--synthetic] [--device cpu] [KEY VALUE ...]
+        [--eval-only [--adabn-batches N]] [--resume] [--synthetic] [--device cpu] [KEY VALUE ...]
 
 It reads the config (the file, then the KEY VALUE overrides), registers the
 datasets (with --synthetic, every DATASETS name that resolves to no
@@ -31,6 +31,8 @@ def default_argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--synthetic", action="store_true", help="synthetic data (no dataset on disk)")
     p.add_argument("--device", default=None, help="default: cuda (fails without a GPU)")
+    p.add_argument("--adabn-batches", type=int, default=None, metavar="N",
+                   help="batches of the --eval-only BatchNorm refinement (default 1400, the reference's)")
     p.add_argument("--num-gpus", "--num-chips", dest="num_gpus", type=int, default=1,
                    help="data-parallel width; only 1 is supported")
     p.add_argument("--num-machines", "--num-processes", dest="num_machines", type=int, default=1,
@@ -91,7 +93,8 @@ def main(args, eval_mode: str = "test"):
     trainer = build_trainer(cfg, device=device, synthetic=args.synthetic)
     trainer.resume_or_load(resume=args.resume)
     if args.eval_only:
-        result = trainer.adabn_refinement() if eval_mode == "adabn" else trainer.test_refinement()
+        refine = trainer.adabn_refinement if eval_mode == "adabn" else trainer.test_refinement
+        result = refine(max_batches=args.adabn_batches)
     else:
         trainer.train()
         result = None

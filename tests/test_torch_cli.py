@@ -66,6 +66,14 @@ def test_eval_only(tmp_path, monkeypatch, eval_mode):
         assert f.read() == "adabn.pth"
 
 
+def test_adabn_batches_flag_cuts_the_refinement(tmp_path, capsys):
+    """--adabn-batches N refines over N batches (the default stays
+    ADABN_MAX_BATCHES, the reference's 1400)."""
+    assert train_net.default_argument_parser().parse_args([]).adabn_batches is None and base.ADABN_MAX_BATCHES == 1400
+    train_net.main(args(tmp_path, "--eval-only", "--adabn-batches", "3"), eval_mode="adabn")
+    assert "[adabn] BatchNorm statistics refined over 3 batches" in capsys.readouterr().out
+
+
 def test_raises_without_a_gpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -260,3 +260,12 @@ def test_resnet101_sfat_step_keeps_frozen_stages(cuda):
     chip_smoke.check_adapt_run("r101", tr, metrics, per_step, teacher0)
     after = chip_smoke.frozen_state(tr.state.model)
     assert len(init) == 33 and all(torch.equal(after[k], v) for k, v in init.items())
+
+
+def test_mosaic_mixup_and_affine_card_match_cpu(cuda):
+    """mosaic_batch and mixup_batch on the card equal the CPU's bit for bit
+    on the same draws (content-aware, mixup's flip on); the bilinear warp
+    (mixup's scale jitter, random_affine_batch) within chip_smoke's stated
+    tolerance; masks, classes and scores equal."""
+    err = chip_smoke.wq_ops_card_vs_cpu()
+    assert chip_smoke.wq_ops_ok(err), err

@@ -67,6 +67,26 @@ def test_package_files_were_scanned():
     assert "models/backbones/resnet.py" in names
 
 
+def _build_sources():
+    from simple_sfod_tpu_torch import host_libs
+    from simple_sfod_tpu_torch.ops import _kernels
+
+    return {**{f"host_libs:{k}": v for k, v in host_libs.SOURCES.items()},
+            **{f"_kernels:{k}": v for k, v in _kernels.SOURCES.items()}}
+
+
+def test_build_sources_lie_inside_the_package():
+    """Every C++ and CUDA source that the port compiles (the host libraries
+    of host_libs.py, the kernel libraries of ops/_kernels.py) is a file of
+    the package itself, not of the repo around it."""
+    sources = _build_sources()
+    assert {"host_libs:imgcodec", "host_libs:cocoeval", "_kernels:nms"} <= set(sources)
+    outside = {k: p for k, p in sources.items()
+               if os.path.commonpath([os.path.realpath(p), os.path.realpath(PKG)]) != os.path.realpath(PKG)}
+    assert not outside, outside
+    assert all(os.path.isfile(p) and p.endswith((".cpp", ".cu")) for p in sources.values()), sources
+
+
 POISONED = r"""
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "PIL", "simple_sfod_tpu"):

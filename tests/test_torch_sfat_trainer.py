@@ -536,3 +536,41 @@ def test_random_kernels_step_equals_jax_losses_on_its_pseudo_labels(tmp_path):
     for k, v in jm.items():
         assert rel_err(float(pm[f"{k}_pseudo"]), float(v)) <= 1e-4, (k, float(pm[f"{k}_pseudo"]), float(v))
     assert isinstance(got_gt, Instances) and int(pm["num_pseudo"]) > 0
+
+
+BOOL_DC_YAMLS = ["faster_rcnn_VGG_cityscapes_foggy_adaptive_teacher_source_free_base.yaml",
+                 "faster_rcnn_VGG_cityscapes_foggy_adaptive_teacher_source_free_kq.yaml"]
+
+
+@pytest.mark.parametrize("yaml", BOOL_DC_YAMLS)
+def test_domain_classifier_given_as_bool_builds_and_steps(tmp_path, yaml):
+    """The two YAMLs that write `DOMAIN_CLASSIFIER: False` read as ENABLED
+    False with IMAGE and INSTANCE off (by file and by KEY VALUE); the SFAT
+    trainer builds without domain classifiers and takes a step, cut to the
+    lockstep's size. The JAX package replaces the node with the bool, and
+    its trainer raises AttributeError on DOMAIN_CLASSIFIER.ENABLED: a fault
+    of the reference that the port does not copy."""
+    path = os.path.join(os.path.dirname(__file__), "..", "configs", yaml)
+    theirs = jax_get_cfg()
+    theirs.merge_from_file(path, allow_new=True)
+    assert theirs.DOMAIN_CLASSIFIER is False
+    with pytest.raises(AttributeError):
+        jax_build_trainer(theirs)
+
+    cfg = get_cfg()
+    cfg.merge_from_file(path, allow_new=True)
+    assert dict(cfg.DOMAIN_CLASSIFIER) == {"ENABLED": False, "IMAGE": False, "INSTANCE": False}
+    assert cfg.SEMISUPNET.INS_DC and cfg.TRAINER == "source_free_adaptive_teacher"
+    on = get_cfg()
+    on.merge_from_list(config_opts(MAIN_CONFIG) + ["DOMAIN_CLASSIFIER", "False"])
+    assert dict(on.DOMAIN_CLASSIFIER) == dict(cfg.DOMAIN_CLASSIFIER)
+    cfg.merge_from_list(config_opts(LOCKSTEP_OPTS) + ["OUTPUT_DIR", str(tmp_path)])
+    tr = build_trainer(cfg, device="cpu")
+    assert not tr.dc_enabled and not tr.ins_dc_enabled and not tr.state.dc
+    assert tr.weak_strong == (yaml.endswith("_kq.yaml"))
+    with torch.no_grad():
+        for m in (tr.state.model, tr.state.teacher):
+            m.roi_heads.box_predictor.cls_score.bias[1] += 4.0
+    m = tr.run_step(batches(1)[0])
+    assert all(torch.isfinite(m[k]) for k in LOSSES) and int(m["num_pseudo"]) > 0
+    assert not [k for k in m if k.startswith("loss_DC")]
