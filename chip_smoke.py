@@ -145,6 +145,29 @@ Phases (each prints one progress line with its wall time):
               8, launches as counted); the 5-stage run_workflow_synthetic
               at --iters 1000 --retrain-iters 150 (every stage exits 0,
               a nonzero splice; AP/AP50 and wall of each stage)
+ 14. car      the paper's car-only source domains: the committed JPEG
+              fixtures (tests/torch_jpeg/) decoded by the port's baseline
+              decoder bit-equal to libjpeg-turbo's recorded SHA-256, the
+              progressive one refused; decode (and decode + resize) ms of a
+              1914x1052 JPEG beside a 1024x2048 PNG on one thread; 16
+              Sim10k records (the fixture frames with seeded VOC boxes,
+              converted by `python -m simple_sfod_tpu_torch.tools.sim10k_to_coco`'s
+              main) and 16 KITTI records (seeded 375x1242 PNGs and label
+              files, converted by kitti_to_coco from the PNG headers), and 8
+              Cityscapes 1024x2048 PNG frames (the first 4 as
+              cityscapes_car_val) under a temporary SFOD_DATASETS; for each
+              domain: its source YAML (configs/faster_rcnn_VGG_{sim10k,kitti}
+              _source.yaml: 1 class, 608x1120 / 608x2016, batch 4, float32)
+              for 6 steps in this process from the loader (ms a step from
+              disk, peak memory, a profiled step's busy share, the first
+              step's RPN NMS inputs kernel == plain), then through train_net
+              (4 steps, test() on cityscapes_car_val), then
+              train_net_mt on its _to_cityscapes_source_free YAML from that
+              model_final (1 class into 8: cls_score and bbox_pred skipped
+              and nothing else; 4 steps, test() through the car-only
+              remap): exit 0, finite losses in metrics.json, finite AP/AP50
+              in eval_results.json, launches as counted from the code; and
+              test() images/s of the Sim10k source model
 
 Prints the card's name and power limit and a JSON line of the kernels'
 numbers, then, as the last line, {"ok": true, "device": {...}}. Any failure
@@ -175,9 +198,9 @@ from simple_sfod_tpu_torch.checkpoint.checkpointer import Checkpointer
 from simple_sfod_tpu_torch.config import detector_config_from_cfg, get_cfg, get_main_cfg, get_source_cfg
 from simple_sfod_tpu_torch.config.defaults import MAIN_CONFIG, SFAT_BENCH_CONFIG, config_opts
 from simple_sfod_tpu_torch.data import mosaic, native_codec, transforms
-from simple_sfod_tpu_torch.data.datasets import CITYSCAPES_THING_CLASSES, register_dataset
+from simple_sfod_tpu_torch.data.datasets import CITYSCAPES_THING_CLASSES, DATASET_REGISTRY, register_dataset
 from simple_sfod_tpu_torch.engine.events import tensorboard_summary_writer
-from simple_sfod_tpu_torch.data.loader import build_test_loader
+from simple_sfod_tpu_torch.data.loader import build_test_loader, d2_output_shape
 from simple_sfod_tpu_torch.data.synthetic import make_synthetic_records, synthetic_batch, synthetic_bench_batch, synthetic_image
 from simple_sfod_tpu_torch.engine.eval_loop import Staging, inference_on_dataset
 from simple_sfod_tpu_torch.engine.serve import DetectionService, serve_in_thread
@@ -190,7 +213,7 @@ from simple_sfod_tpu_torch.models.detector import Detector
 from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, init_weights
 from simple_sfod_tpu_torch.ops import _kernels, nms
 from simple_sfod_tpu_torch.structures.instances import Instances
-from simple_sfod_tpu_torch.tools import prediction_to_gt, run_workflow_synthetic, train_net
+from simple_sfod_tpu_torch.tools import kitti_to_coco, prediction_to_gt, run_workflow_synthetic, sim10k_to_coco, train_net
 
 SEED = 0
 N_REQUESTS = 4
@@ -1898,6 +1921,397 @@ def wq_phase(smi: str):
     return total
 
 
+# ---------------------------------------------------------------------------
+# car: the paper's car-only source domains (Sim10k -> Cityscapes and
+# KITTI -> Cityscapes) through the CLIs, from JPEG and PNG files on disk
+# ---------------------------------------------------------------------------
+
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "torch_jpeg")
+# each source domain: its source YAML, its adaptation YAML, its frames and
+# the YAML's canvas; Sim10k's frames are the committed 1914x1052 JPEG
+# fixtures, KITTI's seeded PNGs at KITTI's ~1242x375
+CAR_DOMAINS = {
+    "sim10k": dict(source="configs/faster_rcnn_VGG_sim10k_source.yaml",
+                   adapt="configs/faster_rcnn_VGG_sim10k_to_cityscapes_source_free.yaml", hw=(1052, 1914),
+                   canvas=(608, 1120)),
+    "kitti": dict(source="configs/faster_rcnn_VGG_kitti_source.yaml",
+                  adapt="configs/faster_rcnn_VGG_kitti_to_cityscapes_source_free.yaml", hw=(375, 1242),
+                  canvas=(608, 2016)),
+}
+CAR_FRAMES = 16  # source-domain records written
+CAR_TEST_FRAMES = 4  # cityscapes_car_val frames (the cli phase's 1024x2048 PNGs)
+CAR_TARGET_FRAMES = 8  # cityscapes_instancesonly_train frames, the adaptation's target
+CAR_BATCH = 4  # the source runs' IMS_PER_BATCH
+CAR_STEPS = 6  # steps of the in-process timed source run (the first excluded from the median)
+CAR_ITERS = 4  # steps of each CLI run, test() after the last
+CAR_OPTS = ["SEED", "0", "SOLVER.WARMUP_ITERS", "0", "VIS_PERIOD", "0", "SOLVER.CHECKPOINT_PERIOD", "100000"]
+# the layers that a 1-class source model cannot give an 8-class one: the
+# loader skips their weights on the shape mismatch and keeps the fresh init
+CAR_SKIPPED = {"roi_heads.box_predictor.cls_score.weight", "roi_heads.box_predictor.cls_score.bias",
+               "roi_heads.box_predictor.bbox_pred.weight", "roi_heads.box_predictor.bbox_pred.bias"}
+
+
+def jpeg_fixtures() -> dict:
+    """tests/torch_jpeg/fixtures.json: each committed JPEG's shape, sampling
+    and the SHA-256 of the RGB that libjpeg-turbo decodes from it (sha256
+    null: a file the port must refuse)."""
+    with open(os.path.join(JPEG_FIXTURES, "fixtures.json")) as f:
+        return json.load(f)
+
+
+def check_jpeg_fixtures() -> dict:
+    """Each fixture decoded by the port's decoder on this host, its RGB's
+    SHA-256 equal to libjpeg's recorded one; the progressive one refused.
+    -> {name: sampling} of the files checked."""
+    import hashlib
+
+    done = {}
+    for name, rec in sorted(jpeg_fixtures().items()):
+        path = os.path.join(JPEG_FIXTURES, name)
+        if rec["sha256"] is None:
+            try:
+                native_codec.decode(path)
+            except ValueError as e:
+                check("progressive" in str(e), f"{name}: refused as {e}")
+            else:
+                check(False, f"{name}: the progressive fixture decoded")
+        else:
+            rgb = native_codec.decode(path)
+            check(list(rgb.shape) == rec["shape"] and hashlib.sha256(rgb.tobytes()).hexdigest() == rec["sha256"],
+                  f"{name}: decode differs from libjpeg's recorded digest")
+        done[name] = rec["sampling"]
+    return done
+
+
+def decode_resize_ms(path: str, reps: int = 5) -> tuple:
+    """Median ms of one decode, and of decode + the shortest-edge-600 resize,
+    of a file on this thread."""
+    dec, both = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        rgb = native_codec.decode(path)
+        t1 = time.perf_counter()
+        native_codec.resize_bilinear(rgb, *d2_output_shape(*rgb.shape[:2], 600, 2016))
+        t2 = time.perf_counter()
+        dec.append((t1 - t0) * 1e3)
+        both.append((t2 - t0) * 1e3)
+    return float(np.median(dec)), float(np.median(both))
+
+
+def car_boxes(rng: np.random.RandomState, hw, k: int) -> list:
+    """k seeded boxes (x1, y1, x2, y2) inside an hw frame, 24-320 px wide."""
+    h, w = hw
+    out = []
+    for _ in range(k):
+        bw, bh = rng.uniform(24, min(320, w / 3)), rng.uniform(16, min(200, h / 3))
+        x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+        out.append((round(x1, 1), round(y1, 1), round(x1 + bw, 1), round(y1 + bh, 1)))
+    return out
+
+
+def write_sim10k(root: str, n: int = CAR_FRAMES, seed: int = SEED) -> dict:
+    """n Sim10k-style records under root/sim10k: JPEGImages/<id>.jpg copied
+    from the committed 1914x1052 fixture frames, Annotations/<id>.xml with
+    seeded VOC boxes (cars, and a person and a motorbike that the car-only
+    converter drops), converted by the port's sim10k_to_coco into
+    annotations/sim10k_trainval.json. -> the converter's COCO dict."""
+    import shutil
+
+    frames = sorted(k for k in jpeg_fixtures() if k.startswith("sim10k_frame_"))
+    base = os.path.join(root, "sim10k")
+    img_dir, ann_dir = os.path.join(base, "JPEGImages"), os.path.join(base, "Annotations")
+    os.makedirs(img_dir)
+    os.makedirs(ann_dir)
+    rng = np.random.RandomState(seed)
+    h, w = CAR_DOMAINS["sim10k"]["hw"]
+    for i in range(n):
+        name = f"{3384645 + i}"
+        shutil.copyfile(os.path.join(JPEG_FIXTURES, frames[i % len(frames)]), os.path.join(img_dir, name + ".jpg"))
+        objs = [("car", b) for b in car_boxes(rng, (h, w), rng.randint(2, 9))]
+        objs += [("person", car_boxes(rng, (h, w), 1)[0]), ("motorbike", car_boxes(rng, (h, w), 1)[0])]
+        xml = "".join(f"<object><name>{c}</name><bndbox><xmin>{b[0]}</xmin><ymin>{b[1]}</ymin><xmax>{b[2]}</xmax>"
+                      f"<ymax>{b[3]}</ymax></bndbox></object>" for c, b in objs)
+        with open(os.path.join(ann_dir, name + ".xml"), "w") as f:
+            f.write(f"<annotation><filename>{name}.jpg</filename><size><width>{w}</width><height>{h}</height>"
+                    f"<depth>3</depth></size>{xml}</annotation>")
+    return sim10k_to_coco.main(["--voc-root", ann_dir, "--output", os.path.join(base, "annotations",
+                                                                                "sim10k_trainval.json")])
+
+
+def write_kitti(root: str, n: int = CAR_FRAMES, seed: int = SEED) -> dict:
+    """n KITTI-style records under root/kitti/training: image_2/<id>.png
+    (seeded synthetic frames at KITTI's 375x1242) and label_2/<id>.txt with
+    Car lines and a DontCare line, converted by the port's kitti_to_coco
+    (image sizes from the PNG headers) into annotations/kitti_train.json.
+    -> the converter's COCO dict."""
+    base = os.path.join(root, "kitti")
+    img_dir, lab_dir = os.path.join(base, "training", "image_2"), os.path.join(base, "training", "label_2")
+    os.makedirs(img_dir)
+    os.makedirs(lab_dir)
+    hw = CAR_DOMAINS["kitti"]["hw"]
+    recs = make_synthetic_records(n, hw, 1, 6, seed=seed)
+    for i, r in enumerate(recs):
+        rgb = np.clip(synthetic_image(r), 0, 255).astype(np.uint8)
+        with open(os.path.join(img_dir, f"{i:06d}.png"), "wb") as f:
+            f.write(png_bytes(rgb))
+        lines = [f"Car 0.00 0 -1.57 {x1:.2f} {y1:.2f} {x2:.2f} {y2:.2f} 1.50 1.60 3.90 1.0 1.7 20.0 -1.5"
+                 for x1, y1, x2, y2 in r["boxes"]]
+        lines.append("DontCare -1 -1 -10 10.00 10.00 40.00 40.00 -1 -1 -1 -1000 -1000 -1000 -10")
+        with open(os.path.join(lab_dir, f"{i:06d}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return kitti_to_coco.main(["--label-dir", lab_dir, "--image-dir", img_dir,
+                               "--output", os.path.join(base, "annotations", "kitti_train.json")])
+
+
+def write_cityscapes_car(root: str, seed: int = SEED) -> None:
+    """The target domain under root/cityscapes: CAR_TARGET_FRAMES synthetic
+    1024x2048 PNG frames (the cli phase's) with the 8-class
+    instancesonly_filtered_gtFine_train.json (the adaptation's
+    TRAIN_TARGET, cityscapes_instancesonly_train) and, over the first
+    CAR_TEST_FRAMES, the car-only caronly_filtered_gtFine_val.json
+    (cityscapes_car_val: every box of those frames labelled a car, so that
+    each frame has cars and AP is defined)."""
+    frames = os.path.join(root, "cityscapes", "leftImg8bit")
+    os.makedirs(frames)
+    path, _, _ = write_eval_dataset(frames, CAR_TARGET_FRAMES, FRAME_HW, seed=seed)
+    with open(path) as f:
+        coco = json.load(f)
+    images = [dict(im, file_name="leftImg8bit/" + im["file_name"]) for im in coco["images"]]
+    car_id = CITYSCAPES_THING_CLASSES.index("car") + 1
+    test_ids = {im["id"] for im in images[:CAR_TEST_FRAMES]}
+    ann_dir = os.path.join(root, "cityscapes", "annotations")
+    os.makedirs(ann_dir)
+    with open(os.path.join(ann_dir, "instancesonly_filtered_gtFine_train.json"), "w") as f:
+        json.dump({"images": images, "annotations": coco["annotations"], "categories": coco["categories"]}, f)
+    with open(os.path.join(ann_dir, "caronly_filtered_gtFine_val.json"), "w") as f:
+        json.dump({"images": images[:CAR_TEST_FRAMES],
+                   "annotations": [dict(a, category_id=car_id) for a in coco["annotations"]
+                                   if a["image_id"] in test_ids],
+                   "categories": [{"id": car_id, "name": "car"}]}, f)
+
+
+def car_weights(path: str) -> None:
+    """A car-only source detector's .pth: seeded weights of the Sim10k
+    source YAML's model (VGG16-BN, 1 class; KITTI's is the same)."""
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, CAR_DOMAINS["sim10k"]["source"]), allow_new=True)
+    torch.save({"model": init_weights(FasterRCNN(detector_config_from_cfg(cfg)), SEED).state_dict()}, path)
+
+
+def car_cfg(yaml: str, out: str, weights: str, *opts: str):
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, yaml), allow_new=True)
+    cfg.merge_from_list([*CAR_OPTS, "MODEL.WEIGHTS", weights, "OUTPUT_DIR", out, *opts])
+    return cfg
+
+
+def car_source_run(cfg, smi: str, label: str) -> tuple:
+    """CAR_STEPS base-trainer steps of a car-only source YAML from its train
+    loader (files decoded and resized on the host), each timed from the
+    batch's fetch to the step's end; finite losses, CAR_BATCH launches of
+    each kernel a step; one step under torch.profiler, peak memory.
+    -> (the first step's NMS inputs, a line of numbers)."""
+    tr = build_trainer(cfg)
+    tr.resume_or_load()
+    b = cfg.SOLVER.IMS_PER_BATCH
+    it = iter(tr.build_train_loader())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall, step_ms, metrics, launches, captured = [], [], [], [], []
+    orig, record = capture_nms(captured)
+    for i in range(CAR_STEPS):
+        t0 = time.perf_counter()
+        batch = next(it)
+        staged = tr.stage(batch)
+        start = dict(_kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        nms.nms_mask_matrix = record if i == 0 else orig
+        try:
+            m = tr.step_staged(staged)
+        finally:
+            nms.nms_mask_matrix = orig
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        wall.append((t2 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        launches.append({k: c - start[k] for k, c in _kernels.LAUNCHES.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(x[k]) for x in metrics for k in TRAIN_LOSSES), f"{label}: losses {metrics}")
+    check(all(c == b for d in launches for c in d.values()), f"{label}: launches a step {launches}, expected {b}")
+    staged = tr.stage(next(it))
+    wall_p, dev_p, kern_p, _ = profile(lambda: tr.step_staged(staged), 1)
+    it.close()
+    med, med_step = float(np.median(wall[1:])), float(np.median(step_ms[1:]))
+    line = (f"{label} source (batch {b}, {cfg.TPU.CANVAS[0]}x{cfg.TPU.CANVAS[1]}, {tr.det_cfg.dtype}) [{smi}]: "
+            f"{med:.2f} ms a step from disk (fetch + stage + step, median of steps 1-{CAR_STEPS - 1}; the step alone "
+            f"{med_step:.2f} ms; first {wall[0]:.1f} ms; {b * 1e3 / med:.2f} images/s), peak {peak:.2f} GiB; profiled "
+            f"step: wall {wall_p:.2f} ms, device {dev_p:.2f} ms, busy {dev_p / wall_p:.1%}; total loss "
+            f"{[round(x['total_loss'], 4) for x in metrics]}")
+    del tr
+    return captured, line, dict(step_ms=med_step, loop_ms=med, busy=dev_p / wall_p, peak_gib=peak)
+
+
+def car_cli(module: str, argv: list, data_root: str, label: str) -> tuple:
+    """One CLI run in a process of its own. -> (stdout, wall s, launches)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"simple_sfod_tpu_torch.tools.{module}", *argv],
+                         cwd=ROOT, env=cli_env(data_root), capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"{label}: exit code {res.returncode}\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return res.stdout, wall, cli_launches(res.stdout)
+
+
+def check_car_run(out: str, label: str, iters: int, keys) -> tuple:
+    """metrics.json's last line at iters - 1 with finite losses, and
+    eval_results.json with exactly `keys` (cityscapes_car_val, or its
+    student and teacher entries), each with finite AP and AP50. -> (last
+    metrics line, {key: AP50})."""
+    lines = metrics_lines(out)
+    check(lines and lines[-1]["iteration"] == iters - 1, f"{label}: metrics.json {lines[-1:]}")
+    losses = {k: v for k, v in lines[-1].items() if k.startswith("loss") or k == "total_loss"}
+    check(losses and all(np.isfinite(v) for v in losses.values()), f"{label}: losses {losses}")
+    with open(os.path.join(out, "eval_results.json")) as f:
+        ev = json.load(f)
+    check(set(ev) == set(keys) and all(np.isfinite(r.get(k, np.nan)) for r in ev.values() for k in ("AP", "AP50")),
+          f"{label}: eval_results.json {ev}")
+    check(os.path.exists(os.path.join(out, "model_final.pth")), f"{label}: no model_final.pth")
+    return lines[-1], {k: (round(r["AP"], 4), round(r["AP50"], 4)) for k, r in ev.items()}
+
+
+def skipped_keys(stdout: str) -> set:
+    """The names the checkpointer kept at their initialisation on a shape
+    mismatch (its printed lines)."""
+    out = set()
+    for line in stdout.splitlines():
+        if line.startswith("[checkpoint] shape mismatch") and " for " in line:
+            out.add(line.split(" for ", 1)[1].split(";", 1)[0])
+    return out
+
+
+def car_phase(smi: str):
+    """The car phase (module docstring). -> (the launches of each kernel on
+    the path, a dict of numbers for the kernels line's notes)."""
+    done = check_jpeg_fixtures()
+    log(f"  {len(done)} committed JPEG fixtures on this host: every decodable one bit-equal to libjpeg's recorded "
+        f"digest, the progressive one refused ({', '.join(sorted(set(done.values())))})")
+    frame = os.path.join(JPEG_FIXTURES, "sim10k_frame_0.jpg")
+    jpeg_dec, jpeg_both = decode_resize_ms(frame)
+    total = {k: 0 for k in _kernels.LAUNCHES}
+    numbers = {"jpeg_decode_ms": jpeg_dec, "jpeg_decode_resize_ms": jpeg_both}
+
+    def add(d):
+        for k in total:
+            total[k] += d[k]
+
+    tmp = tempfile.TemporaryDirectory(prefix="sfod_car_")
+    root = tmp.name
+    data_root = os.path.join(root, "datasets")
+    try:
+        t0 = time.perf_counter()
+        sim = write_sim10k(data_root)
+        kitti = write_kitti(data_root)
+        write_cityscapes_car(data_root)
+        png = os.path.join(data_root, "kitti", "training", "image_2", "000000.png")
+        city = os.path.join(data_root, "cityscapes", "leftImg8bit", "frame_0001.png")
+        png_dec, png_both = decode_resize_ms(city)
+        numbers.update(png_decode_ms=png_dec, png_decode_resize_ms=png_both)
+        check(native_codec.image_size(png) == CAR_DOMAINS["kitti"]["hw"], "kitti PNG header size")
+        check(all(im["height"] == 375 and im["width"] == 1242 for im in kitti["images"]),
+              "kitti_to_coco image sizes")
+        check(sum(a["category_id"] == 1 for a in sim["annotations"]) == len(sim["annotations"]) > 0,
+              "sim10k_to_coco kept other classes or no car")
+        log(f"  wrote {CAR_FRAMES} Sim10k records (JPEG, {len(sim['annotations'])} cars after sim10k_to_coco), "
+            f"{CAR_FRAMES} KITTI records (PNG, {len(kitti['annotations'])} boxes after kitti_to_coco, sizes from the "
+            f"headers) and {CAR_TARGET_FRAMES} Cityscapes frames ({CAR_TEST_FRAMES} as cityscapes_car_val) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        log(f"  host decode on one thread [{smi}]: a 1914x1052 4:2:0 JPEG {jpeg_dec:.2f} ms, with the resize to "
+            f"600 px {jpeg_both:.2f} ms; a 1024x2048 PNG {png_dec:.2f} ms, with the resize {png_both:.2f} ms")
+        w1 = os.path.join(root, "source_1class.pth")
+        car_weights(w1)
+        for name in ("sim10k_trainval", "kitti_train", "cityscapes_car_val", "cityscapes_instancesonly_train"):
+            DATASET_REGISTRY.pop(name, None)
+        os.environ["SFOD_DATASETS"] = data_root
+        captured = {}
+        for dom, spec in CAR_DOMAINS.items():
+            # the source YAML in this process: step time from disk, a profiled step
+            _kernels.reset_launches()
+            cfg = car_cfg(spec["source"], os.path.join(root, dom + "_timed"), w1, "SOLVER.IMS_PER_BATCH",
+                          str(CAR_BATCH))
+            check(cfg.MODEL.ROI_HEADS.NUM_CLASSES == 1 and tuple(cfg.TPU.CANVAS) == spec["canvas"],
+                  f"{dom}: {cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes, canvas {cfg.TPU.CANVAS}")
+            captured[dom], line, nums = car_source_run(cfg, smi, dom)
+            numbers[dom] = nums
+            add(dict(_kernels.LAUNCHES))
+            log("  " + line)
+            # the source YAML through train_net, test() on cityscapes_car_val at the end
+            src_out = os.path.join(root, dom + "_source")
+            argv = ["--config-file", os.path.join(ROOT, spec["source"]), *CAR_OPTS, "MODEL.WEIGHTS", w1,
+                    "OUTPUT_DIR", src_out, "SOLVER.IMS_PER_BATCH", str(CAR_BATCH), "SOLVER.MAX_ITER", str(CAR_ITERS),
+                    "TEST.EVAL_PERIOD", str(CAR_ITERS)]
+            stdout, wall, got = car_cli("train_net", argv, data_root, f"{dom} train_net")
+            add(got)
+            # CAR_BATCH a step (train-mode RPN), 2 an image in test() (RPN,
+            # detection), 1 for the validation loss's one image (TEST.VAL_LOSS)
+            want = CAR_BATCH * CAR_ITERS + 2 * CAR_TEST_FRAMES + 1
+            check(all(c == want for c in got.values()), f"{dom} train_net: launches {got}, expected {want}")
+            last, res = check_car_run(src_out, f"{dom} train_net", CAR_ITERS, ["cityscapes_car_val"])
+            log(f"  train_net {spec['source']} ({CAR_ITERS} steps at batch {CAR_BATCH}, test() at {CAR_ITERS}) "
+                f"[{smi}]: {wall:.2f} s, total loss {last['total_loss']:.4f}, (AP, AP50) {res}, launches {got}")
+            # source-free adaptation from that model_final (1 class into the YAML's 8)
+            ad_out = os.path.join(root, dom + "_adapt")
+            argv = ["--config-file", os.path.join(ROOT, spec["adapt"]), *CAR_OPTS,
+                    *[x for kv in ADAPT_CUTS.items() for x in kv],
+                    "MODEL.WEIGHTS", os.path.join(src_out, "model_final.pth"), "OUTPUT_DIR", ad_out,
+                    "SOLVER.MAX_ITER", str(CAR_ITERS), "TEST.EVAL_PERIOD", str(CAR_ITERS)]
+            stdout, wall, got = car_cli("train_net_mt", argv, data_root, f"{dom} train_net_mt")
+            add(got)
+            check(skipped_keys(stdout) == CAR_SKIPPED, f"{dom} train_net_mt: skipped {skipped_keys(stdout)}")
+            # 3 an adaptation step, 2 an image and model (student, teacher) in
+            # test(), 1 for the validation loss's one image
+            want = 3 * CAR_ITERS + 2 * 2 * CAR_TEST_FRAMES + 1
+            check(all(c == want for c in got.values()), f"{dom} train_net_mt: launches {got}, expected {want}")
+            last, res = check_car_run(ad_out, f"{dom} train_net_mt", CAR_ITERS,
+                                      ["cityscapes_car_val/student", "cityscapes_car_val/teacher"])
+            log(f"  train_net_mt {spec['adapt']} from its model_final ({CAR_ITERS} steps, test() at {CAR_ITERS}) "
+                f"[{smi}]: {wall:.2f} s, skipped {sorted(skipped_keys(stdout))} (1 class into 8), total loss "
+                f"{last['total_loss']:.4f}, car-only remap (AP, AP50) {res}, launches {got}")
+        # test() images/s on the car-only set, in this process (the Sim10k source model)
+        cfg = car_cfg(CAR_DOMAINS["sim10k"]["source"], os.path.join(root, "sim10k_test"),
+                      os.path.join(root, "sim10k_source", "model_final.pth"))
+        tr = build_trainer(cfg)
+        tr.resume_or_load()
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tr.test()
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        got = dict(_kernels.LAUNCHES)
+        add(got)
+        check(all(c == 2 * CAR_TEST_FRAMES for c in got.values()), f"test(): launches {got}")
+        numbers["test_images_s"] = CAR_TEST_FRAMES / test_s
+        check(all(np.isfinite(v["AP50"]) for v in res.values()), f"test(): {res}")
+        log(f"  test() of the Sim10k source model on cityscapes_car_val [{smi}]: {CAR_TEST_FRAMES} images in "
+            f"{test_s:.2f} s ({CAR_TEST_FRAMES / test_s:.2f} images/s, decode and evaluation included)")
+        del tr
+        # the first timed step's RPN NMS inputs: kernels against the plain versions
+        for dom, calls in captured.items():
+            check(len(calls) == CAR_BATCH, f"{dom}: {len(calls)} NMS calls captured in a step")
+            kept = [check_kernels_against_plain(b, s, v, thr, f"{dom} image {i}", cpu=i == 0)
+                    for i, (b, s, v, thr) in enumerate(calls)]
+            log(f"  {dom}: the step's {CAR_BATCH} RPN NMS inputs (N {[int(c[0].shape[0]) for c in calls]}), kernels "
+                f"bit-equal to the plain versions, kept {kept}")
+    finally:
+        os.environ.pop("SFOD_DATASETS", None)
+        for name in ("sim10k_trainval", "kitti_train", "cityscapes_car_val", "cityscapes_instancesonly_train"):
+            DATASET_REGISTRY.pop(name, None)
+        tmp.cleanup()
+    log(f"  launches on the car path: {total}")
+    return total, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2293,7 +2707,8 @@ def main() -> int:
         # the host libraries, built in the build phase from the checkout's sources
         for name in ("imgcodec", "cocoeval"):
             log(f"  host library {name}: {os.path.basename(built[name])}, g++ {host_libs.BUILD_SECONDS.get(name, 0.0):.2f} s")
-        log(f"  JPEG decode built in: {native_codec.has_jpeg()} (PNG decode needs no library)")
+        log("  JPEG and PNG decode: the port's own decoders (data/csrc/jpeg_decode.cpp, the PNG unfilter); no "
+            "system image library")
         eval_dir = tempfile.TemporaryDirectory(prefix="sfod_eval_")
         root = eval_dir.name
         try:
@@ -2411,6 +2826,9 @@ def main() -> int:
     with Phase("wq"):
         wq_launches = wq_phase(smi)
 
+    with Phase("car"):
+        car_launches, _ = car_phase(smi)
+
     replaces = {
         "suppress_relation_bits": "simple_sfod_tpu/ops/pallas_kernels.py:26",
         "greedy_keep_from_bits": "simple_sfod_tpu/ops/pallas_kernels.py:123",
@@ -2425,7 +2843,8 @@ def main() -> int:
         # CLI's subprocesses and the phase's loops, AdaBN included), r101
         # (its AdaBN CLI and test(), SFAT and base steps) and wq (the AdaBN
         # dump's test(), the WQ steps, the WQ CLI and the workflow's
-        # CLIs). r101_per_step: the
+        # CLIs) and car (the Sim10k and KITTI source steps, their CLIs'
+        # steps and test(), the adaptation CLIs). r101_per_step: the
         # ResNet-101 adaptation step's three calls.
         # per_call: one served image's two calls; train_per_step: one
         # supervised step's RPN call; large_n: N above the keep kernel's
@@ -2438,7 +2857,7 @@ def main() -> int:
             "source": "simple_sfod_tpu_torch/ops/csrc/nms.cu",
             "replaces": replaces[name],
             "launches": launches[name] + train_launches[name] + adapt_launches[name] + eval_launches[name] +
-                        cli_launches_total[name] + r101_launches[name] + wq_launches[name],
+                        cli_launches_total[name] + r101_launches[name] + wq_launches[name] + car_launches[name],
             "max_abs_err": float(max(r["err"] for r in per + rows[name] + large_rows[name])),
             "ms": sum(r["ms"] for r in per),
             "call_ms": sum(r["call_ms"] for r in per),
@@ -2449,7 +2868,7 @@ def main() -> int:
             "ptxas": ptxas[name],
             "launches_by_path": {"serve": launches[name], "train": train_launches[name], "adapt": adapt_launches[name],
                                  "eval": eval_launches[name], "cli": cli_launches_total[name],
-                                 "r101": r101_launches[name], "wq": wq_launches[name]},
+                                 "r101": r101_launches[name], "wq": wq_launches[name], "car": car_launches[name]},
             "adapt_per_step": per,
             "r101_per_step": r101_rows[name],
             "per_call": rows[name],

@@ -1,17 +1,13 @@
 // Host image codec of the PyTorch port: the repo's native/imgcodec.cpp with
-// its PNG decoder replaced and its JPEG decoder made optional, so that the
-// library builds with nothing but a C++17 compiler.
+// its PNG decoder replaced and its libjpeg decoder replaced by the port's own
+// (jpeg_decode.cpp, linked into the same library), so that the library
+// builds with nothing but a C++17 compiler.
 //
 //   sfod_resize_bilinear  Pillow-BILINEAR-bit-exact resample (fixed-point,
 //                         two passes, uint8 intermediate), as native/
 //   sfod_png_unfilter     PNG scanline reconstruction (filter types 0-4);
 //                         the caller inflates the IDAT stream (Python's
 //                         zlib) and maps the colour type to RGB
-//   sfod_jpeg_decode      libjpeg decode (from memory) with PIL's default
-//                         settings, built
-//                         only where <jpeglib.h> is found (-DSFOD_WITH_JPEG
-//                         -ljpeg); otherwise it returns kNoJpeg
-//   sfod_codec_features   bit 0: JPEG decode was built in
 //
 // Every call releases the GIL (ctypes), so decode threads scale.
 
@@ -22,18 +18,7 @@
 #include <cstring>
 #include <vector>
 
-#ifndef SFOD_WITH_JPEG
-#define SFOD_WITH_JPEG 0
-#endif
-
-#if SFOD_WITH_JPEG
-#include <csetjmp>
-#include <jpeglib.h>
-#endif
-
 namespace {
-
-constexpr int kNoJpeg = -10;
 
 // ---------------------------------------------------------------------------
 // Pillow-exact BILINEAR resample (8 bits per channel fixed-point path)
@@ -138,65 +123,6 @@ void resample_vertical(const uint8_t* src, int h, int w, int c, uint8_t* dst,
 }
 
 // ---------------------------------------------------------------------------
-// JPEG decode (libjpeg, PIL-default settings: ISLOW DCT, fancy upsampling)
-// ---------------------------------------------------------------------------
-
-#if SFOD_WITH_JPEG
-
-struct JpegErr {
-  jpeg_error_mgr mgr;
-  jmp_buf jump;
-};
-
-void jpeg_err_exit(j_common_ptr cinfo) {
-  JpegErr* err = reinterpret_cast<JpegErr*>(cinfo->err);
-  longjmp(err->jump, 1);
-}
-
-int decode_jpeg(const uint8_t* data, size_t n, uint8_t** out, int32_t* h, int32_t* w) {
-  jpeg_decompress_struct cinfo;
-  JpegErr jerr;
-  cinfo.err = jpeg_std_error(&jerr.mgr);
-  jerr.mgr.error_exit = jpeg_err_exit;
-  // volatile: modified between setjmp and longjmp — non-volatile locals are
-  // indeterminate in the longjmp path (C standard; libjpeg example.c does
-  // the same), which under -O3 can mean freeing a stale register value
-  uint8_t* volatile buf = nullptr;
-  if (setjmp(jerr.jump)) {
-    jpeg_destroy_decompress(&cinfo);
-    free(buf);
-    return -2;
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_mem_src(&cinfo, const_cast<unsigned char*>(data), static_cast<unsigned long>(n));
-  jpeg_read_header(&cinfo, TRUE);
-  cinfo.out_color_space = JCS_RGB;  // libjpeg converts YCbCr/grayscale
-  jpeg_start_decompress(&cinfo);
-  const int W = cinfo.output_width, H = cinfo.output_height;
-  if (cinfo.output_components != 3) {
-    jpeg_destroy_decompress(&cinfo);
-    return -3;
-  }
-  buf = static_cast<uint8_t*>(malloc(static_cast<size_t>(H) * W * 3));
-  if (!buf) {
-    jpeg_destroy_decompress(&cinfo);
-    return -4;
-  }
-  while (cinfo.output_scanline < cinfo.output_height) {
-    uint8_t* row = buf + static_cast<size_t>(cinfo.output_scanline) * W * 3;
-    jpeg_read_scanlines(&cinfo, &row, 1);
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  *out = buf;
-  *h = H;
-  *w = W;
-  return 0;
-}
-
-#endif  // SFOD_WITH_JPEG
-
-// ---------------------------------------------------------------------------
 // PNG scanline reconstruction (PNG spec, section 9: filter method 0)
 // ---------------------------------------------------------------------------
 
@@ -212,24 +138,6 @@ inline uint8_t paeth(int a, int b, int c) {
 }  // namespace
 
 extern "C" {
-
-int sfod_codec_features() { return SFOD_WITH_JPEG ? 1 : 0; }
-
-// Decode n bytes of a JPEG file to tightly-packed RGB8. On success *out is
-// malloc'd (release with sfod_image_free). Returns 0, kNoJpeg when built
-// without libjpeg, or a negative error code (unsupported/corrupt).
-int sfod_jpeg_decode(const uint8_t* data, int64_t n, uint8_t** out, int32_t* h, int32_t* w) {
-#if SFOD_WITH_JPEG
-  return decode_jpeg(data, static_cast<size_t>(n), out, h, w);
-#else
-  (void)data;
-  (void)n;
-  (void)out;
-  (void)h;
-  (void)w;
-  return kNoJpeg;
-#endif
-}
 
 // Reconstruct h filtered scanlines (each a filter-type byte and `stride`
 // bytes) from `src` into `dst` [h, stride]; bpp is the filter unit in bytes.

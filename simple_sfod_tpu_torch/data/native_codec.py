@@ -1,20 +1,24 @@
-"""ctypes binding of the port's host image codec (data/csrc/imgcodec.cpp,
-built by host_libs.py): the loader's per-image work, decode and the
-detectron2 shortest-edge resize, without PIL.
+"""ctypes binding of the port's host image codec (data/csrc/imgcodec.cpp
+and data/csrc/jpeg_decode.cpp, built by host_libs.py): the loader's
+per-image work, decode and the detectron2 shortest-edge resize, without PIL
+and without any system image library.
 
   resize_bilinear  Pillow-BILINEAR-bit-exact resample of a uint8 array
   decode           PNG or JPEG file -> RGB uint8 [H, W, 3]. PNG: the chunks
                    are parsed here, the IDAT stream inflated by zlib and the
                    scanlines reconstructed in C++; colour types map to PIL's
                    convert("RGB") (palette and grey expand, alpha dropped).
-                   JPEG: libjpeg with PIL's default settings, where the
-                   library was built with it
+                   JPEG: the port's baseline decoder, bit-equal to what
+                   libjpeg-turbo gives with PIL's settings; progressive,
+                   lossless, hierarchical, arithmetic-coded, CMYK and
+                   non-8-bit files are refused, each by name
+  image_size       (height, width) of a PNG or JPEG from its header alone
 
 The JAX package's binding (`simple_sfod_tpu/data/native_codec.py`) returns
 None on any failure and its loader then decodes with PIL. This one raises:
 a file it cannot decode, or a codec library that does not build, is an
-error, with the reason (for a JPEG where libjpeg's header was absent at
-build time, it says so).
+error, with the reason. Where libjpeg only warns and pads (a truncated
+file), the JAX package returns an image and this decoder raises.
 """
 
 from __future__ import annotations
@@ -34,7 +38,23 @@ _lock = threading.Lock()
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 JPEG_MAGIC = b"\xff\xd8\xff"
-NO_JPEG = -10  # sfod_jpeg_decode: built without libjpeg
+# sfod_jpeg_decode's codes (data/csrc/jpeg_decode.cpp: Code)
+JPEG_ERRORS = {
+    -1: "not a JPEG stream (no SOI marker)",
+    -2: "corrupt JPEG data",
+    -3: "the JPEG data ends early (truncated file)",
+    -4: "out of memory",
+    -5: "progressive JPEG (SOF2) is not supported",
+    -6: "lossless JPEG (SOF3) is not supported",
+    -7: "hierarchical JPEG (SOF5-7, DHP, EXP) is not supported",
+    -8: "arithmetic-coded JPEG (SOF9-15) is not supported",
+    -9: "JPEG sample precision other than 8 bits is not supported",
+    -10: "JPEG with other than 1 or 3 components (CMYK/YCCK) is not supported",
+    -11: "JPEG with fractional sampling factors is not supported (libjpeg refuses them too)",
+    -12: "JPEG sampling factors out of range or too many blocks in an MCU",
+}
+# the JPEG frame markers that carry the image size (all SOFn)
+_SOF_MARKERS = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
 
 
 def _load() -> ctypes.CDLL:
@@ -52,14 +72,8 @@ def _load() -> ctypes.CDLL:
             lib.sfod_png_unfilter.restype = ctypes.c_int
             lib.sfod_png_unfilter.argtypes = [_U8P, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _U8P]
             lib.sfod_image_free.argtypes = [ctypes.c_void_p]
-            lib.sfod_codec_features.restype = ctypes.c_int
             _lib = lib
         return _lib
-
-
-def has_jpeg() -> bool:
-    """Whether the codec was built with libjpeg (its header was found)."""
-    return bool(_load().sfod_codec_features() & 1)
 
 
 def resize_bilinear(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
@@ -96,16 +110,50 @@ def _decode_jpeg(data: bytes, path: str) -> np.ndarray:
     out = _U8P()
     h, w = ctypes.c_int32(), ctypes.c_int32()
     rc = lib.sfod_jpeg_decode(data, len(data), ctypes.byref(out), ctypes.byref(h), ctypes.byref(w))
-    if rc == NO_JPEG:
-        raise RuntimeError(
-            f"{path}: JPEG decode needs libjpeg, whose header (jpeglib.h) the compiler did not find "
-            "when the port's codec was built; PNG files decode without it"
-        )
     if rc != 0:
-        raise ValueError(f"{path}: JPEG decode failed (code {rc})")
+        raise ValueError(f"{path}: JPEG decode failed: {JPEG_ERRORS.get(rc, 'unknown error')} (code {rc})")
     arr = np.ctypeslib.as_array(out, shape=(h.value, w.value, 3)).copy()
     lib.sfod_image_free(out)
     return arr
+
+
+def image_size(path: str) -> tuple:
+    """(height, width) of a PNG (IHDR) or JPEG (its SOFn marker) file, read
+    from the header without decoding a pixel. Raises on other files."""
+    path = os.fspath(path)
+    with open(path, "rb") as f:
+        head = f.read(24)
+        if head.startswith(PNG_MAGIC):
+            if head[12:16] != b"IHDR":
+                raise ValueError(f"{path}: PNG without IHDR")
+            w, h = struct.unpack(">II", head[16:24])
+            return int(h), int(w)
+        if not head.startswith(JPEG_MAGIC):
+            raise ValueError(f"{path}: neither PNG nor JPEG")
+        f.seek(2)
+        while True:
+            b = f.read(1)
+            while b == b"\xff":  # fill bytes before the marker code
+                b = f.read(1)
+            if not b:
+                raise ValueError(f"{path}: JPEG without a frame header")
+            marker = b[0]
+            if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
+                f.read(1)  # the next marker's 0xFF
+                continue
+            seg = f.read(2)
+            if len(seg) < 2 or marker in (0xD9, 0xDA):
+                raise ValueError(f"{path}: JPEG without a frame header")
+            n = struct.unpack(">H", seg)[0]
+            if marker in _SOF_MARKERS:
+                sof = f.read(5)
+                if len(sof) < 5:
+                    raise ValueError(f"{path}: truncated JPEG frame header")
+                h, w = struct.unpack(">HH", sof[1:5])
+                return int(h), int(w)
+            f.seek(n - 2, os.SEEK_CUR)
+            if f.read(1) != b"\xff":
+                raise ValueError(f"{path}: corrupt JPEG marker segment")
 
 
 def _decode_png(data: bytes, path: str) -> np.ndarray:

@@ -7,6 +7,9 @@ one. They import no JAX, so they run on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
 
+import hashlib
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -210,10 +213,14 @@ def test_native_decode_and_resize_of_written_frames(cuda, tmp_path):
     )[0].permute(1, 2, 0).round().clamp(0, 255).numpy()
     assert out.shape == (600, 1200, 3)
     assert np.abs(out.astype(np.float32) - ref).max() <= 1.0
-    if not native_codec.has_jpeg():
-        (tmp_path / "a.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
-        with pytest.raises(RuntimeError, match="libjpeg"):
-            native_codec.decode(str(tmp_path / "a.jpg"))
+    # the committed JPEG fixtures decode to libjpeg's digests on this host
+    for name, rec in chip_smoke.jpeg_fixtures().items():
+        path = os.path.join(chip_smoke.JPEG_FIXTURES, name)
+        if rec["sha256"] is None:
+            with pytest.raises(ValueError, match="progressive"):
+                native_codec.decode(path)
+        else:
+            assert hashlib.sha256(native_codec.decode(path).tobytes()).hexdigest() == rec["sha256"], name
 
 
 def test_train_loop_saves_reloads_and_resumes(cuda, tmp_path):

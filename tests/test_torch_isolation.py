@@ -65,13 +65,14 @@ def test_package_files_were_scanned():
         "checkpoint/checkpointer.py", "tools/train_net.py", "tools/train_net_mt.py",
     } <= names
     assert "models/backbones/resnet.py" in names
+    assert {"tools/sim10k_to_coco.py", "tools/kitti_to_coco.py"} <= names
 
 
 def _build_sources():
     from simple_sfod_tpu_torch import host_libs
     from simple_sfod_tpu_torch.ops import _kernels
 
-    return {**{f"host_libs:{k}": v for k, v in host_libs.SOURCES.items()},
+    return {**{f"host_libs:{k}:{os.path.basename(v)}": v for k, vs in host_libs.SOURCES.items() for v in vs},
             **{f"_kernels:{k}": v for k, v in _kernels.SOURCES.items()}}
 
 
@@ -80,11 +81,32 @@ def test_build_sources_lie_inside_the_package():
     of host_libs.py, the kernel libraries of ops/_kernels.py) is a file of
     the package itself, not of the repo around it."""
     sources = _build_sources()
-    assert {"host_libs:imgcodec", "host_libs:cocoeval", "_kernels:nms"} <= set(sources)
+    assert {"host_libs:imgcodec:imgcodec.cpp", "host_libs:imgcodec:jpeg_decode.cpp", "host_libs:cocoeval:cocoeval.cpp",
+            "_kernels:nms"} <= set(sources)
     outside = {k: p for k, p in sources.items()
                if os.path.commonpath([os.path.realpath(p), os.path.realpath(PKG)]) != os.path.realpath(PKG)}
     assert not outside, outside
     assert all(os.path.isfile(p) and p.endswith((".cpp", ".cu")) for p in sources.values()), sources
+
+
+def test_no_system_image_library():
+    """The codec builds from the port's sources alone: no port source
+    includes libjpeg's (or libpng's) header, links -ljpeg, or calls nvjpeg,
+    and the g++ command line of the host libraries names nothing else."""
+    from simple_sfod_tpu_torch import host_libs
+
+    texts = {}
+    for d, _, fs in os.walk(PKG):
+        for f in fs:
+            if f.endswith((".py", ".cpp", ".cu", ".h", ".cuh")):
+                with open(os.path.join(d, f)) as fh:
+                    texts[os.path.relpath(os.path.join(d, f), ROOT)] = fh.read()
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        texts["chip_smoke.py"] = fh.read()
+    for needle in ("jpeglib.h", "png.h", "-ljpeg", "nvjpeg"):
+        assert not [p for p, t in texts.items() if needle in t], needle
+    assert not [f for f in host_libs.CXX_FLAGS if f.startswith(("-l", "-D"))], host_libs.CXX_FLAGS
+    assert "jpeg_decode.cpp" in {os.path.basename(p) for p in host_libs.SOURCES["imgcodec"]}
 
 
 POISONED = r"""
