@@ -168,6 +168,32 @@ Phases (each prints one progress line with its wall time):
               remap): exit 0, finite losses in metrics.json, finite AP/AP50
               in eval_results.json, launches as counted from the code; and
               test() images/s of the Sim10k source model
+ 15. export   the detector as a standalone artifact: seeded weights (the
+              cli phase's .pth, and a seeded ResNet-101 .pth) through
+              `python -m simple_sfod_tpu_torch.tools.export_model`, five runs
+              at once, each with --selfcheck (the reloaded artifact against
+              eager Detector.infer on the card, their largest difference
+              printed): the main YAML's teacher with --batch poly
+              (VGG16-BN, 608x1216, bfloat16), the student at batch 1 in
+              float32 and with --params-dtype bfloat16 (the sizes), the
+              teacher with --no-bundle-params, and
+              configs/r_101_c4_cs_foggy_adabn.yaml at full depth and width
+              with --train-mode-bn (the AdaBN probe);
+              the poly artifact behind `python -m
+              simple_sfod_tpu_torch.tools.serve_model --artifact` in a
+              subprocess (GET /, a first pass of 1, 2 and 3 requests, then
+              7 600x1200 requests: 2 alone, 2 and 3 concurrent, and a
+              1024x2048 PNG; p50 latency of the second pass); in this
+              process its load time and first call, each of batch 1, 2, 4, 8
+              against eager inference of the teacher (valid and classes
+              equal, boxes and scores within 1e-5) with 2 launches of each
+              kernel an image and the steady ms a call of both, a profiled
+              call (busy share), one call's NMS inputs captured where the
+              op launches (RPN N = 4096) kernel == plain, and
+              DetectionService over the artifact (the tool's answers, one
+              gated call padded to 4, launches); the R101 artifact served by
+              serve_model's main with the port's models, config and
+              trainers poisoned in sys.modules
 
 Prints the card's name and power limit and a JSON line of the kernels'
 numbers, then, as the last line, {"ok": true, "device": {...}}. Any failure
@@ -201,8 +227,9 @@ from simple_sfod_tpu_torch.data import mosaic, native_codec, transforms
 from simple_sfod_tpu_torch.data.datasets import CITYSCAPES_THING_CLASSES, DATASET_REGISTRY, register_dataset
 from simple_sfod_tpu_torch.engine.events import tensorboard_summary_writer
 from simple_sfod_tpu_torch.data.loader import build_test_loader, d2_output_shape
-from simple_sfod_tpu_torch.data.synthetic import make_synthetic_records, synthetic_batch, synthetic_bench_batch, synthetic_image
+from simple_sfod_tpu_torch.data.synthetic import make_synthetic_records, synthetic_batch, synthetic_image
 from simple_sfod_tpu_torch.engine.eval_loop import Staging, inference_on_dataset
+from simple_sfod_tpu_torch.engine.export import load_exported
 from simple_sfod_tpu_torch.engine.serve import DetectionService, serve_in_thread
 from simple_sfod_tpu_torch.evaluation import COCOEvaluator, F1Evaluator, coco_map
 from simple_sfod_tpu_torch.evaluation.native import coco_map_native
@@ -214,6 +241,7 @@ from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, init_weights
 from simple_sfod_tpu_torch.ops import _kernels, nms
 from simple_sfod_tpu_torch.structures.instances import Instances
 from simple_sfod_tpu_torch.tools import kitti_to_coco, prediction_to_gt, run_workflow_synthetic, sim10k_to_coco, train_net
+from simple_sfod_tpu_torch.utils.bench import synthetic_bench_batch
 
 SEED = 0
 N_REQUESTS = 4
@@ -655,11 +683,15 @@ def adapt_trainer(cfg, device=None):
 
 
 def capture_nms(captured: list):
-    """A stand-in for nms.nms_mask_matrix that records its inputs."""
+    """A stand-in for nms.nms_mask_matrix, the entry that the detector calls
+    with a batch ([B, N]), that records its inputs one image at a time."""
     orig = nms.nms_mask_matrix
 
     def record(boxes, scores, valid, thr):
-        captured.append((boxes.clone(), scores.clone(), valid.clone(), thr))
+        if valid.dim() == 1:
+            captured.append((boxes.clone(), scores.clone(), valid.clone(), thr))
+        else:
+            captured.extend((b.clone(), s.clone(), v.clone(), thr) for b, s, v in zip(boxes, scores, valid))
         return orig(boxes, scores, valid, thr)
 
     return orig, record
@@ -2312,6 +2344,344 @@ def car_phase(smi: str):
     return total, numbers
 
 
+# ---------------------------------------------------------------- export
+EXPORT_BATCHES = (1, 2, 4, 8)  # the steady ms a call, artifact and eager
+EXPORT_TIMEOUT_S = 420
+SERVE_TIMEOUT_S = 300
+SERVE_WAIT_MS = 50  # the served poly artifact's coalescing window: 3 concurrent requests share one call
+EXPORT_POISONED = ("simple_sfod_tpu_torch.models", "simple_sfod_tpu_torch.config", "simple_sfod_tpu_torch.engine.trainers")
+# the R101 server: tools.serve_model's main with the port's model code poisoned
+SERVE_POISONED = (
+    "import sys\n"
+    f"for name in {EXPORT_POISONED!r}:\n"
+    "    sys.modules[name] = None\n"
+    "from simple_sfod_tpu_torch.tools import serve_model\n"
+    "serve_model.main(sys.argv[1:])\n"
+)
+
+
+def export_jobs(root: str, weights: str, r101_weights: str) -> dict:
+    """The export CLI's runs, by label: (argv, artifact path)."""
+    main_yaml, r101_yaml = os.path.join(ROOT, CLI_YAML), os.path.join(ROOT, R101_ADABN_YAML)
+    jobs = {
+        "teacher poly": (main_yaml, ["--batch", "poly"]),
+        "student float32 b1": (main_yaml, ["--model", "student"]),
+        "student bf16 b1": (main_yaml, ["--model", "student", "--params-dtype", "bfloat16"]),
+        "teacher weights-as-argument b1": (main_yaml, ["--no-bundle-params"]),
+        # the AdaBN YAML's probe: batch-statistics BN (which also gives
+        # random R101 weights sensible features)
+        "r101 adabn train-mode-bn b1": (r101_yaml, ["--train-mode-bn"]),
+    }
+    out = {}
+    for i, (label, (yaml, flags)) in enumerate(jobs.items()):
+        path = os.path.join(root, f"artifact_{i}.sfodx")
+        w = r101_weights if yaml == r101_yaml else weights
+        argv = ["--config-file", yaml, "--out", path, *flags, "--selfcheck", "MODEL.WEIGHTS", w,
+                "OUTPUT_DIR", os.path.join(root, f"out_{i}"), "SEED", "0"]
+        out[label] = (argv, path)
+    return out
+
+
+def run_exports(jobs: dict) -> dict:
+    """Every export CLI run at once, one process each (tracing is host work
+    on one core); -> label: (wall s, export s, MiB, selfcheck box and score
+    differences, detections)."""
+    import re
+
+    env = cli_env(ROOT)
+    procs = {}
+    t0 = time.perf_counter()
+    for label, (argv, _) in jobs.items():
+        procs[label] = subprocess.Popen([sys.executable, "-m", "simple_sfod_tpu_torch.tools.export_model", *argv],
+                                        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    res = {}
+    for label, p in procs.items():
+        out, err = p.communicate(timeout=EXPORT_TIMEOUT_S)
+        if p.returncode != 0:
+            raise AssertionError(f"export {label}: exit code {p.returncode}\n{out[-2000:]}\n{err[-3000:]}")
+        exp = re.search(r"\(([\d.]+) MiB\) in ([\d.]+) s", out)
+        chk = re.search(r"selfcheck OK: .* at batch (\d+) \((\d+) detections; max difference boxes (\S+), scores (\S+)\)", out)
+        check(exp is not None and chk is not None, f"export {label}: output {out[-1500:]}")
+        res[label] = dict(wall_s=time.perf_counter() - t0, export_s=float(exp.group(2)), mib=float(exp.group(1)),
+                          batch=int(chk.group(1)), detections=int(chk.group(2)),
+                          box_diff=float(chk.group(3)), score_diff=float(chk.group(4).rstrip(")")))
+    return res
+
+
+def start_server(cmd: list, env: dict, log_path: str):
+    """A server process and its base URL, from its first line; its stderr
+    goes to log_path."""
+    with open(log_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    line = proc.stdout.readline()
+    if " on http://" not in line:
+        proc.kill()
+        proc.wait(timeout=30)
+        with open(log_path) as f:
+            raise AssertionError(f"server did not start: {line!r}\n{f.read()[-3000:]}")
+    return proc, line.strip().rsplit(" on ", 1)[1].rstrip("/"), line.strip()
+
+
+def stop_server(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def http_post(url: str, body: bytes):
+    req = urllib.request.Request(f"{url}/predict", data=body, method="POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as resp:
+        out = json.loads(resp.read())
+    check("error" not in out, f"request: {out.get('error')}")
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def concurrent_posts(url: str, bodies: list) -> list:
+    results, errors = [None] * len(bodies), []
+
+    def worker(i):
+        try:
+            results[i] = http_post(url, bodies[i])
+        except BaseException as e:  # reported after join
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_TIMEOUT_S)
+        check(not t.is_alive(), "a concurrent request did not finish")
+    if errors:
+        raise errors[0]
+    return results
+
+
+def check_served(res: dict, hw, label: str) -> None:
+    check(res["height"] == hw[0] and res["width"] == hw[1], f"{label}: size {res['height']}x{res['width']}")
+    for d in res["detections"]:
+        x0, y0, x1, y1 = d["box"]
+        check(np.isfinite(d["score"]) and 0 <= x0 <= x1 <= hw[1] and 0 <= y0 <= y1 <= hw[0] and 0 <= d["class"] < 8,
+              f"{label}: detection {d}")
+
+
+def npy_bytes(img: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, img)
+    return buf.getvalue()
+
+
+def gated(service, payloads: list) -> list:
+    """predict_array of each image from its own thread, all queued before
+    the worker drains: one coalesced call."""
+    results = [None] * len(payloads)
+    service._batcher._gate.clear()
+    threads = [threading.Thread(target=lambda i=i: results.__setitem__(i, service.predict_array(payloads[i])))
+               for i in range(len(payloads))]
+    try:
+        for t in threads:
+            t.start()
+        for _ in range(1000):
+            with service._batcher._cv:
+                if len(service._batcher._queue) == len(payloads):
+                    break
+            time.sleep(0.01)
+    finally:
+        service._batcher._gate.set()
+    for t in threads:
+        t.join(timeout=SERVE_TIMEOUT_S)
+        check(not t.is_alive(), "a gated request did not finish")
+    return results
+
+
+def det_diff(got: dict, want) -> tuple:
+    """(valid and classes equal, max box difference, max score difference)."""
+    same = torch.equal(got["valid"], want.valid) and torch.equal(got["classes"], want.classes)
+    return same, (got["boxes"] - want.boxes).abs().max().item(), (got["scores"] - want.scores).abs().max().item()
+
+
+def export_phase(smi: str):
+    """The export phase (module docstring). -> (the launches of each kernel
+    in this process, a dict of numbers for the kernels line's notes)."""
+    tmp = tempfile.TemporaryDirectory(prefix="sfod_export_")
+    root = tmp.name
+    total = {k: 0 for k in _kernels.LAUNCHES}
+
+    def add(d):
+        for k in total:
+            total[k] += d[k]
+
+    try:
+        weights, r101_weights = os.path.join(root, "main.pth"), os.path.join(root, "r101.pth")
+        write_cli_weights(weights)
+        r101 = init_weights(FasterRCNN(detector_config_from_cfg(r101_cfg(R101_ADABN_YAML))), SEED)
+        with torch.no_grad():
+            r101.roi_heads.box_predictor.cls_score.bias[1] += CLS_BIAS_BOOST  # detections from random weights
+        torch.save({"model": r101.state_dict()}, r101_weights)
+        del r101
+        jobs = export_jobs(root, weights, r101_weights)
+        t0 = time.perf_counter()
+        res = run_exports(jobs)
+        log(f"  {len(jobs)} export_model runs at once [{smi}]: {time.perf_counter() - t0:.1f} s wall")
+        for label, r in res.items():
+            log(f"    {label}: export {r['export_s']:.2f} s, {r['mib']:.1f} MiB; --selfcheck at batch {r['batch']}: "
+                f"{r['detections']} detections, artifact vs eager max difference boxes {r['box_diff']:.3g} px, "
+                f"scores {r['score_diff']:.3g}")
+        f32, bf16 = res["student float32 b1"]["mib"], res["student bf16 b1"]["mib"]
+        check(bf16 < 0.55 * f32 and res["teacher weights-as-argument b1"]["mib"] < 5, f"artifact sizes {res}")
+        log(f"  student artifact float32 {f32:.1f} MiB, bfloat16 weights {bf16:.1f} MiB ({bf16 / f32:.1%})")
+        poly_path = jobs["teacher poly"][1]
+
+        # the poly artifact behind `python -m simple_sfod_tpu_torch.tools.serve_model`
+        env = cli_env(ROOT)
+        proc, url, line = start_server([sys.executable, "-m", "simple_sfod_tpu_torch.tools.serve_model", "--artifact",
+                                        poly_path, "--port", "0", "--max-wait-ms", str(SERVE_WAIT_MS)], env,
+                                       os.path.join(root, "serve_poly.log"))
+        try:
+            info = json.loads(urllib.request.urlopen(f"{url}/", timeout=60).read())
+            check(info["canvas"] == [608, 1216] and info["batch"] is None and info["platforms"] == ["cuda"]
+                  and info["config"] == os.path.basename(CLI_YAML) and info["model"] == "teacher", f"info {info}")
+            rng = np.random.RandomState(SEED + 11)
+            imgs = [rng.randint(0, 256, IMAGE_HW + (3,)).astype(np.uint8) for _ in range(7)]
+            # a first pass meets each call batch (1, 2, 4) once: cuDNN's and
+            # cuBLAS's first call of a shape is not a request's latency
+            warm = [http_post(url, npy_bytes(imgs[0]))[1]]
+            warm += [ms for _, ms in concurrent_posts(url, [npy_bytes(imgs[i]) for i in (1, 2)])]
+            warm += [ms for _, ms in concurrent_posts(url, [npy_bytes(imgs[i]) for i in (3, 4, 5)])]
+            served = [http_post(url, npy_bytes(imgs[i])) for i in (0, 1)]
+            served += concurrent_posts(url, [npy_bytes(imgs[i]) for i in (2, 3)])
+            served += concurrent_posts(url, [npy_bytes(imgs[i]) for i in (4, 5, 6)])
+            big = rng.randint(0, 256, FRAME_HW + (3,)).astype(np.uint8)
+            big_res, big_ms = http_post(url, png_bytes(big))
+        finally:
+            stop_server(proc)
+        for i, (r, _) in enumerate(served):
+            check_served(r, IMAGE_HW, f"served request {i}")
+        check_served(big_res, FRAME_HW, "served PNG")
+        lat = [ms for _, ms in served] + [big_ms]
+        log(f"  {line} [{smi}]: GET / ok; a first pass of 1, 2 and 3 requests {[round(ms, 1) for ms in warm]} ms; "
+            f"then 7 requests of {IMAGE_HW[0]}x{IMAGE_HW[1]} (2 alone, 2 and 3 concurrent) "
+            f"{[round(ms, 1) for _, ms in served]} ms and a {FRAME_HW[0]}x{FRAME_HW[1]} PNG {big_ms:.1f} ms "
+            f"({len(big_res['detections'])} detections): p50 {np.median(lat):.1f} ms")
+
+        # the same artifact in this process: load, launches, eager, timing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program, meta = load_exported(poly_path)
+        load_s = time.perf_counter() - t0
+        module = program.module()
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(ROOT, CLI_YAML))
+        cfg.merge_from_list(["MODEL.WEIGHTS", weights, "OUTPUT_DIR", os.path.join(root, "eager"), "SEED", "0"])
+        tr = build_trainer(cfg, synthetic=True)
+        tr.resume_or_load()
+        eager = tr.teacher
+        bench = synthetic_bench_batch(cfg, n=max(EXPORT_BATCHES))
+        images = torch.from_numpy(bench["images"]).cuda()
+        sizes = torch.from_numpy(bench["sizes"]).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            module(images[:1], sizes[:1])["valid"].cpu()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        log(f"  load_exported {load_s:.2f} s ({meta['config']}, batch {meta['batch']}), first call {first_ms:.1f} ms [{smi}]")
+
+        ms = {}
+        for b in EXPORT_BATCHES:
+            _kernels.reset_launches()
+            with torch.inference_mode():
+                got = module(images[:b], sizes[:b])
+            torch.cuda.synchronize()
+            launches = dict(_kernels.LAUNCHES)
+            add(launches)
+            check(all(c == 2 * b for c in launches.values()), f"artifact batch {b}: launches {launches}, expected {2 * b}")
+            want = eager.infer(images[:b], sizes[:b])
+            same, bd, sd = det_diff(got, want)
+            check(same, f"artifact batch {b}: valid or classes differ from eager inference")
+            # the export tool's --selfcheck bounds
+            torch.testing.assert_close(got["boxes"], want.boxes, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(got["scores"], want.scores, rtol=1e-5, atol=1e-5)
+            with torch.inference_mode():
+                t_art = time_ms(lambda: module(images[:b], sizes[:b]), 10)
+            t_eager = time_ms(lambda: eager.infer(images[:b], sizes[:b]), 10)
+            ms[b] = (t_art, t_eager)
+            log(f"    batch {b}: artifact == eager in valid and classes, max difference boxes {bd:.3g} px, scores "
+                f"{sd:.3g}; {int(want.valid.sum())} detections; steady {t_art:.2f} ms a call ({t_art / b:.2f} ms an "
+                f"image), eager {t_eager:.2f} ms [{smi}]")
+        with torch.inference_mode():
+            wall, dev, kern, _ = profile(lambda: module(images[:1], sizes[:1])["valid"].cpu(), 5)
+        nms_ms = sum(v for k, v in kern.items() if "suppress_relation_bits" in k or "greedy_keep_from_bits" in k)
+        log(f"  profile artifact batch 1 [{smi}]: wall {wall:.2f} ms, device kernels {dev:.2f} ms, busy {dev / wall:.1%}, "
+            f"NMS kernels {nms_ms:.3f} ms; top kernels {top(kern, 4)}")
+
+        # one call's NMS inputs, captured where the program's op launches
+        captured = []
+        orig_launch = _kernels.launch_suppress_relation_bits
+
+        def record(sb, sv, thr):
+            captured.append((sb.clone(), sv.clone(), thr))
+            return orig_launch(sb, sv, thr)
+
+        _kernels.launch_suppress_relation_bits = record
+        try:
+            with torch.inference_mode():
+                module(images[:1], sizes[:1])
+        finally:
+            _kernels.launch_suppress_relation_bits = orig_launch
+        check(len(captured) == 2 and captured[0][0].shape[0] == 4096, f"captured {[c[0].shape for c in captured]}")
+        for (sb, sv, thr), site in zip(captured, ("rpn", "detection")):
+            rel = nms.suppress_relation_plain(sb, sv, thr)
+            bits = orig_launch(sb, sv, thr)
+            keep = nms.greedy_keep_from_bits(bits, sv)
+            check(torch.equal(bits, nms.pack_bits(rel)) and torch.equal(keep, nms.greedy_keep_plain(rel, sv)),
+                  f"{site} NMS inputs of the artifact: kernel != plain")
+            log(f"  {site} NMS inputs of an artifact call N={sb.shape[0]} thr={thr}: kernel == plain, kept "
+                f"{int(keep.sum())} of {int(sv.sum())} valid")
+
+        # the served path in this process: 2 kernel launches an image of each call
+        t0 = time.perf_counter()
+        service = DetectionService(poly_path, max_wait_ms=SERVE_WAIT_MS)
+        log(f"  a second load in this process (DetectionService over the artifact) {time.perf_counter() - t0:.2f} s")
+        try:
+            _kernels.reset_launches()
+            local = [service.predict_array(imgs[i]) for i in (0, 1)]
+            local += gated(service, [imgs[i] for i in (4, 5, 6)])
+            launches = dict(_kernels.LAUNCHES)
+        finally:
+            service.close()
+        add(launches)
+        check(all(c == 2 * (1 + 1 + 4) for c in launches.values()), f"service launches {launches}, expected 12 (one call padded to 4)")
+        check(local[0] == served[0][0] and local[1] == served[1][0], "the tool's server and this process's service differ")
+        log(f"  DetectionService over the artifact in this process: requests 0 and 1 equal the tool's answers; 3 gated "
+            f"requests in one call padded to 4; launches {launches} (2 an image of each call)")
+        del module, program, tr, eager
+
+        # the R101 artifact behind serve_model with the port's model code poisoned
+        r101_path = jobs["r101 adabn train-mode-bn b1"][1]
+        proc, url, line = start_server([sys.executable, "-c", SERVE_POISONED, "--artifact", r101_path, "--port", "0"], env,
+                                       os.path.join(root, "serve_r101.log"))
+        try:
+            info = json.loads(urllib.request.urlopen(f"{url}/", timeout=60).read())
+            check(info["batch"] == 1 and info["config"] == os.path.basename(R101_ADABN_YAML), f"R101 info {info}")
+            r101 = [http_post(url, npy_bytes(imgs[i])) for i in (0, 1)]
+            r101_big, r101_big_ms = http_post(url, png_bytes(big))
+        finally:
+            stop_server(proc)
+        for i, (r, _) in enumerate(r101):
+            check_served(r, IMAGE_HW, f"R101 request {i}")
+        check_served(r101_big, FRAME_HW, "R101 PNG")
+        log(f"  R101 C4 artifact served with {', '.join(EXPORT_POISONED)} poisoned [{smi}]: {line}; requests "
+            f"{[round(ms, 1) for _, ms in r101]} ms, PNG {r101_big_ms:.1f} ms, detections "
+            f"{[len(r['detections']) for r, _ in r101]}")
+        return total, dict(exports=res, load_s=load_s, first_ms=first_ms, ms=ms, p50_ms=float(np.median(lat)),
+                           busy=dev / wall)
+    finally:
+        tmp.cleanup()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2829,6 +3199,9 @@ def main() -> int:
     with Phase("car"):
         car_launches, _ = car_phase(smi)
 
+    with Phase("export"):
+        export_launches, _ = export_phase(smi)
+
     replaces = {
         "suppress_relation_bits": "simple_sfod_tpu/ops/pallas_kernels.py:26",
         "greedy_keep_from_bits": "simple_sfod_tpu/ops/pallas_kernels.py:123",
@@ -2843,8 +3216,11 @@ def main() -> int:
         # CLI's subprocesses and the phase's loops, AdaBN included), r101
         # (its AdaBN CLI and test(), SFAT and base steps) and wq (the AdaBN
         # dump's test(), the WQ steps, the WQ CLI and the workflow's
-        # CLIs) and car (the Sim10k and KITTI source steps, their CLIs'
-        # steps and test(), the adaptation CLIs). r101_per_step: the
+        # CLIs), car (the Sim10k and KITTI source steps, their CLIs'
+        # steps and test(), the adaptation CLIs) and export (the poly
+        # artifact's calls and its DetectionService in this process, 2 an
+        # image of each call; the export tools' and servers' processes
+        # count their own). r101_per_step: the
         # ResNet-101 adaptation step's three calls.
         # per_call: one served image's two calls; train_per_step: one
         # supervised step's RPN call; large_n: N above the keep kernel's
@@ -2857,7 +3233,8 @@ def main() -> int:
             "source": "simple_sfod_tpu_torch/ops/csrc/nms.cu",
             "replaces": replaces[name],
             "launches": launches[name] + train_launches[name] + adapt_launches[name] + eval_launches[name] +
-                        cli_launches_total[name] + r101_launches[name] + wq_launches[name] + car_launches[name],
+                        cli_launches_total[name] + r101_launches[name] + wq_launches[name] + car_launches[name] +
+                        export_launches[name],
             "max_abs_err": float(max(r["err"] for r in per + rows[name] + large_rows[name])),
             "ms": sum(r["ms"] for r in per),
             "call_ms": sum(r["call_ms"] for r in per),
@@ -2868,7 +3245,8 @@ def main() -> int:
             "ptxas": ptxas[name],
             "launches_by_path": {"serve": launches[name], "train": train_launches[name], "adapt": adapt_launches[name],
                                  "eval": eval_launches[name], "cli": cli_launches_total[name],
-                                 "r101": r101_launches[name], "wq": wq_launches[name], "car": car_launches[name]},
+                                 "r101": r101_launches[name], "wq": wq_launches[name], "car": car_launches[name],
+                                 "export": export_launches[name]},
             "adapt_per_step": per,
             "r101_per_step": r101_rows[name],
             "per_call": rows[name],

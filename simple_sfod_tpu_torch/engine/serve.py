@@ -1,12 +1,19 @@
 """HTTP detection service (the port of `simple_sfod_tpu/engine/serve.py`).
 
-Where the JAX service loads an exported StableHLO artifact, this one builds
-the detector from a config and a port state dict (a `torch.save` file or an
-in-memory dict) and runs it eagerly on the card. Preprocessing and
-postprocessing are the JAX service's: shortest-edge resize and canvas
-placement as the test loader does (the native codec's Pillow-exact resample,
-so no PIL), boxes mapped back to file coordinates by the per-axis inverse
-scale and clipped.
+Two sources of detections, one service:
+
+  an artifact   DetectionService("model.sfodx"): the program that
+                `engine/export.py` wrote (tools/export_model.py), reloaded
+                with this package's op library and without its model code,
+                as the JAX service loads its StableHLO artifact;
+  a config      DetectionService(cfg, weights): the detector built from a
+                config and a port state dict (a `torch.save` file or an
+                in-memory dict) and run eagerly.
+
+Preprocessing and postprocessing are the JAX service's: shortest-edge
+resize and canvas placement as the test loader does (the native codec's
+Pillow-exact resample, so no PIL), boxes mapped back to file coordinates by
+the per-axis inverse scale and clipped.
 
   GET  /          serving info (canvas, batch, classes, platforms)
   POST /predict   body = a PNG or JPEG file (data/native_codec.py) or a raw .npy
@@ -16,9 +23,11 @@ scale and clipped.
 
 Concurrent requests micro-batch: each request runs on its own server
 thread, and one worker coalesces up to `batch` of them into one device call.
-Eager PyTorch compiles nothing per shape, so a call runs exactly the images
-it was given (the JAX service pads to a compiled batch).
+A fixed-batch artifact runs its batch, padded; a poly-batch artifact takes up
+to 8, padded to the next power of two as the JAX service does; the eager
+detector runs exactly the images it was given.
 
+    python -m simple_sfod_tpu_torch.tools.serve_model --artifact model.sfodx [--port 8360]
     python -m simple_sfod_tpu_torch.engine.serve --config-file configs/X.yaml \
         --weights model.pth [--port 8360] [--batch 4]
 """
@@ -28,6 +37,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Union
@@ -36,10 +46,11 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from ..config import CfgNode, detector_config_from_cfg
 from ..data import native_codec
 from ..data.loader import _resize_shortest_edge
-from ..models.detector import Detector
+from ..device import resolve_device
+
+POLY_CALL_BATCH = 8  # the most requests one call of a poly-batch artifact takes
 
 
 class _MicroBatcher:
@@ -122,34 +133,88 @@ def _load_weights(weights) -> Dict[str, torch.Tensor]:
     return weights
 
 
+def _input_shape(program, index: int):
+    """The shape of user input `index` of an exported program."""
+    names = [s.arg.name for s in program.graph_signature.input_specs if s.kind.name == "USER_INPUT"]
+    node = next(n for n in program.graph.nodes if n.op == "placeholder" and n.name == names[index])
+    return tuple(node.meta["val"].shape)
+
+
 class DetectionService:
-    """A detector built from a config and weights, with loader-parity
-    pre/post-processing. `device=None` means CUDA (raises without a GPU)."""
+    """Detections with loader-parity pre/post-processing, from an exported
+    artifact (`source` its path; `weights` the state dict of an artifact
+    exported without its weights, the JAX service's `variables`) or from a
+    config and `weights` (a state dict or a `torch.save` file), on `device`
+    (None means CUDA and raises without a GPU). `batch` (the config route's)
+    caps the requests a call coalesces; an artifact's batch is its own."""
 
     def __init__(
         self,
-        cfg: CfgNode,
-        weights: Union[str, Dict[str, torch.Tensor]],
+        source,
+        weights: Union[None, str, Dict[str, torch.Tensor]] = None,
         device: Optional[Union[str, torch.device]] = None,
         batch: int = 1,
         max_wait_ms: float = 5.0,
         class_names: Optional[List[str]] = None,
         config_name: Optional[str] = None,
     ):
-        self.detector = Detector(detector_config_from_cfg(cfg), device=device)
-        self.detector.load_state_dict(_load_weights(weights))
-        self.canvas = tuple(int(v) for v in cfg.TPU.CANVAS)
-        self.batch = max(int(batch), 1)
-        self.min_size = int(cfg.INPUT.MIN_SIZE_TEST)
-        self.max_size = int(cfg.INPUT.MAX_SIZE_TEST)
-        self.image_format = cfg.INPUT.FORMAT
-        self.class_names = class_names
-        self.config_name = config_name
+        self.device = resolve_device(device)
+        if isinstance(source, (str, os.PathLike)):
+            self._init_artifact(os.fspath(source), weights)
+        else:
+            self._init_config(source, weights, batch, class_names, config_name)
         self._batcher = _MicroBatcher(
             self._run_batch,
             self.batch,
             max_wait_s=(max_wait_ms / 1000.0) if self.batch > 1 else 0.0,
         )
+
+    def _init_artifact(self, path: str, weights) -> None:
+        from .export import load_exported, weights_argument
+
+        self.program, self.meta = load_exported(path, self.device)
+        meta = self.meta
+        if not meta.get("bundle_params", True) and weights is None:
+            raise ValueError(
+                "artifact was exported with --no-bundle-params; serving it requires the weights (a state dict)"
+            )
+        # the exported key order, on the program's device, the
+        # 4-D weights in channels_last on CUDA (as the detector holds them)
+        self.weights = None if weights is None else weights_argument(self.program, {
+            k: v.to(self.device, memory_format=torch.channels_last)
+            if v.dim() == 4 and self.device.type == "cuda" else v.to(self.device)
+            for k, v in _load_weights(weights).items()
+        })
+        # images are the second-to-last input in both layouts
+        shape = _input_shape(self.program, -2)
+        self.canvas = tuple(meta.get("canvas") or shape[1:3])
+        b = meta["batch"] if "batch" in meta else (shape[0] if isinstance(shape[0], int) else None)
+        self.poly = not b
+        self.batch = int(b) if b else POLY_CALL_BATCH
+        self.min_size = int(meta.get("min_size", 600))
+        self.max_size = int(meta.get("max_size", 1333))
+        self.image_format = meta.get("image_format", "BGR")
+        self.class_names = meta.get("class_names")
+        self._info_batch = meta.get("batch", 1)
+        self._model_name, self.config_name = meta.get("model"), meta.get("config")
+        self._module = self.program.module()
+
+    def _init_config(self, cfg, weights, batch, class_names, config_name) -> None:
+        from ..config import detector_config_from_cfg
+        from ..models.detector import Detector
+
+        self.detector = Detector(detector_config_from_cfg(cfg), device=self.device)
+        self.detector.load_state_dict(_load_weights(weights))
+        self.canvas = tuple(int(v) for v in cfg.TPU.CANVAS)
+        self.batch = max(int(batch), 1)
+        self.poly = False
+        self.min_size = int(cfg.INPUT.MIN_SIZE_TEST)
+        self.max_size = int(cfg.INPUT.MAX_SIZE_TEST)
+        self.image_format = cfg.INPUT.FORMAT
+        self.class_names = class_names
+        self._info_batch = self.batch
+        self._model_name, self.config_name = "detector", config_name
+        self._module = None
 
     def close(self) -> None:
         """Stop the micro-batch worker."""
@@ -158,13 +223,13 @@ class DetectionService:
     def info(self) -> Dict:
         return {
             "canvas": list(self.canvas),
-            "batch": self.batch,
+            "batch": self._info_batch,
             "min_size": self.min_size,
             "max_size": self.max_size,
             "image_format": self.image_format,
             "class_names": self.class_names,
-            "platforms": [self.detector.device.type],
-            "model": "detector",
+            "platforms": [self.device.type],
+            "model": self._model_name,
             "config": self.config_name,
         }
 
@@ -179,19 +244,41 @@ class DetectionService:
         canvas[:h, :w] = np.clip(resized[:h, :w], 0, 255).astype(np.uint8)
         return canvas, (h, w), scale, (ow, oh)
 
+    def call_batch(self, k: int) -> int:
+        """The batch one call runs for k coalesced requests: k for the eager
+        detector, a fixed artifact's batch, or the next power of two up to
+        POLY_CALL_BATCH for a poly-batch artifact (a bounded set of shapes,
+        as the JAX service keeps its compiled set)."""
+        if self._module is None:
+            return k
+        if not self.poly:
+            return self.batch
+        return max(min(1 << (k - 1).bit_length(), self.batch), k)
+
+    def infer(self, images: torch.Tensor, sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One device call on canvases [B, H, W, 3] uint8 and sizes [B, 2]
+        int32 on the device -> the program's dict of detections."""
+        if self._module is None:
+            return vars(self.detector.infer(images, sizes))
+        args = (images, sizes) if self.weights is None else (self.weights, images, sizes)
+        with torch.inference_mode():
+            return self._module(*args)
+
     def _run_batch(self, payloads: List[tuple]) -> List[Dict[str, np.ndarray]]:
-        """One device call for the K <= batch prepared canvases; returns each
-        request's output slot."""
-        images = np.stack([p[0] for p in payloads])
-        sizes = np.asarray([p[1] for p in payloads], np.int32)
-        dets = self.detector.infer(images, sizes)
-        out = {
-            "boxes": dets.boxes.float().cpu().numpy(),
-            "scores": dets.scores.float().cpu().numpy(),
-            "classes": dets.classes.cpu().numpy(),
-            "valid": dets.valid.cpu().numpy(),
-        }
-        return [{key: val[i] for key, val in out.items()} for i in range(len(payloads))]
+        """One device call for the K <= batch prepared canvases, padded to
+        `call_batch(K)`; returns each request's output slot."""
+        k = len(payloads)
+        b = self.call_batch(k)
+        ch, cw = self.canvas
+        images = np.zeros((b, ch, cw, 3), np.uint8)
+        sizes = np.zeros((b, 2), np.int32)
+        sizes[:] = payloads[0][1]  # pad slots reuse a real size (any valid hw)
+        for i, (canvas, hw, _, _) in enumerate(payloads):
+            images[i] = canvas
+            sizes[i] = hw
+        out = self.infer(torch.from_numpy(images).to(self.device), torch.from_numpy(sizes).to(self.device))
+        out = {key: val.cpu().numpy() for key, val in out.items()}
+        return [{key: val[i] for key, val in out.items()} for i in range(k)]
 
     def predict_array(self, img: np.ndarray, min_score: float = 0.0) -> Dict:
         """img: HxWx3 uint8 in the config's pixel format (INPUT.FORMAT)."""
@@ -262,7 +349,7 @@ class _Handler(BaseHTTPRequestHandler):
             return self._json({"error": f"{type(e).__name__}: {e}"}, 400)
 
 
-def make_server(service: DetectionService, host: str = "127.0.0.1", port: int = 0) -> ThreadingHTTPServer:
+def make_server(service: "DetectionService", host: str = "127.0.0.1", port: int = 0) -> ThreadingHTTPServer:
     handler = type("BoundHandler", (_Handler,), {"service": service})
     return ThreadingHTTPServer((host, port), handler)
 

@@ -57,7 +57,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     The weight and bias may be bfloat16 (the fixed teacher's, under
     `TPU.DTYPE: bfloat16`) while the running statistics stay float32: they
     are normalised in the input's dtype in train mode, in float32 against
-    the float32 statistics in eval mode, and the update writes float32."""
+    the float32 statistics in eval mode, and the update writes float32.
+    With reduced-precision statistics too (an artifact's bfloat16 weights,
+    engine/export.py), eval mode computes as flax's BatchNorm does with
+    them."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -72,6 +75,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         return w, b
 
     def forward(self, x: torch.Tensor, train: bool = False, update_stats: bool = True) -> torch.Tensor:
+        if not train and self.running_var.dtype != torch.float32:
+            # reduced-precision statistics (weights exported with a
+            # params_dtype): flax's eval-mode order and dtypes, the
+            # multiplier rsqrt(var + eps) * weight in the statistics' dtype
+            mul = (torch.rsqrt(self.running_var + self.eps) * self.weight).view(1, -1, 1, 1)
+            return (x - self.running_mean.view(1, -1, 1, 1)) * mul + self.bias.view(1, -1, 1, 1)
         if not train:
             w, b = self._affine(self.running_mean.dtype)
             return F.batch_norm(x, self.running_mean, self.running_var, w, b, False, 0.0, self.eps)

@@ -2,10 +2,11 @@
 supervised losses (`supervised_losses`, `losses_from_feature`, with the BPC
 loss logged on request) with train-mode BatchNorm; inference (`infer`,
 `infer_from_feature`) under `torch.inference_mode`, with eval-mode or
-batch-statistics BatchNorm; and the teacher's side of adaptation:
-`pseudo_labels`, a train-mode-BN forward that moves the running statistics
-and returns detections made under `torch.no_grad` (tensors that autograd may
-save, as the student's losses do with them), and `bn_update`."""
+batch-statistics BatchNorm, through `InferenceModule`, the inference path
+as an `nn.Module` that `engine/export.py` exports; and the teacher's side of
+adaptation: `pseudo_labels`, a train-mode-BN forward that moves the running
+statistics and returns detections made under `torch.no_grad` (tensors that
+autograd may save, as the student's losses do with them), and `bn_update`."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..device import resolve_device
 from ..structures.instances import Instances
@@ -39,6 +41,44 @@ class DetectionBatch(NamedTuple):
     images: torch.Tensor
     sizes: torch.Tensor
     gt: Instances
+
+
+def detect(model: FasterRCNN, feature: torch.Tensor, sizes: torch.Tensor, canvas_hw: Tuple[int, int]) -> Instances:
+    """Head-side inference of `model` on a backbone feature [B, C, h, w]
+    computed from padded canvases of size canvas_hw, sizes int32 [B, 2], all
+    images at once, in the caller's grad mode."""
+    cfg = model.cfg
+    anchors = anchors_for(cfg, canvas_hw, feature.device)
+    proposals = propose(cfg, anchors, model.rpn(feature), sizes)
+    scores, deltas = model.box(pool_rois(cfg, feature, proposals.boxes))
+    b, r = proposals.boxes.shape[:2]
+    return roi_inference(cfg, scores.reshape(b, r, -1), deltas.reshape(b, r, -1), proposals, sizes)
+
+
+class InferenceModule(nn.Module):
+    """The detector's standard inference as an `nn.Module` (the counterpart
+    of the JAX package's `engine/export.py:detection_infer_fn`), in plain
+    types so that an exported program's calling convention needs nothing of
+    this package:
+
+        images uint8 [B, H, W, 3], sizes int32 [B, 2] (true h, w)
+        -> {"boxes" f32 [B, K, 4], "scores" f32 [B, K], "classes" i32 [B, K],
+            "valid" bool [B, K]},  K = TEST.DETECTIONS_PER_IMAGE
+
+    `train_mode_bn` normalises by the batch statistics without moving the
+    running ones (the AdaBN probe). It sets no grad mode: `Detector.infer`
+    runs it under inference mode, `engine/export.py` traces it under
+    no_grad."""
+
+    def __init__(self, model: FasterRCNN, train_mode_bn: bool = False):
+        super().__init__()
+        self.model = model
+        self.train_mode_bn = train_mode_bn
+
+    def forward(self, images: torch.Tensor, sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
+        feature = self.model.features(images, train=self.train_mode_bn, update_bn=False)
+        dets = detect(self.model, feature, sizes, tuple(images.shape[1:3]))
+        return {"boxes": dets.boxes, "scores": dets.scores, "classes": dets.classes, "valid": dets.valid}
 
 
 class Detector:
@@ -127,21 +167,7 @@ class Detector:
     def detect(self, feature: torch.Tensor, sizes, canvas_hw: Tuple[int, int]) -> Instances:
         """Head-side inference on a backbone feature [B, C, h, w] computed
         from a padded canvas of size canvas_hw, in the caller's grad mode."""
-        cfg = self.cfg
-        sizes = self._tensor(sizes, torch.int32)
-        anchors = anchors_for(cfg, canvas_hw, self.device)
-        rpn_out = self.model.rpn(feature)
-        proposals = propose(cfg, anchors, rpn_out, sizes)
-        pooled = pool_rois(cfg, feature, proposals.boxes)
-        scores, deltas = self.model.box(pooled)
-        b, r = proposals.boxes.shape[:2]
-        return roi_inference(
-            cfg,
-            scores.reshape(b, r, -1),
-            deltas.reshape(b, r, -1),
-            proposals,
-            sizes,
-        )
+        return detect(self.model, feature, self._tensor(sizes, torch.int32), canvas_hw)
 
     @torch.inference_mode()
     def infer_from_feature(
@@ -158,10 +184,10 @@ class Detector:
         """images [B, H, W, 3] (uint8 canvases, the loader's layout), sizes
         [B, 2] int32 true (h, w) -> detections [B, topk]: boxes, scores,
         classes, valid. `train_mode_bn` normalises by the batch statistics
-        without moving the running ones (the JAX package's AdaBN probe)."""
-        images = self._tensor(images)
-        feature = self.model.features(images, train=train_mode_bn, update_bn=False)
-        return self.detect(feature, sizes, tuple(images.shape[1:3]))
+        without moving the running ones (the JAX package's AdaBN probe).
+        The code of an exported program (`InferenceModule`)."""
+        out = InferenceModule(self.model, train_mode_bn)(self._tensor(images), self._tensor(sizes, torch.int32))
+        return Instances(**out)
 
     @torch.no_grad()
     def pseudo_labels(self, images: torch.Tensor, sizes: torch.Tensor) -> Instances:

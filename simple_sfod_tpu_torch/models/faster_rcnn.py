@@ -299,22 +299,15 @@ def propose(
             f"RPN prediction count {rpn_out.objectness.shape[1]} != anchor count {anchors.shape[0]}"
         )
     pre_k, post_k = proposal_counts(cfg, anchors.shape[0], training)
-    out = []
-    for obj, deltas, size in zip(rpn_out.objectness, rpn_out.deltas, image_sizes):
-        idx = topk_indices(obj, pre_k)
-        vals = obj[idx]
-        boxes = RPN_BOX_TRANSFORM.apply_deltas(deltas[idx], anchors[idx])
-        boxes = clip_boxes(boxes, size)
-        valid = nonempty(boxes) & torch.isfinite(vals)
-        keep = nms.nms_mask_matrix(boxes, vals, valid, cfg.rpn_nms_thresh)
-        inst = Instances(
-            boxes=boxes,
-            scores=vals,
-            classes=torch.zeros((pre_k,), dtype=torch.int32, device=boxes.device),
-            valid=keep,
-        )
-        out.append(inst.top_k(post_k))
-    return Instances.stack(out)
+    idx = topk_indices(rpn_out.objectness, pre_k)  # [B, pre_k]
+    vals = torch.gather(rpn_out.objectness, 1, idx)
+    deltas = torch.gather(rpn_out.deltas, 1, idx[..., None].expand(-1, -1, 4))
+    boxes = RPN_BOX_TRANSFORM.apply_deltas(deltas, anchors[idx])
+    boxes = clip_boxes(boxes, image_sizes)
+    valid = nonempty(boxes) & torch.isfinite(vals)
+    keep = nms.nms_mask_matrix(boxes, vals, valid, cfg.rpn_nms_thresh)
+    inst = Instances(boxes=boxes, scores=vals, classes=torch.zeros_like(idx, dtype=torch.int32), valid=keep)
+    return inst.top_k(post_k)
 
 
 def rpn_losses(
@@ -445,12 +438,8 @@ def bpc_candidates(
 
 def pool_rois(cfg: DetectorConfig, feature: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     """feature [B, C, h, w], boxes [B, R, 4] -> pooled [B*R, C, P, P]."""
-    scale = 1.0 / cfg.stride
-    pooled = [
-        roi_align(f, bx, scale, cfg.pooler_resolution, cfg.pooler_sampling_ratio)
-        for f, bx in zip(feature, boxes)
-    ]
-    return torch.cat(pooled, dim=0)
+    pooled = roi_align(feature, boxes, 1.0 / cfg.stride, cfg.pooler_resolution, cfg.pooler_sampling_ratio)
+    return pooled.flatten(0, 1)
 
 
 def roi_inference(
@@ -461,28 +450,23 @@ def roi_inference(
     image_sizes: torch.Tensor,
 ) -> Instances:
     """Fast R-CNN inference (detectron2 fast_rcnn_inference with fixed
-    shapes). scores [B, R, C+1] logits, deltas [B, R, 4C] -> Instances
-    [B, topk]: softmax, per-class decode and clip, score threshold, a
-    candidate cap of max(8 * topk, 1024), class-wise NMS, top-k."""
+    shapes), all images at once. scores [B, R, C+1] logits, deltas
+    [B, R, 4C] -> Instances [B, topk]: softmax, per-class decode and clip,
+    score threshold, a candidate cap of max(8 * topk, 1024), class-wise NMS,
+    top-k."""
     topk = cfg.detections_per_image
+    b, r = scores.shape[:2]
     num_classes = scores.shape[-1] - 1
-    out = []
-    for sc, dl, prop_boxes, prop_valid, size in zip(
-        scores, deltas, proposals.boxes, proposals.valid, image_sizes
-    ):
-        probs = torch.softmax(sc, dim=-1)[:, :-1]  # [R, C]
-        boxes_k = ROI_BOX_TRANSFORM.apply_deltas(dl, prop_boxes)
-        boxes_k = clip_boxes(boxes_k.reshape(-1, num_classes, 4), size)
-        r = probs.shape[0]
-        flat_boxes = boxes_k.reshape(r * num_classes, 4)
-        flat_scores = probs.reshape(r * num_classes)
-        flat_classes = torch.arange(num_classes, dtype=torch.int32, device=sc.device).repeat(r)
-        valid = prop_valid[:, None].expand(r, num_classes).reshape(-1) & nonempty(flat_boxes)
-        valid = valid & (flat_scores > cfg.score_thresh_test)
-        cap = min(flat_scores.shape[0], max(8 * topk, 1024))
-        key = torch.where(valid, flat_scores, torch.full_like(flat_scores, -float("inf")))
-        idx = topk_indices(key, cap)
-        cand = Instances(flat_boxes, flat_scores, flat_classes, valid).take(idx)
-        keep = nms.batched_class_nms(cand.boxes, cand.scores, cand.classes, cand.valid, cfg.nms_thresh_test)
-        out.append(cand.mask(keep).top_k(topk))
-    return Instances.stack(out)
+    probs = torch.softmax(scores, dim=-1)[..., :-1]  # [B, R, C]
+    boxes_k = ROI_BOX_TRANSFORM.apply_deltas(deltas, proposals.boxes)
+    boxes_k = clip_boxes(boxes_k.reshape(b, r, num_classes, 4), image_sizes)
+    flat_boxes = boxes_k.reshape(b, r * num_classes, 4)
+    flat_scores = probs.reshape(b, r * num_classes)
+    flat_classes = torch.arange(num_classes, dtype=torch.int32, device=scores.device).repeat(r).expand(b, -1)
+    valid = proposals.valid[..., None].expand(b, r, num_classes).reshape(b, -1) & nonempty(flat_boxes)
+    valid = valid & (flat_scores > cfg.score_thresh_test)
+    cap = min(r * num_classes, max(8 * topk, 1024))
+    key = torch.where(valid, flat_scores, torch.full_like(flat_scores, -float("inf")))
+    cand = Instances(flat_boxes, flat_scores, flat_classes, valid).take(topk_indices(key, cap))
+    keep = nms.batched_class_nms(cand.boxes, cand.scores, cand.classes, cand.valid, cfg.nms_thresh_test)
+    return cand.mask(keep).top_k(topk)

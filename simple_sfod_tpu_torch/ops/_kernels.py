@@ -8,8 +8,9 @@ the source's hash changes. Nothing here includes PyTorch's headers or uses
 
 Each launch wrapper checks its tensors, launches on PyTorch's current
 stream, raises if the C entry point reports a CUDA error, and adds one to
-its entry of `LAUNCHES`. The wrappers take CUDA tensors only: the CPU path
-lives in `ops/nms.py`, in the plain PyTorch versions.
+its entry of `LAUNCHES`. The wrappers take one image's CUDA tensors; the
+CUDA implementations of the custom ops in `ops/nms.py` call them once an
+image, and the ops' CPU implementations are the plain PyTorch versions.
 """
 
 from __future__ import annotations

@@ -44,13 +44,18 @@ def roi_align(
     sampling_ratio: int = 2,
 ) -> torch.Tensor:
     """features [C, H, W]; rois [R, 4] XYXY in input-image coordinates ->
-    [R, C, out, out] in the features' dtype. Aligned (continuous coordinates
-    shifted by -0.5 after scaling), as detectron2's ROIAlignV2."""
-    c, h, w = features.shape
+    [R, C, out, out] in the features' dtype; or a batch, features
+    [B, C, H, W] and rois [B, R, 4] -> [B, R, C, out, out]. Aligned
+    (continuous coordinates shifted by -0.5 after scaling), as detectron2's
+    ROIAlignV2."""
+    if features.dim() == 3:
+        return roi_align(features[None], rois[None], spatial_scale, output_size, sampling_ratio)[0]
+    b, r = rois.shape[:2]
+    c, h, w = features.shape[1:]
     out = output_size
     dtype = features.dtype if features.dtype in (torch.float32, torch.bfloat16) else torch.float32
 
-    r32 = rois.to(torch.float32)
+    r32 = rois.to(torch.float32).reshape(b * r, 4)
     x1 = r32[:, 0] * spatial_scale - 0.5
     y1 = r32[:, 1] * spatial_scale - 0.5
     x2 = r32[:, 2] * spatial_scale - 0.5
@@ -58,15 +63,15 @@ def roi_align(
     roi_w = x2 - x1
     roi_h = y2 - y1
 
-    wy = _axis_weights(y1, roi_h / out, out, sampling_ratio, h).to(dtype)  # [R, P, H]
-    wx = _axis_weights(x1, roi_w / out, out, sampling_ratio, w).to(dtype)  # [R, P, W]
+    wy = _axis_weights(y1, roi_h / out, out, sampling_ratio, h).to(dtype).reshape(b, r, out, h)
+    wx = _axis_weights(x1, roi_w / out, out, sampling_ratio, w).to(dtype).reshape(b, r, out, w)
     f = features.to(dtype)
     # contract the wider spatial axis first (the JAX package's order); the
     # intermediate is rounded to the compute dtype between the two products
     if w >= h:
-        tmp = torch.einsum("rxw,chw->rchx", wx, f)
-        res = torch.einsum("ryh,rchx->rcyx", wy, tmp.to(dtype))
+        tmp = torch.einsum("brxw,bchw->brchx", wx, f)
+        res = torch.einsum("bryh,brchx->brcyx", wy, tmp.to(dtype))
     else:
-        tmp = torch.einsum("ryh,chw->rcyw", wy, f)
-        res = torch.einsum("rxw,rcyw->rcyx", wx, tmp.to(dtype))
+        tmp = torch.einsum("bryh,bchw->brcyw", wy, f)
+        res = torch.einsum("brxw,brcyw->brcyx", wx, tmp.to(dtype))
     return res.to(features.dtype)

@@ -9,7 +9,6 @@ the data.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
 
 import torch
 
@@ -29,6 +28,13 @@ def topk_indices(key: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(_total_order_key(key), dim=-1, descending=True, stable=True).indices[..., :k]
 
 
+def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t [..., N, *rest] gathered at idx [..., K] along the dim of N."""
+    d = idx.dim() - 1
+    index = idx.reshape(idx.shape + (1,) * (t.dim() - idx.dim())).expand(*idx.shape, *t.shape[idx.dim():])
+    return torch.gather(t, d, index)
+
+
 @dataclasses.dataclass(frozen=True)
 class Instances:
     """N padded instances of one image (or [B, N] with a leading batch dim).
@@ -46,17 +52,18 @@ class Instances:
         return dataclasses.replace(self, valid=self.valid & keep)
 
     def take(self, idx: torch.Tensor) -> "Instances":
-        """Gather the instances at `idx` (1-D, for an unbatched set)."""
+        """Gather the instances at `idx` along the capacity dim: idx [K] for
+        an unbatched set, [B, K] for a batched one."""
         return Instances(
-            boxes=self.boxes[idx],
-            scores=self.scores[idx],
-            classes=self.classes[idx],
-            valid=self.valid[idx],
+            boxes=_take(self.boxes, idx),
+            scores=_take(self.scores, idx),
+            classes=_take(self.classes, idx),
+            valid=_take(self.valid, idx),
         )
 
     def top_k(self, k: int) -> "Instances":
-        """Keep the k highest-score valid instances, compacted to the front;
-        padding ranks below every valid entry."""
+        """Keep the k highest-score valid instances (of each image), compacted
+        to the front; padding ranks below every valid entry."""
         key = torch.where(self.valid, self.scores, torch.full_like(self.scores, -float("inf")))
         return self.take(topk_indices(key, k))
 
@@ -68,14 +75,4 @@ class Instances:
             scores=torch.cat([a.scores, b.scores], dim=0),
             classes=torch.cat([a.classes, b.classes], dim=0),
             valid=torch.cat([a.valid, b.valid], dim=0),
-        )
-
-    @staticmethod
-    def stack(items: List["Instances"]) -> "Instances":
-        """Per-image sets -> one batched set with a leading dim."""
-        return Instances(
-            boxes=torch.stack([i.boxes for i in items]),
-            scores=torch.stack([i.scores for i in items]),
-            classes=torch.stack([i.classes for i in items]),
-            valid=torch.stack([i.valid for i in items]),
         )

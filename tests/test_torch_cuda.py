@@ -141,13 +141,8 @@ def test_train_steps_launch_the_kernels_on_train_mode_nms_inputs(cuda):
     trainer = BaseTrainer(cfg)
     recs = chip_smoke.make_synthetic_records(2, (250, 500), 8, 6, seed=1)
     batch = chip_smoke.synthetic_batch(recs, (256, 512), cfg.TPU.GT_CAPACITY)
-    captured = []
-    orig = nms.nms_mask_matrix
-
-    def record(boxes, scores, valid, thr):
-        captured.append((boxes.clone(), scores.clone(), valid.clone(), thr))
-        return orig(boxes, scores, valid, thr)
-
+    captured = []  # one entry an image: the detector calls NMS on the batch
+    orig, record = chip_smoke.capture_nms(captured)
     _kernels.reset_launches()
     nms.nms_mask_matrix = record
     try:
@@ -276,3 +271,67 @@ def test_mosaic_mixup_and_affine_card_match_cpu(cuda):
     tolerance; masks, classes and scores equal."""
     err = chip_smoke.wq_ops_card_vs_cpu()
     assert chip_smoke.wq_ops_ok(err), err
+
+
+def test_nms_ops_on_cuda_equal_plain_at_batch_3(cuda):
+    """sfod::suppress_relation_bits and sfod::greedy_keep_from_bits on a
+    batch of 3 on the card: one launch of each kernel an image, bit-equal to
+    the plain versions (and the CPU implementations) image by image; the
+    batched NMS entry equals its CPU path."""
+    cases = [case(10 + i, 1024, 1000, classes=8) for i in range(3)]
+    boxes, scores, valid = (torch.stack(t) for t in zip(*cases))
+    order = nms.score_order(scores, valid)
+    sb = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
+    sv = torch.gather(valid, 1, order).contiguous()
+    _kernels.reset_launches()
+    bits = torch.ops.sfod.suppress_relation_bits(sb.to(cuda), sv.to(cuda), 0.5)
+    keep = torch.ops.sfod.greedy_keep_from_bits(bits, sv.to(cuda))
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES == {"suppress_relation_bits": 3, "greedy_keep_from_bits": 3}
+    assert torch.equal(bits.cpu(), torch.ops.sfod.suppress_relation_bits(sb, sv, 0.5))
+    for i in range(3):
+        rel = nms.suppress_relation_plain(sb[i], sv[i], 0.5)
+        assert torch.equal(bits[i].cpu(), nms.pack_bits(rel))
+        assert torch.equal(keep[i].cpu(), nms.greedy_keep_plain(rel, sv[i]))
+    got = nms.nms_mask_matrix(boxes.to(cuda), scores.to(cuda), valid.to(cuda), 0.5)
+    assert torch.equal(got.cpu(), nms.nms_mask_matrix(boxes, scores, valid, 0.5))
+
+
+def test_cuda_export_round_trip_equals_eager(cuda, tmp_path):
+    """A poly-batch artifact exported on the card, reloaded on the card,
+    equals eager Detector.infer there at batch 1 and 3 (after an eager call
+    first: the anchor cache), launching each kernel twice an image; one
+    exported on the CPU and moved to the card agrees with the card's eager
+    detections."""
+    from simple_sfod_tpu_torch.config import detector_config_from_cfg, get_main_cfg
+    from simple_sfod_tpu_torch.engine import export
+    from simple_sfod_tpu_torch.models.detector import Detector
+    from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, init_weights
+
+    cfg = get_main_cfg()
+    cfg.merge_from_list(["TPU.CANVAS", "(128, 256)", "TPU.DTYPE", "float32"])
+    dcfg = detector_config_from_cfg(cfg)
+    sd = init_weights(FasterRCNN(dcfg), 0).state_dict()
+    det = Detector(dcfg, device=cuda).load_state_dict(sd)
+    rs = np.random.RandomState(0)
+    img = torch.from_numpy(rs.randint(0, 256, (3, 128, 256, 3)).astype(np.uint8)).to(cuda)
+    sizes = torch.tensor([[128, 256], [100, 200], [128, 180]], dtype=torch.int32, device=cuda)
+    det.infer(img[:1], sizes[:1])
+    for where in ("cuda", "cpu"):
+        path = str(tmp_path / f"{where}.sfodx")
+        export.save_exported(export.export_inference(det, sd, (128, 256), batch=None, device=where), path)
+        program, _ = export.load_exported(path, device=cuda)
+        for n in (1, 3):
+            _kernels.reset_launches()
+            with torch.inference_mode():
+                got = program.module()(img[:n], sizes[:n])
+            torch.cuda.synchronize()
+            assert _kernels.LAUNCHES == {"suppress_relation_bits": 2 * n, "greedy_keep_from_bits": 2 * n}
+            want = det.infer(img[:n], sizes[:n])
+            assert torch.equal(got["valid"], want.valid) and want.valid.any()
+            assert torch.equal(got["classes"], want.classes)
+            if where == "cuda":
+                assert torch.equal(got["boxes"], want.boxes) and torch.equal(got["scores"], want.scores)
+            else:
+                torch.testing.assert_close(got["boxes"], want.boxes, rtol=1e-5, atol=1e-2)
+                torch.testing.assert_close(got["scores"], want.scores, rtol=0, atol=1e-4)

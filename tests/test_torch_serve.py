@@ -28,6 +28,7 @@ from simple_sfod_tpu_torch.checkpoint.from_jax import state_dict_from_jax
 from simple_sfod_tpu_torch.config import detector_config_from_cfg, get_cfg
 from simple_sfod_tpu_torch.data.loader import _resize_shortest_edge, d2_output_shape
 from simple_sfod_tpu_torch.engine.serve import DetectionService, serve_in_thread
+from simple_sfod_tpu_torch.models.detector import Detector
 
 CANVAS = (64, 128)
 OPTS = [
@@ -239,3 +240,98 @@ def test_serve_cli_on_the_r101_adabn_yaml(tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+# -- the artifact route: DetectionService over engine/export.py's file -------
+ARTIFACT_META = {"canvas": list(CANVAS), "min_size": 64, "max_size": 128, "image_format": "BGR",
+                 "class_names": NAMES, "model": "teacher", "params_dtype": None, "train_mode_bn": False,
+                 "config": "serve-test"}
+
+
+@pytest.fixture(scope="module")
+def artifact_paths(weights, tmp_path_factory):
+    """A poly-batch artifact with its weights and a batch-1 one without."""
+    from simple_sfod_tpu_torch.engine.export import export_inference, save_exported
+
+    det = Detector(detector_config_from_cfg(cfg_of(get_cfg)), device="cpu").load_state_dict(weights[2])
+    out = tmp_path_factory.mktemp("artifacts")
+    paths = {}
+    for name, batch, bundle in (("poly", None, True), ("argument", 1, False)):
+        paths[name] = str(out / f"{name}.sfodx")
+        program = export_inference(det, weights[2], CANVAS, batch=batch, bundle_params=bundle, device="cpu")
+        save_exported(program, paths[name], dict(ARTIFACT_META, batch=batch, bundle_params=bundle))
+    return paths
+
+
+def test_artifact_http_info_and_predict_match_jax(weights, artifact_paths):
+    """GET / gives the artifact's info with the JAX service's keys; POST
+    /predict of a canvas-sized and a resized image matches the JAX
+    Detector.infer plus the JAX service's post-processing."""
+    svc = DetectionService(artifact_paths["poly"], device="cpu")
+    srv, url = serve_in_thread(svc)
+    try:
+        info = json.loads(urllib.request.urlopen(f"{url}/", timeout=30).read())
+        assert info == {"canvas": list(CANVAS), "batch": None, "min_size": 64, "max_size": 128, "image_format": "BGR",
+                        "class_names": NAMES, "platforms": ["cpu"], "model": "teacher", "config": "serve-test"}
+        img = np.random.RandomState(0).randint(0, 256, CANVAS + (3,)).astype(np.uint8)
+        assert_matches(post(url, npy(img)), jax_reference(weights, img), CANVAS)
+        small = np.random.RandomState(1).randint(0, 256, (40, 80, 3)).astype(np.uint8)
+        assert_matches(post(url, npy(small), "?min_score=0.1"), jax_reference(weights, small, min_score=0.1), (40, 80))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+
+
+def test_artifact_poly_batch_pads_to_a_power_of_two(artifact_paths):
+    """3 concurrent requests make one call of batch 4 (the pad slot's
+    output dropped), each requester getting its own image's detections."""
+    svc = DetectionService(artifact_paths["poly"], device="cpu", max_wait_ms=5.0)
+    assert [svc.call_batch(k) for k in range(1, 9)] == [1, 2, 4, 4, 8, 8, 8, 8]
+    rs = np.random.RandomState(2)
+    imgs = [rs.randint(0, 256, CANVAS + (3,)).astype(np.uint8) for _ in range(3)]
+    singles = [svc.predict_array(im) for im in imgs]
+    batches = []
+    infer = svc.infer
+
+    def record(images, sizes):
+        batches.append(images.shape[0])
+        return infer(images, sizes)
+
+    svc.infer = record
+    results = [None] * 3
+    svc._batcher._gate.clear()
+    threads = [threading.Thread(target=lambda i=i: results.__setitem__(i, svc.predict_array(imgs[i]))) for i in range(3)]
+    try:
+        for th in threads:
+            th.start()
+        for _ in range(200):
+            with svc._batcher._cv:
+                if len(svc._batcher._queue) == 3:
+                    break
+            threading.Event().wait(0.01)
+    finally:
+        svc._batcher._gate.set()
+    for th in threads:
+        th.join(timeout=120)
+        assert not th.is_alive()
+    svc.close()
+    assert batches == [4]
+    for got, want in zip(results, singles):
+        assert [d["class"] for d in got["detections"]] == [d["class"] for d in want["detections"]]
+        np.testing.assert_allclose(
+            [d["box"] for d in got["detections"]], [d["box"] for d in want["detections"]], rtol=1e-5, atol=1e-3
+        )
+
+
+def test_artifact_without_weights_serves_with_them(weights, artifact_paths):
+    """A --no-bundle-params artifact refuses to serve without weights and
+    serves with the state dict (in-memory or a .pth) as JAX's does with its
+    variables."""
+    with pytest.raises(ValueError, match="no-bundle-params"):
+        DetectionService(artifact_paths["argument"], device="cpu")
+    svc = DetectionService(artifact_paths["argument"], weights[2], device="cpu")
+    assert svc.info()["batch"] == 1
+    img = np.random.RandomState(3).randint(0, 256, CANVAS + (3,)).astype(np.uint8)
+    assert_matches(svc.predict_array(img), jax_reference(weights, img), CANVAS)
+    svc.close()

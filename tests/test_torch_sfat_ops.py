@@ -534,7 +534,7 @@ def test_sfat_bench_cfg_equals_jax_key_for_key():
 def test_synthetic_bench_batch_equals_jax():
     from simple_sfod_tpu.utils.bench import sfat_bench_cfg, synthetic_bench_batch as jax_batch
     from simple_sfod_tpu_torch.config import get_sfat_bench_cfg
-    from simple_sfod_tpu_torch.data.synthetic import synthetic_bench_batch
+    from simple_sfod_tpu_torch.utils.bench import synthetic_bench_batch
 
     for n in (None, 2):
         ours = synthetic_bench_batch(get_sfat_bench_cfg(output_dir="./output/x"), n)
