@@ -194,6 +194,40 @@ Phases (each prints one progress line with its wall time):
               gated call padded to 4, launches); the R101 artifact served by
               serve_model's main with the port's models, config and
               trainers poisoned in sys.modules
+ 16. da       domain-adversarial training: one float32 step of da, cda
+              (ENTROPY_CONDITIONING), adaptive_teacher (the boundary step,
+              with the instance classifier) and the source-free main YAML
+              with DOMAIN_CLASSIFIER.IMAGE and INSTANCE on the card against
+              the CPU's at 128x256 on the same draws and dropout masks;
+              16 foggy and 8 clear synthetic 1024x2048 PNG frames with
+              COCO GT under a temporary SFOD_DATASETS (the YAMLs'
+              TRAIN_TARGET and TEST, and the labelled
+              cityscapes_instancesonly_train), MODEL.WEIGHTS the cli
+              phase's seeded .pth (class-1 logit bias raised by 4); at
+              608x1216, full depth, batch 1 + 1, from the loaders:
+              configs/faster_rcnn_VGG_cityscapes_da.yaml for 6 da steps
+              (float32) and 4 cda steps with ENTROPY_CONDITIONING (finite
+              losses with all three DC terms, every DA head tensor moved,
+              3 launches of each kernel a step);
+              configs/faster_rcnn_VGG_cityscapes_foggy_adaptive_teacher.yaml
+              for 8 bfloat16 steps with BURN_UP_STEP cut from 20000 to 3,
+              from weights with the class-1 logit bias raised by 6 and
+              BASE_LR 0.0001 (0.0025), so that the student copied at the
+              boundary still gives pseudo-labels (the teacher's parameters fixed in burn-in while its
+              statistics move, the student's copy at the start of step 3,
+              the EMA rule after it; the total equal to the supervised
+              losses before step 3 and above them after; 5 launches a
+              step); the source-free main YAML with both classifiers
+              weighted for 6 steps (finite DC losses, the classifiers
+              moved, 5 launches a step); each run's first-step NMS inputs
+              kernel == plain, a step under set_sync_debug_mode("error"), a
+              profiled step (device ms, busy share), the median step ms and
+              peak memory; then train_net on the DA YAML and train_net_mt on
+              the AT YAML in two subprocesses at once (4 steps each,
+              WARMUP_ITERS 0, the AT burn-in cut to 2; checkpoints,
+              test(), metrics.json, eval_results.json, launches as
+              counted), the DA model_final.pth restored bit for bit in this
+              process and `--resume` to 8 steps
 
 Prints the card's name and power limit and a JSON line of the kernels'
 numbers, then, as the last line, {"ok": true, "device": {...}}. Any failure
@@ -1025,12 +1059,12 @@ def register_cli_datasets(root: str) -> None:
                          os.path.join(root, base), CITYSCAPES_THING_CLASSES)
 
 
-def write_cli_weights(path: str) -> None:
+def write_cli_weights(path: str, boost: float = CLS_BIAS_BOOST) -> None:
     """A source detector's .pth: seeded weights with the class-1 logit bias
-    raised (random weights then make pseudo-labels)."""
+    raised by `boost` (random weights then make pseudo-labels)."""
     model = init_weights(FasterRCNN(detector_config_from_cfg(get_main_cfg())), SEED)
     with torch.no_grad():
-        model.roi_heads.box_predictor.cls_score.bias[1] += CLS_BIAS_BOOST
+        model.roi_heads.box_predictor.cls_score.bias[1] += boost
     torch.save({"model": model.state_dict()}, path)
 
 
@@ -2682,6 +2716,413 @@ def export_phase(smi: str):
         tmp.cleanup()
 
 
+# ---------------------------------------------------------------------------
+# da: domain-adversarial training (DA-Faster, conditional DA, the
+# source-available Adaptive Teacher, weighted classifiers in the source-free
+# trainer) from the loader and through the CLIs
+# ---------------------------------------------------------------------------
+DA_YAML = "configs/faster_rcnn_VGG_cityscapes_da.yaml"
+AT_YAML = "configs/faster_rcnn_VGG_cityscapes_foggy_adaptive_teacher.yaml"
+DA_OPTS = ["SEED", "0", "SOLVER.WARMUP_ITERS", "0", "VIS_PERIOD", "0", "SOLVER.CHECKPOINT_PERIOD", "100000"]
+DA_STEPS = 6  # da steps in this process (float32, 1 + 1), the first excluded from the median
+CDA_STEPS = 4  # cda steps with DA_FASTER.ENTROPY_CONDITIONING
+AT_STEPS = 8  # adaptive_teacher steps (bfloat16, 1 + 1) across the cut burn-in
+AT_BURN_UP = 3  # SEMISUPNET.BURN_UP_STEP in this process (20000 in the YAML)
+SFAT_DC_STEPS = 6  # source-free steps with both classifiers weighted
+DA_CLI_ITERS = 4  # each train_net run on the DA YAML; the second resumes to 2 * DA_CLI_ITERS
+AT_CLI_ITERS = 4  # the train_net_mt run on the AT YAML
+AT_CLI_BURN_UP = 2
+# the AT run's class-1 logit bias boost and LR: the student that the teacher
+# copies after burn-in still gives pseudo-labels above 0.8 (at the YAML's
+# BASE_LR 0.0025 three supervised steps on random weights moved the class
+# logits by more than a bias of 6, and no detection stayed above 0.8)
+AT_CLS_BIAS_BOOST = 6.0
+AT_BASE_LR = "0.0001"
+# the card-vs-CPU step of each path: (YAML, opts); the AT one is the boundary
+# step (BURN_UP_STEP 0: the copy, then the joint losses) with the instance
+# classifier built
+DA_KINDS = {
+    "da": (DA_YAML, []),
+    "cda": (DA_YAML, ["TRAINER", "cda", "DA_FASTER.ENTROPY_CONDITIONING", "True"]),
+    "adaptive_teacher": (AT_YAML, ["SEMISUPNET.BURN_UP_STEP", "0", "SEMISUPNET.INS_DC", "True"]),
+    "sfat_weighted": (CLI_YAML, ["DOMAIN_CLASSIFIER.IMAGE", "True", "DOMAIN_CLASSIFIER.INSTANCE", "True"]),
+}
+# launches of each NMS kernel a step at batch 1 + 1, counted from the code:
+# da/cda the supervised propose and one DC propose per domain; AT the
+# teacher's RPN and detection NMS, the supervised propose of both source
+# views, the pseudo propose (+2 with the instance classifier: one
+# box_features propose per domain); the source-free main step's 3 + 2
+DA_LAUNCHES = {"da": 3, "cda": 3, "adaptive_teacher": 5, "adaptive_teacher+ins": 7, "sfat_weighted": 5}
+DA_DATASETS = ("cityscapes_instancesonly_train", "cityscapes_instancesonly_foggy_train_foggy_beta_0.02",
+               "cityscapes_instancesonly_foggy_val_foggy_beta_0.02", "cityscapes_instancesonly_val")
+
+
+def da_cfg(kind: str, out: str, *opts: str, canvas=None, dtype=None, kind_opts: bool = True):
+    """The YAML of DA_KINDS[kind] with the phase's cuts, the kind's opts
+    (unless `kind_opts` is False: the YAML as it is) and `opts`."""
+    yaml, extra_opts = DA_KINDS[kind]
+    kind_opts = extra_opts if kind_opts else []
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, yaml), allow_new=True)
+    extra = ([] if canvas is None else ["TPU.CANVAS", repr(tuple(canvas))]) + ([] if dtype is None else ["TPU.DTYPE", dtype])
+    cfg.merge_from_list([*DA_OPTS, *kind_opts, "OUTPUT_DIR", out, *extra, *opts])
+    return cfg
+
+
+def da_weights(det_cfg) -> dict:
+    """Seeded weights with the class-1 logit bias raised (pseudo-labels from
+    random weights)."""
+    model = init_weights(FasterRCNN(det_cfg), SEED)
+    with torch.no_grad():
+        model.roi_heads.box_predictor.cls_score.bias[1] += CLS_BIAS_BOOST
+    return model.state_dict()
+
+
+def da_step_args(tr, kind: str, canvas, image_hw, seed: int = SEED):
+    """A (source, target) pair of synthetic batches of one image at image_hw
+    on `canvas` (the source-free step takes the target alone) and the
+    trainer's draws for them."""
+    recs = make_synthetic_records(2, tuple(image_hw), 8, 6, seed=seed)
+    src, tgt = (synthetic_batch([r], tuple(canvas), tr.cfg.TPU.GT_CAPACITY) for r in recs)
+    if kind == "sfat_weighted":
+        return (tgt,), {}, tr.make_draws(1, tuple(canvas))
+    return (src,), {"target": tgt}, tr.make_draws(1, tuple(canvas), tr.cfg.TPU.GT_CAPACITY, 1)
+
+
+def da_state(tr) -> dict:
+    """The student (or detector) and its classifiers in one state dict."""
+    out = dict(tr.state.model.state_dict())
+    heads = getattr(tr.state, "heads", None) or getattr(tr.state, "dc", {})
+    for name, m in heads.items():
+        out.update({f"{name}.{k}": v for k, v in m.state_dict().items()})
+    return out
+
+
+def da_card_vs_cpu(kind: str, canvas=(128, 256), image_hw=(120, 250), device: str = "cuda"):
+    """One float32 step of `kind` (TF32 off, which the trainer sets) on the
+    card (`device`) and on the CPU from the same weights, batches and draws. -> the
+    errors of `state_errors` over the detector (the student) and its
+    classifiers, each loss's relative error and whether the counts agree;
+    for the teacher-student kinds the teacher statistics' error too."""
+    cfg = da_cfg(kind, tempfile.gettempdir(), canvas=canvas, dtype="float32")
+    sd = da_weights(detector_config_from_cfg(cfg))
+    cpu, card = build_trainer(cfg, device="cpu", state_dict=sd), build_trainer(cfg, device=device, state_dict=sd)
+    if hasattr(cpu.state, "teacher"):
+        for tr in (cpu, card):
+            with torch.no_grad():
+                tr.state.model.roi_heads.box_predictor.bbox_pred.bias += BBOX_OFFSET
+    start = {k: v.clone() for k, v in da_state(cpu).items()}
+    args, kw, draws = da_step_args(cpu, kind, canvas, image_hw)
+    mc = {k: float(v) for k, v in cpu.run_step(*args, draws, **kw).items()}
+    mg = {k: float(v) for k, v in card.run_step(*args, draws.to(device), **kw).items()}
+    losses = [k for k in mc if k.startswith("loss") or k == "total_loss"]
+    out = {"loss": {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in losses},
+           "counts_equal": all(mg[k] == mc[k] for k in mc if k.startswith("num_")), "losses_cpu": mc}
+    out.update(state_errors(start, da_state(cpu), da_state(card)))
+    if hasattr(cpu.state, "teacher"):
+        tc, tg = cpu.state.teacher.state_dict(), card.state.teacher.state_dict()
+        out["teacher_bn"] = max(
+            (((tg[k].cpu() - tc[k]).abs().max() / tc[k].abs().max().clamp_min(1e-12)).item(), k)
+            for k in tc if k.endswith(("running_mean", "running_var")))
+    return out
+
+
+def da_launches_per_step(kind: str, cfg) -> int:
+    """The launches of each kernel that a step of `kind` at batch 1 + 1 makes."""
+    if kind == "adaptive_teacher" and (cfg.SEMISUPNET.INS_DC or cfg.DOMAIN_CLASSIFIER.INSTANCE):
+        return DA_LAUNCHES["adaptive_teacher+ins"]
+    return DA_LAUNCHES[kind]
+
+
+def da_run(tr, steps: int, label: str, smi: str, on_step=None):
+    """`steps` steps of a built trainer on batches from its loaders (decoded
+    from disk; staging outside the timed step), each timed alone, the first
+    step's NMS inputs captured; then a step under set_sync_debug_mode("error")
+    and a profiled step. `on_step(i, phase)` runs before ("before") and after
+    ("after") step i. -> (metrics, wall ms, launches a step, captured NMS
+    inputs, profile (wall, device, kernels), peak GiB)."""
+    it = iter(tr.build_train_loader())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, wall, launches, captured = [], [], [], []
+    orig, record = capture_nms(captured)
+    for i in range(steps):
+        staged = tr.stage(next(it))
+        if on_step is not None:
+            on_step(i, "before")
+        start = dict(_kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nms.nms_mask_matrix = record if i == 0 else orig
+        try:
+            m = tr.step_staged(staged)
+        finally:
+            nms.nms_mask_matrix = orig
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        launches.append({k: c - start[k] for k, c in _kernels.LAUNCHES.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+        if on_step is not None:
+            on_step(i, "after")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    staged = tr.stage(next(it))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.step_staged(staged)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    prof = profile(lambda: tr.step_staged(staged), 1)
+    it.close()
+    bad = [(i, k) for i, m in enumerate(metrics) for k, v in m.items() if k.startswith("loss") and not np.isfinite(v)]
+    check(not bad and all(np.isfinite(m["total_loss"]) for m in metrics), f"{label}: non-finite losses {bad}")
+    med = float(np.median(wall[1:]))
+    log(f"  {label} ({tr.__class__.__name__}, batch 1 + 1, 608x1216, {str(tr.det_cfg.dtype).split('.')[-1]}) "
+        f"[{smi}]: step {med:.2f} ms (median of steps 1-{steps - 1}; first {wall[0]:.1f} ms), peak {peak:.2f} GiB; "
+        f"a step under set_sync_debug_mode('error'); profiled step: wall {prof[0]:.2f} ms, device {prof[1]:.2f} ms, "
+        f"busy {prof[1] / prof[0]:.1%}")
+    log(f"    total loss {[round(m['total_loss'], 4) for m in metrics]}; top kernels (ms): {top(prof[2])}")
+    return metrics, wall, launches, captured, prof, peak
+
+
+def da_phase(smi: str):
+    """The da phase (module docstring). -> (the launches of each kernel on
+    the path, a dict of numbers)."""
+    total = {k: 0 for k in _kernels.LAUNCHES}
+
+    def add(d):
+        for k in total:
+            total[k] += d[k]
+
+    numbers = {}
+    tmp = tempfile.TemporaryDirectory(prefix="sfod_da_")
+    root = tmp.name
+    data_root = os.path.join(root, "datasets")
+    try:
+        t0 = time.perf_counter()
+        write_cityscapes_car(data_root)  # its 8 frames' instancesonly train JSON: the labelled source
+        write_cli_datasets(data_root)
+        weights, at_weights = os.path.join(root, "source.pth"), os.path.join(root, "source_at.pth")
+        write_cli_weights(weights)
+        write_cli_weights(at_weights, AT_CLS_BIAS_BOOST)
+        for name in DA_DATASETS:
+            DATASET_REGISTRY.pop(name, None)
+        os.environ["SFOD_DATASETS"] = data_root
+        log(f"  wrote {CLI_TRAIN_FRAMES} foggy and {CAR_TARGET_FRAMES} clear 1024x2048 PNG frames with their COCO "
+            f"JSONs and a seeded .pth in {time.perf_counter() - t0:.2f} s")
+
+        # the CLIs (train_net on the DA YAML, then its --resume, beside train_net_mt on the AT YAML) while the
+        # card-vs-CPU steps run; the timed runs below run alone
+        da_out, at_out = os.path.join(root, "da_cli"), os.path.join(root, "at_cli")
+        da_argv = ["--config-file", os.path.join(ROOT, DA_YAML), *DA_OPTS, "MODEL.WEIGHTS", weights,
+                   "OUTPUT_DIR", da_out, "SOLVER.MAX_ITER", str(DA_CLI_ITERS), "SOLVER.CHECKPOINT_PERIOD",
+                   str(DA_CLI_ITERS // 2), "TEST.EVAL_PERIOD", str(DA_CLI_ITERS)]
+        at_argv = ["--config-file", os.path.join(ROOT, AT_YAML), *DA_OPTS, "MODEL.WEIGHTS", weights,
+                   "OUTPUT_DIR", at_out, "SOLVER.MAX_ITER", str(AT_CLI_ITERS), "SEMISUPNET.BURN_UP_STEP",
+                   str(AT_CLI_BURN_UP), "TEST.EVAL_PERIOD", str(AT_CLI_ITERS)]
+        env = cli_env(data_root)
+        resume_argv = [*da_argv[:2], "--resume", *da_argv[2:], "SOLVER.MAX_ITER", str(2 * DA_CLI_ITERS)]
+
+        def start(tool, argv):
+            return subprocess.Popen([sys.executable, "-m", f"simple_sfod_tpu_torch.tools.{tool}", *argv], cwd=ROOT,
+                                    env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        def finish(p, label):
+            out, errs = p.communicate(timeout=CLI_TIMEOUT_S)
+            check(p.returncode == 0, f"{label}: exit code {p.returncode}\n{out[-3000:]}\n{errs[-3000:]}")
+            return out
+
+        # the AT run beside the DA run and then its --resume
+        t0 = time.perf_counter()
+        procs = {"at": start("train_net_mt", at_argv), "da": start("train_net", da_argv)}
+        outs = {}
+        try:
+            # meanwhile one float32 step of each path on the card against the CPU's
+            for kind in DA_KINDS:
+                err = da_card_vs_cpu(kind)
+                dc = {k: round(v, 6) for k, v in err["losses_cpu"].items()
+                      if k.startswith("loss_DC") or k == "loss_consistency"}
+                log(f"  card vs CPU, one float32 {kind} step at 128x256: " + format_errors(err, list(err["loss"])) +
+                    f"; the CPU's DC losses {dc}")
+                check(card_step_ok(err), f"{kind}: the card's step differs from the CPU's")
+            outs["da"] = finish(procs["da"], "da CLI")
+            # the DA checkpoint restores bit for bit in this process
+            saved = torch.load(os.path.join(da_out, "model_final.pth"), map_location="cpu", weights_only=True)
+            restored = cli_trainer(da_argv, resume=True)
+            diff = state_diff(host_state(restored.checkpoint_state()), host_state(saved))
+            check(diff == 0.0 and set(saved["trainer"]["heads"]) == {"da_img", "da_ins"},
+                  f"DA restore differs by {diff}")
+            del restored, saved
+            da_lines = metrics_lines(da_out)  # before the resume appends to it
+            with open(os.path.join(da_out, "eval_results.json")) as f:
+                da_ev = json.load(f)
+            procs["resume"] = start("train_net", resume_argv)
+            outs["resume"] = finish(procs["resume"], "da --resume")
+            outs["at"] = finish(procs["at"], "at CLI")
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        cli_s = time.perf_counter() - t0
+
+        # da, then cda with entropy conditioning, from the loaders
+        captured = {}
+        for kind, steps in (("da", DA_STEPS), ("cda", CDA_STEPS)):
+            _kernels.reset_launches()
+            cfg = da_cfg(kind, os.path.join(root, kind), "MODEL.WEIGHTS", weights)
+            tr = build_trainer(cfg)
+            tr.resume_or_load()
+            check(tr.det_cfg.dtype == torch.float32 and tuple(cfg.TPU.CANVAS) == (608, 1216)
+                  and tr.entropy_conditioning == (kind == "cda"), f"{kind}: configuration")
+            heads0 = {f"{h}.{k}": v.clone() for h, m in tr.state.heads.items() for k, v in m.named_parameters()}
+            metrics, wall, launches, captured[kind], prof, peak = da_run(tr, steps, kind, smi)
+            add(dict(_kernels.LAUNCHES))
+            want = DA_LAUNCHES[kind]
+            check(all(c == want for d in launches for c in d.values()), f"{kind}: launches {launches}, expected {want}")
+            check(all(m[k] > 0 for m in metrics for k in ("loss_DC_img", "loss_DC_ins", "loss_consistency")),
+                  f"{kind}: DC losses {metrics}")
+            heads = {f"{h}.{k}": v for h, m in tr.state.heads.items() for k, v in m.named_parameters()}
+            moved = sum(not torch.equal(heads[k], v) for k, v in heads0.items())
+            check(moved == len(heads0), f"{kind}: {moved} of {len(heads0)} DA head tensors moved")
+            numbers[kind] = dict(step_ms=float(np.median(wall[1:])), busy=prof[1] / prof[0], peak_gib=peak,
+                                 device_ms=prof[1])
+            log(f"    DC losses of the last step: " + ", ".join(
+                f"{k} {metrics[-1][k]:.4f}" for k in ("loss_DC_img", "loss_DC_ins", "loss_consistency")) +
+                f"; all {len(heads0)} DA head tensors moved; launches {want} of each a step")
+            del tr
+
+        # the Adaptive Teacher across its cut burn-in
+        _kernels.reset_launches()
+        cfg = da_cfg("adaptive_teacher", os.path.join(root, "at"), "MODEL.WEIGHTS", at_weights,
+                     "SEMISUPNET.BURN_UP_STEP", str(AT_BURN_UP), "SOLVER.BASE_LR", AT_BASE_LR, kind_opts=False)
+        tr = build_trainer(cfg)
+        tr.resume_or_load()
+        check(tr.det_cfg.dtype == torch.bfloat16 and all(p.dtype == torch.float32 for p in tr.state.teacher.parameters()),
+              "adaptive_teacher: bfloat16 compute with a float32 EMA teacher")
+        keep = np.float32(cfg.SEMISUPNET.EMA_KEEP_RATE)
+        teacher0 = [p.clone() for p in tr.state.teacher.parameters()]
+        snap, events = {}, []
+
+        def on_step(i, phase):
+            t_params = list(tr.state.teacher.parameters())
+            s_params = list(tr.state.model.parameters())
+            if phase == "before":
+                snap["t"] = [p.clone() for p in t_params]
+                snap["s"] = [p.clone() for p in s_params]
+                snap["stats"] = [b.clone() for n, b in tr.state.teacher.named_buffers() if "running" in n]
+                return
+            stats = [b for n, b in tr.state.teacher.named_buffers() if "running" in n]
+            stats_moved = any(not torch.equal(a, b) for a, b in zip(stats, snap["stats"]))
+            if i < AT_BURN_UP:  # burn-in: parameters fixed, statistics moved by the pseudo forward
+                check(all(torch.equal(a, b) for a, b in zip(t_params, teacher0)) and stats_moved,
+                      f"AT step {i}: the teacher changed in burn-in")
+                events.append("fixed")
+            elif i == AT_BURN_UP:  # the copy of the student at the start of the step, no EMA at its end
+                check(all(torch.equal(a, b) for a, b in zip(t_params, snap["s"])), f"AT step {i}: no boundary copy")
+                events.append("copied")
+            else:
+                err = max(((t1 - (keep * t0 + (np.float32(1) - keep) * s1)).abs().max()
+                           / s1.abs().max().clamp_min(1e-30)).item()
+                          for t0, t1, s1 in zip(snap["t"], t_params, s_params))
+                check(err <= 1e-6, f"AT step {i}: EMA rule off by {err:.3g}")
+                events.append(f"ema {err:.2g}")
+
+        metrics, wall, launches, captured["adaptive_teacher"], prof, peak = da_run(
+            tr, AT_STEPS, "adaptive_teacher", smi, on_step)
+        add(dict(_kernels.LAUNCHES))
+        want = da_launches_per_step("adaptive_teacher", cfg)
+        check(all(c == want for d in launches for c in d.values()), f"AT: launches {launches}, expected {want}")
+        sup = ("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg")
+        gated = []
+        for i, m in enumerate(metrics):
+            rest = m["total_loss"] - sum(m[k] for k in sup)
+            check(all(np.isfinite(m[k]) for k in m), f"AT step {i}: {m}")
+            if i < AT_BURN_UP:  # pseudo and DC losses computed, weighted 0
+                check(abs(rest) <= 1e-5 * abs(m["total_loss"]) and m["loss_DC_img_s"] > 0, f"AT step {i}: {m}")
+            else:
+                check(rest > 1e-3 * abs(m["total_loss"]), f"AT step {i}: pseudo and DC losses not in the total {m}")
+            gated.append(round(rest, 4))
+        check(all(m["num_pseudo"] > 0 for m in metrics[AT_BURN_UP:]), "AT: no pseudo-labels after the boundary")
+        numbers["adaptive_teacher"] = dict(step_ms=float(np.median(wall[1:])), busy=prof[1] / prof[0], peak_gib=peak,
+                                           device_ms=prof[1])
+        log(f"    teacher by step: {events}; total minus supervised by step {gated} (0 in burn-in); num_pseudo "
+            f"{[int(m['num_pseudo']) for m in metrics]}; launches {want} of each a step")
+        del tr
+
+        # the source-free main YAML with both classifiers weighted
+        _kernels.reset_launches()
+        cfg = da_cfg("sfat_weighted", os.path.join(root, "sfat"), "MODEL.WEIGHTS", weights,
+                     *[x for kv in ADAPT_CUTS.items() for x in kv])
+        tr = build_trainer(cfg)
+        tr.resume_or_load()
+        dc0 = {f"{h}.{k}": v.clone() for h, m in tr.state.dc.items() for k, v in m.named_parameters()}
+        metrics, wall, launches, captured["sfat_weighted"], prof, peak = da_run(tr, SFAT_DC_STEPS, "sfat_weighted", smi)
+        add(dict(_kernels.LAUNCHES))
+        want = DA_LAUNCHES["sfat_weighted"]
+        check(all(c == want for d in launches for c in d.values()), f"SFAT: launches {launches}, expected {want}")
+        dc_keys = ("loss_DC_img_s", "loss_DC_img_t", "loss_DC_ins_s", "loss_DC_ins_t")
+        check(all(m[k] > 0 for m in metrics for k in dc_keys), f"SFAT DC losses {metrics}")
+        dc = {f"{h}.{k}": v for h, m in tr.state.dc.items() for k, v in m.named_parameters()}
+        moved = sum(not torch.equal(dc[k], v) for k, v in dc0.items())
+        check(moved == len(dc0), f"SFAT: {moved} of {len(dc0)} classifier tensors moved")
+        numbers["sfat_weighted"] = dict(step_ms=float(np.median(wall[1:])), busy=prof[1] / prof[0], peak_gib=peak,
+                                        device_ms=prof[1])
+        log(f"    DC losses of the last step: " + ", ".join(f"{k} {metrics[-1][k]:.4f}" for k in dc_keys) +
+            f"; all {len(dc0)} classifier tensors moved; launches {want} of each a step")
+        del tr
+
+        # every captured NMS input: kernels against their plain versions
+        for label, calls in captured.items():
+            kept = [check_kernels_against_plain(b, s, v, thr, f"{label} call {i}", cpu=i == 0)
+                    for i, (b, s, v, thr) in enumerate(calls)]
+            log(f"  {label}: the first step's {len(calls)} NMS inputs (N {[int(c[0].shape[0]) for c in calls]}), "
+                f"kernels bit-equal to the plain versions, kept {kept}")
+
+        # da: 3 a step, 2 an image of its TEST set in test(), 1 for the validation loss's image
+        want_da = 3 * DA_CLI_ITERS + 2 * CLI_TEST_FRAMES + 1
+        # AT: 5 a step, 2 an image and model (student, teacher) in test(), 1 for the validation loss
+        want_at = 5 * AT_CLI_ITERS + 2 * 2 * CLI_TEST_FRAMES + 1
+        for name, out, want, keys, n_ev, lines in (
+                ("da", da_out, want_da, ("loss_DC_img", "loss_DC_ins", "loss_consistency"), 1, da_lines),
+                ("at", at_out, want_at, ("loss_DC_img_s", "loss_DC_img_t", "loss_cls_pseudo"), 2, None)):
+            got = cli_launches(outs[name])
+            add(got)
+            check(all(c == want for c in got.values()), f"{name} CLI: launches {got}, expected {want}")
+            lines = lines or metrics_lines(out)
+            check(lines and lines[-1]["iteration"] == DA_CLI_ITERS - 1
+                  and all(np.isfinite(lines[-1][k]) for k in keys + ("total_loss",)), f"{name} CLI metrics {lines[-1:]}")
+            if name == "at":
+                with open(os.path.join(out, "eval_results.json")) as f:
+                    ev = json.load(f)
+            else:
+                ev = da_ev
+            check(len(ev) == n_ev and all(np.isfinite(v["AP50"]) for v in ev.values()), f"{name} CLI eval {ev}")
+            log(f"  {name} CLI [{smi}]: total loss {lines[-1]['total_loss']:.4f}, AP50 "
+                f"{ {k: round(v['AP50'], 4) for k, v in ev.items()} }, launches {got}")
+        data = torch.load(os.path.join(at_out, "model_final.pth"), map_location="cpu", weights_only=True)
+        check(any(k.startswith("modelTeacher.") for k in data["model"]) and any(
+            k.startswith("modelStudent.") for k in data["model"]), "AT CLI: model_final.pth lacks a model")
+        got = cli_launches(outs["resume"])
+        add(got)
+        check(all(c == want_da for c in got.values()), f"da --resume: launches {got}, expected {want_da}")
+        lines = metrics_lines(da_out)
+        check("resumed from" in outs["resume"] and lines[-1]["iteration"] == 2 * DA_CLI_ITERS - 1,
+              f"da --resume: {lines[-1:]}")
+        log(f"  train_net {DA_YAML} ({DA_CLI_ITERS} steps, checkpoints, test() at {DA_CLI_ITERS}), then --resume to "
+            f"{2 * DA_CLI_ITERS}, beside train_net_mt {AT_YAML} ({AT_CLI_ITERS} steps across a burn-in of "
+            f"{AT_CLI_BURN_UP}, test() of student and teacher), with the card-vs-CPU steps beside them: {cli_s:.2f} s; "
+            f"the DA restore bit-equal to "
+            f"model_final.pth; --resume: exit 0, metrics.json to {lines[-1]['iteration']}, launches {got}")
+    finally:
+        os.environ.pop("SFOD_DATASETS", None)
+        for name in DA_DATASETS:
+            DATASET_REGISTRY.pop(name, None)
+        tmp.cleanup()
+    log(f"  launches on the da path: {total}")
+    return total, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3202,6 +3643,9 @@ def main() -> int:
     with Phase("export"):
         export_launches, _ = export_phase(smi)
 
+    with Phase("da"):
+        da_launches, da_numbers = da_phase(smi)
+
     replaces = {
         "suppress_relation_bits": "simple_sfod_tpu/ops/pallas_kernels.py:26",
         "greedy_keep_from_bits": "simple_sfod_tpu/ops/pallas_kernels.py:123",
@@ -3220,7 +3664,8 @@ def main() -> int:
         # steps and test(), the adaptation CLIs) and export (the poly
         # artifact's calls and its DetectionService in this process, 2 an
         # image of each call; the export tools' and servers' processes
-        # count their own). r101_per_step: the
+        # count their own) and da (the da, cda, adaptive_teacher and
+        # weighted source-free steps and their CLIs). r101_per_step: the
         # ResNet-101 adaptation step's three calls.
         # per_call: one served image's two calls; train_per_step: one
         # supervised step's RPN call; large_n: N above the keep kernel's
@@ -3234,7 +3679,7 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": launches[name] + train_launches[name] + adapt_launches[name] + eval_launches[name] +
                         cli_launches_total[name] + r101_launches[name] + wq_launches[name] + car_launches[name] +
-                        export_launches[name],
+                        export_launches[name] + da_launches[name],
             "max_abs_err": float(max(r["err"] for r in per + rows[name] + large_rows[name])),
             "ms": sum(r["ms"] for r in per),
             "call_ms": sum(r["call_ms"] for r in per),
@@ -3246,7 +3691,8 @@ def main() -> int:
             "launches_by_path": {"serve": launches[name], "train": train_launches[name], "adapt": adapt_launches[name],
                                  "eval": eval_launches[name], "cli": cli_launches_total[name],
                                  "r101": r101_launches[name], "wq": wq_launches[name], "car": car_launches[name],
-                                 "export": export_launches[name]},
+                                 "export": export_launches[name], "da": da_launches[name]},
+            "da_steps": da_numbers,
             "adapt_per_step": per,
             "r101_per_step": r101_rows[name],
             "per_call": rows[name],

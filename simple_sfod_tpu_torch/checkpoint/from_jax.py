@@ -13,10 +13,12 @@ module keeps its own copy of the layout conversions:
                  num_batches_tracked = 0 (ResNet: a live BN's leaves sit one
                  level deeper, under BatchNorm_0; a FrozenBN's do not)
 
-`teacher_student_from_jax` carries a whole adaptation state: the student
-and the teacher (the keys of the JAX package's `export_ensemble` without
-their modelStudent./modelTeacher. prefixes), the domain classifiers and the
-adaptive-threshold statistics.
+`teacher_student_from_jax` carries a whole adaptation state (the source-free
+and the source-available adaptive teacher's): the student and the teacher
+(the keys of the JAX package's `export_ensemble` without their
+modelStudent./modelTeacher. prefixes), the domain classifiers and the
+adaptive-threshold statistics. `da_state_from_jax` carries a DA-Faster state:
+the detector and its two DA heads.
 """
 
 from __future__ import annotations
@@ -145,7 +147,12 @@ class TeacherStudentWeights(NamedTuple):
     thresh: Dict[str, Any]  # reserve [RESERVE, C], classwise_acc [C], cursor
 
 
-_DC_LAYERS = {"dc": ("conv1", "conv2", "conv3", "classifier"), "dc_ins": ("fc1", "fc2", "fc3")}
+_DC_LAYERS = {
+    "dc": ("conv1", "conv2", "conv3", "classifier"),
+    "dc_ins": ("fc1", "fc2", "fc3"),
+    "da_img": ("conv1", "conv2"),
+    "da_ins": ("fc1", "fc2", "fc3"),
+}
 
 
 def _get(tree, key):
@@ -154,7 +161,8 @@ def _get(tree, key):
 
 def dc_state_dict_from_jax(tree: Dict[str, Any], name: str) -> Dict[str, torch.Tensor]:
     """The flax parameters of a domain classifier ("dc": FCDiscriminatorImg,
-    "dc_ins": DAInsHead) -> the port module's state dict."""
+    "dc_ins" and "da_ins": DAInsHead, "da_img": DAImgHead) -> the port
+    module's state dict."""
     sd = {}
     for layer in _DC_LAYERS[name]:
         kernel = tree[layer]["kernel"]
@@ -179,3 +187,19 @@ def teacher_student_from_jax(state_tree, cfg) -> TeacherStudentWeights:
         "cursor": int(_get(th, "cursor")),
     }
     return TeacherStudentWeights(student, teacher, dc, thresh)
+
+
+class DAWeights(NamedTuple):
+    """A domain-adversarial (DA/CDA) state in the port's layout: the
+    detector and the DA heads ("da_img", "da_ins"), float32 tensors."""
+
+    detector: Dict[str, torch.Tensor]
+    heads: Dict[str, Dict[str, torch.Tensor]]
+
+
+def da_state_from_jax(state_tree, cfg) -> DAWeights:
+    """A JAX DA `TrainState` (params "det", "da_img", "da_ins"; numpy
+    leaves) -> DAWeights. `cfg` is the port's DetectorConfig."""
+    params = _get(state_tree, "params")
+    detector = state_dict_from_jax({"params": params["det"], "batch_stats": _get(state_tree, "batch_stats")}, cfg)
+    return DAWeights(detector, {name: dc_state_dict_from_jax(params[name], name) for name in ("da_img", "da_ins")})

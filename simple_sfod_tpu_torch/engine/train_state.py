@@ -3,8 +3,9 @@
 The JAX package keeps step, params, batch_stats and the optax state in one
 pytree; in torch the module owns its parameters and BatchNorm buffers and
 the optimizer owns its momentum, so the state is those objects. The
-adaptation state adds the teacher (a second FasterRCNN), the domain
-classifiers and the adaptive-threshold statistics."""
+domain-adversarial state adds the DA heads; the adaptation state adds the
+teacher (a second FasterRCNN), the domain classifiers and the
+adaptive-threshold statistics."""
 
 from __future__ import annotations
 
@@ -24,6 +25,14 @@ class TrainState:
     step: int  # steps taken; counted on the host, so reading it never waits on the device
     model: nn.Module  # parameters and BatchNorm running statistics
     optimizer: SGD  # momentum buffers and the schedule's count
+
+
+@dataclasses.dataclass
+class DAState(TrainState):
+    """The detector in TrainState's slots (its optimizer also holds the DA
+    heads' parameters) and the DA heads by name ("da_img", "da_ins")."""
+
+    heads: Dict[str, nn.Module] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass

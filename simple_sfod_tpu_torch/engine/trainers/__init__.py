@@ -1,7 +1,8 @@
 """Trainers by the name of `cfg.TRAINER` (the JAX package's registry):
 "base" (supervised), the five fixed-pseudo-label ones ("base_wq",
-"base_mosaic", "base_mixup", "base_mosaic_wq", "base_mosaic_wq_new") and the
-three source-free adaptive-teacher variants."""
+"base_mosaic", "base_mixup", "base_mosaic_wq", "base_mosaic_wq_new"), the
+three source-free adaptive-teacher variants, the source-available
+"adaptive_teacher", and the domain-adversarial "da" and "cda"."""
 
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ def register_trainer(name: str) -> Callable[[type], type]:
 def build_trainer(cfg, **kw):
     """The trainer that `cfg.TRAINER` names ("" means "base"), built with
     `kw` (device, weights)."""
-    from . import base, source_free_adaptive_teacher, wq  # noqa: F401  (they register themselves)
+    from . import adaptive_teacher, base, da, source_free_adaptive_teacher, wq  # noqa: F401  (they register themselves)
 
     name = cfg.TRAINER or "base"
     if name not in TRAINER_REGISTRY:

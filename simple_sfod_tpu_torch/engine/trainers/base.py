@@ -91,6 +91,18 @@ def apply_weak_aug(
     )
 
 
+def weak_flip(flip: torch.Tensor, images: torch.Tensor, sizes: torch.Tensor, enabled: bool = True) -> torch.Tensor:
+    """`apply_weak_aug` of an unlabelled batch: the flipped images alone."""
+    b, dev = images.shape[0], images.device
+    empty = Instances(
+        boxes=torch.zeros((b, 1, 4), dtype=torch.float32, device=dev),
+        scores=torch.zeros((b, 1), dtype=torch.float32, device=dev),
+        classes=torch.zeros((b, 1), dtype=torch.int32, device=dev),
+        valid=torch.zeros((b, 1), dtype=torch.bool, device=dev),
+    )
+    return apply_weak_aug(flip, images, sizes, empty, enabled)[0]
+
+
 LOG_PERIOD = 20
 # the BatchNorm refinement's batches (the reference's test_refinement count)
 ADABN_MAX_BATCHES = 1400
@@ -576,3 +588,41 @@ def _jsonable(obj):
     if isinstance(obj, (np.floating, np.integer)):
         return obj.item()
     return obj
+
+
+class PairedTargetMixin:
+    """For trainers that step on a labelled source batch and an unlabelled
+    target batch: the target loader (DATASETS.TRAIN_TARGET at
+    IMS_PER_BATCH_TARGET, seed SEED + 1) is built on first use, and `stage`
+    pulls one target batch for each source batch in step order, so
+    TPU.STEPS_PER_DISPATCH and staging ahead leave a trajectory as it is."""
+
+    target_loader = None
+
+    def _build_target_loader(self):
+        return build_train_loader(
+            self.cfg,
+            dataset_names=self.cfg.DATASETS.TRAIN_TARGET,
+            batch_size=self.cfg.SOLVER.IMS_PER_BATCH_TARGET,
+            seed=self.cfg.SEED + 1,
+            synthetic=self.synthetic,
+        )
+
+    def next_target(self) -> Mapping[str, np.ndarray]:
+        """The target loader's next batch."""
+        if self.target_loader is None:
+            self.target_loader = iter(self._build_target_loader())
+        return next(self.target_loader)
+
+    def stage(self, batch: Mapping[str, np.ndarray], target: Optional[Mapping[str, np.ndarray]] = None):
+        """A source batch staged with its GT (BaseTrainer.stage) and a target
+        batch (`target`, else the target loader's next): (images, sizes, GT,
+        target images, target sizes) on the device."""
+        target = self.next_target() if target is None else target
+        return (*BaseTrainer.stage(self, batch), to_device(target["images"], self.device),
+                to_device(target["sizes"], self.device, torch.int32))
+
+    def run_step(self, batch, draws=None, target=None) -> Dict[str, torch.Tensor]:
+        """One step on a source batch in the loader's layout and a target
+        batch (`target`, else the target loader's next)."""
+        return self.step_staged(self.stage(batch, target), draws)

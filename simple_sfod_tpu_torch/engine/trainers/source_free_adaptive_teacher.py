@@ -14,10 +14,15 @@ One step, on an unlabelled target batch:
      threshold after ADAPTIVE_THRESHOLD.WARM_UP, with its rolling reserve;
   5. the student's supervised losses on the strong view against the pseudo
      labels, with train-mode BN, times UNSUP_LOSS_WEIGHT; BPC logged at
-     weight 0; zero domain-classifier losses logged where the classifiers
-     are built;
-  6. SGD over the student and the domain classifiers;
-  7. the EMA teacher update every TEACHER_UPDATE_ITER steps (EMA variants).
+     weight 0;
+  6. the domain classifiers (`dc_losses`), where DOMAIN_CLASSIFIER.IMAGE or
+     INSTANCE weights them: the strong view's features as the source (0),
+     a weak-view student pass (train-mode BN, statistics left as they
+     were; the `_single` variant's weak features) as the target (1), each
+     loss behind GRL(-1) and times SEMISUPNET.DIS_LOSS_WEIGHT; zeros are
+     logged, and no pass made, for a classifier built but not weighted;
+  7. SGD over the student and the domain classifiers;
+  8. the EMA teacher update every TEACHER_UPDATE_ITER steps (EMA variants).
 
 Variants, by the JAX package's names:
   source_free_adaptive_teacher         teacher pseudo-labels, fixed teacher
@@ -45,13 +50,12 @@ both; AdaBN and PreciseBN work on the student's statistics. Every
 VIS_PERIOD steps of the loop the teacher's pseudo-labels of the step's
 first image go to TensorBoard.
 
-Not ported yet, and refused: STYLE.ENABLED (AdaIN style enhancement), and
-weighted domain-classifier losses (DOMAIN_CLASSIFIER.IMAGE or INSTANCE).
+Not ported yet, and refused: STYLE.ENABLED (AdaIN style enhancement).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,14 +65,15 @@ from ...checkpoint.from_jax import TeacherStudentWeights
 from ...data.loader import build_train_loader
 from ...data.transforms import StrongDraws, make_strong_draws, strong_augment_batch
 from ...models.backbones.resnet import FrozenBatchNorm2d
-from ...models.dann import DAInsHead, FCDiscriminatorImg, init_dc_weights
+from ...models.dann import DAInsHead, FCDiscriminatorImg, dropout_masks, gradient_scalar, init_dc_weights
 from ...models.detector import DetectionBatch, Detector
-from ...models.faster_rcnn import anchors_for, roi_pool_size
+from ...models.faster_rcnn import anchors_for, dc_image_feature, proposal_counts, roi_pool_size
+from ...ops.losses import masked_mean, sigmoid_ce
 from ...solver.build import build_optimizer
 from ...structures.instances import Instances
 from ..train_state import AdaptiveThresholdState, TeacherStudentState, ema_tensors, ema_update
 from . import register_trainer
-from .base import BaseTrainer, apply_weak_aug, float_state_dict, to_device
+from .base import BaseTrainer, float_state_dict, to_device, weak_flip
 
 # Cityscapes classes 0 (person) and 2 (car) are pinned to acc = 1 by the
 # reference's adaptive threshold: dominant classes whose counts would
@@ -83,11 +88,48 @@ class AdaptDraws(NamedTuple):
     strong: Optional[StrongDraws]  # the strong view's draws; None without WEAK_STRONG_AUGMENT
     rpn: torch.Tensor  # [B, N_anchors] float32: the student's RPN sampler priorities
     roi: torch.Tensor  # [B, pool] float32: its ROI sampler priorities
+    # the instance classifier's dropout keep masks (source call's two, then the
+    # target call's; bool [B * R, 1024], R the training proposals); None unless weighted
+    dropout: Optional[Tuple[torch.Tensor, ...]] = None
 
     def to(self, device) -> "AdaptDraws":
         """The draws on `device` (the strong view's CPU-side ones stay)."""
         strong = self.strong.to(device) if self.strong is not None else None
-        return AdaptDraws(self.flip.to(device), strong, self.rpn.to(device), self.roi.to(device))
+        dropout = tuple(t.to(device) for t in self.dropout) if self.dropout is not None else None
+        return AdaptDraws(self.flip.to(device), strong, self.rpn.to(device), self.roi.to(device), dropout)
+
+
+def dc_losses(
+    detector: Detector,
+    dc: Mapping[str, torch.nn.Module],
+    feat_s: torch.Tensor,
+    feat_t: torch.Tensor,
+    sizes: Tuple[torch.Tensor, torch.Tensor],
+    canvases: Tuple[Tuple[int, int], Tuple[int, int]],
+    keep: Optional[Sequence[torch.Tensor]],
+    image: bool,
+    instance: bool,
+) -> Dict[str, torch.Tensor]:
+    """The weighted domain classifiers' losses, unweighted, on a source
+    feature (label 0) and a target feature (label 1), each behind GRL(-1):
+    with `image`, loss_DC_img_s/_t, the image classifier's ("dc") mean BCE;
+    with `instance`, loss_DC_ins_s/_t, the instance classifier's ("dc_ins")
+    BCE over the box features of each image's training proposals
+    (`Detector.box_features_from_feature`), averaged over the valid ones,
+    in train mode on the keep masks `keep` (source's two, then target's).
+    `sizes` and `canvases` are (source, target)."""
+    cfg = detector.cfg
+    out = {}
+    if image:
+        for tag, feat, label in (("s", feat_s, 0.0), ("t", feat_t, 1.0)):
+            logits = dc["dc"](gradient_scalar(dc_image_feature(cfg, feat), -1.0))
+            out[f"loss_DC_img_{tag}"] = torch.mean(sigmoid_ce(logits, torch.full_like(logits, label)))
+    if instance:
+        for i, (tag, feat, label) in enumerate((("s", feat_s, 0.0), ("t", feat_t, 1.0))):
+            feats, valid = detector.box_features_from_feature(feat, sizes[i], canvases[i])
+            logits = dc["dc_ins"](gradient_scalar(feats, -1.0), keep[2 * i:2 * i + 2])[:, 0]
+            out[f"loss_DC_ins_{tag}"] = masked_mean(sigmoid_ce(logits, torch.full_like(logits, label)), valid)
+    return out
 
 
 class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
@@ -114,11 +156,9 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
             raise NotImplementedError("STYLE.ENABLED (AdaIN style enhancement) is not ported yet")
         self.dc_enabled = bool(cfg.DOMAIN_CLASSIFIER.ENABLED)
         self.ins_dc_enabled = self.dc_enabled and (bool(cfg.SEMISUPNET.INS_DC) or bool(cfg.DOMAIN_CLASSIFIER.INSTANCE))
-        if self.dc_enabled and (cfg.DOMAIN_CLASSIFIER.IMAGE or cfg.DOMAIN_CLASSIFIER.INSTANCE):
-            raise NotImplementedError(
-                "weighted domain-classifier losses (DOMAIN_CLASSIFIER.IMAGE / INSTANCE) are not ported yet; "
-                "the zero-weighted classifiers of the main configuration are"
-            )
+        # the classifiers whose losses are weighted (the rest log zeros)
+        self.dc_image = self.dc_enabled and bool(cfg.DOMAIN_CLASSIFIER.IMAGE)
+        self.dc_instance = self.ins_dc_enabled and bool(cfg.DOMAIN_CLASSIFIER.INSTANCE)
         if self.dc_enabled:
             from ...config.defaults import detector_config_from_cfg
 
@@ -136,6 +176,7 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         s = cfg.SEMISUPNET
         self.bbox_threshold = float(s.BBOX_THRESHOLD)
         self.unsup_w = float(s.UNSUP_LOSS_WEIGHT)
+        self.dis_w = float(s.DIS_LOSS_WEIGHT)
         self.keep_rate = float(s.EMA_KEEP_RATE)
         self.update_iter = max(int(s.TEACHER_UPDATE_ITER), 1)
         self.split_view_bn = bool(s.SPLIT_VIEW_BN)
@@ -250,7 +291,15 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
             strong=strong,
             rpn=torch.rand((batch_size, n), generator=g, device=dev),
             roi=torch.rand((batch_size, pool), generator=g, device=dev),
+            dropout=self._dropout_draws(batch_size, batch_size, n) if self.dc_instance else None,
         )
+
+    def _dropout_draws(self, source: int, target: int, num_anchors: int) -> Tuple[torch.Tensor, ...]:
+        """The instance classifier's keep masks: two for the source call on
+        `source` images' training proposals, then two for the target's."""
+        r = proposal_counts(self.det_cfg, num_anchors, True)[1]
+        g, dev = self.generator, self.device
+        return dropout_masks(source * r, 1, g, dev) + dropout_masks(target * r, 1, g, dev)
 
     # -- the step ------------------------------------------------------------
     def pseudo_pipeline(self, dets: Instances, step: int) -> Tuple[Instances, Dict[str, torch.Tensor]]:
@@ -293,12 +342,13 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         """`_single`: pseudo-labels from the student's own weak-view features.
         One fused train-mode pass over both views (BN statistics pooled over
         both, one running-statistics update), or under SPLIT_VIEW_BN two
-        passes, weak first (its features carry no gradient), each view by
-        its own statistics."""
+        passes, weak first (its features carry a gradient only for weighted
+        domain classifiers), each view by its own statistics. -> (total,
+        metrics, pseudo stats, strong features, weak features)."""
         model = self.detector.model
         b = images_w.shape[0]
         if self.split_view_bn:
-            with torch.no_grad():
+            with torch.set_grad_enabled(self.dc_image or self.dc_instance):
                 feat_w = model.features(images_w, train=True, update_bn=True)
             feat_s = model.features(images_s, train=True, update_bn=True)
         else:
@@ -310,37 +360,35 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         total, metrics = self.detector.losses_from_feature(
             feat_s, DetectionBatch(images_s, sizes, pseudo_gt), draws.rpn, draws.roi, with_bpc=True
         )
-        return total, metrics, pstats
+        return total, metrics, pstats, feat_s, feat_w
 
     def step_on_device(self, images: torch.Tensor, sizes: torch.Tensor, draws: AdaptDraws) -> Dict[str, torch.Tensor]:
         """One adaptation step on a batch already on the device: images
         [B, H, W, 3] (uint8 or float), sizes [B, 2] int32. Reads nothing back
         to the host. Returns the metrics (the losses suffixed `_pseudo`,
-        total_loss, num_pseudo, pseudo_mean_conf, and the zero DC losses
-        where built) as tensors on the device."""
+        total_loss, num_pseudo, pseudo_mean_conf, and the DC losses where
+        built, zeros where not weighted) as tensors on the device."""
         st = self.state
         images = images.to(torch.float32)
-        b = images.shape[0]
         dev = images.device
-        empty = Instances(
-            boxes=torch.zeros((b, 1, 4), dtype=torch.float32, device=dev),
-            scores=torch.zeros((b, 1), dtype=torch.float32, device=dev),
-            classes=torch.zeros((b, 1), dtype=torch.int32, device=dev),
-            valid=torch.zeros((b, 1), dtype=torch.bool, device=dev),
-        )
-        images_w, _ = apply_weak_aug(draws.flip, images, sizes, empty, self.flip)
+        images_w = weak_flip(draws.flip, images, sizes, self.flip)
         images_s = strong_augment_batch(images_w, sizes, draws.strong) if self.weak_strong else images_w
 
         for p in st.optimizer.params:
             p.grad = None
+        weighted = self.dc_image or self.dc_instance
         if self.pseudo_from_student:
-            total, metrics, pstats = self._single_losses(images_w, images_s, sizes, draws)
+            total, metrics, pstats, feat_s, feat_t = self._single_losses(images_w, images_s, sizes, draws)
         else:
             dets = self.teacher.pseudo_labels(images_w, sizes)
             pseudo_gt, pstats = self.pseudo_pipeline(dets, st.step)
-            total, metrics = self.detector.supervised_losses(
-                DetectionBatch(images_s, sizes, pseudo_gt), draws.rpn, draws.roi, with_bpc=True
+            model = self.detector.model
+            feat_s = model.features(images_s, train=True, update_bn=True)
+            total, metrics = self.detector.losses_from_feature(
+                feat_s, DetectionBatch(images_s, sizes, pseudo_gt), draws.rpn, draws.roi, with_bpc=True
             )
+            # the weak view's student pass for the classifiers: its statistics are discarded
+            feat_t = model.features(images_w, train=True, update_bn=False) if weighted else None
         metrics = {f"{k}_pseudo": v for k, v in metrics.items()}
         total = total * self.unsup_w
         zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -348,6 +396,14 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
             metrics["loss_DC_img_s"] = metrics["loss_DC_img_t"] = zero
         if self.ins_dc_enabled:
             metrics["loss_DC_ins_s"] = metrics["loss_DC_ins_t"] = zero
+        if weighted:
+            canvas = tuple(images.shape[1:3])
+            dc = dc_losses(self.detector, st.dc, feat_s, feat_t, (sizes, sizes), (canvas, canvas), draws.dropout,
+                           self.dc_image, self.dc_instance)
+            metrics.update(dc)
+            for kind in ("img", "ins"):
+                if f"loss_DC_{kind}_s" in dc:
+                    total = total + self.dis_w * (dc[f"loss_DC_{kind}_s"] + dc[f"loss_DC_{kind}_t"])
         total.backward()
         st.optimizer.step()
         if self.ema_enabled and st.step % self.update_iter == 0:

@@ -6,7 +6,9 @@ batch-statistics BatchNorm, through `InferenceModule`, the inference path
 as an `nn.Module` that `engine/export.py` exports; and the teacher's side of
 adaptation: `pseudo_labels`, a train-mode-BN forward that moves the running
 statistics and returns detections made under `torch.no_grad` (tensors that
-autograd may save, as the student's losses do with them), and `bn_update`."""
+autograd may save, as the student's losses do with them), and `bn_update`;
+and the box-head features of the training proposals that the
+instance-level domain classifiers take (`box_features_from_feature`)."""
 
 from __future__ import annotations
 
@@ -158,6 +160,28 @@ class Detector:
         return self.losses_from_feature(
             feature, batch, rpn_priorities, roi_priorities, loss_weights=loss_weights, with_bpc=with_bpc
         )
+
+    def box_features_from_feature(
+        self, feature: torch.Tensor, sizes: torch.Tensor, canvas_hw: Tuple[int, int]
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Box-head features of the post-NMS training proposals on a backbone
+        feature [B, C, h, w], for the instance-level domain classifier:
+        (features [B*R, fc_dim], valid [B*R]). Gradients reach the backbone
+        and the box head, not the proposal boxes (made under no_grad: the
+        supervised path detaches them too)."""
+        cfg = self.cfg
+        with torch.no_grad():
+            anchors = anchors_for(cfg, canvas_hw, feature.device)
+            proposals = propose(cfg, anchors, self.model.rpn(feature), sizes, training=True)
+        feats = self.model.box_feature(pool_rois(cfg, feature, proposals.boxes))
+        return feats, proposals.valid.reshape(-1)
+
+    def box_features(self, images, sizes) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`box_features_from_feature` on the eval-mode BatchNorm features of
+        images [B, H, W, 3]."""
+        images = self._tensor(images)
+        feature = self.model.features(images, train=False)
+        return self.box_features_from_feature(feature, self._tensor(sizes, torch.int32), tuple(images.shape[1:3]))
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         if isinstance(x, np.ndarray):

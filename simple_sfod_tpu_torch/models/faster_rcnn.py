@@ -191,6 +191,13 @@ class FasterRCNN(nn.Module):
         with self._autocast(pooled.device):
             return self.roi_heads.box_predictor(self.roi_heads.box_head(pooled))
 
+    def box_feature(self, pooled: torch.Tensor) -> torch.Tensor:
+        """pooled [N, C, P, P] -> the box head's feature [N, fc_dim] (the
+        predictor's input, which the instance-level domain classifiers
+        take), in the autocast dtype."""
+        with self._autocast(pooled.device):
+            return self.roi_heads.box_head(pooled)
+
 
 @torch.no_grad()
 def init_weights(model: FasterRCNN, seed: int) -> FasterRCNN:
@@ -440,6 +447,12 @@ def pool_rois(cfg: DetectorConfig, feature: torch.Tensor, boxes: torch.Tensor) -
     """feature [B, C, h, w], boxes [B, R, 4] -> pooled [B*R, C, P, P]."""
     pooled = roi_align(feature, boxes, 1.0 / cfg.stride, cfg.pooler_resolution, cfg.pooler_sampling_ratio)
     return pooled.flatten(0, 1)
+
+
+def dc_image_feature(cfg: DetectorConfig, feature: torch.Tensor) -> torch.Tensor:
+    """The map the image-level domain classifiers take: the single-level
+    backbone's feature itself (FPN is not ported)."""
+    return feature
 
 
 def roi_inference(

@@ -335,3 +335,35 @@ def test_cuda_export_round_trip_equals_eager(cuda, tmp_path):
             else:
                 torch.testing.assert_close(got["boxes"], want.boxes, rtol=1e-5, atol=1e-2)
                 torch.testing.assert_close(got["scores"], want.scores, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", list(chip_smoke.DA_KINDS))
+def test_domain_adversarial_step_card_matches_cpu(cuda, kind):
+    """One float32 step of da, cda (ENTROPY_CONDITIONING), adaptive_teacher
+    (the boundary step, with the instance classifier) and the source-free
+    step with both classifiers weighted, on the card against the CPU at
+    128x256 on the same draws and dropout masks: chip_smoke's tolerances."""
+    err = chip_smoke.da_card_vs_cpu(kind)
+    assert chip_smoke.card_step_ok(err), err
+
+
+@pytest.mark.parametrize("kind", list(chip_smoke.DA_KINDS))
+def test_domain_adversarial_step_launches_as_counted(cuda, tmp_path, kind):
+    """A step at batch 1 + 1 and 256x512 launches each NMS kernel as
+    counted from the code (3 for da/cda, 7 for adaptive_teacher with the
+    instance classifier, 5 for the weighted source-free step), with finite
+    losses and nothing read back (set_sync_debug_mode("error"))."""
+    cfg = chip_smoke.da_cfg(kind, str(tmp_path), canvas=(256, 512))
+    tr = chip_smoke.build_trainer(cfg, state_dict=chip_smoke.da_weights(chip_smoke.detector_config_from_cfg(cfg)))
+    args, kw, _ = chip_smoke.da_step_args(tr, kind, (256, 512), (250, 500))
+    tr.run_step(*args, **kw)
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = tr.run_step(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = chip_smoke.da_launches_per_step(kind, cfg)
+    assert _kernels.LAUNCHES == {"suppress_relation_bits": want, "greedy_keep_from_bits": want}
+    assert all(torch.isfinite(v) for k, v in metrics.items() if k.startswith("loss"))

@@ -67,6 +67,7 @@ def test_package_files_were_scanned():
     assert "models/backbones/resnet.py" in names
     assert {"tools/sim10k_to_coco.py", "tools/kitti_to_coco.py"} <= names
     assert {"engine/export.py", "tools/export_model.py", "tools/serve_model.py", "utils/bench.py"} <= names
+    assert {"models/dann.py", "engine/trainers/da.py", "engine/trainers/adaptive_teacher.py"} <= names
 
 
 def _build_sources():
