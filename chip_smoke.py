@@ -97,7 +97,9 @@ Phases (each prints one progress line with its wall time):
               from the code. The restored state equals model_final.pth bit
               for bit; run 2 resumes to MAX_ITER 32; run 3 is stopped by
               SIGTERM after its first metrics line, saves model_preempt_*,
-              exits 0 and resumes for 4 steps. In the script: AdaBN on the
+              exits 0 and resumes for 4 steps (run 3 beside run 1, run 2
+              beside AdaBN and the determinism runs: nothing timed runs
+              beside a process of its own). In the script: AdaBN on the
               base trainer (16 batches: statistics moved from reset,
               adabn.pth, eval_results.json); two 4-step loops against one
               saved and resumed after step 2 (the resumed run within the
@@ -108,7 +110,7 @@ Phases (each prints one progress line with its wall time):
  12. r101     ResNet-101 C4 (full depth, seeded weights): features and
               detections on the card against the CPU's at 128x256 (FC_DIM
               64, float32) for NORM BN in eval and train mode and FrozenBN;
-              AdaBN from the CLI in a process of its own
+              AdaBN from the CLI in a process of its own, beside those cells
               (train_net_mt --eval-only on configs/r_101_c4_cs_foggy_adabn.yaml,
               the cli phase's 1024x2048 PNG datasets, a seeded R101 .pth,
               the refinement cut to 8 batches and each TEST set to 4 frames):
@@ -143,8 +145,11 @@ Phases (each prints one progress line with its wall time):
               the _mosaic_wq_new YAML through `python -m
               simple_sfod_tpu_torch.tools.train_net` (8 steps, test() at
               8, launches as counted); the 5-stage run_workflow_synthetic
-              at --iters 1000 --retrain-iters 150 (every stage exits 0,
-              a nonzero splice; AP/AP50 and wall of each stage)
+              at --iters 1000 --retrain-iters 50 --adabn-batches 64 (stages
+              4 and 5 cut from 150, stage 2's AdaBN from 1400 batches;
+              every stage exits 0, a nonzero splice; AP/AP50 and wall of
+              each stage), beside the WQ CLI, the NMS checks and the ops
+              against the CPU, after the timed runs
  14. car      the paper's car-only source domains: the committed JPEG
               fixtures (tests/torch_jpeg/) decoded by the port's baseline
               decoder bit-equal to libjpeg-turbo's recorded SHA-256, the
@@ -165,7 +170,8 @@ Phases (each prints one progress line with its wall time):
               train_net_mt on its _to_cityscapes_source_free YAML from that
               model_final (1 class into 8: cls_score and bbox_pred skipped
               and nothing else; 4 steps, test() through the car-only
-              remap): exit 0, finite losses in metrics.json, finite AP/AP50
+              remap; both domains' CLIs at once, after the timed runs,
+              beside the NMS checks): exit 0, finite losses in metrics.json, finite AP/AP50
               in eval_results.json, launches as counted from the code; and
               test() images/s of the Sim10k source model
  15. export   the detector as a standalone artifact: seeded weights (the
@@ -361,6 +367,31 @@ class Phase:
     def __exit__(self, exc_type, exc, tb):
         if exc_type is None:
             log(f"[phase] {self.name}: ok in {time.perf_counter() - self.t0:.2f} s")
+
+
+class Background(threading.Thread):
+    """fn(*args) on a thread of its own: a CLI run in another process that
+    overlaps what this process does meanwhile (work whose time is not
+    measured). result() joins it and returns fn's value or raises its
+    exception; a phase's `finally` joins it, so no process outlives it."""
+
+    def __init__(self, fn, *args):
+        super().__init__(daemon=True)
+        self._call, self._value, self._exc = (fn, args), None, None
+        self.start()
+
+    def run(self):
+        fn, args = self._call
+        try:
+            self._value = fn(*args)
+        except BaseException as e:  # re-raised by result()
+            self._exc = e
+
+    def result(self):
+        self.join()
+        if self._exc is not None:
+            raise self._exc
+        return self._value
 
 
 def nvidia_smi_line() -> str:
@@ -861,19 +892,31 @@ def png_bytes(rgb: np.ndarray, level: int = 1) -> bytes:
     return native_codec.PNG_MAGIC + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + chunk(b"IEND", b"")
 
 
+# the frames of write_eval_dataset by (n, hw, seed): (records, [(file name,
+# PNG bytes)], the first image), encoded once and written by every phase
+# that asks for the same frames
+_FRAMES = {}
+
+
 def write_eval_dataset(root: str, n: int, hw, seed: int = SEED):
     """n synthetic records of size hw (1..6 boxes of Cityscapes' 8 classes),
     rendered as the loader's synthetic images, written as PNG files with a
     COCO JSON (category ids 1..8) under root. -> (JSON path, records, the
     first image as written, RGB uint8)."""
-    recs = make_synthetic_records(n, tuple(hw), len(CITYSCAPES_THING_CLASSES), 6, seed=seed)
-    images, anns, first = [], [], None
-    for r in recs:
-        rgb = np.clip(synthetic_image(r), 0, 255).astype(np.uint8)
-        first = rgb if first is None else first
-        fname = f"frame_{r['image_id']:04d}.png"
+    key = (n, tuple(hw), seed)
+    if key not in _FRAMES:
+        recs = make_synthetic_records(n, tuple(hw), len(CITYSCAPES_THING_CLASSES), 6, seed=seed)
+        files, first = [], None
+        for r in recs:
+            rgb = np.clip(synthetic_image(r), 0, 255).astype(np.uint8)
+            first = rgb if first is None else first
+            files.append((f"frame_{r['image_id']:04d}.png", png_bytes(rgb)))
+        _FRAMES[key] = recs, files, first
+    recs, files, first = _FRAMES[key]
+    images, anns = [], []
+    for r, (fname, data) in zip(recs, files):
         with open(os.path.join(root, fname), "wb") as f:
-            f.write(png_bytes(rgb))
+            f.write(data)
         images.append({"id": r["image_id"], "file_name": fname, "height": hw[0], "width": hw[1]})
         for box, cls in zip(r["boxes"], r["classes"]):
             x1, y1, x2, y2 = box
@@ -1200,6 +1243,40 @@ def timed_loop(tr, window):
 
 
 
+def sigterm_run(out: str, weights: str, vis: int, data_root: str, log_path: str) -> tuple:
+    """Run 3 of the cli phase: train_net_mt stopped by SIGTERM after its
+    first metrics line (it must save model_preempt_* and exit 0), then
+    --resume for 4 steps. -> (the stopped run's output, its marker, the
+    step it stopped at, and run_cli's (stdout, wall s, launches) of the
+    resume)."""
+    argv = cli_argv(out, weights, vis, "SOLVER.MAX_ITER", "100000")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_f:
+        proc = subprocess.Popen(cli_cmd(argv), cwd=ROOT, env=cli_env(data_root), stdout=log_f,
+                                stderr=subprocess.STDOUT)
+        try:
+            while not metrics_lines(out):
+                check(proc.poll() is None, f"run 3 ended before its first metrics line: rc {proc.returncode}")
+                check(time.perf_counter() - t0 < CLI_TIMEOUT_S, "run 3: no metrics line in time")
+                time.sleep(0.1)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=CLI_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log_path) as f:
+        stopped_out = f.read()
+    check(rc == 0, f"run 3 after SIGTERM: exit code {rc}\n{stopped_out[-3000:]}")
+    with open(os.path.join(out, "last_checkpoint")) as f:
+        marker = f.read()
+    check(marker.startswith("model_preempt_") and os.path.exists(os.path.join(out, marker)), f"run 3 marker {marker}")
+    stopped = int(marker[len("model_preempt_"):-len(".pth")]) + 1
+    resumed = run_cli(cli_argv(out, weights, vis, "SOLVER.MAX_ITER", str(stopped + 4), flags=("--resume",)),
+                      data_root, "run 3 resume")
+    return stopped_out, marker, stopped, resumed
+
+
 def cli_phase(smi: str, adapt_step_ms: dict) -> dict:
     """The cli phase (module docstring); `adapt_step_ms` the adapt phase's
     step medians by run. -> the NMS launches of the path."""
@@ -1214,6 +1291,7 @@ def cli_phase(smi: str, adapt_step_ms: dict) -> dict:
     data_root = os.path.join(root, "datasets")
     weights = os.path.join(root, "source.pth")
     cli_launch_total = {k: 0 for k in _kernels.LAUNCHES}
+    background = []
 
     def add_launches(d):
         for k in cli_launch_total:
@@ -1226,7 +1304,11 @@ def cli_phase(smi: str, adapt_step_ms: dict) -> dict:
         log(f"  wrote {CLI_TRAIN_FRAMES} {FRAME_HW[0]}x{FRAME_HW[1]} PNG frames, 3 COCO JSONs and {weights} in "
             f"{time.perf_counter() - t0:.2f} s")
 
-        # run 1: adapt, evaluate, checkpoint
+        # run 3 (SIGTERM after its first metrics line, then --resume) in the
+        # background, beside run 1 (adapt, evaluate, checkpoint)
+        out3 = os.path.join(root, "run3")
+        run3 = Background(sigterm_run, out3, weights, vis, data_root, os.path.join(root, "run3.log"))
+        background.append(run3)
         out1 = os.path.join(root, "run1")
         argv1 = cli_argv(out1, weights, vis)
         stdout, wall, got = run_cli(argv1, data_root, "run 1")
@@ -1258,6 +1340,17 @@ def cli_phase(smi: str, adapt_step_ms: dict) -> dict:
             ", ".join(f"{k.rsplit('/', 1)[0]} {lines[1][k]:.4f}" for k in sorted(ap_keys)) +
             f"; checkpoints {names}; launches {got} (expected {want})")
 
+        stopped_out, marker, stopped, (stdout, wall, got) = run3.result()
+        add_launches(cli_launches(stopped_out))
+        add_launches(got)
+        check(f"resumed from {marker} at iteration {stopped}" in stdout, "run 3 did not resume from its preempt file")
+        check(metrics_lines(out3)[-1]["iteration"] == stopped + 3, "run 3 resume did not reach its MAX_ITER")
+        log(f"  run 3 (SIGTERM after the first metrics line, beside run 1) [{smi}]: rc 0, {marker} at {stopped} "
+            f"steps, resumed for 4 steps in {wall:.2f} s")
+        for f in os.listdir(out3):
+            if f.endswith(".pth"):
+                os.remove(os.path.join(out3, f))
+
         # the restored state equals model_final.pth bit for bit
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1281,58 +1374,11 @@ def cli_phase(smi: str, adapt_step_ms: dict) -> dict:
             f"write {save['write_s']:.2f} s on its thread, {save['bytes'] / 2**20:.1f} MiB")
         del tr, saved, restored
 
-        # run 2: --resume to 32
-        stdout, wall, got = run_cli(cli_argv(out1, weights, vis, "SOLVER.MAX_ITER", "32", flags=("--resume",)),
-                                    data_root, "run 2")
-        add_launches(got)
-        check("[checkpoint] resumed from model_final.pth at iteration 24" in stdout, "run 2 did not resume at 24")
-        lines = metrics_lines(out1)
-        check([m["iteration"] for m in lines] == [19, 23, 31], f"run 2 metrics iterations {[m['iteration'] for m in lines]}")
-        names = sorted(f for f in os.listdir(out1) if f.endswith(".pth"))
-        check("model_0000031.pth" in names, f"run 2 checkpoints {names}")
-        want = expected_cli_launches(8, 1, 0, 1 if vis else 0)
-        check(all(c == want for c in got.values()), f"run 2 launches {got}, expected {want} of each")
-        log(f"  run 2 (--resume, to 32) [{smi}]: rc 0 in {wall:.2f} s, iterations 24-31, final test(); launches {got}")
-        for f in names:
-            os.remove(os.path.join(out1, f))
-
-        # run 3: SIGTERM after the first metrics line, then --resume
-        out3 = os.path.join(root, "run3")
-        argv3 = cli_argv(out3, weights, vis, "SOLVER.MAX_ITER", "100000")
-        log_path = os.path.join(root, "run3.log")
-        t0 = time.perf_counter()
-        with open(log_path, "w") as log_f:
-            proc = subprocess.Popen(cli_cmd(argv3), cwd=ROOT, env=cli_env(data_root), stdout=log_f,
-                                    stderr=subprocess.STDOUT)
-            try:
-                while not metrics_lines(out3):
-                    check(proc.poll() is None, f"run 3 ended before its first metrics line: rc {proc.returncode}")
-                    check(time.perf_counter() - t0 < CLI_TIMEOUT_S, "run 3: no metrics line in time")
-                    time.sleep(0.1)
-                proc.send_signal(signal.SIGTERM)
-                rc = proc.wait(timeout=CLI_TIMEOUT_S)
-            finally:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        with open(log_path) as f:
-            stdout = f.read()
-        check(rc == 0, f"run 3 after SIGTERM: exit code {rc}\n{stdout[-3000:]}")
-        add_launches(cli_launches(stdout))
-        with open(os.path.join(out3, "last_checkpoint")) as f:
-            marker = f.read()
-        check(marker.startswith("model_preempt_") and os.path.exists(os.path.join(out3, marker)), f"run 3 marker {marker}")
-        stopped = int(marker[len("model_preempt_"):-len(".pth")]) + 1
-        stdout, wall, got = run_cli(cli_argv(out3, weights, vis, "SOLVER.MAX_ITER", str(stopped + 4), flags=("--resume",)),
-                                    data_root, "run 3 resume")
-        add_launches(got)
-        check(f"resumed from {marker} at iteration {stopped}" in stdout, "run 3 did not resume from its preempt file")
-        check(metrics_lines(out3)[-1]["iteration"] == stopped + 3, "run 3 resume did not reach its MAX_ITER")
-        log(f"  run 3 (SIGTERM after the first metrics line) [{smi}]: rc 0, {marker} at {stopped} steps, resumed for "
-            f"4 steps in {wall:.2f} s")
-        for f in os.listdir(out3):
-            if f.endswith(".pth"):
-                os.remove(os.path.join(out3, f))
+        # run 2 (--resume to 32) in the background, beside AdaBN and the
+        # determinism runs in this process; the timed loops run after it
+        run2 = Background(run_cli, cli_argv(out1, weights, vis, "SOLVER.MAX_ITER", "32", flags=("--resume",)),
+                          data_root, "run 2")
+        background.append(run2)
 
         # in this process: the datasets, then AdaBN on the base trainer
         register_cli_datasets(data_root)
@@ -1389,6 +1435,20 @@ def cli_phase(smi: str, adapt_step_ms: dict) -> dict:
         check(gens and resumed <= 2 * spread, f"resumed run off by {resumed}, spread {spread}")
         del finals
 
+        stdout, wall, got = run2.result()
+        add_launches(got)
+        check("[checkpoint] resumed from model_final.pth at iteration 24" in stdout, "run 2 did not resume at 24")
+        lines = metrics_lines(out1)
+        check([m["iteration"] for m in lines] == [19, 23, 31], f"run 2 metrics iterations {[m['iteration'] for m in lines]}")
+        names = sorted(f for f in os.listdir(out1) if f.endswith(".pth"))
+        check("model_0000031.pth" in names, f"run 2 checkpoints {names}")
+        want = expected_cli_launches(8, 1, 0, 1 if vis else 0)
+        check(all(c == want for c in got.values()), f"run 2 launches {got}, expected {want} of each")
+        log(f"  run 2 (--resume, to 32, beside AdaBN and the determinism runs) [{smi}]: rc 0 in {wall:.2f} s, "
+            f"iterations 24-31, final test(); launches {got}")
+        for f in names:
+            os.remove(os.path.join(out1, f))
+
         # the loop's time a step, from disk and from a repeated batch
         loop = {}
         torch.cuda.reset_peak_memory_stats()
@@ -1415,6 +1475,8 @@ def cli_phase(smi: str, adapt_step_ms: dict) -> dict:
                 "one copy a tensor)")
         log(f"  peak memory over the two loops [{smi}]: {peak_loop:.2f} GiB")
     finally:
+        for b in background:
+            b.join()
         cli_dir.cleanup()
     log(f"  launches on the cli path: {cli_launch_total}")
     return cli_launch_total
@@ -1531,8 +1593,8 @@ def r101_card_vs_cpu(smi: str) -> None:
 def r101_phase(smi: str):
     """The r101 phase (module docstring). -> (launches of each kernel on the
     path, kernel rows on the SFAT step's three NMS inputs)."""
-    r101_card_vs_cpu(smi)
     total = {k: 0 for k in _kernels.LAUNCHES}
+    background = []
 
     def add(d):
         for k in total:
@@ -1542,7 +1604,8 @@ def r101_phase(smi: str):
     root = tmp.name
     data_root = os.path.join(root, "datasets")
     try:
-        # AdaBN from the CLI, in a process of its own
+        # AdaBN from the CLI, in a process of its own, beside the card-vs-CPU
+        # cells of this process
         t0 = time.perf_counter()
         write_cli_datasets(data_root)
         weights = os.path.join(root, "r101_source.pth")
@@ -1556,10 +1619,17 @@ def r101_phase(smi: str):
         out = os.path.join(root, "adabn")
         argv = ["--config-file", os.path.join(ROOT, R101_ADABN_YAML), "--eval-only", "--adabn-batches",
                 str(R101_ADABN_BATCHES), "MODEL.WEIGHTS", weights, "OUTPUT_DIR", out, "SEED", "0", "VIS_PERIOD", "0"]
-        t0 = time.perf_counter()
-        res = subprocess.run(cli_cmd(argv), cwd=ROOT, env=cli_env(data_root), capture_output=True, text=True,
-                             timeout=CLI_TIMEOUT_S)
-        wall = time.perf_counter() - t0
+
+        def adabn_cli():
+            t0 = time.perf_counter()
+            res = subprocess.run(cli_cmd(argv), cwd=ROOT, env=cli_env(data_root), capture_output=True, text=True,
+                                 timeout=CLI_TIMEOUT_S)
+            return res, time.perf_counter() - t0
+
+        cli = Background(adabn_cli)
+        background.append(cli)
+        r101_card_vs_cpu(smi)  # meanwhile, in this process
+        res, wall = cli.result()
         check(res.returncode == 0, f"R101 AdaBN CLI: exit code {res.returncode}\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
         got = cli_launches(res.stdout)
         add(got)
@@ -1717,6 +1787,8 @@ def r101_phase(smi: str):
             f"; stem, res2 and 376 FrozenBN buffers bit-identical; peak memory {peak:.2f} GiB; launches {got}")
         del tr
     finally:
+        for b in background:
+            b.join()
         tmp.cleanup()
     log(f"  launches on the r101 path: {total}")
     return total, r101_rows
@@ -1739,8 +1811,9 @@ WQ_OPS_CANVAS = (128, 256)
 WARP_IMAGE_TOL = 1e-4 * 255
 WARP_BOX_TOL = 1e-3
 # the 5-stage workflow on the card: the JAX package's recorded run (WORKFLOWS.md
-# section 10), uncut
-WORKFLOW_ARGS = ["--iters", "1000", "--retrain-iters", "150"]
+# section 10) with stages 4 and 5 cut from 150 iterations to 50 and stage 2's
+# AdaBN from 1400 batches to 64 (eight passes over its 16 images)
+WORKFLOW_ARGS = ["--iters", "1000", "--retrain-iters", "50", "--adabn-batches", "64"]
 FOGGY_TRAIN = "cityscapes_instancesonly_foggy_train_foggy_beta_0.02"
 SPLICED = "cityscapes_instancesonly_foggy_train_adabn"
 
@@ -1877,13 +1950,8 @@ def wq_run(cfg, smi: str, label: str) -> dict:
 def wq_phase(smi: str):
     """The wq phase (module docstring). -> the launches of each kernel on
     the path."""
-    err = wq_ops_card_vs_cpu()
-    log(f"  card vs CPU at {WQ_OPS_CANVAS[0]}x{WQ_OPS_CANVAS[1]}, 4 images, content < canvas (max image / box "
-        f"difference, masks equal): " + "; ".join(f"{k} {e[0]:.3g} / {e[1]:.3g} / {e[2]}" for k, e in err.items()) +
-        f" (mosaic and mixup held to 0, the warp to {WARP_IMAGE_TOL:.4g} / {WARP_BOX_TOL:g})")
-    check(wq_ops_ok(err), f"mosaic/mixup/affine on the card differ from the CPU's: {err}")
-
     total = {k: 0 for k in _kernels.LAUNCHES}
+    background = []
 
     def add(d):
         for k in total:
@@ -1932,23 +2000,21 @@ def wq_phase(smi: str):
             check(cfg.DATASETS.TRAIN == (SPLICED,), f"{label}: DATASETS.TRAIN {cfg.DATASETS.TRAIN}")
             captured[label] = wq_run(cfg, smi, label)
         add(dict(_kernels.LAUNCHES))
-        # each run's first-step NMS inputs (the train-mode RPN of each image):
-        # kernels against the plain versions, after the count was taken
-        for label, calls in captured.items():
-            check(len(calls) == 4, f"{label}: {len(calls)} NMS calls captured in a step")
-            kept = [check_kernels_against_plain(b, s, v, thr, f"{label} image {i}", cpu=i == 0)
-                    for i, (b, s, v, thr) in enumerate(calls)]
-            log(f"  {label}: the step's 4 RPN NMS inputs (N {[int(c[0].shape[0]) for c in calls]}), kernels bit-equal "
-                f"to the plain versions, kept {kept}")
+
+        # the 5-stage workflow through the port's CLIs, in the background
+        # beside the WQ CLI and the checks below, which are not timed
+        t0 = time.perf_counter()
+        workflow = Background(run_workflow_synthetic.main, ["--root", os.path.join(root, "workflow"), *WORKFLOW_ARGS])
+        background.append(workflow)
 
         # one YAML through the CLI
         out = os.path.join(root, "cli")
         argv = ["--config-file", os.path.join(ROOT, WQ_YAML.format(WQ_CLI_AUG)), *WQ_OPTS, "MODEL.WEIGHTS", weights,
                 "OUTPUT_DIR", out, "SOLVER.MAX_ITER", str(WQ_CLI_ITERS), "TEST.EVAL_PERIOD", str(WQ_CLI_ITERS)]
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         res = subprocess.run([sys.executable, "-m", "simple_sfod_tpu_torch.tools.train_net", *argv], cwd=ROOT,
                              env=cli_env(data_root), capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
-        cli_s = time.perf_counter() - t0
+        cli_s = time.perf_counter() - t1
         check(res.returncode == 0, f"WQ CLI: exit code {res.returncode}\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
         got = cli_launches(res.stdout)
         add(got)
@@ -1967,21 +2033,36 @@ def wq_phase(smi: str):
             f"{cli_s:.2f} s, total loss {lines[-1]['total_loss']:.4f}, AP50 "
             f"{[round(v['AP50'], 4) for v in ev.values()]}, launches {got}")
 
-        # the 5-stage workflow through the port's CLIs
-        t0 = time.perf_counter()
-        wf = run_workflow_synthetic.main(["--root", os.path.join(root, "workflow"), *WORKFLOW_ARGS])
+        # each run's first-step NMS inputs (the train-mode RPN of each image):
+        # kernels against the plain versions, after the count was taken
+        for label, calls in captured.items():
+            check(len(calls) == 4, f"{label}: {len(calls)} NMS calls captured in a step")
+            kept = [check_kernels_against_plain(b, s, v, thr, f"{label} image {i}", cpu=i == 0)
+                    for i, (b, s, v, thr) in enumerate(calls)]
+            log(f"  {label}: the step's 4 RPN NMS inputs (N {[int(c[0].shape[0]) for c in calls]}), kernels bit-equal "
+                f"to the plain versions, kept {kept}")
+        err = wq_ops_card_vs_cpu()
+        log(f"  card vs CPU at {WQ_OPS_CANVAS[0]}x{WQ_OPS_CANVAS[1]}, 4 images, content < canvas (max image / box "
+            f"difference, masks equal): " + "; ".join(f"{k} {e[0]:.3g} / {e[1]:.3g} / {e[2]}" for k, e in err.items()) +
+            f" (mosaic and mixup held to 0, the warp to {WARP_IMAGE_TOL:.4g} / {WARP_BOX_TOL:g})")
+        check(wq_ops_ok(err), f"mosaic/mixup/affine on the card differ from the CPU's: {err}")
+
+        wf = workflow.result()
         wf_s = time.perf_counter() - t0
         n_wf = wf.summary["3_splice"]["pseudo_annotations"]
         check(n_wf > 0 and len(wf.summary) == 5, f"workflow summary {wf.summary}")
         for d in wf.launches.values():
             add(d)
-        log(f"  run_workflow_synthetic {' '.join(WORKFLOW_ARGS)} [{smi}]: {wf_s:.2f} s, every stage exit 0, "
+        log(f"  run_workflow_synthetic {' '.join(WORKFLOW_ARGS)} (beside the WQ CLI and the checks) [{smi}]: "
+            f"{wf_s:.2f} s, every stage exit 0, "
             f"{n_wf} pseudo-GT boxes spliced")
         for stage, wall in wf.walls.items():
             s = wf.summary[stage]
             ap = ", ".join(f"{k} {v}" for k, v in s.items())
             log(f"    {stage}: {ap}; {wall:.2f} s")
     finally:
+        for b in background:
+            b.join()
         tmp.cleanup()
     log(f"  launches on the wq path: {total}")
     return total
@@ -2266,6 +2347,7 @@ def car_phase(smi: str):
     jpeg_dec, jpeg_both = decode_resize_ms(frame)
     total = {k: 0 for k in _kernels.LAUNCHES}
     numbers = {"jpeg_decode_ms": jpeg_dec, "jpeg_decode_resize_ms": jpeg_both}
+    background = []
 
     def add(d):
         for k in total:
@@ -2311,12 +2393,38 @@ def car_phase(smi: str):
             numbers[dom] = nums
             add(dict(_kernels.LAUNCHES))
             log("  " + line)
-            # the source YAML through train_net, test() on cityscapes_car_val at the end
+
+        def chain(dom: str, spec: dict) -> tuple:
+            """The source YAML through train_net (test() on cityscapes_car_val
+            at the end), then source-free adaptation from its model_final (1
+            class into the YAML's 8) through train_net_mt. -> each run's
+            output directory and car_cli's (stdout, wall s, launches)."""
             src_out = os.path.join(root, dom + "_source")
             argv = ["--config-file", os.path.join(ROOT, spec["source"]), *CAR_OPTS, "MODEL.WEIGHTS", w1,
                     "OUTPUT_DIR", src_out, "SOLVER.IMS_PER_BATCH", str(CAR_BATCH), "SOLVER.MAX_ITER", str(CAR_ITERS),
                     "TEST.EVAL_PERIOD", str(CAR_ITERS)]
-            stdout, wall, got = car_cli("train_net", argv, data_root, f"{dom} train_net")
+            src = car_cli("train_net", argv, data_root, f"{dom} train_net")
+            ad_out = os.path.join(root, dom + "_adapt")
+            argv = ["--config-file", os.path.join(ROOT, spec["adapt"]), *CAR_OPTS,
+                    *[x for kv in ADAPT_CUTS.items() for x in kv],
+                    "MODEL.WEIGHTS", os.path.join(src_out, "model_final.pth"), "OUTPUT_DIR", ad_out,
+                    "SOLVER.MAX_ITER", str(CAR_ITERS), "TEST.EVAL_PERIOD", str(CAR_ITERS)]
+            return src_out, src, ad_out, car_cli("train_net_mt", argv, data_root, f"{dom} train_net_mt")
+
+        # both domains' CLIs at once, in processes of their own, beside the
+        # NMS checks of this process (not timed)
+        t0 = time.perf_counter()
+        chains = {dom: Background(chain, dom, spec) for dom, spec in CAR_DOMAINS.items()}
+        background.extend(chains.values())
+        # the first timed step's RPN NMS inputs: kernels against the plain versions
+        for dom, calls in captured.items():
+            check(len(calls) == CAR_BATCH, f"{dom}: {len(calls)} NMS calls captured in a step")
+            kept = [check_kernels_against_plain(b, s, v, thr, f"{dom} image {i}", cpu=i == 0)
+                    for i, (b, s, v, thr) in enumerate(calls)]
+            log(f"  {dom}: the step's {CAR_BATCH} RPN NMS inputs (N {[int(c[0].shape[0]) for c in calls]}), kernels "
+                f"bit-equal to the plain versions, kept {kept}")
+        for dom, spec in CAR_DOMAINS.items():
+            src_out, (stdout, wall, got), ad_out, (ad_stdout, ad_wall, ad_got) = chains[dom].result()
             add(got)
             # CAR_BATCH a step (train-mode RPN), 2 an image in test() (RPN,
             # detection), 1 for the validation loss's one image (TEST.VAL_LOSS)
@@ -2325,24 +2433,18 @@ def car_phase(smi: str):
             last, res = check_car_run(src_out, f"{dom} train_net", CAR_ITERS, ["cityscapes_car_val"])
             log(f"  train_net {spec['source']} ({CAR_ITERS} steps at batch {CAR_BATCH}, test() at {CAR_ITERS}) "
                 f"[{smi}]: {wall:.2f} s, total loss {last['total_loss']:.4f}, (AP, AP50) {res}, launches {got}")
-            # source-free adaptation from that model_final (1 class into the YAML's 8)
-            ad_out = os.path.join(root, dom + "_adapt")
-            argv = ["--config-file", os.path.join(ROOT, spec["adapt"]), *CAR_OPTS,
-                    *[x for kv in ADAPT_CUTS.items() for x in kv],
-                    "MODEL.WEIGHTS", os.path.join(src_out, "model_final.pth"), "OUTPUT_DIR", ad_out,
-                    "SOLVER.MAX_ITER", str(CAR_ITERS), "TEST.EVAL_PERIOD", str(CAR_ITERS)]
-            stdout, wall, got = car_cli("train_net_mt", argv, data_root, f"{dom} train_net_mt")
-            add(got)
-            check(skipped_keys(stdout) == CAR_SKIPPED, f"{dom} train_net_mt: skipped {skipped_keys(stdout)}")
+            add(ad_got)
+            check(skipped_keys(ad_stdout) == CAR_SKIPPED, f"{dom} train_net_mt: skipped {skipped_keys(ad_stdout)}")
             # 3 an adaptation step, 2 an image and model (student, teacher) in
             # test(), 1 for the validation loss's one image
             want = 3 * CAR_ITERS + 2 * 2 * CAR_TEST_FRAMES + 1
-            check(all(c == want for c in got.values()), f"{dom} train_net_mt: launches {got}, expected {want}")
+            check(all(c == want for c in ad_got.values()), f"{dom} train_net_mt: launches {ad_got}, expected {want}")
             last, res = check_car_run(ad_out, f"{dom} train_net_mt", CAR_ITERS,
                                       ["cityscapes_car_val/student", "cityscapes_car_val/teacher"])
             log(f"  train_net_mt {spec['adapt']} from its model_final ({CAR_ITERS} steps, test() at {CAR_ITERS}) "
-                f"[{smi}]: {wall:.2f} s, skipped {sorted(skipped_keys(stdout))} (1 class into 8), total loss "
-                f"{last['total_loss']:.4f}, car-only remap (AP, AP50) {res}, launches {got}")
+                f"[{smi}]: {ad_wall:.2f} s, skipped {sorted(skipped_keys(ad_stdout))} (1 class into 8), total loss "
+                f"{last['total_loss']:.4f}, car-only remap (AP, AP50) {res}, launches {ad_got}")
+        log(f"  both domains' CLIs at once, beside the NMS checks [{smi}]: {time.perf_counter() - t0:.2f} s")
         # test() images/s on the car-only set, in this process (the Sim10k source model)
         cfg = car_cfg(CAR_DOMAINS["sim10k"]["source"], os.path.join(root, "sim10k_test"),
                       os.path.join(root, "sim10k_source", "model_final.pth"))
@@ -2362,14 +2464,9 @@ def car_phase(smi: str):
         log(f"  test() of the Sim10k source model on cityscapes_car_val [{smi}]: {CAR_TEST_FRAMES} images in "
             f"{test_s:.2f} s ({CAR_TEST_FRAMES / test_s:.2f} images/s, decode and evaluation included)")
         del tr
-        # the first timed step's RPN NMS inputs: kernels against the plain versions
-        for dom, calls in captured.items():
-            check(len(calls) == CAR_BATCH, f"{dom}: {len(calls)} NMS calls captured in a step")
-            kept = [check_kernels_against_plain(b, s, v, thr, f"{dom} image {i}", cpu=i == 0)
-                    for i, (b, s, v, thr) in enumerate(calls)]
-            log(f"  {dom}: the step's {CAR_BATCH} RPN NMS inputs (N {[int(c[0].shape[0]) for c in calls]}), kernels "
-                f"bit-equal to the plain versions, kept {kept}")
     finally:
+        for b in background:
+            b.join()
         os.environ.pop("SFOD_DATASETS", None)
         for name in ("sim10k_trainval", "kitti_train", "cityscapes_car_val", "cityscapes_instancesonly_train"):
             DATASET_REGISTRY.pop(name, None)

@@ -95,8 +95,16 @@ def _bits_shape(svalid: torch.Tensor):
     return (b, n, (n + 63) // 64)
 
 
-@torch.library.custom_op("sfod::suppress_relation_bits", mutates_args=(), device_types="cpu")
-def suppress_relation_bits_op(sboxes: torch.Tensor, svalid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+# The ops are defined on a Library of their own, not with
+# `torch.library.custom_op`: that wraps each kernel in a dynamo guard whose
+# first call imports torch._dynamo, seconds of start-up in every process
+# that runs NMS. The outputs are integer and boolean: no gradient flows.
+_LIB = torch.library.Library("sfod", "DEF")
+_LIB.define("suppress_relation_bits(Tensor sboxes, Tensor svalid, float iou_threshold) -> Tensor")
+_LIB.define("greedy_keep_from_bits(Tensor bits, Tensor svalid) -> Tensor")
+
+
+def _suppress_relation_bits_cpu(sboxes: torch.Tensor, svalid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Relation bitmasks of a batch: sboxes float32 [B, N, 4] and svalid
     bool [B, N], each image in score order -> int64 [B, N, ceil(N/64)]. On
     the CPU, the plain version image by image."""
@@ -106,7 +114,6 @@ def suppress_relation_bits_op(sboxes: torch.Tensor, svalid: torch.Tensor, iou_th
     )
 
 
-@suppress_relation_bits_op.register_kernel("cuda")
 def _suppress_relation_bits_cuda(sboxes, svalid, iou_threshold):
     """Hopper kernel 1, one launch an image."""
     return _per_image(
@@ -115,13 +122,11 @@ def _suppress_relation_bits_cuda(sboxes, svalid, iou_threshold):
     )
 
 
-@suppress_relation_bits_op.register_fake
 def _suppress_relation_bits_fake(sboxes, svalid, iou_threshold):
     return sboxes.new_empty(_bits_shape(svalid), dtype=torch.int64)
 
 
-@torch.library.custom_op("sfod::greedy_keep_from_bits", mutates_args=(), device_types="cpu")
-def greedy_keep_from_bits_op(bits: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
+def _greedy_keep_from_bits_cpu(bits: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
     """Keep masks of a batch: bits int64 [B, N, ceil(N/64)] from
     suppress_relation_bits and svalid bool [B, N] -> keep bool [B, N] in the
     same (score) order. On the CPU, the plain fixpoint image by image."""
@@ -131,7 +136,6 @@ def greedy_keep_from_bits_op(bits: torch.Tensor, svalid: torch.Tensor) -> torch.
     )
 
 
-@greedy_keep_from_bits_op.register_kernel("cuda")
 def _greedy_keep_from_bits_cuda(bits, svalid):
     """Hopper kernel 2, one launch an image, on the route N picks: the
     shared-memory kernel up to `_kernels.GREEDY_MAX_N`, its row walk above."""
@@ -143,9 +147,20 @@ def _greedy_keep_from_bits_cuda(bits, svalid):
     return _per_image(launch, tuple(svalid.shape), torch.bool, bits.contiguous(), svalid.contiguous())
 
 
-@greedy_keep_from_bits_op.register_fake
 def _greedy_keep_from_bits_fake(bits, svalid):
     return torch.empty_like(svalid)
+
+
+for _name, _cpu, _cuda, _fake in (
+    ("suppress_relation_bits", _suppress_relation_bits_cpu, _suppress_relation_bits_cuda, _suppress_relation_bits_fake),
+    ("greedy_keep_from_bits", _greedy_keep_from_bits_cpu, _greedy_keep_from_bits_cuda, _greedy_keep_from_bits_fake),
+):
+    _LIB.impl(_name, _cpu, "CPU")
+    _LIB.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"sfod::{_name}", _fake, lib=_LIB)
+
+suppress_relation_bits_op = torch.ops.sfod.suppress_relation_bits.default
+greedy_keep_from_bits_op = torch.ops.sfod.greedy_keep_from_bits.default
 
 
 def _unbatched(op, *args):

@@ -1,7 +1,9 @@
 """The port stands alone: simple_sfod_tpu_torch/ and chip_smoke.py import
 nothing of JAX or of the JAX package, import yaml and PIL only inside
 functions, import, read the main YAML and serve with those modules
-poisoned, and refuse to run on the CPU unless asked to."""
+poisoned, and refuse to run on the CPU unless asked to. A process that runs
+NMS starts without torch._dynamo, and the standard-library tool without
+torch."""
 
 import ast
 import os
@@ -185,3 +187,28 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     out = subprocess.run([sys.executable, script], cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+# What a fresh process must not import: torch._dynamo costs seconds of start-up
+# (6.9 s on an H100 host) and NMS has no need of it; the standard-library tool
+# needs no torch at all.
+STARTUP = {
+    "nms_ops_without_dynamo": (
+        "import sys, torch\n"
+        "from simple_sfod_tpu_torch.ops import nms\n"
+        "b = torch.tensor([[[0., 0., 10., 10.], [1., 1., 11., 11.], [20., 20., 30., 30.]]], requires_grad=True)\n"
+        "keep = nms.nms_mask_matrix(b, torch.tensor([[0.9, 0.8, 0.7]]), torch.ones(1, 3, dtype=torch.bool), 0.5)\n"
+        "assert keep.tolist() == [[True, False, True]], keep\n",
+        "torch._dynamo",
+    ),
+    "prediction_to_gt_without_torch": ("import simple_sfod_tpu_torch.tools.prediction_to_gt\n", "torch"),
+}
+
+
+@pytest.mark.parametrize("case", list(STARTUP))
+def test_startup_imports(case):
+    code, absent = STARTUP[case]
+    code += f"assert {absent!r} not in sys.modules, {absent!r}\nprint('startup-ok')\n"
+    out = subprocess.run([sys.executable, "-c", "import sys\n" + code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0 and "startup-ok" in out.stdout, out.stderr[-3000:]
