@@ -12,6 +12,18 @@ module keeps its own copy of the layout conversions:
   BatchNorm      scale/bias/mean/var -> weight/bias/running_mean/running_var,
                  num_batches_tracked = 0 (ResNet: a live BN's leaves sit one
                  level deeper, under BatchNorm_0; a FrozenBN's do not)
+  VGG16          conv{i}/bn{i} -> backbone.vgg{stage}.{module}: with BN the
+                 [conv, bn, relu] triplets, without BN the reference's
+                 shifted module indices (backbones/vgg.py:D2_STAGE_CONVS_NOBN),
+                 as `export_torch_checkpoint` writes both
+  FPN            the flax tree `backbone.{bottom_up, fpn_lateral{l},
+                 fpn_output{l}, fpn_{lateral,output}{l}_norm}` -> Detectron2's
+                 `backbone.bottom_up.*`, `backbone.fpn_lateral{l}.*`,
+                 `backbone.fpn_output{l}.*` (norms under `.norm`). The JAX
+                 exporter has no FPN naming (it raises KeyError 'conv0' on an
+                 FPN tree), so these keys are the port's checkpoint names and
+                 the tests hold the values: the port's pyramid and heads on
+                 them compute the JAX function.
 
 `teacher_student_from_jax` carries a whole adaptation state (the source-free
 and the source-available adaptive teacher's): the student and the teacher
@@ -29,7 +41,7 @@ import numpy as np
 import torch
 
 from ..models.backbones import resnet
-from ..models.backbones.vgg import STAGE_PLAN
+from ..models.backbones.vgg import D2_STAGE_CONVS_NOBN, STAGE_PLAN
 
 
 def _f32(x) -> np.ndarray:
@@ -59,16 +71,39 @@ def _bn(sd: Dict[str, np.ndarray], key: str, scale, bias, mean, var) -> None:
     sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
 
 
-def _vgg(sd: Dict[str, np.ndarray], bp, bs) -> None:
+def _vgg(sd: Dict[str, np.ndarray], bp, bs, bn: bool, prefix: str = "backbone") -> None:
+    if not bn:
+        convs = [f"{prefix}.vgg{stage}.{idx}" for stage, idxs in enumerate(D2_STAGE_CONVS_NOBN) for idx in idxs]
+        for i, key in enumerate(convs):
+            sd[f"{key}.weight"] = _conv(bp[f"conv{i}"]["kernel"])
+            sd[f"{key}.bias"] = _f32(bp[f"conv{i}"]["bias"])
+        return
     conv_i = 0
     for stage, widths in enumerate(STAGE_PLAN):
         for j in range(len(widths)):
-            key = f"backbone.vgg{stage}.{3 * j}"
+            key = f"{prefix}.vgg{stage}.{3 * j}"
             sd[f"{key}.weight"] = _conv(bp[f"conv{conv_i}"]["kernel"])
             sd[f"{key}.bias"] = _f32(bp[f"conv{conv_i}"]["bias"])
             p, s = bp[f"bn{conv_i}"], bs[f"bn{conv_i}"]
-            _bn(sd, f"backbone.vgg{stage}.{3 * j + 1}", p["scale"], p["bias"], s["mean"], s["var"])
+            _bn(sd, f"{prefix}.vgg{stage}.{3 * j + 1}", p["scale"], p["bias"], s["mean"], s["var"])
             conv_i += 1
+
+
+def _fpn(sd: Dict[str, np.ndarray], bp, bs, cfg) -> None:
+    """The flax FPN (bottom_up, then a lateral and an output conv per input
+    level, each with its `_norm` under NORM BN) -> Detectron2's FPN keys."""
+    _vgg(sd, bp["bottom_up"], bs.get("bottom_up", {}), cfg.vgg_bn, "backbone.bottom_up")
+    strides = {f"vgg{i}": 2 ** (i + 1) for i in range(len(STAGE_PLAN))}
+    for f in cfg.fpn_in_features:
+        lvl = strides[f].bit_length() - 1
+        for kind in ("lateral", "output"):
+            name = f"fpn_{kind}{lvl}"
+            sd[f"backbone.{name}.weight"] = _conv(bp[name]["kernel"])
+            if cfg.fpn_norm == "BN":
+                p, s = bp[f"{name}_norm"], bs[f"{name}_norm"]
+                _bn(sd, f"backbone.{name}.norm", p["scale"], p["bias"], s["mean"], s["var"])
+            else:
+                sd[f"backbone.{name}.bias"] = _f32(bp[name]["bias"])
 
 
 def _resnet(sd: Dict[str, np.ndarray], bp, bs, cfg) -> None:
@@ -101,15 +136,16 @@ def _resnet(sd: Dict[str, np.ndarray], bp, bs, cfg) -> None:
 def state_dict_from_jax(variables: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """{"params": ..., "batch_stats": ...} of the JAX FasterRCNN (numpy
     leaves) -> the port's state dict (float32 tensors). `cfg` is the port's
-    DetectorConfig: the single-level VGG16-BN or ResNet-50/101 detector."""
-    if cfg.fpn or cfg.backbone not in ("vgg16", "resnet50", "resnet101") or (cfg.backbone == "vgg16" and not cfg.vgg_bn):
-        raise NotImplementedError(
-            "state_dict_from_jax carries the single-level VGG16-BN and ResNet-50/101 detectors only")
+    DetectorConfig: VGG16 with or without BN, ResNet-50/101, or FPN over
+    VGG16."""
+    cfg._check_ported()
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}
-    if cfg.backbone == "vgg16":
-        _vgg(sd, params["backbone"], stats["backbone"])
+    if cfg.fpn:
+        _fpn(sd, params["backbone"], stats.get("backbone", {}), cfg)
+    elif cfg.backbone == "vgg16":
+        _vgg(sd, params["backbone"], stats.get("backbone", {}), cfg.vgg_bn)
     else:
         _resnet(sd, params["backbone"], stats["backbone"], cfg)
 

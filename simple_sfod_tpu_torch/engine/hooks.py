@@ -20,7 +20,7 @@ import torch
 from ..data.loader import gt_instances
 from ..models.backbones.vgg import BatchNorm2d
 from ..models.detector import DetectionBatch, Detector
-from ..models.faster_rcnn import anchors_for, roi_pool_size
+from ..models.faster_rcnn import anchor_counts, roi_pool_size
 
 
 class ValLossHook:
@@ -54,8 +54,8 @@ class ValLossHook:
         if self._generator is None:
             self._generator = torch.Generator(device=dev)
         g = self._generator.manual_seed(self.seed)
-        n = anchors_for(det.cfg, tuple(canvas_hw), torch.device("cpu")).shape[0]
-        pool = roi_pool_size(det.cfg, n, gt_capacity)
+        counts = anchor_counts(det.cfg, tuple(canvas_hw))
+        n, pool = sum(counts), roi_pool_size(det.cfg, counts, gt_capacity)
         return (torch.rand((batch_size, n), generator=g, device=dev),
                 torch.rand((batch_size, pool), generator=g, device=dev))
 
@@ -108,7 +108,8 @@ def precise_bn(detector: Detector, batches: Iterable, num_iter: int = 200) -> in
     from them by float32 rounding. A train-mode forward normalises by the
     batch's own statistics, so each batch's statistics do not depend on the
     running ones. Returns the number of batches taken (0 leaves the
-    statistics as they were)."""
+    statistics as they were). On a detector without BatchNorm the forwards
+    change nothing, as in the JAX package."""
     bns = [m for m in detector.model.modules() if isinstance(m, BatchNorm2d)]
     sums = [(torch.zeros_like(m.running_mean), torch.zeros_like(m.running_var)) for m in bns]
     momenta = [m.momentum for m in bns]

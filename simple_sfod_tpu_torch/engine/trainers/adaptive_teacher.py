@@ -53,7 +53,7 @@ import torch
 from ...data.loader import build_train_loader
 from ...data.transforms import StrongDraws, make_strong_draws, strong_augment_batch
 from ...models.detector import DetectionBatch
-from ...models.faster_rcnn import anchors_for, roi_pool_size
+from ...models.faster_rcnn import anchor_counts, roi_pool_size
 from ...structures.instances import Instances
 from ..train_state import ema_tensors, ema_update
 from . import register_trainer
@@ -117,19 +117,21 @@ class AdaptiveTeacherTrainer(PairedTargetMixin, SourceFreeAdaptiveTeacherTrainer
         generator, the rest from the device generator."""
         target_size = batch_size if target_size is None else target_size
         det_cfg = self.det_cfg
-        n = anchors_for(det_cfg, canvas_hw, torch.device("cpu")).shape[0]
+        counts = anchor_counts(det_cfg, canvas_hw)
+        n = sum(counts)
         g, hg, dev = self.generator, self.host_generator, self.device
         bs, bt = batch_size, target_size
         return ATDraws(
             flip=torch.rand((bs,), generator=g, device=dev) < 0.5,
             strong=make_strong_draws(bs, canvas_hw, hg, g, dev),
             rpn=torch.rand((2 * bs, n), generator=g, device=dev),
-            roi=torch.rand((2 * bs, roi_pool_size(det_cfg, n, gt_capacity)), generator=g, device=dev),
+            roi=torch.rand((2 * bs, roi_pool_size(det_cfg, counts, gt_capacity)), generator=g, device=dev),
             flip_t=torch.rand((bt,), generator=g, device=dev) < 0.5,
             strong_t=make_strong_draws(bt, canvas_hw, hg, g, dev),
             rpn_t=torch.rand((bt, n), generator=g, device=dev),
-            roi_t=torch.rand((bt, roi_pool_size(det_cfg, n, det_cfg.detections_per_image)), generator=g, device=dev),
-            dropout=self._dropout_draws(bs, bt, n) if self.ins_dc_enabled else None,
+            roi_t=torch.rand((bt, roi_pool_size(det_cfg, counts, det_cfg.detections_per_image)), generator=g,
+                             device=dev),
+            dropout=self._dropout_draws(bs, bt, counts) if self.ins_dc_enabled else None,
         )
 
     @torch.no_grad()

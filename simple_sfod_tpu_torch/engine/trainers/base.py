@@ -50,7 +50,7 @@ from ...data.transforms import random_hflip
 from ...device import resolve_device
 from ...models.backbones.vgg import BatchNorm2d
 from ...models.detector import DetectionBatch, Detector
-from ...models.faster_rcnn import anchors_for, init_weights, roi_pool_size
+from ...models.faster_rcnn import anchor_counts, init_weights, roi_pool_size
 from ...solver.build import auto_scale_workers, build_optimizer
 from ...structures.instances import Instances
 from ..eval_loop import inference_on_dataset
@@ -268,8 +268,8 @@ class BaseTrainer:
     # -- the step ------------------------------------------------------------
     def make_draws(self, batch_size: int, canvas_hw: Tuple[int, int], gt_capacity: int) -> Draws:
         """One step's draws from the trainer's generator, on the device."""
-        n = anchors_for(self.det_cfg, canvas_hw, torch.device("cpu")).shape[0]
-        pool = roi_pool_size(self.det_cfg, n, gt_capacity)
+        counts = anchor_counts(self.det_cfg, canvas_hw)
+        n, pool = sum(counts), roi_pool_size(self.det_cfg, counts, gt_capacity)
         g, dev = self.generator, self.device
         return Draws(
             flip=torch.rand((batch_size,), generator=g, device=dev) < 0.5,
@@ -531,7 +531,9 @@ class BaseTrainer:
     def refine_bn_stats(self, max_batches: Optional[int] = None, loader=None) -> int:
         """Up to `max_batches` (default ADABN_MAX_BATCHES) train-mode
         forwards over the train loader (or `loader`), each moving the running
-        statistics by the update rule, in order. Returns the batches taken."""
+        statistics by the update rule, in order. Returns the batches taken
+        (on a detector without live BatchNorm the forwards change nothing, as
+        in the JAX package)."""
         max_batches = ADABN_MAX_BATCHES if max_batches is None else max_batches
         loader = loader if loader is not None else self.build_train_loader()
         taken = 0

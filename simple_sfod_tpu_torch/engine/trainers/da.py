@@ -35,8 +35,11 @@ from ...checkpoint.from_jax import DAWeights
 from ...models.dann import DAImgHead, DAInsHead, dropout_masks, gradient_scalar, init_dc_weights
 from ...models.detector import DetectionBatch, Detector
 from ...models.faster_rcnn import (
+    anchor_counts,
     anchors_for,
     dc_image_feature,
+    feature_batch,
+    feature_device,
     pool_rois,
     proposal_counts,
     propose,
@@ -86,13 +89,13 @@ def dc_losses(
     eval mode."""
     cfg = detector.cfg
     model = detector.model
-    b = feature.shape[0]
+    b = feature_batch(feature)
     df = dc_image_feature(cfg, feature)
     img_out = img_head(gradient_scalar(df, -w_img))
     loss_img = torch.mean(sigmoid_ce(img_out, torch.full_like(img_out, domain_label)))
 
     with torch.no_grad():  # the boxes carry no gradient
-        anchors = anchors_for(cfg, canvas_hw, feature.device)
+        anchors = anchors_for(cfg, canvas_hw, feature_device(feature))
         boxes = propose(cfg, anchors, model.rpn(feature), sizes, training=True).boxes[:, :num_ins]
     k = boxes.shape[1]
     pooled = pool_rois(cfg, feature, boxes)
@@ -168,7 +171,7 @@ class _DATrainerBase(PairedTargetMixin, BaseTrainer):
         det_cfg, dev = self.det_cfg, self.device
         ins_dim = det_cfg.fc_dim * ((det_cfg.num_classes + 1) if self.conditional else 1)
         heads = {
-            "da_img": DAImgHead(det_cfg.feature_channels, dtype=det_cfg.dtype),
+            "da_img": DAImgHead(det_cfg.dc_channels, dtype=det_cfg.dtype),
             "da_ins": DAInsHead(ins_dim, dtype=det_cfg.dtype),
         }
         for name, module in heads.items():
@@ -197,9 +200,9 @@ class _DATrainerBase(PairedTargetMixin, BaseTrainer):
                    target_size: Optional[int] = None) -> DADraws:
         """One step's draws from the trainer's generator, on the device."""
         target_size = batch_size if target_size is None else target_size
-        n = anchors_for(self.det_cfg, canvas_hw, torch.device("cpu")).shape[0]
-        pool = roi_pool_size(self.det_cfg, n, gt_capacity)
-        k = min(NUM_INS, proposal_counts(self.det_cfg, n, True)[1])  # the instances dc_losses takes
+        counts = anchor_counts(self.det_cfg, canvas_hw)
+        n, pool = sum(counts), roi_pool_size(self.det_cfg, counts, gt_capacity)
+        k = min(NUM_INS, proposal_counts(self.det_cfg, counts, True)[1])  # the instances dc_losses takes
         g, dev = self.generator, self.device
         return DADraws(
             flip=torch.rand((batch_size,), generator=g, device=dev) < 0.5,

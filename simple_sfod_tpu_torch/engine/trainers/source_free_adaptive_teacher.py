@@ -5,8 +5,12 @@ repo's main path.
 One step, on an unlabelled target batch:
 
   1. the weak view: the random horizontal flip;
-  2. the strong view of the weak one, on the device (WEAK_STRONG_AUGMENT;
-     data/transforms.py:strong_augment_batch), or the weak view itself;
+  2. the student's view of the weak one, on the device: under STYLE.ENABLED
+     the AdaIN style enhancement toward the style image
+     (models/style_transfer.py:StyleTransfer.stylize, float32, no
+     gradient; it takes precedence over WEAK_STRONG_AUGMENT), else the
+     strong view (WEAK_STRONG_AUGMENT; data/transforms.py:strong_augment_batch),
+     or the weak view itself;
   3. pseudo-labels on the weak view: the teacher's train-mode-BN forward
      (its running statistics move, as the reference's never-eval'd teacher),
      or, in the `_single` variant, the student's own;
@@ -50,7 +54,11 @@ both; AdaBN and PreciseBN work on the student's statistics. Every
 VIS_PERIOD steps of the loop the teacher's pseudo-labels of the step's
 first image go to TensorBoard.
 
-Not ported yet, and refused: STYLE.ENABLED (AdaIN style enhancement).
+STYLE.* (`_build_style_transfer`): the style image STYLE.STYLE_IMAGE (read
+by the port's own codec), the pytorch-AdaIN encoder STYLE.VGG_MODEL and
+decoder STYLE.DECODER, each a file; a missing one is announced and replaced,
+as in the JAX package, by the flat-gray 64x64 style at 0.6 or seeded random
+weights. The style weights are constants: not trained, not checkpointed.
 """
 
 from __future__ import annotations
@@ -67,7 +75,14 @@ from ...data.transforms import StrongDraws, make_strong_draws, strong_augment_ba
 from ...models.backbones.resnet import FrozenBatchNorm2d
 from ...models.dann import DAInsHead, FCDiscriminatorImg, dropout_masks, gradient_scalar, init_dc_weights
 from ...models.detector import DetectionBatch, Detector
-from ...models.faster_rcnn import anchors_for, dc_image_feature, proposal_counts, roi_pool_size
+from ...models.faster_rcnn import (
+    anchor_counts,
+    dc_image_feature,
+    detach_feature,
+    proposal_counts,
+    roi_pool_size,
+    split_feature,
+)
 from ...ops.losses import masked_mean, sigmoid_ce
 from ...solver.build import build_optimizer
 from ...structures.instances import Instances
@@ -152,8 +167,6 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
     ):
         if cfg.SEMISUPNET.PSEUDO_BBOX_SAMPLE != "thresholding":
             raise ValueError(f"Unknown pseudo label boxes methods {cfg.SEMISUPNET.PSEUDO_BBOX_SAMPLE}")
-        if cfg.STYLE.ENABLED:
-            raise NotImplementedError("STYLE.ENABLED (AdaIN style enhancement) is not ported yet")
         self.dc_enabled = bool(cfg.DOMAIN_CLASSIFIER.ENABLED)
         self.ins_dc_enabled = self.dc_enabled and (bool(cfg.SEMISUPNET.INS_DC) or bool(cfg.DOMAIN_CLASSIFIER.INSTANCE))
         # the classifiers whose losses are weighted (the rest log zeros)
@@ -162,11 +175,11 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         if self.dc_enabled:
             from ...config.defaults import detector_config_from_cfg
 
-            in_feature = detector_config_from_cfg(cfg).in_feature
-            if cfg.SEMISUPNET.DIS_TYPE != in_feature:
+            dc_feat = detector_config_from_cfg(cfg).dc_in_feature
+            if cfg.SEMISUPNET.DIS_TYPE != dc_feat:
                 raise ValueError(
                     f"SEMISUPNET.DIS_TYPE={cfg.SEMISUPNET.DIS_TYPE!r} must equal the image DC's input "
-                    f"feature {in_feature!r} (single-level: the heads' in-feature)"
+                    f"feature {dc_feat!r} (single-level: the heads' in-feature; FPN: the coarsest ROI level)"
                 )
         self._weights = weights
         super().__init__(
@@ -180,7 +193,9 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         self.keep_rate = float(s.EMA_KEEP_RATE)
         self.update_iter = max(int(s.TEACHER_UPDATE_ITER), 1)
         self.split_view_bn = bool(s.SPLIT_VIEW_BN)
-        self.weak_strong = bool(cfg.WEAK_STRONG_AUGMENT)
+        # the style view takes precedence over the strong one (no strong draws then)
+        self.style = self._build_style_transfer() if cfg.STYLE.ENABLED else None
+        self.weak_strong = bool(cfg.WEAK_STRONG_AUGMENT) and self.style is None
         self.adaptive_on = bool(cfg.ADAPTIVE_THRESHOLD.ENABLED)
         self.warm_up = int(cfg.ADAPTIVE_THRESHOLD.WARM_UP)
         # the strong view's scalar decisions: a CPU generator of its own
@@ -209,7 +224,7 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
             p.requires_grad_(False)
         dc: Dict[str, torch.nn.Module] = {}
         if self.dc_enabled:
-            dc["dc"] = FCDiscriminatorImg(det_cfg.feature_channels, dtype=det_cfg.dtype)
+            dc["dc"] = FCDiscriminatorImg(det_cfg.dc_channels, dtype=det_cfg.dtype)
         if self.ins_dc_enabled:
             dc["dc_ins"] = DAInsHead(det_cfg.fc_dim, dtype=det_cfg.dtype)
         for name, module in dc.items():
@@ -233,6 +248,36 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
             dc=dc,
             thresh=thresh,
         )
+
+    def _build_style_transfer(self):
+        """The AdaIN module of STYLE.* on the trainer's device (module
+        docstring)."""
+        import os
+
+        from ...checkpoint.checkpointer import load_torch_weights
+        from ...data import native_codec
+        from ...models.style_transfer import import_adain_decoder, import_adain_encoder, load_style_transfer
+
+        st = self.cfg.STYLE
+        if st.STYLE_IMAGE and os.path.exists(str(st.STYLE_IMAGE)):
+            rgb = native_codec.decode(str(st.STYLE_IMAGE))
+            style = torch.from_numpy(np.ascontiguousarray(rgb.transpose(2, 0, 1))).to(torch.float32) / 255.0
+        else:
+            print("[style] STYLE.STYLE_IMAGE missing; using a flat gray style", flush=True)
+            style = torch.full((3, 64, 64), 0.6, dtype=torch.float32)
+        sds = {}
+        for key, kind, importer in (("VGG_MODEL", "encoder", import_adain_encoder),
+                                    ("DECODER", "decoder", import_adain_decoder)):
+            path = getattr(st, key)
+            if path and os.path.exists(str(path)):
+                sds[kind] = importer(load_torch_weights(str(path)))
+            elif path:
+                print(f"[style] {key} {path} missing; random {kind}", flush=True)
+        module = load_style_transfer(style, sds.get("encoder"), sds.get("decoder"), float(st.ALPHA),
+                                     max(self.cfg.SEED, 0)).to(self.device)
+        if self.device.type == "cuda":
+            module = module.to(memory_format=torch.channels_last)
+        return module
 
     # -- checkpoints -------------------------------------------------------
     def checkpoint_state(self) -> Dict:
@@ -280,8 +325,8 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
     def make_draws(self, batch_size: int, canvas_hw: Tuple[int, int]) -> AdaptDraws:
         """One step's draws: the scalar decisions of the strong view from the
         host generator, the rest from the device generator."""
-        n = anchors_for(self.det_cfg, canvas_hw, torch.device("cpu")).shape[0]
-        pool = roi_pool_size(self.det_cfg, n, self.det_cfg.detections_per_image)
+        counts = anchor_counts(self.det_cfg, canvas_hw)
+        n, pool = sum(counts), roi_pool_size(self.det_cfg, counts, self.det_cfg.detections_per_image)
         g, dev = self.generator, self.device
         strong = (
             make_strong_draws(batch_size, canvas_hw, self.host_generator, g, dev) if self.weak_strong else None
@@ -291,10 +336,10 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
             strong=strong,
             rpn=torch.rand((batch_size, n), generator=g, device=dev),
             roi=torch.rand((batch_size, pool), generator=g, device=dev),
-            dropout=self._dropout_draws(batch_size, batch_size, n) if self.dc_instance else None,
+            dropout=self._dropout_draws(batch_size, batch_size, counts) if self.dc_instance else None,
         )
 
-    def _dropout_draws(self, source: int, target: int, num_anchors: int) -> Tuple[torch.Tensor, ...]:
+    def _dropout_draws(self, source: int, target: int, num_anchors) -> Tuple[torch.Tensor, ...]:
         """The instance classifier's keep masks: two for the source call on
         `source` images' training proposals, then two for the target's."""
         r = proposal_counts(self.det_cfg, num_anchors, True)[1]
@@ -353,9 +398,9 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
             feat_s = model.features(images_s, train=True, update_bn=True)
         else:
             feat = model.features(torch.cat([images_w, images_s]), train=True, update_bn=True)
-            feat_w, feat_s = feat[:b], feat[b:]
+            feat_w, feat_s = split_feature(feat, b)
         with torch.no_grad():
-            dets = self.detector.detect(feat_w.detach(), sizes, tuple(images_w.shape[1:3]))
+            dets = self.detector.detect(detach_feature(feat_w), sizes, tuple(images_w.shape[1:3]))
         pseudo_gt, pstats = self.pseudo_pipeline(dets, self.state.step)
         total, metrics = self.detector.losses_from_feature(
             feat_s, DetectionBatch(images_s, sizes, pseudo_gt), draws.rpn, draws.roi, with_bpc=True
@@ -372,7 +417,10 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         images = images.to(torch.float32)
         dev = images.device
         images_w = weak_flip(draws.flip, images, sizes, self.flip)
-        images_s = strong_augment_batch(images_w, sizes, draws.strong) if self.weak_strong else images_w
+        if self.style is not None:
+            images_s = self.style.stylize(images_w)
+        else:
+            images_s = strong_augment_batch(images_w, sizes, draws.strong) if self.weak_strong else images_w
 
         for p in st.optimizer.params:
             p.grad = None

@@ -33,7 +33,7 @@ import torch
 
 from ...data.mosaic import mixup_batch, mosaic_batch, random_affine_batch
 from ...data.transforms import StrongDraws, make_strong_draws, strong_augment_batch
-from ...models.faster_rcnn import anchors_for, roi_pool_size
+from ...models.faster_rcnn import anchor_counts, roi_pool_size
 from ...structures.instances import Instances
 from . import register_trainer
 from .base import BaseTrainer, apply_weak_aug
@@ -100,8 +100,8 @@ class WQTrainer(BaseTrainer):
     def make_draws(self, batch_size: int, canvas_hw: Tuple[int, int], gt_capacity: int) -> WQDraws:
         """One step's draws for a staged GT capacity, on the device (the
         strong view's scalar decisions from the host generator)."""
-        n = anchors_for(self.det_cfg, canvas_hw, torch.device("cpu")).shape[0]
-        pool = roi_pool_size(self.det_cfg, n, GT_GROWTH[self.aug] * gt_capacity)
+        counts = anchor_counts(self.det_cfg, canvas_hw)
+        n, pool = sum(counts), roi_pool_size(self.det_cfg, counts, GT_GROWTH[self.aug] * gt_capacity)
         g, dev, b = self.generator, self.device, batch_size
 
         def u(*shape):

@@ -1,13 +1,22 @@
-"""VGG-16 backbone with BatchNorm (the port of
+"""VGG-16 backbone, with or without BatchNorm (the port of
 `simple_sfod_tpu/models/backbones/vgg.py`).
 
 13 3x3 convs in the (2, 2, 3, 3, 3) stage layout, each stage ending in a
 2x2/2 max-pool, so "vgg0".."vgg4" have channels (64, 128, 256, 512, 512) and
-strides (2, 4, 8, 16, 32). The heads consume "vgg4" (stride 32).
+strides (2, 4, 8, 16, 32). The single-level heads consume "vgg4" (stride
+32); an FPN (backbones/fpn.py) takes vgg1..vgg4.
 
-Parameter names follow Detectron2's VGG layout: stage s is
-`backbone.vgg{s}` = [conv, bn, relu] * k + [maxpool], so conv j of a stage is
-module 3j and its BatchNorm 3j+1.
+Parameter names follow Detectron2's VGG layout, the names of the reference's
+converted checkpoints:
+  BN     stage s is `backbone.vgg{s}` = [conv, bn, relu] * k + [maxpool], so
+         conv j of a stage is module 3j and its BatchNorm 3j+1;
+  no BN  the reference cuts the 31-module [conv, relu] * 13 + 5 pools
+         sequence at the BN layout's fixed module indices, so its pools land
+         mid-stage and stage 4 is empty: the convs sit at the indices of
+         `D2_STAGE_CONVS_NOBN`. The composed network is still the canonical
+         VGG16, so the port walks the convs in canonical order and returns
+         the same canonical stage features as the JAX package (which only
+         renames keys, `checkpoint/torch_import.py:_D2_STAGE_CONVS_NOBN`).
 
 BatchNorm keeps the JAX package's (flax's) bookkeeping, not torch's: in
 train mode it normalises with the batch statistics and, when asked, moves
@@ -30,6 +39,8 @@ STAGE_PLAN: Sequence[Sequence[int]] = (
     (512, 512, 512),
     (512, 512, 512),
 )
+# the Detectron2 module index of each conv, stage by stage, without BN
+D2_STAGE_CONVS_NOBN: Sequence[Sequence[int]] = ((0, 2, 5), (0, 3, 5), (0, 3, 5, 7), (0, 2, 4), ())
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -99,33 +110,43 @@ class VGG16Backbone(nn.Module):
     """x [B, 3, H, W] (mean-subtracted) -> {"vgg0": ..., ..., "vgg4": ...} NCHW.
 
     `train` runs BatchNorm on batch statistics (and `update_stats` moves the
-    running ones); otherwise it uses the running statistics."""
+    running ones); otherwise it uses the running statistics. Without BN
+    (`bn=False`) both are taken and ignored."""
 
     def __init__(self, bn: bool = True):
         super().__init__()
-        if not bn:
-            raise NotImplementedError(
-                "VGG.BN=False is not ported yet (its Detectron2 layout splits "
-                "stages mid-block); the served configurations use BN"
-            )
-        in_ch = 3
-        for s, widths in enumerate(STAGE_PLAN):
-            layers = []
-            for width in widths:
-                layers += [
-                    nn.Conv2d(in_ch, width, 3, padding=1),
-                    BatchNorm2d(width),
-                    nn.ReLU(inplace=True),
-                ]
-                in_ch = width
-            layers.append(_MaxPool2x2())
-            self.add_module(f"vgg{s}", nn.Sequential(*layers))
+        self.bn = bn
+        widths = [w for stage in STAGE_PLAN for w in stage]
+        in_chs = [3] + widths[:-1]
+        if bn:
+            i = 0
+            for s, stage in enumerate(STAGE_PLAN):
+                layers = []
+                for width in stage:
+                    layers += [nn.Conv2d(in_chs[i], width, 3, padding=1), BatchNorm2d(width), nn.ReLU(inplace=True)]
+                    i += 1
+                layers.append(_MaxPool2x2())
+                self.add_module(f"vgg{s}", nn.Sequential(*layers))
+            return
+        # the convs under their Detectron2 names, and in canonical order
+        convs = iter(nn.Conv2d(c_in, c_out, 3, padding=1) for c_in, c_out in zip(in_chs, widths))
+        for s, idxs in enumerate(D2_STAGE_CONVS_NOBN):
+            self.add_module(f"vgg{s}", nn.ModuleDict({str(idx): next(convs) for idx in idxs}))
+        self._convs = [getattr(self, f"vgg{s}")[str(idx)] for s, idxs in enumerate(D2_STAGE_CONVS_NOBN) for idx in idxs]
 
     def forward(self, x: torch.Tensor, train: bool = False, update_stats: bool = True) -> Dict[str, torch.Tensor]:
         feats = {}
-        for s in range(len(STAGE_PLAN)):
-            for layer in getattr(self, f"vgg{s}"):
-                x = layer(x, train, update_stats) if isinstance(layer, BatchNorm2d) else layer(x)
+        if self.bn:
+            for s in range(len(STAGE_PLAN)):
+                for layer in getattr(self, f"vgg{s}"):
+                    x = layer(x, train, update_stats) if isinstance(layer, BatchNorm2d) else layer(x)
+                feats[f"vgg{s}"] = x
+            return feats
+        convs = iter(self._convs)
+        for s, stage in enumerate(STAGE_PLAN):
+            for _ in stage:
+                x = torch.relu(next(convs)(x))
+            x = max_pool_2x2(x)
             feats[f"vgg{s}"] = x
         return feats
 

@@ -8,7 +8,11 @@ adaptation: `pseudo_labels`, a train-mode-BN forward that moves the running
 statistics and returns detections made under `torch.no_grad` (tensors that
 autograd may save, as the student's losses do with them), and `bn_update`;
 and the box-head features of the training proposals that the
-instance-level domain classifiers take (`box_features_from_feature`)."""
+instance-level domain classifiers take (`box_features_from_feature`).
+
+A "feature" is the backbone's output that the heads take: one map
+[B, C, h, w], or for an FPN detector the dict of its pyramid levels; every
+function here takes either."""
 
 from __future__ import annotations
 
@@ -24,9 +28,11 @@ from ..losses.bpc import bpc_loss
 from .faster_rcnn import (
     DetectorConfig,
     FasterRCNN,
+    Feature,
     RPNOutput,
     anchors_for,
     bpc_candidates,
+    feature_device,
     label_and_sample_proposals,
     pool_rois,
     propose,
@@ -45,12 +51,12 @@ class DetectionBatch(NamedTuple):
     gt: Instances
 
 
-def detect(model: FasterRCNN, feature: torch.Tensor, sizes: torch.Tensor, canvas_hw: Tuple[int, int]) -> Instances:
-    """Head-side inference of `model` on a backbone feature [B, C, h, w]
-    computed from padded canvases of size canvas_hw, sizes int32 [B, 2], all
-    images at once, in the caller's grad mode."""
+def detect(model: FasterRCNN, feature: Feature, sizes: torch.Tensor, canvas_hw: Tuple[int, int]) -> Instances:
+    """Head-side inference of `model` on a backbone feature computed from
+    padded canvases of size canvas_hw, sizes int32 [B, 2], all images at
+    once, in the caller's grad mode."""
     cfg = model.cfg
-    anchors = anchors_for(cfg, canvas_hw, feature.device)
+    anchors = anchors_for(cfg, canvas_hw, feature_device(feature))
     proposals = propose(cfg, anchors, model.rpn(feature), sizes)
     scores, deltas = model.box(pool_rois(cfg, feature, proposals.boxes))
     b, r = proposals.boxes.shape[:2]
@@ -105,14 +111,14 @@ class Detector:
 
     def losses_from_feature(
         self,
-        feature: torch.Tensor,
+        feature: Feature,
         batch: DetectionBatch,
         rpn_priorities: torch.Tensor,
         roi_priorities: torch.Tensor,
         loss_weights: Optional[Dict[str, float]] = None,
         with_bpc: bool = False,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Head-side supervised losses on a backbone feature [B, C, h, w].
+        """Head-side supervised losses on a backbone feature.
         rpn_priorities [B, N_anchors] and roi_priorities [B, pool] are the
         samplers' uniform draws (`faster_rcnn.roi_pool_size` gives pool).
         Returns (total, metrics): the total weights each loss by
@@ -120,7 +126,7 @@ class Detector:
         num_fg and num_sampled (and `loss_bpc` with `with_bpc`), all
         tensors on the device."""
         cfg = self.cfg
-        anchors = anchors_for(cfg, tuple(batch.images.shape[1:3]), feature.device)
+        anchors = anchors_for(cfg, tuple(batch.images.shape[1:3]), feature_device(feature))
         rpn_out = self.model.rpn(feature)
         losses = rpn_losses(cfg, anchors, rpn_out, batch.gt, rpn_priorities)
         # proposal boxes carry no gradient (the JAX package's stop_gradient)
@@ -162,16 +168,16 @@ class Detector:
         )
 
     def box_features_from_feature(
-        self, feature: torch.Tensor, sizes: torch.Tensor, canvas_hw: Tuple[int, int]
+        self, feature: Feature, sizes: torch.Tensor, canvas_hw: Tuple[int, int]
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Box-head features of the post-NMS training proposals on a backbone
-        feature [B, C, h, w], for the instance-level domain classifier:
+        feature, for the instance-level domain classifier:
         (features [B*R, fc_dim], valid [B*R]). Gradients reach the backbone
         and the box head, not the proposal boxes (made under no_grad: the
         supervised path detaches them too)."""
         cfg = self.cfg
         with torch.no_grad():
-            anchors = anchors_for(cfg, canvas_hw, feature.device)
+            anchors = anchors_for(cfg, canvas_hw, feature_device(feature))
             proposals = propose(cfg, anchors, self.model.rpn(feature), sizes, training=True)
         feats = self.model.box_feature(pool_rois(cfg, feature, proposals.boxes))
         return feats, proposals.valid.reshape(-1)
@@ -188,15 +194,15 @@ class Detector:
             x = torch.from_numpy(np.ascontiguousarray(x))
         return x.to(self.device, dtype=dtype) if dtype else x.to(self.device)
 
-    def detect(self, feature: torch.Tensor, sizes, canvas_hw: Tuple[int, int]) -> Instances:
-        """Head-side inference on a backbone feature [B, C, h, w] computed
-        from a padded canvas of size canvas_hw, in the caller's grad mode."""
+    def detect(self, feature: Feature, sizes, canvas_hw: Tuple[int, int]) -> Instances:
+        """Head-side inference on a backbone feature computed from a padded
+        canvas of size canvas_hw, in the caller's grad mode."""
         return detect(self.model, feature, self._tensor(sizes, torch.int32), canvas_hw)
 
     @torch.inference_mode()
     def infer_from_feature(
         self,
-        feature: torch.Tensor,
+        feature: Feature,
         sizes: torch.Tensor,
         canvas_hw: Tuple[int, int],
     ) -> Instances:
@@ -228,5 +234,6 @@ class Detector:
     @torch.no_grad()
     def bn_update(self, images) -> None:
         """One AdaBN accumulation step: a train-mode forward that moves the
-        running statistics in place (the JAX package returns them)."""
+        running statistics in place (the JAX package returns them); a
+        forward that changes nothing on a detector without BatchNorm."""
         self.model.features(self._tensor(images), train=True, update_bn=True)

@@ -1,4 +1,4 @@
-"""Faster R-CNN, single-level (the port of `simple_sfod_tpu/models/faster_rcnn.py`).
+"""Faster R-CNN (the port of `simple_sfod_tpu/models/faster_rcnn.py`).
 
 One `nn.Module` holds the parameterised layers, with Detectron2's names;
 plain functions on tensors carry the inference pipeline:
@@ -18,9 +18,14 @@ priorities as inputs, so a caller can hand over the JAX package's draws):
     sampled     = label_and_sample_proposals(cfg, proposals, gt, roi_priorities)
     roi         = roi_losses(cfg, scores, deltas, sampled)
 
-This covers the single-level detector on VGG16-BN or ResNet-50/101 (C4:
-the heads on "res4", BN or FrozenBN); FPN and box-head dropout are not
-ported yet and raise.
+This covers the single-level detector on VGG16 (with or without BN) or
+ResNet-50/101 (C4: the heads on "res4", BN or FrozenBN), and the VGG16 FPN
+detector with Detectron2's multi-level semantics: `feature` is then a dict
+of pyramid levels, `anchors_for` a tuple of per-level grids, the shared RPN
+head's outputs concatenated in `rpn_in_features` order, proposals taken by
+per-level top-k, one clip, a merged cap and ONE NMS (`_propose_fpn`), and
+each ROI pooled from the level Detectron2's size rule assigns it
+(`assign_boxes_to_levels`). Box-head dropout is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -41,6 +46,7 @@ from ..ops.roi_align import roi_align
 from ..ops.sampler import subsample_labels, subsample_labels_mask
 from ..structures.boxes import BoxTransform, clip_boxes, nonempty, pairwise_iou
 from ..structures.instances import Instances, topk_indices
+from .backbones.fpn import FPN
 from .backbones.resnet import FrozenBatchNorm2d, ResNetBackbone
 from .backbones.vgg import VGG16Backbone
 from .heads import FastRCNNConvFCHead, FastRCNNPredictor, RPNHead
@@ -91,15 +97,68 @@ class DetectorConfig:
     dtype: Any = torch.float32
 
     @property
+    def rpn_levels(self) -> Tuple[str, ...]:
+        """The RPN's input level names (one without FPN: in_feature)."""
+        return self.rpn_in_features or (self.in_feature,)
+
+    @property
+    def roi_levels(self) -> Tuple[str, ...]:
+        """The ROI pooler's input level names (one without FPN)."""
+        return self.roi_in_features or (self.in_feature,)
+
+    @property
+    def level_anchor_sizes(self) -> Tuple[Tuple[float, ...], ...]:
+        """The anchor sizes of each RPN level (FPN): `anchor_sizes_per_level`,
+        or `anchor_sizes` on every level."""
+        if self.anchor_sizes_per_level:
+            if len(self.anchor_sizes_per_level) != len(self.rpn_levels):
+                raise ValueError(
+                    f"anchor_sizes_per_level has {len(self.anchor_sizes_per_level)} "
+                    f"entries for {len(self.rpn_levels)} RPN levels"
+                )
+            return self.anchor_sizes_per_level
+        return tuple(self.anchor_sizes for _ in self.rpn_levels)
+
+    @property
     def num_anchors(self) -> int:
+        """Anchors per feature location; under FPN the RPN head is shared, so
+        every level must have as many sizes."""
+        if self.fpn:
+            per = {len(s) for s in self.level_anchor_sizes}
+            if len(per) != 1:
+                raise ValueError(
+                    "FPN RPN head is shared across levels; every level must "
+                    f"have the same number of anchor sizes (got {per})"
+                )
+            return per.pop() * len(self.anchor_ratios)
         return len(self.anchor_sizes) * len(self.anchor_ratios)
 
+    @staticmethod
+    def _level_stride(name: str) -> int:
+        return 2 ** int(name[1:])
+
+    @property
+    def dc_in_feature(self) -> str:
+        """The map the image-level domain classifiers take: the heads' feature,
+        or under FPN the coarsest ROI level."""
+        return self.roi_in_features[-1] if self.fpn else self.in_feature
+
+    @property
+    def dc_stride(self) -> int:
+        return self._level_stride(self.dc_in_feature) if self.fpn else self.stride
+
+    @property
+    def dc_channels(self) -> int:
+        return self.fpn_out_channels if self.fpn else self.feature_channels
+
     def _check_ported(self) -> None:
-        if self.fpn or self.backbone not in _BACKBONES:
+        if self.backbone not in _BACKBONES or (self.fpn and self.backbone != "vgg16"):
             raise NotImplementedError(
-                f"only the single-level vgg16, resnet50 and resnet101 detectors are ported (got backbone="
+                f"the vgg16, resnet50 and resnet101 detectors are ported, FPN over vgg16 (got backbone="
                 f"{self.backbone!r}, fpn={self.fpn})"
             )
+        if self.fpn and not self.fpn_in_features:
+            raise ValueError("fpn=True requires fpn_in_features")
         if self.box_head_dropout > 0:
             raise NotImplementedError(
                 f"box-head dropout is not ported yet (box_head_dropout="
@@ -109,11 +168,15 @@ class DetectorConfig:
     @property
     def stride(self) -> int:
         self._check_ported()
+        if self.in_feature.startswith("p"):  # an FPN level: stride 2**level
+            return self._level_stride(self.in_feature)
         return _BACKBONES[self.backbone].out_strides()[self.in_feature]
 
     @property
     def feature_channels(self) -> int:
         self._check_ported()
+        if self.in_feature.startswith("p"):
+            return self.fpn_out_channels
         return _BACKBONES[self.backbone].out_channels()[self.in_feature]
 
 
@@ -122,6 +185,9 @@ _BACKBONES = {"vgg16": VGG16Backbone, "resnet50": ResNetBackbone, "resnet101": R
 
 def build_backbone(cfg: DetectorConfig) -> nn.Module:
     """The backbone of `cfg`, as the JAX FasterRCNN.setup builds it."""
+    if cfg.fpn:
+        return FPN(VGG16Backbone(bn=cfg.vgg_bn), cfg.fpn_in_features, cfg.fpn_out_channels, cfg.fpn_norm,
+                   cfg.fpn_fuse_type)
     if cfg.backbone == "vgg16":
         return VGG16Backbone(bn=cfg.vgg_bn)
     depth = 50 if cfg.backbone == "resnet50" else 101
@@ -164,13 +230,14 @@ class FasterRCNN(nn.Module):
             device.type, dtype=torch.bfloat16, enabled=self.cfg.dtype == torch.bfloat16
         )
 
-    def features(self, images: torch.Tensor, train: bool = False, update_bn: bool = True) -> torch.Tensor:
+    def features(self, images: torch.Tensor, train: bool = False, update_bn: bool = True) -> "Feature":
         """images [B, H, W, 3] raw pixels (uint8 or float) -> in_feature
-        [B, C, h, w]. Integer images become float32 BEFORE the mean is
-        subtracted (a uint8 subtraction would wrap around). `train` runs
-        BatchNorm on batch statistics, and `update_bn` then moves the
-        running ones (models/backbones/vgg.py; a FrozenBN layer has one
-        mode)."""
+        [B, C, h, w], or under FPN the dict of the levels the heads take
+        (rpn_in_features then roi_in_features). Integer images become
+        float32 BEFORE the mean is subtracted (a uint8 subtraction would
+        wrap around). `train` runs BatchNorm on batch statistics, and
+        `update_bn` then moves the running ones (models/backbones/vgg.py; a
+        FrozenBN layer has one mode; a backbone without BN ignores both)."""
         x = images.permute(0, 3, 1, 2)
         if not x.is_floating_point():
             x = x.to(torch.float32)
@@ -178,11 +245,21 @@ class FasterRCNN(nn.Module):
         if x.device.type == "cuda":
             x = x.contiguous(memory_format=torch.channels_last)
         with self._autocast(x.device):
-            return self.backbone(x, train, update_bn)[self.cfg.in_feature]
+            feats = self.backbone(x, train, update_bn)
+        if self.cfg.fpn:
+            return {k: feats[k] for k in dict.fromkeys(self.cfg.rpn_in_features + self.cfg.roi_in_features)}
+        return feats[self.cfg.in_feature]
 
-    def rpn(self, feature: torch.Tensor) -> "RPNOutput":
-        with self._autocast(feature.device):
-            return RPNOutput(*self.proposal_generator.rpn_head(feature))
+    def rpn(self, feature: "Feature") -> "RPNOutput":
+        """A map -> RPN outputs; an FPN level dict -> the shared head on each
+        `rpn_in_features` level, concatenated in that order (the order of
+        `anchors_for`'s grids)."""
+        head = self.proposal_generator.rpn_head
+        with self._autocast(feature_device(feature)):
+            if isinstance(feature, dict):
+                outs = [head(feature[name]) for name in self.cfg.rpn_in_features]
+                return RPNOutput(torch.cat([o[0] for o in outs], dim=1), torch.cat([o[1] for o in outs], dim=1))
+            return RPNOutput(*head(feature))
 
     def box(self, pooled: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """pooled [N, C, P, P] -> (scores [N, C+1], deltas [N, 4K]) float32.
@@ -242,6 +319,28 @@ def init_weights(model: FasterRCNN, seed: int) -> FasterRCNN:
     return model
 
 
+Feature = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+
+def feature_device(feature: Feature) -> torch.device:
+    return next(iter(feature.values())).device if isinstance(feature, dict) else feature.device
+
+
+def feature_batch(feature: Feature) -> int:
+    return next(iter(feature.values())).shape[0] if isinstance(feature, dict) else feature.shape[0]
+
+
+def split_feature(feature: Feature, b: int) -> Tuple[Feature, Feature]:
+    """A feature of a 2B-image batch -> (its first b images', the rest's)."""
+    if isinstance(feature, dict):
+        return {k: v[:b] for k, v in feature.items()}, {k: v[b:] for k, v in feature.items()}
+    return feature[:b], feature[b:]
+
+
+def detach_feature(feature: Feature) -> Feature:
+    return {k: v.detach() for k, v in feature.items()} if isinstance(feature, dict) else feature.detach()
+
+
 class RPNOutput(NamedTuple):
     objectness: torch.Tensor  # [B, N_anchors] float32
     deltas: torch.Tensor  # [B, N_anchors, 4] float32
@@ -257,16 +356,19 @@ class SampledProposals(NamedTuple):
     valid: torch.Tensor  # [B, S] bool
 
 
-def proposal_counts(cfg: DetectorConfig, num_anchors: int, training: bool) -> Tuple[int, int]:
+def proposal_counts(cfg: DetectorConfig, num_anchors: Union[int, Sequence[int]], training: bool) -> Tuple[int, int]:
     """(pre-NMS, post-NMS) proposal counts of one image: the config's caps,
-    bounded by the anchor count."""
+    bounded by the anchor count. Under FPN `num_anchors` is the per-level
+    counts (`anchor_counts`), and pre-NMS is the merged set: each level's
+    top-k, capped back to the pre-NMS cap."""
     pre_k = cfg.rpn_pre_nms_topk_train if training else cfg.rpn_pre_nms_topk_test
     post_k = cfg.rpn_post_nms_topk_train if training else cfg.rpn_post_nms_topk_test
-    pre_k = min(pre_k, num_anchors)
+    counts = (num_anchors,) if isinstance(num_anchors, int) else tuple(num_anchors)
+    pre_k = min(pre_k, sum(min(pre_k, n) for n in counts))
     return pre_k, min(post_k, pre_k)
 
 
-def roi_pool_size(cfg: DetectorConfig, num_anchors: int, gt_capacity: int) -> int:
+def roi_pool_size(cfg: DetectorConfig, num_anchors: Union[int, Sequence[int]], gt_capacity: int) -> int:
     """Candidates per image that `label_and_sample_proposals` samples from:
     the training proposals, plus the GT slots when they are appended."""
     return proposal_counts(cfg, num_anchors, True)[1] + (gt_capacity if cfg.proposal_append_gt else 0)
@@ -277,17 +379,30 @@ def _anchor_grid(feature_hw, stride, sizes, ratios, device: torch.device) -> tor
     return generate_anchors(feature_hw, stride, sizes, ratios, device=device)
 
 
-def anchors_for(cfg: DetectorConfig, canvas_hw: Tuple[int, int], device: torch.device) -> torch.Tensor:
-    """Anchor grid [h*w*A, 4] of the padded canvas; the feature map is
-    ceil(H / stride) x ceil(W / stride). Built on the host and copied to the
-    device once per canvas and device, then shared (callers must not write
-    to it): a step reads it without a host-to-device copy."""
-    stride = cfg.stride
+def _grid(cfg: DetectorConfig, canvas_hw, stride: int, sizes, device) -> torch.Tensor:
     fh = (canvas_hw[0] + stride - 1) // stride
     fw = (canvas_hw[1] + stride - 1) // stride
-    return _anchor_grid(
-        (fh, fw), stride, tuple(cfg.anchor_sizes), tuple(cfg.anchor_ratios), torch.device(device)
-    )
+    return _anchor_grid((fh, fw), stride, tuple(sizes), tuple(cfg.anchor_ratios), torch.device(device))
+
+
+def anchors_for(cfg: DetectorConfig, canvas_hw: Tuple[int, int], device: torch.device):
+    """Anchor grid [h*w*A, 4] of the padded canvas; the feature map is
+    ceil(H / stride) x ceil(W / stride). Under FPN a tuple of per-level
+    grids in `rpn_in_features` order (the order of `FasterRCNN.rpn`'s
+    concatenation). Built on the host and copied to the device once per
+    canvas and device, then shared (callers must not write to it): a step
+    reads it without a host-to-device copy."""
+    if cfg.fpn:
+        return tuple(_grid(cfg, canvas_hw, cfg._level_stride(name), sizes, device)
+                     for name, sizes in zip(cfg.rpn_in_features, cfg.level_anchor_sizes))
+    return _grid(cfg, canvas_hw, cfg.stride, cfg.anchor_sizes, device)
+
+
+def anchor_counts(cfg: DetectorConfig, canvas_hw: Tuple[int, int]) -> Tuple[int, ...]:
+    """The anchors of each RPN level on the canvas (one level without FPN);
+    their sum is the RPN's prediction count."""
+    anchors = anchors_for(cfg, canvas_hw, torch.device("cpu"))
+    return tuple(a.shape[0] for a in anchors) if isinstance(anchors, tuple) else (anchors.shape[0],)
 
 
 def propose(
@@ -300,7 +415,10 @@ def propose(
     """RPN proposals (detectron2 find_top_rpn_proposals with fixed shapes):
     pre-NMS top-k by objectness, decode, clip, NMS at `rpn_nms_thresh`,
     post-NMS top-k, with the training or the test caps. Returns Instances
-    with a leading batch dim: boxes [B, post_k, 4]."""
+    with a leading batch dim: boxes [B, post_k, 4]. Under FPN (`anchors` a
+    tuple) `_propose_fpn`."""
+    if isinstance(anchors, tuple):
+        return _propose_fpn(cfg, anchors, rpn_out, image_sizes, training)
     if rpn_out.objectness.shape[1] != anchors.shape[0]:
         raise ValueError(
             f"RPN prediction count {rpn_out.objectness.shape[1]} != anchor count {anchors.shape[0]}"
@@ -317,6 +435,41 @@ def propose(
     return inst.top_k(post_k)
 
 
+def _propose_fpn(
+    cfg: DetectorConfig,
+    anchors: Tuple[torch.Tensor, ...],
+    rpn_out: RPNOutput,
+    image_sizes: torch.Tensor,
+    training: bool,
+) -> Instances:
+    """Multi-level proposals (Detectron2's find_top_rpn_proposals over
+    levels, as the JAX package bounds it): each level's pre-NMS top-k in
+    `jax.lax.top_k`'s order, decoded; one clip of the merged set; the
+    merged set capped back to the pre-NMS cap by score (invalid ranked
+    last); ONE NMS over it; post-NMS top-k across levels. All images at
+    once, no host read."""
+    counts = [a.shape[0] for a in anchors]
+    if rpn_out.objectness.shape[1] != sum(counts):
+        raise ValueError(
+            f"RPN prediction count {rpn_out.objectness.shape[1]} != anchor count {sum(counts)} (per level {counts})"
+        )
+    pre_k = cfg.rpn_pre_nms_topk_train if training else cfg.rpn_pre_nms_topk_test
+    merged_k, post_k = proposal_counts(cfg, counts, training)
+    boxes, vals = [], []
+    for a, obj, dl in zip(anchors, rpn_out.objectness.split(counts, dim=1), rpn_out.deltas.split(counts, dim=1)):
+        idx = topk_indices(obj, min(pre_k, a.shape[0]))
+        vals.append(torch.gather(obj, 1, idx))
+        d = torch.gather(dl, 1, idx[..., None].expand(-1, -1, 4))
+        boxes.append(RPN_BOX_TRANSFORM.apply_deltas(d, a[idx]))
+    boxes = clip_boxes(torch.cat(boxes, dim=1), image_sizes)
+    vals = torch.cat(vals, dim=1)
+    valid = nonempty(boxes) & torch.isfinite(vals)
+    key = torch.where(valid, vals, torch.full_like(vals, -float("inf")))
+    cand = Instances(boxes, vals, torch.zeros_like(vals, dtype=torch.int32), valid).take(topk_indices(key, merged_k))
+    keep = nms.nms_mask_matrix(cand.boxes, cand.scores, cand.valid, cfg.rpn_nms_thresh)
+    return dataclasses.replace(cand, valid=keep).top_k(post_k)
+
+
 def rpn_losses(
     cfg: DetectorConfig,
     anchors: torch.Tensor,
@@ -327,6 +480,8 @@ def rpn_losses(
     """RPN objectness and box-regression losses, each a sum over the sampled
     anchors / (B * rpn_batch_size_per_image) (detectron2). gt: Instances
     [B, M]; priorities [B, N_anchors], the sampler's uniform draws."""
+    if isinstance(anchors, tuple):  # FPN: matched over every level at once
+        anchors = torch.cat(anchors, dim=0)
     b = rpn_out.objectness.shape[0]
     labels, sel, sel_pos, reg_targets = [], [], [], []
     for i in range(b):
@@ -443,16 +598,50 @@ def bpc_candidates(
     )
 
 
-def pool_rois(cfg: DetectorConfig, feature: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
-    """feature [B, C, h, w], boxes [B, R, 4] -> pooled [B*R, C, P, P]."""
+def assign_boxes_to_levels(
+    boxes: torch.Tensor, min_level: int, max_level: int, canonical_box_size: float = 224.0, canonical_level: int = 4
+) -> torch.Tensor:
+    """Detectron2's ROIPooler level rule: floor(canonical_level +
+    log2(sqrt(area) / canonical_box_size + 1e-8)) clamped to [min_level,
+    max_level], in float32 as the JAX package computes it. boxes [..., 4]
+    XYXY -> int64 levels [...]."""
+    b = boxes.to(torch.float32)
+    area = torch.clamp_min(b[..., 2] - b[..., 0], 0.0) * torch.clamp_min(b[..., 3] - b[..., 1], 0.0)
+    lvl = torch.floor(canonical_level + torch.log2(torch.sqrt(area) / canonical_box_size + 1e-8))
+    return torch.clamp(lvl, min_level, max_level).to(torch.int64)
+
+
+def pool_rois(cfg: DetectorConfig, feature: Feature, boxes: torch.Tensor) -> torch.Tensor:
+    """feature [B, C, h, w], boxes [B, R, 4] -> pooled [B*R, C, P, P].
+
+    FPN (a level dict): each box pooled from the level
+    `assign_boxes_to_levels` gives it. As the JAX package writes it: every
+    box pooled on every ROI level and the level's result kept by a 0/1
+    mask, accumulated level by level (the mask adds exact zeros, so this
+    equals pooling each box from its own level alone)."""
+    if isinstance(feature, dict):
+        levels = [int(name[1:]) for name in cfg.roi_in_features]
+        if levels != list(range(min(levels), max(levels) + 1)):
+            raise ValueError(
+                f"ROI_HEADS.IN_FEATURES levels {levels} must be contiguous: assign_boxes_to_levels clamps into "
+                "[min, max], so a gap level would zero-pool every box assigned to it"
+            )
+        lvl = assign_boxes_to_levels(boxes, min(levels), max(levels))  # [B, R]
+        pooled = None
+        for name, level in zip(cfg.roi_in_features, levels):
+            p = roi_align(feature[name], boxes, 1.0 / 2 ** level, cfg.pooler_resolution, cfg.pooler_sampling_ratio)
+            p = p * (lvl == level).to(p.dtype)[..., None, None, None]
+            pooled = p if pooled is None else pooled + p
+        return pooled.flatten(0, 1)
     pooled = roi_align(feature, boxes, 1.0 / cfg.stride, cfg.pooler_resolution, cfg.pooler_sampling_ratio)
     return pooled.flatten(0, 1)
 
 
-def dc_image_feature(cfg: DetectorConfig, feature: torch.Tensor) -> torch.Tensor:
+def dc_image_feature(cfg: DetectorConfig, feature: Feature) -> torch.Tensor:
     """The map the image-level domain classifiers take: the single-level
-    backbone's feature itself (FPN is not ported)."""
-    return feature
+    backbone's feature itself, or under FPN `cfg.dc_in_feature` (the
+    coarsest ROI level)."""
+    return feature[cfg.dc_in_feature] if isinstance(feature, dict) else feature
 
 
 def roi_inference(

@@ -143,3 +143,37 @@ OUTSIDE = {
 def test_reader_refuses_outside_the_subset(text):
     with pytest.raises(ValueError, match=r"^cfg\.yaml:\d+: "):
         yaml_subset.loads(text, "cfg.yaml")
+
+
+# the configs that stopped before the port had the bare VGG, FPN and AdaIN
+ZOO_CONFIGS = [
+    "faster_rcnn_VGG_cityscapes_foggy_adaptive_teacher_source_free_test.yaml",  # STYLE.ENABLED
+    "faster_rcnn_VGG_cityscapes_foggy_enhance.yaml",  # STYLE.ENABLED
+    "faster_rcnn_VGG_cityscapes_foggy_source_nobn.yaml",  # VGG.BN False
+    "faster_rcnn_VGG_cityscapes_foggy_adaptive_teacher_source_free_nobn.yaml",  # VGG.BN False
+    "vgg16_cityscapes_to_foggy_source.yaml",  # VGG.BN False
+    "vgg16_fpn_cityscapes_to_foggy_source.yaml",  # FPN and VGG.BN False
+    "synthetic_tiny_fpn.yaml",  # FPN
+]
+
+
+@pytest.mark.parametrize("name", ZOO_CONFIGS)
+def test_zoo_config_builds_its_trainer(name, tmp_path, capsys):
+    """get_cfg, merge_from_file, detector_config_from_cfg and
+    build_trainer(cfg, device="cpu") at a 64x128 canvas (FC_DIM 64): each
+    of these builds the detector its YAML names (the style view from the
+    YAML's weights/ files, absent here, falls back with the JAX package's
+    messages)."""
+    from simple_sfod_tpu_torch.engine.trainers import build_trainer
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(CONFIG_DIR, name))
+    cfg.merge_from_list(["TPU.CANVAS", "(64, 128)", "MODEL.ROI_BOX_HEAD.FC_DIM", "64", "OUTPUT_DIR", str(tmp_path)])
+    det_cfg = detector_config_from_cfg(cfg)
+    tr = build_trainer(cfg, device="cpu")
+    assert tr.det_cfg == det_cfg and type(tr.detector.model.backbone).__name__ == ("FPN" if det_cfg.fpn else
+                                                                                    "VGG16Backbone")
+    assert bool(tr._batchnorms()) == (det_cfg.vgg_bn or det_cfg.fpn_norm == "BN")
+    assert (getattr(tr, "style", None) is not None) == bool(cfg.STYLE.ENABLED)
+    if cfg.STYLE.ENABLED:
+        assert "[style]" in capsys.readouterr().out

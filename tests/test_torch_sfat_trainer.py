@@ -469,7 +469,7 @@ def lockstep_cfg(**overrides):
 @pytest.mark.parametrize(
     "key,value,error,match",
     [
-        ("STYLE.ENABLED", "True", NotImplementedError, "STYLE"),
+        ("MODEL.ROI_BOX_HEAD.DROPOUT", "0.5", NotImplementedError, "DROPOUT"),
         ("SEMISUPNET.PSEUDO_BBOX_SAMPLE", "'topk'", ValueError, "pseudo label boxes"),
     ],
 )
