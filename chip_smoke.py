@@ -260,6 +260,32 @@ Phases (each prints one progress line with its wall time):
               set_sync_debug_mode("error"), and stylize alone timed. Each
               run's ms a step, busy share, peak memory and launches; each
               run's first-step NMS inputs kernel == plain
+ 18. settings every model setting of the JAX package: box-head dropout, MC
+              dropout, ResNet-50 under FPN and ImageNet initialisation, at
+              608x1216 (1120 for Sim10k) from seeded weights and the PNG and
+              JPEG frames under a temporary SFOD_DATASETS: the main SFAT YAML
+              with MODEL.ROI_BOX_HEAD.DROPOUT 0.5 for 6 bfloat16 steps at
+              batch 1 from the loader (3 launches a step, pseudo-labels),
+              then mc_dropout_box_outputs with K 10 on 2 images of the
+              trained student (1 launch an image; finite mean and std, the
+              mean a distribution, std > 0; ms a call, profiled); ResNet-50
+              (NORM BN) under the FPN of
+              configs/vgg16_fpn_cityscapes_to_foggy_source.yaml, built from
+              its DetectorConfig, for 6 base steps at batch 2 (2 launches a
+              step; peak memory), `bn_update` on 4 images (every statistic
+              moved and finite), inference on 4 (2 launches an image); then,
+              beside the untimed work, `python -m
+              simple_sfod_tpu_torch.tools.train_net` on
+              configs/faster_rcnn_VGG_sim10k_source.yaml with a seeded
+              torchvision-named vgg16_bn.pth as MODEL.WEIGHTS, and `python -m
+              simple_sfod_tpu_torch.tools.import_weights` of a seeded
+              vgg16.pth on the bare-VGG source YAML followed by train_net
+              from its output (4 steps at batch 4 and test() each; 0
+              backbone tensors kept at their initialisation, launches as
+              counted); in this process both files as MODEL.WEIGHTS (every
+              backbone tensor equal to the file's), one float32 R50-FPN step
+              and MC dropout on the same masks on the card against the CPU
+              at 128x256, and every captured NMS input kernel == plain
 
 Prints the card's name and power limit and a JSON line of the kernels'
 numbers, then, as the last line, {"ok": true, "device": {...}}. Any failure
@@ -303,7 +329,7 @@ from simple_sfod_tpu_torch.engine.train_state import ema_tensors
 from simple_sfod_tpu_torch.engine.trainers import build_trainer
 from simple_sfod_tpu_torch.engine.trainers.base import BaseTrainer
 from simple_sfod_tpu_torch.models.detector import Detector
-from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, init_weights
+from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, anchor_counts, init_weights, proposal_counts
 from simple_sfod_tpu_torch.ops import _kernels, nms
 from simple_sfod_tpu_torch.structures.instances import Instances
 from simple_sfod_tpu_torch.tools import kitti_to_coco, prediction_to_gt, run_workflow_synthetic, sim10k_to_coco, train_net
@@ -3623,6 +3649,345 @@ def zoo_phase(smi: str):
     return total, numbers
 
 
+# ---------------------------------------------------------------- settings
+SET_SIM10K_YAML = "configs/faster_rcnn_VGG_sim10k_source.yaml"
+SET_NOBN_YAML = ZOO_NOBN_YAML  # VGG.BN False (the Sim10k and KITTI _nobn YAMLs build VGG16-BN)
+SET_STEPS = 6  # steps of each timed run (the first excluded from the median)
+SET_CLI_ITERS = 4
+SET_MC_SAMPLES = 10
+SET_MC_IMAGES = 2
+SET_RFPN_BATCH = 2
+SET_BN_IMAGES = 4
+SET_RES = ("res2", "res3", "res4", "res5")
+# the source YAMLs' BASE_LR 0.04 diverges within 4 steps from the seeded
+# ImageNet files (a NaN loss at step 3 of the bare VGG): the zoo runs' 0.0025
+SET_CLI_OPTS = ["SEED", "0", "SOLVER.WARMUP_ITERS", "0", "SOLVER.BASE_LR", "0.0025", "VIS_PERIOD", "0",
+                "SOLVER.CHECKPOINT_PERIOD", "100000",
+                "SOLVER.IMS_PER_BATCH", str(CAR_BATCH), "SOLVER.MAX_ITER", str(SET_CLI_ITERS), "TEST.EVAL_PERIOD",
+                str(SET_CLI_ITERS)]
+TV_VGG16_BN_CONVS = (0, 3, 7, 10, 14, 17, 20, 24, 27, 30, 34, 37, 40)
+TV_VGG16_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def write_torchvision_vgg(path: str, bn: bool, seed: int = SEED) -> dict:
+    """A seeded state dict with torchvision vgg16(_bn)'s names and full
+    widths (an ImageNet file's layout: features.{i}.*, BatchNorms with their
+    statistics, a classifier that the detector drops; the classifier cut
+    small), saved to `path`. -> the dict."""
+    g = torch.Generator().manual_seed(seed)
+    widths = [w for stage in ((64, 64), (128, 128), (256,) * 3, (512,) * 3, (512,) * 3) for w in stage]
+    sd, c_in = {}, 3
+    for idx, c in zip(TV_VGG16_BN_CONVS if bn else TV_VGG16_CONVS, widths):
+        sd[f"features.{idx}.weight"] = torch.randn((c, c_in, 3, 3), generator=g) / (9 * c_in) ** 0.5
+        sd[f"features.{idx}.bias"] = torch.randn((c,), generator=g) * 0.05
+        if bn:
+            sd[f"features.{idx + 1}.weight"] = 0.5 + torch.rand((c,), generator=g)
+            sd[f"features.{idx + 1}.bias"] = torch.randn((c,), generator=g) * 0.05
+            sd[f"features.{idx + 1}.running_mean"] = torch.randn((c,), generator=g) * 0.1
+            sd[f"features.{idx + 1}.running_var"] = 0.5 + 1.5 * torch.rand((c,), generator=g)
+            sd[f"features.{idx + 1}.num_batches_tracked"] = torch.tensor(1000)
+        c_in = c
+    sd["classifier.0.weight"] = torch.randn((16, 8), generator=g)
+    sd["classifier.0.bias"] = torch.zeros(16)
+    torch.save(sd, path)
+    return sd
+
+
+def imagenet_loaded(cfg, tv: dict) -> tuple:
+    """The config's trainer with the torchvision file as MODEL.WEIGHTS: ->
+    (the loader's printed line, backbone tensors that differ from the
+    file's import, backbone tensors compared)."""
+    from simple_sfod_tpu_torch.checkpoint import torch_import
+
+    tr = build_trainer(cfg)
+    buf = io.StringIO()
+    stdout, sys.stdout = sys.stdout, buf
+    try:
+        tr.resume_or_load()
+    finally:
+        sys.stdout = stdout
+    want = torch_import.import_torchvision_vgg(tv, tr.det_cfg.vgg_bn, tr.det_cfg.fpn)
+    got = tr.state.model.state_dict()
+    keys = [k for k in want if not k.endswith("num_batches_tracked")]
+    bad = [k for k in keys if not torch.equal(got[k].cpu(), want[k])]
+    del tr
+    return buf.getvalue().strip(), bad, len(keys)
+
+
+def rfpn_config(cfg):
+    """ResNet-50 (NORM BN) under the FPN of the config's detector, as the
+    JAX package builds it from a DetectorConfig (no YAML names it)."""
+    import dataclasses
+
+    return dataclasses.replace(detector_config_from_cfg(cfg), backbone="resnet50", resnet_norm="BN",
+                               fpn_in_features=SET_RES)
+
+
+def rfpn_card_vs_cpu(cfg, det_cfg, canvas=(128, 256), image_hw=(120, 250)):
+    """One float32 base step of the R50-FPN detector on the card and on the
+    CPU from the same seeded weights, batch and draws (state_errors)."""
+    sd = init_weights(FasterRCNN(det_cfg), SEED).state_dict()
+    cpu, card = (BaseTrainer(cfg, device=d, state_dict=sd, det_cfg=det_cfg) for d in ("cpu", "cuda"))
+    start = {k: v.clone() for k, v in cpu.state.model.state_dict().items()}
+    batch = synthetic_batch(make_synthetic_records(2, tuple(image_hw), 8, 6, seed=SEED), tuple(canvas),
+                            cfg.TPU.GT_CAPACITY)
+    draws = cpu.make_draws(2, tuple(canvas), cfg.TPU.GT_CAPACITY)
+    mc = {k: float(v) for k, v in cpu.run_step(batch, draws).items()}
+    mg = {k: float(v) for k, v in card.run_step(batch, draws).items()}
+    out = {"loss": {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in TRAIN_LOSSES},
+           "counts_equal": all(mg[k] == mc[k] for k in ("num_fg", "num_sampled")), "losses_cpu": mc}
+    out.update(state_errors(start, cpu.state.model.state_dict(), card.state.model.state_dict()))
+    return out
+
+
+def mc_card_vs_cpu(cfg, canvas=(128, 256), image_hw=(120, 250)) -> tuple:
+    """MC dropout of a float32 detector at 128x256 on the card and on the
+    CPU, from the same seeded weights (class-1 logit raised), images and
+    keep masks. -> (valid equal, largest mean and std differences on valid
+    rows, valid rows)."""
+    from simple_sfod_tpu_torch.models.faster_rcnn import box_dropout_masks
+    from simple_sfod_tpu_torch.models.uncertainty import mc_dropout_box_outputs
+
+    det_cfg = detector_config_from_cfg(cfg)
+    sd = zoo_weights(cfg)
+    batch = synthetic_batch(make_synthetic_records(2, tuple(image_hw), 8, 6, seed=SEED), tuple(canvas), 8)
+    rows = 2 * proposal_counts(det_cfg, anchor_counts(det_cfg, tuple(canvas)), False)[1]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        det = Detector(det_cfg, dev).load_state_dict(sd)
+        keep = box_dropout_masks(det_cfg, SET_MC_SAMPLES * rows, torch.Generator().manual_seed(SEED), "cpu")
+        out[dev] = [t.cpu() for t in mc_dropout_box_outputs(det, batch["images"], batch["sizes"], SET_MC_SAMPLES,
+                                                             keep=tuple(k.to(dev) for k in keep))]
+    (mc, sc, _, vc), (mg, sg, _, vg) = out["cpu"], out["cuda"]
+    return (torch.equal(vc, vg), (mg - mc)[vc].abs().max().item(), (sg - sc)[vc].abs().max().item(),
+            int(vc.sum()))
+
+
+def set_tool_then_train(vgg_path: str, out: str, data_root: str) -> tuple:
+    """The port's import_weights tool (torchvision vgg16.pth into the bare
+    VGG YAML's detector), then train_net from its output, each in a process
+    of its own. -> (the tool's stdout, train_net's (stdout, wall s, launches))."""
+    init = os.path.join(out, "vgg16_init.pth")
+    res = subprocess.run([sys.executable, "-m", "simple_sfod_tpu_torch.tools.import_weights", "--torch", vgg_path,
+                          "--kind", "torchvision_vgg", "--config-file", os.path.join(ROOT, SET_NOBN_YAML),
+                          "--output", init], cwd=ROOT, env=cli_env(data_root), capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    check(res.returncode == 0, f"import_weights: exit code {res.returncode}\n{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+    argv = ["--config-file", os.path.join(ROOT, SET_NOBN_YAML), *SET_CLI_OPTS, "MODEL.WEIGHTS", init,
+            "OUTPUT_DIR", os.path.join(out, "train")]
+    return res.stdout, init, car_cli("train_net", argv, data_root, "train_net on the import_weights output")
+
+
+def settings_phase(smi: str):
+    """The settings phase (module docstring). -> (the launches of each
+    kernel on the path, a dict of numbers)."""
+    from simple_sfod_tpu_torch.checkpoint import torch_import
+    from simple_sfod_tpu_torch.models.uncertainty import mc_dropout_box_outputs
+
+    total = {k: 0 for k in _kernels.LAUNCHES}
+
+    def add(d):
+        for k in total:
+            total[k] += d[k]
+
+    numbers, secs = {}, {}
+    t_sec = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = round(now - t_sec[0], 2)
+        t_sec[0] = now
+
+    tmp = tempfile.TemporaryDirectory(prefix="sfod_settings_")
+    root = tmp.name
+    data_root = os.path.join(root, "datasets")
+    names = ("sim10k_trainval", "cityscapes_car_val", "cityscapes_instancesonly_train") + DA_DATASETS
+    background = []
+    try:
+        write_sim10k(data_root)
+        write_cityscapes_car(data_root)
+        write_cli_datasets(data_root)
+        main_weights = os.path.join(root, "main.pth")
+        write_cli_weights(main_weights)
+        tv_bn = write_torchvision_vgg(os.path.join(root, "vgg16_bn.pth"), True)
+        tv = write_torchvision_vgg(os.path.join(root, "vgg16.pth"), False, seed=SEED + 1)
+        for name in names:
+            DATASET_REGISTRY.pop(name, None)
+        os.environ["SFOD_DATASETS"] = data_root
+        lap("data")
+
+        # dropout: the main SFAT YAML with ROI_BOX_HEAD.DROPOUT 0.5, batch 1
+        captured = {}
+        _kernels.reset_launches()
+        adapt_cuts = [x for kv in ADAPT_CUTS.items() if kv[0] != "SOLVER.BASE_LR" for x in kv]
+        cfg = zoo_cfg(CLI_YAML, os.path.join(root, "dropout"), *adapt_cuts, "MODEL.WEIGHTS", main_weights,
+                      "MODEL.ROI_BOX_HEAD.DROPOUT", "0.5", "SOLVER.IMS_PER_BATCH", "1")
+        tr = build_trainer(cfg)
+        tr.resume_or_load()
+        check(tr.detector.model.roi_heads.box_head.dropout == 0.5 and tr.det_cfg.dtype == torch.bfloat16,
+              "dropout: configuration")
+        metrics, _, captured["dropout_sfat"], numbers["dropout_sfat"] = zoo_run(tr, SET_STEPS, "dropout_sfat", smi, 3)
+        add(dict(_kernels.LAUNCHES))
+        check(all(m["num_pseudo"] > 0 for m in metrics), "dropout: no pseudo-labels")
+        lap("dropout_sfat")
+
+        # MC dropout: K passes of the trained student's box head on 2 images
+        det = tr.detector
+        bench = synthetic_batch(make_synthetic_records(SET_MC_IMAGES, IMAGE_HW, 8, 6, seed=SEED + 3),
+                                tuple(cfg.TPU.CANVAS), 8)
+        images, sizes = torch.from_numpy(bench["images"]).cuda(), torch.from_numpy(bench["sizes"]).cuda()
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        captured["mc_dropout"] = []
+        orig, record = capture_nms(captured["mc_dropout"])
+        _kernels.reset_launches()
+        nms.nms_mask_matrix = record
+        try:
+            mean, std, boxes, valid = mc_dropout_box_outputs(det, images, sizes, SET_MC_SAMPLES, generator=g)
+        finally:
+            nms.nms_mask_matrix = orig
+        launches = dict(_kernels.LAUNCHES)
+        r = det.cfg.rpn_post_nms_topk_test
+        sums = mean.sum(-1)[valid]
+        check(all(c == SET_MC_IMAGES for c in launches.values()) and tuple(mean.shape) == (SET_MC_IMAGES, r, 9)
+              and tuple(std.shape) == tuple(mean.shape) and bool(torch.isfinite(mean).all())
+              and bool(torch.isfinite(std).all()) and int(valid.sum()) > 0 and float(std[valid].max()) > 0
+              and float((sums - 1).abs().max()) < 1e-4,
+              f"mc dropout: launches {launches}, shapes {tuple(mean.shape)}, valid {int(valid.sum())}")
+        mc_ms = time_ms(lambda: mc_dropout_box_outputs(det, images, sizes, SET_MC_SAMPLES, generator=g), 5)
+        prof = profile(lambda: mc_dropout_box_outputs(det, images, sizes, SET_MC_SAMPLES, generator=g), 2)
+        add(dict(_kernels.LAUNCHES))  # the checked call's, the timed calls' and the profiled ones
+        numbers["mc_dropout"] = dict(ms=mc_ms, device_ms=prof[1], busy=prof[1] / prof[0], samples=SET_MC_SAMPLES,
+                                     images=SET_MC_IMAGES, rois=r)
+        log(f"  mc_dropout_box_outputs (K {SET_MC_SAMPLES}, {SET_MC_IMAGES} images, {r} proposals each, "
+            f"{cfg.TPU.CANVAS[0]}x{cfg.TPU.CANVAS[1]}, bfloat16) [{smi}]: {mc_ms:.2f} ms a call (CUDA events), "
+            f"profiled: wall {prof[0]:.2f} ms, device {prof[1]:.2f} ms, busy {prof[1] / prof[0]:.1%}; "
+            f"{int(valid.sum())} valid rows, softmax std up to {float(std[valid].max()):.3g}; launches {launches} "
+            f"(1 an image); top kernels (ms): {top(prof[2], 4)}")
+        del tr, det
+        lap("mc_dropout")
+
+        # ResNet-50 under FPN: base steps at batch 2, AdaBN's update, inference
+        _kernels.reset_launches()
+        cfg = zoo_cfg(ZOO_FPN_YAML, os.path.join(root, "rfpn"), "SOLVER.IMS_PER_BATCH", str(SET_RFPN_BATCH))
+        det_cfg = rfpn_config(cfg)
+        tr = BaseTrainer(cfg, det_cfg=det_cfg)
+        check(tr.det_cfg.fpn and tr.det_cfg.backbone == "resnet50" and tr.det_cfg.dtype == torch.bfloat16
+              and len(tr._batchnorms()) > 50, "rfpn: configuration")
+        n_anchors = sum(anchor_counts(det_cfg, tuple(cfg.TPU.CANVAS)))
+        _, _, captured["rfpn"], numbers["rfpn"] = zoo_run(tr, SET_STEPS, "rfpn", smi, SET_RFPN_BATCH)
+        add(dict(_kernels.LAUNCHES))
+        bench = synthetic_batch(make_synthetic_records(SET_BN_IMAGES, IMAGE_HW, 8, 6, seed=SEED + 5),
+                                tuple(cfg.TPU.CANVAS), 8)
+        images, sizes = torch.from_numpy(bench["images"]).cuda(), torch.from_numpy(bench["sizes"]).cuda()
+        bns = tr._batchnorms()
+        before = [b.running_var.clone() for b in bns]
+        tr.detector.bn_update(images)
+        check(all(not torch.equal(b.running_var, v) and bool(torch.isfinite(b.running_var).all())
+                  for b, v in zip(bns, before)), "rfpn: bn_update left a statistic or made it non-finite")
+        bn_ms = time_ms(lambda: tr.detector.bn_update(images), 3, warmup=1)
+        # the class-1 logit raised, so that the few steps from random weights give detections
+        with torch.no_grad():
+            tr.detector.model.roi_heads.box_predictor.cls_score.bias[1] += CLS_BIAS_BOOST
+        captured["rfpn_infer"] = []
+        orig, record = capture_nms(captured["rfpn_infer"])
+        _kernels.reset_launches()
+        nms.nms_mask_matrix = record
+        try:
+            dets = tr.detector.infer(images, sizes)
+        finally:
+            nms.nms_mask_matrix = orig
+        launches = dict(_kernels.LAUNCHES)
+        check(all(c == 2 * SET_BN_IMAGES for c in launches.values()) and bool(torch.isfinite(dets.boxes).all())
+              and int(dets.valid.sum()) > 0, f"rfpn infer: launches {launches}, {int(dets.valid.sum())} detections")
+        infer_ms = time_ms(lambda: tr.detector.infer(images, sizes), 5)
+        add(dict(_kernels.LAUNCHES))
+        numbers["rfpn"].update(bn_update_ms=bn_ms, infer_ms=infer_ms, anchors=n_anchors)
+        log(f"  rfpn: {n_anchors} anchors an image over p2..p6; bn_update on {SET_BN_IMAGES} images {bn_ms:.2f} ms "
+            f"(CUDA events; {len(bns)} BatchNorms moved); infer (class-1 logit raised by {CLS_BIAS_BOOST}) on {SET_BN_IMAGES} images [{smi}]: {infer_ms:.2f} ms a call "
+            f"(CUDA events), {int(dets.valid.sum())} detections, launches {launches} (2 an image)")
+        del tr
+        lap("rfpn")
+
+        # ImageNet initialisation: the CLIs in processes of their own, beside
+        # the untimed work (the loads in this process, the card-vs-CPU
+        # steps, the NMS checks)
+        t_cli = time.perf_counter()
+        argv = ["--config-file", os.path.join(ROOT, SET_SIM10K_YAML), *SET_CLI_OPTS, "MODEL.WEIGHTS",
+                os.path.join(root, "vgg16_bn.pth"), "OUTPUT_DIR", os.path.join(root, "sim10k_imagenet")]
+        sim_cli = Background(car_cli, "train_net", argv, data_root, "train_net from vgg16_bn.pth")
+        tool_cli = Background(set_tool_then_train, os.path.join(root, "vgg16.pth"), os.path.join(root, "nobn_tool"),
+                              data_root)
+        background += [sim_cli, tool_cli]
+
+        for label, yaml, sd in (("sim10k + vgg16_bn.pth", SET_SIM10K_YAML, tv_bn), ("bare VGG + vgg16.pth",
+                                                                                   SET_NOBN_YAML, tv)):
+            cfg = zoo_cfg(yaml, os.path.join(root, "load"), "MODEL.WEIGHTS",
+                          os.path.join(root, "vgg16_bn.pth" if sd is tv_bn else "vgg16.pth"))
+            line, bad, n = imagenet_loaded(cfg, sd)
+            check(line.endswith("(0 of the backbone's)") and not bad, f"{label}: {line}; differ {bad[:3]}")
+            log(f"  MODEL.WEIGHTS {label} in this process: {n} backbone tensors equal the file's import; {line}")
+        lap("imagenet_in_process")
+
+        cfg = zoo_cfg(ZOO_FPN_YAML, tempfile.gettempdir(), "TPU.CANVAS", "(128, 256)", "TPU.DTYPE", "float32")
+        err = rfpn_card_vs_cpu(cfg, rfpn_config(cfg))
+        log("  card vs CPU, one float32 R50-FPN base step at 128x256, batch 2: " + format_errors(err, TRAIN_LOSSES))
+        check(card_step_ok(err), "rfpn: the card's step differs")
+        cfg = zoo_cfg(CLI_YAML, tempfile.gettempdir(), "TPU.CANVAS", "(128, 256)", "TPU.DTYPE", "float32",
+                      "MODEL.ROI_BOX_HEAD.DROPOUT", "0.5")
+        same, mean_err, std_err, rows = mc_card_vs_cpu(cfg)
+        log(f"  card vs CPU, mc_dropout_box_outputs (K {SET_MC_SAMPLES}) float32 at 128x256 on the same masks: valid "
+            f"equal {same} ({rows} rows), mean max abs diff {mean_err:.3g}, std {std_err:.3g} (tol 1e-4)")
+        check(same and rows > 0 and mean_err <= 1e-4 and std_err <= 1e-4, "mc dropout: the card differs from the CPU")
+        lap("card_vs_cpu")
+
+        for label, calls in captured.items():
+            kept = [check_kernels_against_plain(b, s, v, thr, f"{label} call {i}", cpu=i == 0)
+                    for i, (b, s, v, thr) in enumerate(calls)]
+            log(f"  {label}: {len(calls)} NMS inputs (N {sorted({int(c[0].shape[0]) for c in calls})}), kernels "
+                f"bit-equal to the plain versions, kept {kept}")
+        lap("nms_checks")
+
+        stdout, wall, got = sim_cli.result()
+        add(got)
+        want = CAR_BATCH * SET_CLI_ITERS + 2 * CAR_TEST_FRAMES + 1
+        check(all(c == want for c in got.values()), f"train_net from vgg16_bn.pth: launches {got}, expected {want}")
+        line = [ln for ln in stdout.splitlines() if ln.startswith("[checkpoint] loaded")]
+        check(line and line[0].endswith("(0 of the backbone's)"), f"train_net from vgg16_bn.pth: {line}")
+        last, res = check_car_run(os.path.join(root, "sim10k_imagenet"), "train_net from vgg16_bn.pth",
+                                  SET_CLI_ITERS, ["cityscapes_car_val"])
+        log(f"  train_net {SET_SIM10K_YAML} MODEL.WEIGHTS vgg16_bn.pth (torchvision names; {SET_CLI_ITERS} steps at "
+            f"batch {CAR_BATCH}, test()) [{smi}]: {wall:.2f} s; {line[0].split('; ', 1)[1]}; total loss "
+            f"{last['total_loss']:.4f}, (AP, AP50) {res}, launches {got}")
+        tool_out, init, (stdout, wall, got) = tool_cli.result()
+        add(got)
+        want = CAR_BATCH * SET_CLI_ITERS + 2 * 2 * CLI_TEST_FRAMES + 1
+        check(all(c == want for c in got.values()), f"train_net on the tool's output: launches {got}, expected {want}")
+        line = [ln for ln in stdout.splitlines() if ln.startswith("[checkpoint] loaded")]
+        check(line and line[0].endswith("0 tensors kept their initialisation (0 of the backbone's)"),
+              f"train_net on the tool's output: {line}")
+        written = torch.load(init, map_location="cpu", weights_only=True)["model"]
+        want_sd = torch_import.import_torchvision_vgg(tv, False)
+        check(all(torch.equal(written[k], v) for k, v in want_sd.items()), "import_weights: backbone differs")
+        lines = metrics_lines(os.path.join(root, "nobn_tool", "train"))
+        check(lines and np.isfinite(lines[-1]["total_loss"]), f"train_net on the tool's output: {lines[-1:]}")
+        log(f"  import_weights --kind torchvision_vgg on {SET_NOBN_YAML} ({tool_out.strip()}), its 13 convs equal "
+            f"the file's; then train_net from it ({SET_CLI_ITERS} steps at batch {CAR_BATCH}, test()) [{smi}]: "
+            f"{wall:.2f} s; {line[0].split('; ', 1)[1]}; total loss {lines[-1]['total_loss']:.4f}, launches {got}")
+        log(f"  both CLIs beside the untimed work: {time.perf_counter() - t_cli:.2f} s")
+        lap("cli_wait")
+        log(f"  the phase's parts (s): {secs}")
+        numbers["parts_s"] = secs
+    finally:
+        for b in background:
+            b.join()
+        os.environ.pop("SFOD_DATASETS", None)
+        for name in names:
+            DATASET_REGISTRY.pop(name, None)
+        tmp.cleanup()
+    log(f"  launches on the settings path: {total}")
+    return total, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4149,6 +4514,9 @@ def main() -> int:
     with Phase("zoo"):
         zoo_launches, zoo_numbers = zoo_phase(smi)
 
+    with Phase("settings"):
+        settings_launches, settings_numbers = settings_phase(smi)
+
     replaces = {
         "suppress_relation_bits": "simple_sfod_tpu/ops/pallas_kernels.py:26",
         "greedy_keep_from_bits": "simple_sfod_tpu/ops/pallas_kernels.py:123",
@@ -4170,7 +4538,8 @@ def main() -> int:
         # count their own) and da (the da, cda, adaptive_teacher and
         # weighted source-free steps and their CLIs) and zoo (the bare-VGG,
         # FPN and style runs, FPN test() and its artifact's requests, the
-        # enhance CLI). r101_per_step: the
+        # enhance CLI) and settings (the dropout SFAT steps, MC dropout, the
+        # R50-FPN steps and inference, the ImageNet-init CLIs). r101_per_step: the
         # ResNet-101 adaptation step's three calls.
         # per_call: one served image's two calls; train_per_step: one
         # supervised step's RPN call; large_n: N above the keep kernel's
@@ -4184,7 +4553,7 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": launches[name] + train_launches[name] + adapt_launches[name] + eval_launches[name] +
                         cli_launches_total[name] + r101_launches[name] + wq_launches[name] + car_launches[name] +
-                        export_launches[name] + da_launches[name] + zoo_launches[name],
+                        export_launches[name] + da_launches[name] + zoo_launches[name] + settings_launches[name],
             "max_abs_err": float(max(r["err"] for r in per + rows[name] + large_rows[name])),
             "ms": sum(r["ms"] for r in per),
             "call_ms": sum(r["call_ms"] for r in per),
@@ -4196,9 +4565,11 @@ def main() -> int:
             "launches_by_path": {"serve": launches[name], "train": train_launches[name], "adapt": adapt_launches[name],
                                  "eval": eval_launches[name], "cli": cli_launches_total[name],
                                  "r101": r101_launches[name], "wq": wq_launches[name], "car": car_launches[name],
-                                 "export": export_launches[name], "da": da_launches[name], "zoo": zoo_launches[name]},
+                                 "export": export_launches[name], "da": da_launches[name], "zoo": zoo_launches[name],
+                                 "settings": settings_launches[name]},
             "da_steps": da_numbers,
             "zoo_runs": zoo_numbers,
+            "settings_runs": settings_numbers,
             "adapt_per_step": per,
             "r101_per_step": r101_rows[name],
             "per_call": rows[name],

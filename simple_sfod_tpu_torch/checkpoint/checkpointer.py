@@ -36,6 +36,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from . import torch_import
+
 TORCH_SUFFIXES = (".pth", ".pt", ".pkl", ".pth.tar")
 MARKER = "last_checkpoint"
 
@@ -67,12 +69,14 @@ class _NumpyOnlyUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
-def load_torch_weights(path: str) -> Dict[str, torch.Tensor]:
+def load_torch_weights(path: str, det_cfg=None) -> Dict[str, torch.Tensor]:
     """The detector state dict of a `.pth`/`.pt`/`.pth.tar` (torch.save) or
     `.pkl` (Detectron2 pickle) file: its "model" (or "state_dict") entry,
     the student's keys of a teacher-student file with their `modelStudent.`
     prefix stripped, a DDP `module.` prefix stripped (as the JAX package's
-    torch_import does)."""
+    torch_import does). A torchvision VGG16(-BN) file (ImageNet weights)
+    is renamed to the backbone of `det_cfg`, the detector it initialises
+    (checkpoint/torch_import.py)."""
     if path.endswith(".pkl"):
         with open(path, "rb") as f:
             data = _NumpyOnlyUnpickler(f, encoding="latin1").load()
@@ -81,8 +85,14 @@ def load_torch_weights(path: str) -> Dict[str, torch.Tensor]:
     sd = data.get("model", data.get("state_dict", data))
     if any(k.startswith("modelStudent.") for k in sd):
         sd = {k[len("modelStudent."):]: v for k, v in sd.items() if k.startswith("modelStudent.")}
-    return {re.sub(r"^module\.", "", k): torch.as_tensor(np.asarray(v)) if not isinstance(v, torch.Tensor) else v
-            for k, v in sd.items()}
+    sd = {re.sub(r"^module\.", "", k): torch.as_tensor(np.asarray(v)) if not isinstance(v, torch.Tensor) else v
+          for k, v in sd.items()}
+    if torch_import.is_torchvision_vgg(sd):
+        if det_cfg is None or det_cfg.backbone != "vgg16":
+            raise ValueError(f"{path} holds torchvision VGG16 weights, which initialise a VGG16 backbone only "
+                             f"(the detector's backbone: {getattr(det_cfg, 'backbone', None)})")
+        sd = torch_import.import_torchvision_vgg(sd, det_cfg.vgg_bn, det_cfg.fpn)
+    return sd
 
 
 @torch.no_grad()
@@ -92,8 +102,10 @@ def overlay_state_dict(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> 
     its value, and so does a shape that differs (with a printed line), as
     the JAX package's `_overlay` keeps the fresh initialisation. The
     BatchNorm counters and the pixel mean and std (which the config sets)
-    are not taken. Returns the names that kept their value."""
-    kept = []
+    are not taken. Returns the names that kept their value. A file that
+    matches no tensor of the module raises (the JAX package loads it
+    silently and trains from the initialisation)."""
+    kept, taken = [], 0
     for name, t in module.state_dict(keep_vars=True).items():
         if name.endswith("num_batches_tracked") or name in ("pixel_mean", "pixel_std"):
             continue
@@ -107,6 +119,10 @@ def overlay_state_dict(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> 
             kept.append(name)
             continue
         t.data.copy_(new.to(t.dtype))
+        taken += 1
+    if not taken:
+        raise ValueError(f"the weights match no parameter or statistic of the detector (its {len(kept)} tensors, "
+                         f"for example {kept[:2]}; the file's keys, for example {sorted(sd)[:3]})")
     return kept
 
 
@@ -180,17 +196,18 @@ class Checkpointer:
     def has_checkpoint(self) -> bool:
         return self.last_checkpoint() is not None
 
-    def resume_or_load(self, weights_path: str, resume: bool) -> Tuple[str, Any]:
+    def resume_or_load(self, weights_path: str, resume: bool, det_cfg=None) -> Tuple[str, Any]:
         """("resume", the newest checkpoint) when `resume` and a marker
-        exist; else ("weights", the detector state dict of `weights_path`)
-        for a torch file; else ("none", None) without weights. An orbax
-        directory or any other path raises."""
+        exist; else ("weights", the detector state dict of `weights_path`,
+        `load_torch_weights` for the detector `det_cfg`) for a torch file;
+        else ("none", None) without weights. An orbax directory or any other
+        path raises."""
         if resume and self.has_checkpoint():
             return "resume", self.load(self.last_checkpoint())
         if not weights_path:
             return "none", None
         if weights_path.endswith(TORCH_SUFFIXES):
-            return "weights", load_torch_weights(weights_path)
+            return "weights", load_torch_weights(weights_path, det_cfg)
         if os.path.isdir(weights_path):
             raise ValueError(
                 f"MODEL.WEIGHTS={weights_path!r} is a directory (an orbax checkpoint of the JAX package?); "

@@ -17,8 +17,9 @@ module keeps its own copy of the layout conversions:
                  shifted module indices (backbones/vgg.py:D2_STAGE_CONVS_NOBN),
                  as `export_torch_checkpoint` writes both
   FPN            the flax tree `backbone.{bottom_up, fpn_lateral{l},
-                 fpn_output{l}, fpn_{lateral,output}{l}_norm}` -> Detectron2's
-                 `backbone.bottom_up.*`, `backbone.fpn_lateral{l}.*`,
+                 fpn_output{l}, fpn_{lateral,output}{l}_norm}` over VGG16 or
+                 ResNet -> Detectron2's `backbone.bottom_up.*` (the
+                 backbone's own names), `backbone.fpn_lateral{l}.*`,
                  `backbone.fpn_output{l}.*` (norms under `.norm`). The JAX
                  exporter has no FPN naming (it raises KeyError 'conv0' on an
                  FPN tree), so these keys are the port's checkpoint names and
@@ -92,8 +93,12 @@ def _vgg(sd: Dict[str, np.ndarray], bp, bs, bn: bool, prefix: str = "backbone") 
 def _fpn(sd: Dict[str, np.ndarray], bp, bs, cfg) -> None:
     """The flax FPN (bottom_up, then a lateral and an output conv per input
     level, each with its `_norm` under NORM BN) -> Detectron2's FPN keys."""
-    _vgg(sd, bp["bottom_up"], bs.get("bottom_up", {}), cfg.vgg_bn, "backbone.bottom_up")
-    strides = {f"vgg{i}": 2 ** (i + 1) for i in range(len(STAGE_PLAN))}
+    if cfg.backbone == "vgg16":
+        _vgg(sd, bp["bottom_up"], bs.get("bottom_up", {}), cfg.vgg_bn, "backbone.bottom_up")
+        strides = {f"vgg{i}": 2 ** (i + 1) for i in range(len(STAGE_PLAN))}
+    else:
+        _resnet(sd, bp["bottom_up"], bs["bottom_up"], cfg, "backbone.bottom_up")
+        strides = resnet.ResNetBackbone.out_strides()
     for f in cfg.fpn_in_features:
         lvl = strides[f].bit_length() - 1
         for kind in ("lateral", "output"):
@@ -106,9 +111,10 @@ def _fpn(sd: Dict[str, np.ndarray], bp, bs, cfg) -> None:
                 sd[f"backbone.{name}.bias"] = _f32(bp[name]["bias"])
 
 
-def _resnet(sd: Dict[str, np.ndarray], bp, bs, cfg) -> None:
-    """Detectron2's backbone.stem / backbone.res{s}.{b} keys from the flax
-    `stem_*` and `res{s}_block{b}` modules, up to the heads' stage."""
+def _resnet(sd: Dict[str, np.ndarray], bp, bs, cfg, prefix: str = "backbone") -> None:
+    """Detectron2's {prefix}.stem / {prefix}.res{s}.{b} keys from the flax
+    `stem_*` and `res{s}_block{b}` modules, up to the heads' stage (under
+    FPN the deepest of `fpn_in_features`)."""
     frozen = cfg.resnet_norm == "FrozenBN"
 
     def conv_norm(key: str, p, s, conv: str, norm: str) -> None:
@@ -118,15 +124,15 @@ def _resnet(sd: Dict[str, np.ndarray], bp, bs, cfg) -> None:
             pn, sn = pn["BatchNorm_0"], sn["BatchNorm_0"]
         _bn(sd, f"{key}.norm", pn["scale"], pn["bias"], sn["mean"], sn["var"])
 
-    conv_norm("backbone.stem.conv1", bp, bs, "stem_conv", "stem_norm")
-    deepest = int(cfg.in_feature[3])
+    conv_norm(f"{prefix}.stem.conv1", bp, bs, "stem_conv", "stem_norm")
+    deepest = max(int(f[3]) for f in (cfg.fpn_in_features if cfg.fpn else (cfg.in_feature,)))
     depth = 50 if cfg.backbone == "resnet50" else 101
     for stage, n_blocks in enumerate(resnet.BLOCK_COUNTS[depth], start=2):
         if stage > deepest:
             break
         for b in range(n_blocks):
             p, s = bp[f"res{stage}_block{b}"], bs[f"res{stage}_block{b}"]
-            key = f"backbone.res{stage}.{b}"
+            key = f"{prefix}.res{stage}.{b}"
             for i in (1, 2, 3):
                 conv_norm(f"{key}.conv{i}", p, s, f"conv{i}", f"norm{i}")
             if "shortcut" in p:
@@ -137,7 +143,7 @@ def state_dict_from_jax(variables: Dict[str, Any], cfg) -> Dict[str, torch.Tenso
     """{"params": ..., "batch_stats": ...} of the JAX FasterRCNN (numpy
     leaves) -> the port's state dict (float32 tensors). `cfg` is the port's
     DetectorConfig: VGG16 with or without BN, ResNet-50/101, or FPN over
-    VGG16."""
+    either."""
     cfg._check_ported()
     params = variables["params"]
     stats = variables.get("batch_stats", {})

@@ -397,11 +397,6 @@ def detector_config_from_cfg(cfg: CfgNode) -> DetectorConfig:
     # unsupported-but-settable keys fail loudly instead of silently diverging
     if cfg.MODEL.ROI_BOX_HEAD.NUM_CONV:
         raise ValueError("MODEL.ROI_BOX_HEAD.NUM_CONV > 0 is not supported (reference heads are FC-only)")
-    if cfg.MODEL.ROI_BOX_HEAD.DROPOUT > 0:
-        raise NotImplementedError(
-            f"MODEL.ROI_BOX_HEAD.DROPOUT={cfg.MODEL.ROI_BOX_HEAD.DROPOUT} is not ported yet; "
-            "the port would train without it"
-        )
     if cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG:
         raise ValueError("MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG is not supported")
     if cfg.MODEL.PROPOSAL_GENERATOR.NAME not in ("RPN", "PseudoLabRPN"):

@@ -20,7 +20,7 @@ import torch
 from ..data.loader import gt_instances
 from ..models.backbones.vgg import BatchNorm2d
 from ..models.detector import DetectionBatch, Detector
-from ..models.faster_rcnn import anchor_counts, roi_pool_size
+from ..models.faster_rcnn import anchor_counts, box_dropout_masks, keep_on, roi_pool_size
 
 
 class ValLossHook:
@@ -48,8 +48,10 @@ class ValLossHook:
             return next(self._iter)
 
     def draws(self, batch_size: int, canvas_hw, gt_capacity: int):
-        """(rpn [B, N_anchors], roi [B, pool]) uniform priorities, from the
-        hook's generator reseeded with `seed`."""
+        """(rpn [B, N_anchors], roi [B, pool]) uniform priorities and the box
+        head's dropout keep masks (None without dropout; the JAX hook's
+        losses run dropout too), from the hook's generator reseeded with
+        `seed`."""
         det, dev = self.detector, self.detector.device
         if self._generator is None:
             self._generator = torch.Generator(device=dev)
@@ -57,7 +59,8 @@ class ValLossHook:
         counts = anchor_counts(det.cfg, tuple(canvas_hw))
         n, pool = sum(counts), roi_pool_size(det.cfg, counts, gt_capacity)
         return (torch.rand((batch_size, n), generator=g, device=dev),
-                torch.rand((batch_size, pool), generator=g, device=dev))
+                torch.rand((batch_size, pool), generator=g, device=dev),
+                box_dropout_masks(det.cfg, batch_size * det.cfg.roi_batch_size_per_image, g, dev))
 
     def fires(self, step: int, prev_step: Optional[int] = None) -> bool:
         """Did a multiple of `period` fall in (prev_step, step] (counting
@@ -80,8 +83,9 @@ class ValLossHook:
         gt = gt_instances(batch, dev)
         if draws is None:
             draws = self.draws(images.shape[0], images.shape[1:3], gt.boxes.shape[1])
-        rpn, roi = (d.to(dev) for d in draws)
-        _, metrics = self.detector.supervised_losses(DetectionBatch(images, sizes, gt), rpn, roi, update_bn=False)
+        rpn, roi, keep = draws
+        _, metrics = self.detector.supervised_losses(DetectionBatch(images, sizes, gt), rpn.to(dev), roi.to(dev),
+                                                     update_bn=False, box_keep=keep_on(keep, dev))
         out = {}
         for k, v in metrics.items():
             v = float(v)

@@ -53,7 +53,7 @@ import torch
 from ...data.loader import build_train_loader
 from ...data.transforms import StrongDraws, make_strong_draws, strong_augment_batch
 from ...models.detector import DetectionBatch
-from ...models.faster_rcnn import anchor_counts, roi_pool_size
+from ...models.faster_rcnn import anchor_counts, box_dropout_masks, keep_on, roi_pool_size
 from ...structures.instances import Instances
 from ..train_state import ema_tensors, ema_update
 from . import register_trainer
@@ -75,11 +75,14 @@ class ATDraws(NamedTuple):
     rpn_t: torch.Tensor  # [B_t, N_anchors]: the pseudo losses' RPN sampler priorities
     roi_t: torch.Tensor  # [B_t, pool]: their ROI sampler's
     dropout: Optional[Tuple[torch.Tensor, ...]] = None  # the instance classifier's keep masks, source's two then target's
+    # the box head's dropout keep masks (base.Draws): the supervised call's
+    # [2B * ROI batch] rows, the pseudo losses' [B_t * ROI batch]
+    box_keep: Optional[Tuple[torch.Tensor, ...]] = None
+    box_keep_t: Optional[Tuple[torch.Tensor, ...]] = None
 
     def to(self, device) -> "ATDraws":
         """The draws on `device` (the strong views' CPU-side ones stay)."""
-        moved = {k: v.to(device) for k, v in self._asdict().items() if k != "dropout"}
-        return ATDraws(**moved, dropout=None if self.dropout is None else tuple(t.to(device) for t in self.dropout))
+        return ATDraws(*(keep_on(v, device) if v is None or type(v) is tuple else v.to(device) for v in self))
 
 
 def concat_instances(a: Instances, b: Instances) -> Instances:
@@ -132,6 +135,8 @@ class AdaptiveTeacherTrainer(PairedTargetMixin, SourceFreeAdaptiveTeacherTrainer
             roi_t=torch.rand((bt, roi_pool_size(det_cfg, counts, det_cfg.detections_per_image)), generator=g,
                              device=dev),
             dropout=self._dropout_draws(bs, bt, counts) if self.ins_dc_enabled else None,
+            box_keep=box_dropout_masks(det_cfg, 2 * bs * det_cfg.roi_batch_size_per_image, g, dev),
+            box_keep_t=box_dropout_masks(det_cfg, bt * det_cfg.roi_batch_size_per_image, g, dev),
         )
 
     @torch.no_grad()
@@ -167,12 +172,13 @@ class AdaptiveTeacherTrainer(PairedTargetMixin, SourceFreeAdaptiveTeacherTrainer
             p.grad = None
         feat_sup = model.features(sup_images, train=True, update_bn=True)
         sup_total, metrics = det.losses_from_feature(
-            feat_sup, DetectionBatch(sup_images, sup_sizes, concat_instances(gt, gt)), draws.rpn, draws.roi
+            feat_sup, DetectionBatch(sup_images, sup_sizes, concat_instances(gt, gt)), draws.rpn, draws.roi,
+            box_keep=draws.box_keep,
         )
         feat_tgt_s = model.features(tgt_strong, train=True, update_bn=False)
         unsup_total, unsup = det.losses_from_feature(
             feat_tgt_s, DetectionBatch(tgt_strong, t_sizes, pseudo_gt), draws.rpn_t, draws.roi_t,
-            loss_weights=PSEUDO_LOSS_WEIGHTS,
+            loss_weights=PSEUDO_LOSS_WEIGHTS, box_keep=draws.box_keep_t,
         )
         metrics.update({f"{k}_pseudo": v for k, v in unsup.items()})
         total = self.sup_w * sup_total + gate * self.unsup_w * unsup_total

@@ -50,7 +50,7 @@ from ...data.transforms import random_hflip
 from ...device import resolve_device
 from ...models.backbones.vgg import BatchNorm2d
 from ...models.detector import DetectionBatch, Detector
-from ...models.faster_rcnn import anchor_counts, init_weights, roi_pool_size
+from ...models.faster_rcnn import anchor_counts, box_dropout_masks, init_weights, keep_on, roi_pool_size
 from ...solver.build import auto_scale_workers, build_optimizer
 from ...structures.instances import Instances
 from ..eval_loop import inference_on_dataset
@@ -66,6 +66,9 @@ class Draws(NamedTuple):
     flip: torch.Tensor  # [B] bool: flip image i (bernoulli 0.5)
     rpn: torch.Tensor  # [B, N_anchors] float32 uniform: RPN sampler priorities
     roi: torch.Tensor  # [B, pool] float32 uniform: ROI sampler priorities
+    # the box head's dropout keep masks, one bool [B * ROI batch, FC_DIM] a
+    # fc layer (`box_dropout_masks`); None without MODEL.ROI_BOX_HEAD.DROPOUT
+    box_keep: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def _flip_enabled(cfg) -> bool:
@@ -185,8 +188,11 @@ class BaseTrainer:
     example from checkpoint/from_jax.py) or from `init_weights(max(cfg.SEED,
     0))`, and `resume_or_load` then overlays MODEL.WEIGHTS or restores a
     checkpoint. `synthetic` renders the loaders' images from their records
-    (no files). SOLVER.REFERENCE_WORLD_SIZE applies the linear-scaling rule
-    for one device before anything is built. float32 work runs in full
+    (no files). `det_cfg` replaces the DetectorConfig that the config
+    lowers to: a detector that no backbone name of the YAML schema builds,
+    ResNet under FPN (as the JAX package, which builds it only from a
+    DetectorConfig). SOLVER.REFERENCE_WORLD_SIZE applies the linear-scaling
+    rule for one device before anything is built. float32 work runs in full
     float32: TF32 is switched off for cuDNN and cuBLAS when the trainer is
     built (bfloat16 runs under autocast, `TPU.DTYPE`)."""
 
@@ -196,6 +202,7 @@ class BaseTrainer:
         device: Optional[Union[str, torch.device]] = None,
         state_dict=None,
         synthetic: bool = False,
+        det_cfg=None,
     ):
         cfg = auto_scale_workers(cfg, 1)  # one device until data parallelism is ported
         self.cfg = cfg
@@ -203,7 +210,7 @@ class BaseTrainer:
         self.output_dir = cfg.OUTPUT_DIR
         self.synthetic = synthetic
         self.max_iter = int(cfg.SOLVER.MAX_ITER)
-        self.det_cfg = detector_config_from_cfg(cfg)
+        self.det_cfg = det_cfg if det_cfg is not None else detector_config_from_cfg(cfg)
         self.flip = _flip_enabled(cfg)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -254,15 +261,17 @@ class BaseTrainer:
         """With `resume` and a checkpoint in OUTPUT_DIR, restore it; else
         load MODEL.WEIGHTS (detector weights only). Sets the storage's
         iteration to the steps taken."""
-        kind, data = self.checkpointer.resume_or_load(self.cfg.MODEL.WEIGHTS, resume)
+        kind, data = self.checkpointer.resume_or_load(self.cfg.MODEL.WEIGHTS, resume, self.det_cfg)
         if kind == "resume":
             self.load_checkpoint(data)
             print(f"[checkpoint] resumed from {self.checkpointer.last_checkpoint()} at iteration {self.state.step}",
                   flush=True)
         elif kind == "weights":
             kept = self.load_weights(data)
-            print(f"[checkpoint] loaded {self.cfg.MODEL.WEIGHTS}; {len(kept)} tensors kept their initialisation",
-                  flush=True)
+            # the backbone network's: an FPN's lateral and output convs are not an ImageNet file's
+            backbone = sum(k.startswith("backbone.") and not k.startswith("backbone.fpn_") for k in kept)
+            print(f"[checkpoint] loaded {self.cfg.MODEL.WEIGHTS}; {len(kept)} tensors kept their initialisation "
+                  f"({backbone} of the backbone's)", flush=True)
         self.storage.iter = self.state.step
 
     # -- the step ------------------------------------------------------------
@@ -275,6 +284,7 @@ class BaseTrainer:
             flip=torch.rand((batch_size,), generator=g, device=dev) < 0.5,
             rpn=torch.rand((batch_size, n), generator=g, device=dev),
             roi=torch.rand((batch_size, pool), generator=g, device=dev),
+            box_keep=box_dropout_masks(self.det_cfg, batch_size * self.det_cfg.roi_batch_size_per_image, g, dev),
         )
 
     def stage(self, batch: Mapping[str, np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor, Instances]:
@@ -312,7 +322,8 @@ class BaseTrainer:
         for p in state.optimizer.params:
             p.grad = None
         total, metrics = self.detector.supervised_losses(
-            DetectionBatch(images, sizes, gt), draws.rpn.to(dev), draws.roi.to(dev)
+            DetectionBatch(images, sizes, gt), draws.rpn.to(dev), draws.roi.to(dev),
+            box_keep=keep_on(draws.box_keep, dev),
         )
         total.backward()
         state.optimizer.step()

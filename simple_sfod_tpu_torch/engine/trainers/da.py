@@ -37,6 +37,7 @@ from ...models.detector import DetectionBatch, Detector
 from ...models.faster_rcnn import (
     anchor_counts,
     anchors_for,
+    box_dropout_masks,
     dc_image_feature,
     feature_batch,
     feature_device,
@@ -130,9 +131,11 @@ class DADraws(NamedTuple):
     flip_t: torch.Tensor  # [B_t] bool: flip target image i
     dropout_s: Tuple[torch.Tensor, ...]  # the source dc_losses' 4 keep masks [B * num_ins, 1024]
     dropout_t: Tuple[torch.Tensor, ...]  # the target's, [B_t * num_ins, 1024]
+    box_keep: Optional[Tuple[torch.Tensor, ...]] = None  # the box head's dropout keep masks (base.Draws)
 
     def to(self, device) -> "DADraws":
-        return DADraws(*(tuple(t.to(device) for t in x) if isinstance(x, tuple) else x.to(device) for x in self))
+        return DADraws(*(tuple(t.to(device) for t in x) if isinstance(x, tuple) else None if x is None
+                         else x.to(device) for x in self))
 
 
 class _DATrainerBase(PairedTargetMixin, BaseTrainer):
@@ -211,6 +214,7 @@ class _DATrainerBase(PairedTargetMixin, BaseTrainer):
             flip_t=torch.rand((target_size,), generator=g, device=dev) < 0.5,
             dropout_s=dropout_masks(batch_size * k, 2, g, dev),
             dropout_t=dropout_masks(target_size * k, 2, g, dev),
+            box_keep=box_dropout_masks(self.det_cfg, batch_size * self.det_cfg.roi_batch_size_per_image, g, dev),
         )
 
     def step_staged(self, staged, draws: Optional[DADraws] = None) -> Dict[str, torch.Tensor]:
@@ -229,7 +233,8 @@ class _DATrainerBase(PairedTargetMixin, BaseTrainer):
         for p in st.optimizer.params:
             p.grad = None
         feat_s = det.model.features(images, train=True, update_bn=True)
-        total, metrics = det.losses_from_feature(feat_s, DetectionBatch(images, sizes, gt), draws.rpn, draws.roi)
+        total, metrics = det.losses_from_feature(feat_s, DetectionBatch(images, sizes, gt), draws.rpn, draws.roi,
+                                                 box_keep=draws.box_keep)
         feat_t = det.model.features(t_images, train=True, update_bn=True)
         kw = dict(w_img=self.w_img, w_ins=self.w_ins, w_cst=self.w_cst, conditional=self.conditional,
                   entropy_conditioning=self.entropy_conditioning)

@@ -77,8 +77,10 @@ from ...models.dann import DAInsHead, FCDiscriminatorImg, dropout_masks, gradien
 from ...models.detector import DetectionBatch, Detector
 from ...models.faster_rcnn import (
     anchor_counts,
+    box_dropout_masks,
     dc_image_feature,
     detach_feature,
+    keep_on,
     proposal_counts,
     roi_pool_size,
     split_feature,
@@ -106,12 +108,15 @@ class AdaptDraws(NamedTuple):
     # the instance classifier's dropout keep masks (source call's two, then the
     # target call's; bool [B * R, 1024], R the training proposals); None unless weighted
     dropout: Optional[Tuple[torch.Tensor, ...]] = None
+    # the box head's dropout keep masks on the student's ROI batch
+    # (base.Draws.box_keep); None without MODEL.ROI_BOX_HEAD.DROPOUT
+    box_keep: Optional[Tuple[torch.Tensor, ...]] = None
 
     def to(self, device) -> "AdaptDraws":
         """The draws on `device` (the strong view's CPU-side ones stay)."""
         strong = self.strong.to(device) if self.strong is not None else None
-        dropout = tuple(t.to(device) for t in self.dropout) if self.dropout is not None else None
-        return AdaptDraws(self.flip.to(device), strong, self.rpn.to(device), self.roi.to(device), dropout)
+        return AdaptDraws(self.flip.to(device), strong, self.rpn.to(device), self.roi.to(device),
+                          keep_on(self.dropout, device), keep_on(self.box_keep, device))
 
 
 def dc_losses(
@@ -337,6 +342,7 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
             rpn=torch.rand((batch_size, n), generator=g, device=dev),
             roi=torch.rand((batch_size, pool), generator=g, device=dev),
             dropout=self._dropout_draws(batch_size, batch_size, counts) if self.dc_instance else None,
+            box_keep=box_dropout_masks(self.det_cfg, batch_size * self.det_cfg.roi_batch_size_per_image, g, dev),
         )
 
     def _dropout_draws(self, source: int, target: int, num_anchors) -> Tuple[torch.Tensor, ...]:
@@ -403,7 +409,8 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
             dets = self.detector.detect(detach_feature(feat_w), sizes, tuple(images_w.shape[1:3]))
         pseudo_gt, pstats = self.pseudo_pipeline(dets, self.state.step)
         total, metrics = self.detector.losses_from_feature(
-            feat_s, DetectionBatch(images_s, sizes, pseudo_gt), draws.rpn, draws.roi, with_bpc=True
+            feat_s, DetectionBatch(images_s, sizes, pseudo_gt), draws.rpn, draws.roi, with_bpc=True,
+            box_keep=draws.box_keep,
         )
         return total, metrics, pstats, feat_s, feat_w
 
@@ -433,7 +440,8 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
             model = self.detector.model
             feat_s = model.features(images_s, train=True, update_bn=True)
             total, metrics = self.detector.losses_from_feature(
-                feat_s, DetectionBatch(images_s, sizes, pseudo_gt), draws.rpn, draws.roi, with_bpc=True
+                feat_s, DetectionBatch(images_s, sizes, pseudo_gt), draws.rpn, draws.roi, with_bpc=True,
+                box_keep=draws.box_keep,
             )
             # the weak view's student pass for the classifiers: its statistics are discarded
             feat_t = model.features(images_w, train=True, update_bn=False) if weighted else None

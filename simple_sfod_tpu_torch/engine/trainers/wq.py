@@ -33,7 +33,7 @@ import torch
 
 from ...data.mosaic import mixup_batch, mosaic_batch, random_affine_batch
 from ...data.transforms import StrongDraws, make_strong_draws, strong_augment_batch
-from ...models.faster_rcnn import anchor_counts, roi_pool_size
+from ...models.faster_rcnn import anchor_counts, box_dropout_masks, keep_on, roi_pool_size
 from ...structures.instances import Instances
 from . import register_trainer
 from .base import BaseTrainer, apply_weak_aug
@@ -59,11 +59,12 @@ class WQDraws(NamedTuple):
     strong: Optional[StrongDraws]  # the strong view's draws
     rpn: torch.Tensor  # [B, N_anchors]: the RPN sampler's priorities
     roi: torch.Tensor  # [B, pool]: the ROI sampler's, pool for the augmented GT capacity
+    box_keep: Optional[Tuple[torch.Tensor, ...]] = None  # the box head's dropout keep masks (base.Draws)
 
     def to(self, device) -> "WQDraws":
         """The draws on `device` (the strong view's CPU-side ones stay)."""
         return WQDraws(*(
-            None if v is None else v.to(device) for v in self
+            keep_on(v, device) if v is None or type(v) is tuple else v.to(device) for v in self
         ))
 
 
@@ -120,6 +121,7 @@ class WQTrainer(BaseTrainer):
             strong=make_strong_draws(b, canvas_hw, self.host_generator, g, dev) if self.aug in STRONG_AUGS else None,
             rpn=u(b, n),
             roi=u(b, pool),
+            box_keep=box_dropout_masks(self.det_cfg, b * self.det_cfg.roi_batch_size_per_image, g, dev),
         )
 
     def augment(

@@ -24,6 +24,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from .heads import dropout
+
 DROPOUT_RATE = 0.5
 INS_HIDDEN = 1024
 
@@ -47,12 +49,6 @@ def gradient_scalar(x: torch.Tensor, alpha: float) -> torch.Tensor:
 
 def _autocast(device: torch.device, dtype: torch.dtype):
     return torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype == torch.bfloat16)
-
-
-def dropout(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """Dropout(0.5) with a given keep mask, as flax applies it:
-    where(keep, x / 0.5, 0)."""
-    return torch.where(keep, x / (1.0 - DROPOUT_RATE), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class FCDiscriminatorImg(nn.Module):
@@ -110,10 +106,10 @@ class DAInsHead(nn.Module):
         with _autocast(x.device, self.dtype):
             x = torch.relu(self.fc1(x))
             if keep is not None:
-                x = dropout(x, keep[0])
+                x = dropout(x, keep[0], DROPOUT_RATE)
             x = torch.relu(self.fc2(x))
             if keep is not None:
-                x = dropout(x, keep[1])
+                x = dropout(x, keep[1], DROPOUT_RATE)
             return self.fc3(x).float()
 
 

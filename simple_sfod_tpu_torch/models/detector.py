@@ -16,7 +16,7 @@ function here takes either."""
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -117,10 +117,13 @@ class Detector:
         roi_priorities: torch.Tensor,
         loss_weights: Optional[Dict[str, float]] = None,
         with_bpc: bool = False,
+        box_keep: Optional[Sequence[torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Head-side supervised losses on a backbone feature.
         rpn_priorities [B, N_anchors] and roi_priorities [B, pool] are the
-        samplers' uniform draws (`faster_rcnn.roi_pool_size` gives pool).
+        samplers' uniform draws (`faster_rcnn.roi_pool_size` gives pool);
+        box_keep the box head's dropout keep masks on the sampled ROIs
+        (`faster_rcnn.box_dropout_masks`), None without dropout.
         Returns (total, metrics): the total weights each loss by
         `loss_weights` (default 1); metrics hold the unweighted losses,
         num_fg and num_sampled (and `loss_bpc` with `with_bpc`), all
@@ -133,7 +136,9 @@ class Detector:
         detached = RPNOutput(rpn_out.objectness.detach(), rpn_out.deltas.detach())
         proposals = propose(cfg, anchors, detached, batch.sizes, training=True)
         sampled = label_and_sample_proposals(cfg, proposals, batch.gt, roi_priorities)
-        scores, deltas = self.model.box(pool_rois(cfg, feature, sampled.boxes))
+        if (box_keep is None) != (cfg.box_head_dropout <= 0):
+            raise ValueError(f"box_head_dropout {cfg.box_head_dropout} needs keep masks, and only it takes them")
+        scores, deltas = self.model.box(pool_rois(cfg, feature, sampled.boxes), box_keep)
         losses.update(roi_losses(cfg, scores, deltas, sampled))
 
         weights = loss_weights or {}
@@ -157,6 +162,7 @@ class Detector:
         update_bn: bool = True,
         loss_weights: Optional[Dict[str, float]] = None,
         with_bpc: bool = False,
+        box_keep: Optional[Sequence[torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The full supervised Faster R-CNN loss with train-mode BatchNorm.
         With `update_bn` the BatchNorm running statistics move in place (the
@@ -164,7 +170,8 @@ class Detector:
         as they were. Returns (total, metrics) as `losses_from_feature`."""
         feature = self.model.features(batch.images, train=True, update_bn=update_bn)
         return self.losses_from_feature(
-            feature, batch, rpn_priorities, roi_priorities, loss_weights=loss_weights, with_bpc=with_bpc
+            feature, batch, rpn_priorities, roi_priorities, loss_weights=loss_weights, with_bpc=with_bpc,
+            box_keep=box_keep,
         )
 
     def box_features_from_feature(

@@ -19,13 +19,15 @@ priorities as inputs, so a caller can hand over the JAX package's draws):
     roi         = roi_losses(cfg, scores, deltas, sampled)
 
 This covers the single-level detector on VGG16 (with or without BN) or
-ResNet-50/101 (C4: the heads on "res4", BN or FrozenBN), and the VGG16 FPN
-detector with Detectron2's multi-level semantics: `feature` is then a dict
+ResNet-50/101 (C4: the heads on "res4", BN or FrozenBN), and the FPN
+detector over VGG16 or ResNet-50/101 with Detectron2's multi-level semantics: `feature` is then a dict
 of pyramid levels, `anchors_for` a tuple of per-level grids, the shared RPN
 head's outputs concatenated in `rpn_in_features` order, proposals taken by
 per-level top-k, one clip, a merged cap and ONE NMS (`_propose_fpn`), and
 each ROI pooled from the level Detectron2's size rule assigns it
-(`assign_boxes_to_levels`). Box-head dropout is not ported yet and raises.
+(`assign_boxes_to_levels`). Box-head dropout (`box_head_dropout`) runs in
+the training losses on keep masks given as inputs (`box_dropout_masks`
+draws them); inference is deterministic.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, NamedTuple, Sequence, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -152,18 +154,13 @@ class DetectorConfig:
         return self.fpn_out_channels if self.fpn else self.feature_channels
 
     def _check_ported(self) -> None:
-        if self.backbone not in _BACKBONES or (self.fpn and self.backbone != "vgg16"):
+        if self.backbone not in _BACKBONES:
             raise NotImplementedError(
-                f"the vgg16, resnet50 and resnet101 detectors are ported, FPN over vgg16 (got backbone="
-                f"{self.backbone!r}, fpn={self.fpn})"
+                f"the vgg16, resnet50 and resnet101 detectors are ported, with and without FPN (got backbone="
+                f"{self.backbone!r})"
             )
         if self.fpn and not self.fpn_in_features:
             raise ValueError("fpn=True requires fpn_in_features")
-        if self.box_head_dropout > 0:
-            raise NotImplementedError(
-                f"box-head dropout is not ported yet (box_head_dropout="
-                f"{self.box_head_dropout}); the port would train without it"
-            )
 
     @property
     def stride(self) -> int:
@@ -185,13 +182,15 @@ _BACKBONES = {"vgg16": VGG16Backbone, "resnet50": ResNetBackbone, "resnet101": R
 
 def build_backbone(cfg: DetectorConfig) -> nn.Module:
     """The backbone of `cfg`, as the JAX FasterRCNN.setup builds it."""
-    if cfg.fpn:
-        return FPN(VGG16Backbone(bn=cfg.vgg_bn), cfg.fpn_in_features, cfg.fpn_out_channels, cfg.fpn_norm,
-                   cfg.fpn_fuse_type)
     if cfg.backbone == "vgg16":
-        return VGG16Backbone(bn=cfg.vgg_bn)
-    depth = 50 if cfg.backbone == "resnet50" else 101
-    return ResNetBackbone(depth=depth, norm=cfg.resnet_norm, out_features=(cfg.in_feature,))
+        bottom_up = VGG16Backbone(bn=cfg.vgg_bn)
+    else:
+        depth = 50 if cfg.backbone == "resnet50" else 101
+        out_features = cfg.fpn_in_features if cfg.fpn else (cfg.in_feature,)
+        bottom_up = ResNetBackbone(depth=depth, norm=cfg.resnet_norm, out_features=out_features)
+    if cfg.fpn:
+        return FPN(bottom_up, cfg.fpn_in_features, cfg.fpn_out_channels, cfg.fpn_norm, cfg.fpn_fuse_type)
+    return bottom_up
 
 
 RPN_BOX_TRANSFORM = BoxTransform((1.0, 1.0, 1.0, 1.0))
@@ -219,7 +218,7 @@ class FasterRCNN(nn.Module):
         self.roi_heads = _Namespace()
         pool = cfg.pooler_resolution
         self.roi_heads.box_head = FastRCNNConvFCHead(
-            cfg.feature_channels * pool * pool, cfg.fc_dim, cfg.num_fc
+            cfg.feature_channels * pool * pool, cfg.fc_dim, cfg.num_fc, cfg.box_head_dropout
         )
         self.roi_heads.box_predictor = FastRCNNPredictor(cfg.fc_dim, cfg.num_classes)
         self.register_buffer("pixel_mean", torch.tensor(cfg.pixel_mean, dtype=torch.float32).view(3, 1, 1))
@@ -261,12 +260,15 @@ class FasterRCNN(nn.Module):
                 return RPNOutput(torch.cat([o[0] for o in outs], dim=1), torch.cat([o[1] for o in outs], dim=1))
             return RPNOutput(*head(feature))
 
-    def box(self, pooled: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """pooled [N, C, P, P] -> (scores [N, C+1], deltas [N, 4K]) float32.
-        The same in training and inference: the box head's one train-mode
-        difference in the JAX package is dropout, which is not ported."""
+    def box(self, pooled: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """pooled [N, C, P, P] -> (scores [N', C+1], deltas [N', 4K]) float32.
+        `keep` None is the deterministic box head (inference, and training
+        without dropout); the train mode of `box_head_dropout` takes a keep
+        mask for each fc layer (FastRCNNConvFCHead: k * N rows run k
+        dropout passes, N' = k * N)."""
         with self._autocast(pooled.device):
-            return self.roi_heads.box_predictor(self.roi_heads.box_head(pooled))
+            return self.roi_heads.box_predictor(self.roi_heads.box_head(pooled, keep))
 
     def box_feature(self, pooled: torch.Tensor) -> torch.Tensor:
         """pooled [N, C, P, P] -> the box head's feature [N, fc_dim] (the
@@ -317,6 +319,23 @@ def init_weights(model: FasterRCNN, seed: int) -> FasterRCNN:
             m.running_var.fill_(1.0)
             m.num_batches_tracked.zero_()
     return model
+
+
+def box_dropout_masks(cfg: DetectorConfig, rows: int, generator: Optional[torch.Generator],
+                      device) -> Optional[Tuple[torch.Tensor, ...]]:
+    """The box head's dropout keep masks for `rows` ROIs (a training step's:
+    its images times `roi_batch_size_per_image`): one bool [rows, fc_dim]
+    a fc layer, each entry kept with probability 1 - box_head_dropout,
+    drawn on `device`. None without dropout."""
+    if cfg.box_head_dropout <= 0:
+        return None
+    return tuple(torch.rand((rows, cfg.fc_dim), generator=generator, device=device) >= cfg.box_head_dropout
+                 for _ in range(cfg.num_fc))
+
+
+def keep_on(keep: Optional[Sequence[torch.Tensor]], device) -> Optional[Tuple[torch.Tensor, ...]]:
+    """Keep masks (or None) on `device`."""
+    return None if keep is None else tuple(t.to(device) for t in keep)
 
 
 Feature = Union[torch.Tensor, Dict[str, torch.Tensor]]

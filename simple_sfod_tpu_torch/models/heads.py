@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -32,24 +32,44 @@ class RPNHead(nn.Module):
         return logits.float(), deltas.float()
 
 
+def dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Dropout with a given keep mask, as flax applies it:
+    where(keep, x / (1 - rate), 0)."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class FastRCNNConvFCHead(nn.Module):
     """FC layers over the pooled ROI feature (`roi_heads.box_head.fc{1..}`).
 
     The pooled feature is flattened in NCHW order [C, P, P], as in
     Detectron2. The JAX package flattens NHWC [P, P, C]; its fc0 weight is
-    permuted once when carried across (checkpoint/from_jax.py)."""
+    permuted once when carried across (checkpoint/from_jax.py).
 
-    def __init__(self, in_dim: int, fc_dim: int = 1024, num_fc: int = 2):
+    With `dropout` > 0 each fc's ReLU is followed by Dropout(dropout) in the
+    train mode, as flax applies it (`dropout`). The keep masks are inputs, one bool [rows, fc_dim] a layer; `keep` None is
+    the deterministic mode (flax's deterministic=True). Masks of k * N rows
+    for N ROIs run k dropout passes at once (MC dropout,
+    models/uncertainty.py): the layers before the first dropout run once
+    and their output is repeated k times, sample-major."""
+
+    def __init__(self, in_dim: int, fc_dim: int = 1024, num_fc: int = 2, dropout: float = 0.0):
         super().__init__()
         self.num_fc = num_fc
+        self.dropout = dropout
         for i in range(num_fc):
             self.add_module(f"fc{i + 1}", nn.Linear(in_dim if i == 0 else fc_dim, fc_dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [N, C, P, P] -> [N, fc_dim]."""
+    def forward(self, x: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """x [N, C, P, P] -> [N, fc_dim] ([k * N, fc_dim] with masks of k * N rows)."""
+        if keep is not None and not self.dropout > 0:
+            raise ValueError("keep masks given to a box head without dropout")
         x = x.flatten(1)
         for i in range(self.num_fc):
             x = torch.relu(getattr(self, f"fc{i + 1}")(x))
+            if keep is not None:
+                if x.shape[0] != keep[i].shape[0]:
+                    x = x.repeat(keep[i].shape[0] // x.shape[0], 1)
+                x = dropout(x, keep[i], self.dropout)
         return x
 
 

@@ -104,13 +104,14 @@ def norm_param_mask(model: nn.Module) -> Dict[str, bool]:
     return {name: name in norm for name, _ in model.named_parameters()}
 
 
-_RESNET_STAGE = re.compile(r"^backbone\.(?:stem|res(\d))\.")
+_RESNET_STAGE = re.compile(r"^backbone\.(?:bottom_up\.)?(?:stem|res(\d))\.")
 
 
 def backbone_freeze_mask(model: nn.Module, freeze_at: int) -> Dict[str, bool]:
     """Parameter name -> True when MODEL.BACKBONE.FREEZE_AT freezes it
     (detectron2's ResNet.freeze): stage 1 is the ResNet stem, stage s >= 2
-    is res{s}, and every stage <= FREEZE_AT is frozen. A VGG backbone has
+    is res{s} (under FPN, of `bottom_up`), and every stage <= FREEZE_AT is
+    frozen. A VGG backbone has
     neither, so nothing of it is frozen, as in the JAX package. The JAX
     package also freezes FrozenBN's affine at every stage; here it is
     buffers, which no optimizer sees."""

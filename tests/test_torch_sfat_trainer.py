@@ -469,7 +469,6 @@ def lockstep_cfg(**overrides):
 @pytest.mark.parametrize(
     "key,value,error,match",
     [
-        ("MODEL.ROI_BOX_HEAD.DROPOUT", "0.5", NotImplementedError, "DROPOUT"),
         ("SEMISUPNET.PSEUDO_BBOX_SAMPLE", "'topk'", ValueError, "pseudo label boxes"),
     ],
 )

@@ -43,7 +43,7 @@ from simple_sfod_tpu_torch.config import SOURCE_CONFIG, detector_config_from_cfg
 from simple_sfod_tpu_torch.config.defaults import SOURCE_CONFIG_NAME, config_opts
 from simple_sfod_tpu_torch.data.synthetic import make_synthetic_records, synthetic_batch
 from simple_sfod_tpu_torch.engine.trainers.base import BaseTrainer, Draws
-from simple_sfod_tpu_torch.models.faster_rcnn import DetectorConfig, FasterRCNN, anchors_for, roi_pool_size
+from simple_sfod_tpu_torch.models.faster_rcnn import anchors_for, roi_pool_size
 from test_torch_train_model import jax_loss_draws
 
 CANVAS = (64, 128)
@@ -132,9 +132,10 @@ def test_trainer_draws_its_own_and_returns_device_tensors(tmp_path):
     n = anchors_for(tr.det_cfg, CANVAS, torch.device("cpu")).shape[0]
     assert d.flip.dtype == torch.bool and d.rpn.shape == (BATCH, n)
     assert d.roi.shape == (BATCH, roi_pool_size(tr.det_cfg, n, GT_CAP))
-    # the same seed draws the same sequence
+    # the same seed draws the same sequence; no box-head keep masks without dropout
     again = BaseTrainer(cfg, device="cpu").make_draws(BATCH, CANVAS, GT_CAP)
-    assert all(torch.equal(a, b) for a, b in zip(d, again))
+    assert d.box_keep is None and again.box_keep is None
+    assert all(torch.equal(a, b) for a, b in zip(d[:3], again[:3]))
     m = tr.run_step(batch)
     assert set(m) == set(LOSSES) | {"num_fg", "num_sampled"}
     assert all(isinstance(v, torch.Tensor) and not v.requires_grad for v in m.values())
@@ -172,18 +173,6 @@ def test_source_config_from_python_keys_equals_yaml():
     assert ours == want
     assert ours["rpn_pre_nms_topk_train"] == 4096 and ours["rpn_post_nms_topk_train"] == 2000
     assert get_source_cfg().TRAINER == "base" and get_source_cfg().SOLVER.IMS_PER_BATCH == 1
-
-
-def test_box_head_dropout_is_refused():
-    """Box-head dropout is not ported: lowering a config that sets it, and
-    building a model from a DetectorConfig that holds it, both raise."""
-    cfg = get_source_cfg()
-    cfg.merge_from_list(["MODEL.ROI_BOX_HEAD.DROPOUT", "0.5"])
-    with pytest.raises(NotImplementedError, match="DROPOUT"):
-        detector_config_from_cfg(cfg)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        FasterRCNN(DetectorConfig(box_head_dropout=0.5, fc_dim=16))
-    FasterRCNN(DetectorConfig(box_head_dropout=0.0, fc_dim=16))
 
 
 R101_SOURCE_YAML = "r_101_c4_cs_source_frozen.yaml"
