@@ -286,6 +286,36 @@ Phases (each prints one progress line with its wall time):
               backbone tensor equal to the file's), one float32 R50-FPN step
               and MC dropout on the same masks on the card against the CPU
               at 128x256, and every captured NMS input kernel == plain
+ 19. dist     more than one rank (parallel/) on the one GPU: two ranks are two
+              processes of `train_net --num-machines 2 --machine-rank r
+              --dist-url ... --dist-backend gloo` (NCCL refuses two ranks on
+              one device), from seeded weights (class-1 logit bias raised by
+              4), batch 2 (one image a rank). First, alone on the card, two
+              SFAT steps through the collective code path of a world of 1
+              over NCCL against the same steps without a group: held at
+              128x256 in float32 (the first step by card_step_ok's bound),
+              timed and profiled at 608x1216 in bfloat16. Then, alone, the
+              main YAML
+              (configs/faster_rcnn_VGG_cityscapes_foggy_adaptive_teacher_source_free.yaml)
+              at 608x1216, bfloat16, on two ranks for 6 steps and test() on
+              16 PNG frames of each TEST set (each rank's step ms, host
+              clock). Then beside each other, untimed: held, one step of the
+              main YAML on two ranks and of the source YAML
+              (configs/faster_rcnn_VGG_cityscapes_source_new.yaml) on data 1
+              x model 2 ranks (the box head split), each against its
+              one-process twin by card_step_ok's bound in float32 at 128x256,
+              where every top-k of the step keeps all its candidates, with
+              boxes decoded from the regression biases (at 608x1216 random
+              weights tie proposals to rounding, and two summation orders keep
+              sets a box or two apart); reported, the full-width run's
+              one-process twin, and the source YAML on data 1 x model 2 at
+              608x1216 for 4 steps and test() against its twin; and two
+              processes asking NCCL for two ranks on the one device (NCCL's
+              answer logged). Every run: the ranks' state hashes equal,
+              launches summed over the ranks as counted, finite losses and
+              AP50; the tensor-parallel model_final.pth loaded strictly into
+              a one-process trainer; every rank's first-step NMS inputs
+              kernel == plain
 
 Prints the card's name and power limit and a JSON line of the kernels'
 numbers, then, as the last line, {"ok": true, "device": {...}}. Any failure
@@ -1130,11 +1160,11 @@ def kernel_rows(b, s, v, thr, site, plain_reps=(20, 5)):
 
 
 # ---------------------------------------------------------------- cli
-def write_cli_datasets(root: str) -> None:
+def write_cli_datasets(root: str, test_frames: int = CLI_TEST_FRAMES) -> None:
     """CLI_TRAIN_FRAMES synthetic 1024x2048 PNG frames under
     root/cityscapes_foggy/leftImg8bit_foggy, with COCO JSONs where
     register_all_datasets looks for the main YAML's TRAIN_TARGET (every
-    frame) and its two TEST sets (the first CLI_TEST_FRAMES)."""
+    frame) and its two TEST sets (the first `test_frames`)."""
     frames = os.path.join(root, "cityscapes_foggy", "leftImg8bit_foggy")
     os.makedirs(frames)
     path, _, _ = write_eval_dataset(frames, CLI_TRAIN_FRAMES, FRAME_HW)
@@ -1142,8 +1172,8 @@ def write_cli_datasets(root: str) -> None:
         coco = json.load(f)
     for base, split, prefix, n in (
         ("cityscapes_foggy", "train_foggy_beta_0.02", "leftImg8bit_foggy/", CLI_TRAIN_FRAMES),
-        ("cityscapes_foggy", "val_foggy_beta_0.02", "leftImg8bit_foggy/", CLI_TEST_FRAMES),
-        ("cityscapes", "val", "../cityscapes_foggy/leftImg8bit_foggy/", CLI_TEST_FRAMES),
+        ("cityscapes_foggy", "val_foggy_beta_0.02", "leftImg8bit_foggy/", test_frames),
+        ("cityscapes", "val", "../cityscapes_foggy/leftImg8bit_foggy/", test_frames),
     ):
         images = coco["images"][:n]
         ids = {im["id"] for im in images}
@@ -1167,12 +1197,20 @@ def register_cli_datasets(root: str) -> None:
                          os.path.join(root, base), CITYSCAPES_THING_CLASSES)
 
 
-def write_cli_weights(path: str, boost: float = CLS_BIAS_BOOST) -> None:
+def write_cli_weights(path: str, boost: float = CLS_BIAS_BOOST, boxes_from_biases: bool = False) -> None:
     """A source detector's .pth: seeded weights with the class-1 logit bias
-    raised by `boost` (random weights then make pseudo-labels)."""
+    raised by `boost` (random weights then make pseudo-labels). With
+    `boxes_from_biases` the RPN's and the box predictor's regression
+    kernels are 0, so proposals and pseudo boxes are decoded from the
+    biases alone, the same float32 operations on the same anchors however
+    the features were summed (tests/test_torch_sfat_trainer.py: pseudo
+    boxes a rounding apart flip RPN labels)."""
     model = init_weights(FasterRCNN(detector_config_from_cfg(get_main_cfg())), SEED)
     with torch.no_grad():
         model.roi_heads.box_predictor.cls_score.bias[1] += boost
+        if boxes_from_biases:
+            model.proposal_generator.rpn_head.anchor_deltas.weight.zero_()
+            model.roi_heads.box_predictor.bbox_pred.weight.zero_()
     torch.save({"model": model.state_dict()}, path)
 
 
@@ -3988,6 +4026,437 @@ def settings_phase(smi: str):
     return total, numbers
 
 
+# ---------------------------------------------------------------- dist
+DIST_STEPS = 6  # SFAT steps of the two-rank CLI run and of its one-process twin
+DIST_TP_STEPS = 4  # base steps of the tensor-parallel CLI run and of its twin
+DIST_BATCH = 2  # the global batch of every dist run
+DIST_NCCL_STEPS = 2  # SFAT steps on the collective path at world 1 (NCCL) and without a group
+DIST_TEST_FRAMES = 16  # the frames of each TEST set (the eval phase's 16)
+DIST_TIMEOUT_S = 300
+DIST_PROBE_TIMEOUT_S = 90
+SOURCE_YAML = "configs/faster_rcnn_VGG_cityscapes_source_new.yaml"
+DIST_OPTS = ["SEED", "0", "SOLVER.WARMUP_ITERS", "0", "SOLVER.BASE_LR", "0.0025", "ADAPTIVE_THRESHOLD.WARM_UP", "4",
+             "VIS_PERIOD", "0", "SOLVER.CHECKPOINT_PERIOD", "100000"]
+# where a run is held to its one-process twin by card_step_ok's bound: one
+# step in float32 at 128x256, where every top-k of the step keeps all its
+# candidates (card_vs_cpu_adapt_step). At 608x1216 random weights tie
+# proposals and detections to rounding, and two summation orders of one
+# step keep sets a box or two apart (0.5-4% on a regression loss), so
+# full-width runs are compared and reported
+DIST_HELD = ["TPU.DTYPE", "float32", "TPU.CANVAS", "(128, 256)", "INPUT.MIN_SIZE_TRAIN", "(120,)",
+             "INPUT.MIN_SIZE_TEST", "120"]
+DIST_HELD_CANVAS = (128, 256)
+# NCCL's answer to two ranks on one GPU: the probe's processes join a world
+# of 2 over NCCL on device 0 and take one all-reduce
+NCCL_PROBE = (
+    "import sys, torch\n"
+    "from simple_sfod_tpu_torch.parallel import mesh\n"
+    "torch.cuda.set_device(0)\n"
+    "mesh.initialize_distributed(sys.argv[1], 2, int(sys.argv[2]), 'nccl')\n"
+    "t = torch.ones(1, device='cuda')\n"
+    "torch.distributed.all_reduce(t)\n"
+    "print('nccl two ranks on one device: all_reduce', t.item(), flush=True)\n"
+)
+
+
+def dist_rank(spec_path: str) -> None:
+    """One process of the dist phase's CLI runs, started by
+    `python -c "import chip_smoke; chip_smoke.dist_rank(spec)"`: train_net's
+    main on the spec's argv (its --num-machines / --machine-rank /
+    --dist-url / --dist-backend as given), recording the NMS inputs of the
+    first step (3 calls: teacher RPN, teacher detection, student RPN; 1 for
+    a base step) to the spec's capture path."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    captured = []
+    orig, record = capture_nms(captured)
+
+    def first_step(boxes, scores, valid, thr):
+        return (record if len(captured) < spec["capture"] else orig)(boxes, scores, valid, thr)
+
+    nms.nms_mask_matrix = first_step
+    try:
+        train_net.main(train_net.default_argument_parser().parse_args(spec["argv"]))
+    finally:
+        nms.nms_mask_matrix = orig
+    torch.save([(b.cpu(), s.cpu(), v.cpu(), thr) for b, s, v, thr in captured], spec["capture_path"])
+
+
+class DistRun:
+    """A dist_rank process, its output in a file (no pipe to fill)."""
+
+    def __init__(self, root: str, label: str, argv: list, data_root: str, capture: int):
+        self.label = label
+        self.log = os.path.join(root, f"{label}.log")
+        self.capture_path = os.path.join(root, f"{label}.nms.pt")
+        spec = os.path.join(root, f"{label}.json")
+        with open(spec, "w") as f:
+            json.dump({"argv": argv, "capture": capture, "capture_path": self.capture_path}, f)
+        self._f = open(self.log, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.dist_rank({spec!r})"],
+                                     cwd=ROOT, env=cli_env(data_root), stdout=self._f, stderr=subprocess.STDOUT)
+
+    def result(self, timeout: float = DIST_TIMEOUT_S) -> dict:
+        """Wait. -> {stdout, wall, launches, hash, step_ms, captured}."""
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise AssertionError(f"{self.label}: no end within {timeout} s")
+        finally:
+            self._f.close()
+        wall = time.perf_counter() - self.t0
+        with open(self.log) as f:
+            out = f.read()
+        check(self.proc.returncode == 0, f"{self.label}: exit code {self.proc.returncode}\n{out[-4000:]}")
+        lines = out.splitlines()
+        state = [ln.split("sha256 ")[1] for ln in lines if ln.startswith("[state] ")]
+        step = [float(ln.split(": ")[1].split(" ms")[0]) for ln in lines if ln.startswith("[trainer] rank ")]
+        launches = json.loads([ln for ln in lines if ln.startswith("[launches] ")][-1][len("[launches] "):])
+        return dict(stdout=out, wall=wall, launches=launches, hash=state[0] if state else None,
+                    step_ms=step[0] if step else None,
+                    captured=torch.load(self.capture_path, weights_only=False))
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def dist_ranks(root, label, argv, data_root, capture, backend="gloo"):
+    """The two ranks of a run: train_net with --num-machines 2, one process
+    a rank on the one GPU (NCCL refuses two ranks on one device, so gloo)."""
+    from simple_sfod_tpu_torch.parallel.launch import free_port
+
+    url = f"tcp://127.0.0.1:{free_port()}"
+    return [DistRun(root, f"{label}_rank{r}", ["--num-machines", "2", "--machine-rank", str(r), "--dist-url", url,
+                                               "--dist-backend", backend, *argv], data_root, capture) for r in (0, 1)]
+
+
+def model_file_state(path: str) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True)["model"]
+
+
+def loss_errors(a: dict, b: dict) -> dict:
+    keys = [k for k in b if k.startswith("loss") or k == "total_loss"]
+    return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in keys}
+
+
+def step_pair_errors(start, a_state, b_state, a_metrics, b_metrics, losses):
+    """card_step_ok's errors of one step's state and metrics (a) against
+    another's (b), from the same start."""
+    err = state_errors(start, b_state, a_state)
+    err["loss"] = {k: abs(a_metrics[k] - b_metrics[k]) / max(abs(b_metrics[k]), 1e-12) for k in losses}
+    err["counts_equal"] = all(a_metrics[k] == b_metrics[k] for k in a_metrics if k.startswith("num_"))
+    return err
+
+
+def nccl_world1(smi: str, numbers: dict, captured: dict, held: bool) -> dict:
+    """DIST_NCCL_STEPS SFAT steps (the benchmark configuration, batch
+    DIST_BATCH) through the collective code path of a world of 1 over NCCL
+    (BatchNorm over the group, the counts and the gradient all-reduced)
+    against the same steps without a group, on the same weights, batch and
+    draws; each step timed, one profiled. `held`: float32 at
+    DIST_HELD_CANVAS with boxes decoded from the regression biases, the
+    first step held to card_step_ok's bound; else the
+    configuration's bfloat16 at 608x1216, reported (DIST_HELD says why).
+    Later steps are reported. -> launches."""
+    from simple_sfod_tpu_torch.parallel import mesh
+    from simple_sfod_tpu_torch.parallel.launch import free_port
+
+    dtype = "float32" if held else "bfloat16"
+    cfg = adapt_cfg(SFAT_BENCH_CONFIG, dtype=dtype, canvas=DIST_HELD_CANVAS if held else (608, 1216))
+    cfg.merge_from_list(["SOLVER.IMS_PER_BATCH_TARGET", str(DIST_BATCH)])
+    hw = (120, 250) if held else IMAGE_HW
+    batch = synthetic_batch(make_synthetic_records(DIST_BATCH, hw, 8, 6, seed=SEED + 7), tuple(cfg.TPU.CANVAS), 8)
+    total = {k: 0 for k in _kernels.LAUNCHES}
+    out = {}
+    for label in ("no_group", "nccl_world1"):
+        if label == "nccl_world1":
+            check(mesh.initialize_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, "nccl"), "nccl: no group")
+        try:
+            tr = adapt_trainer(cfg)
+            check((tr.layout is not None) == (label == "nccl_world1"), f"{label}: layout {tr.layout}")
+            if held:  # boxes from the biases (write_cli_weights' boxes_from_biases)
+                with torch.no_grad():
+                    for m in (tr.state.model, tr.state.teacher):
+                        m.proposal_generator.rpn_head.anchor_deltas.weight.zero_()
+                        m.roi_heads.box_predictor.bbox_pred.weight.zero_()
+            start = {k: v.detach().cpu().clone() for k, v in tr.state.model.state_dict().items()}
+            calls = captured.setdefault(f"{label} {dtype}", []) if label == "nccl_world1" else []
+            orig, record = capture_nms(calls)
+            ms, metrics, states = [], [], []
+            _kernels.reset_launches()
+            for i in range(DIST_NCCL_STEPS):
+                nms.nms_mask_matrix = record if i == 0 else orig
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics.append({k: float(v) for k, v in tr.run_step(batch).items()})
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                states.append({k: v.detach().cpu().clone() for k, v in tr.state.model.state_dict().items()})
+            nms.nms_mask_matrix = orig
+            launches = dict(_kernels.LAUNCHES)
+            check(all(c == 3 * DIST_BATCH * DIST_NCCL_STEPS for c in launches.values()), f"{label}: launches {launches}")
+            for k in total:
+                total[k] += launches[k]
+            # one more step under the profiler (not compared): the busy share
+            _kernels.reset_launches()
+            prof = profile(lambda: tr.run_step(batch), 1)
+            for k in total:
+                total[k] += _kernels.LAUNCHES[k]
+            out[label] = dict(start=start, states=states, metrics=metrics, ms=ms, prof=prof)
+            del tr
+        finally:
+            nms.nms_mask_matrix = orig
+            if label == "nccl_world1" and torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+    a, b = out["nccl_world1"], out["no_group"]
+    errs = [step_pair_errors(b["start"], a["states"][i], b["states"][i], a["metrics"][i], b["metrics"][i],
+                             ADAPT_LOSSES) for i in range(DIST_NCCL_STEPS)]
+    held_s = " (held)" if held else " (reported)"
+    log(f"  NCCL world 1 (the collective path: BatchNorm, counts and gradient over a group of 1) against no group, "
+        f"SFAT at {cfg.TPU.CANVAS[0]}x{cfg.TPU.CANVAS[1]} {dtype}, batch {DIST_BATCH}; step 1{held_s}: "
+        + format_errors(errs[0], ADAPT_LOSSES) + f"; step {DIST_NCCL_STEPS} (reported): losses up to "
+        f"{max(errs[-1]['loss'].values()):.3g}, worst diff / bound {errs[-1]['param_bound'][0]:.3g}; num_pseudo "
+        f"{[m['num_pseudo'] for m in a['metrics']]}")
+    if held:
+        check(card_step_ok(errs[0]), "nccl world 1: the collective path's step differs from the step without a group")
+    for label in ("no_group", "nccl_world1"):
+        wall, dev = out[label]["prof"][:2]
+        numbers[f"{label}_{dtype}"] = dict(
+            step_ms=out[label]["ms"], profiled_wall_ms=wall, device_ms=dev, busy=dev / wall,
+            step1_loss_err=max(errs[0]["loss"].values()), step1_param_bound=errs[0]["param_bound"][0],
+            last_loss_err=max(errs[-1]["loss"].values()), last_param_bound=errs[-1]["param_bound"][0])
+        log(f"  {label} {dtype} [{smi}]: step ms {[round(x, 2) for x in out[label]['ms']]} (CUDA-synchronised host "
+            f"clock), a profiled step: wall {wall:.2f} ms, device {dev:.2f} ms, busy {dev / wall:.1%}; top kernels "
+            f"(ms) {top(out[label]['prof'][2], 4)}")
+    return total
+
+
+def nccl_two_ranks_probe(root: str, data_root: str) -> str:
+    """Two processes joining NCCL on the one GPU: NCCL's own words (the
+    probe is expected to fail)."""
+    from simple_sfod_tpu_torch.parallel.launch import free_port
+
+    url = f"tcp://127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_PROBE, url, str(r)], cwd=ROOT, env=cli_env(data_root),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=DIST_PROBE_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            outs.append(p.communicate()[0] + f"\n(no end within {DIST_PROBE_TIMEOUT_S} s)")
+    codes = [p.returncode for p in procs]
+    lines = [ln.strip() for o in outs for ln in o.splitlines() if "uplicate GPU" in ln or "ncclInvalidUsage" in ln
+             or "nccl two ranks" in ln or "no end within" in ln]
+    return f"exit codes {codes}; " + (" | ".join(dict.fromkeys(lines)) if lines else outs[0].strip()[-600:])
+
+
+def dist_check_step(label: str, weights: str, one_dir: str, two_dir: str, losses, prefixes=("",)) -> dict:
+    """Step 1 of a two-rank run (rank 0's model_final.pth and metrics.json)
+    against its one-process twin's, by card_step_ok. -> the errors."""
+    start = model_file_state(weights)
+    start = {f"{p}{k}": v for p in prefixes for k, v in start.items()}
+    m2, m1 = metrics_lines(two_dir), metrics_lines(one_dir)
+    check(m2 and m1 and m2[-1]["iteration"] == m1[-1]["iteration"] == 0, f"{label}: metrics.json {m2[-1:]} {m1[-1:]}")
+    err = state_errors(start, model_file_state(os.path.join(one_dir, "model_final.pth")),
+                       model_file_state(os.path.join(two_dir, "model_final.pth")))
+    err["loss"] = loss_errors(m2[-1], m1[-1])
+    err["counts_equal"] = all(m2[-1][k] == m1[-1][k] for k in m1[-1] if k.startswith("num_"))
+    return err
+
+
+def dist_phase(smi: str):
+    """The dist phase (module docstring). -> (the launches of each kernel on
+    the path, a dict of numbers)."""
+    total = {k: 0 for k in _kernels.LAUNCHES}
+
+    def add(d):
+        for k in total:
+            total[k] += d[k]
+
+    numbers, secs, captured = {}, {}, {}
+    t_sec = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = round(now - t_sec[0], 2)
+        t_sec[0] = now
+
+    tmp = tempfile.TemporaryDirectory(prefix="sfod_dist_")
+    root = tmp.name
+    data_root = os.path.join(root, "datasets")
+    names = ("cityscapes_instancesonly_train",) + DA_DATASETS
+    dirs = {k: os.path.join(root, k) for k in ("sfat_two_1", "sfat_one_1", "tp_two_1", "tp_one_1",
+                                              "sfat_two", "sfat_one", "tp_two", "tp_one")}
+    runs = []
+
+    def sfat(out, steps, *opts):  # the main YAML; test() after a run of more than one step
+        return ["--config-file", os.path.join(ROOT, CLI_YAML), *DIST_OPTS, "SOLVER.IMS_PER_BATCH_TARGET",
+                str(DIST_BATCH), "SOLVER.MAX_ITER", str(steps), "TEST.EVAL_PERIOD", str(steps if steps > 1 else 0),
+                "MODEL.WEIGHTS", weights, "OUTPUT_DIR", out, *opts]
+
+    def tp(out, steps, *opts, split=False):  # the source YAML; data 1 x model 2 with `split`
+        return ["--config-file", os.path.join(ROOT, SOURCE_YAML), *DIST_OPTS, "SOLVER.IMS_PER_BATCH",
+                str(DIST_BATCH), "SOLVER.MAX_ITER", str(steps), "TEST.EVAL_PERIOD", str(steps if steps > 1 else 0),
+                "MODEL.WEIGHTS", weights, "OUTPUT_DIR", out, *opts,
+                *(["TPU.MESH_DATA", "1", "TPU.MESH_MODEL", "2"] if split else [])]
+
+    def results(started):
+        runs.extend(started)
+        return [r.result() for r in started]
+
+    def launches_as_counted(label, res, n):
+        summed = {k: sum(r["launches"][k] for r in res) for k in total}
+        check(all(c == n for c in summed.values()), f"{label}: launches {[r['launches'] for r in res]}, expected "
+                                                     f"{n} in all")
+        add(summed)
+
+    def same_on_ranks(label, res):
+        check(res[0]["hash"] is not None and res[0]["hash"] == res[1]["hash"],
+              f"{label}: the ranks' states differ ({res[0]['hash']}, {res[1]['hash']})")
+
+    try:
+        write_cityscapes_car(data_root)  # cityscapes_instancesonly_train: the source YAML's TRAIN
+        write_cli_datasets(data_root, test_frames=DIST_TEST_FRAMES)
+        weights = os.path.join(root, "main.pth")
+        write_cli_weights(weights)
+        held_weights = os.path.join(root, "held.pth")
+        write_cli_weights(held_weights, boxes_from_biases=True)
+        for name in names:
+            DATASET_REGISTRY.pop(name, None)
+        lap("data")
+
+        # A. the collective path of a world of 1 over NCCL, alone on the card
+        add(nccl_world1(smi, numbers, captured, held=True))
+        add(nccl_world1(smi, numbers, captured, held=False))
+        lap("nccl_world1")
+
+        # B. the main YAML at full width (608x1216, bfloat16) on two ranks:
+        # DIST_STEPS steps and test(), alone on the card (the ranks' step times)
+        c = results(dist_ranks(root, "sfat", sfat(dirs["sfat_two"], DIST_STEPS), data_root, 3))
+        same_on_ranks("sfat", c)
+        lap("sfat_two_ranks")
+
+        # C. beside each other, untimed: the held runs (one step of each YAML
+        # at DIST_HELD, two ranks against one process); B's one-process twin,
+        # and the source YAML (float32) on data 1 x model 2 for DIST_TP_STEPS
+        # steps and test() and its twin, reported; NCCL's probe
+        held = [*DIST_HELD, "MODEL.WEIGHTS", held_weights]
+        held_runs = {"sfat_two": dist_ranks(root, "sfat_1", sfat(dirs["sfat_two_1"], 1, *held), data_root, 3),
+                     "sfat_one": [DistRun(root, "sfat_one_1", sfat(dirs["sfat_one_1"], 1, *held), data_root, 3)],
+                     "tp_two": dist_ranks(root, "tp_1", tp(dirs["tp_two_1"], 1, *held, split=True), data_root, 1),
+                     "tp_one": [DistRun(root, "tp_one_1", tp(dirs["tp_one_1"], 1, *held), data_root, 1)]}
+        runs.extend(r for v in held_runs.values() for r in v)  # stopped by the finally if a later run fails
+        started = [DistRun(root, "sfat_one", sfat(dirs["sfat_one"], DIST_STEPS), data_root, 3),
+                   *dist_ranks(root, "tp", tp(dirs["tp_two"], DIST_TP_STEPS, split=True), data_root, 1),
+                   DistRun(root, "tp_one", tp(dirs["tp_one"], DIST_TP_STEPS), data_root, 1)]
+        probe = nccl_two_ranks_probe(root, data_root)
+        numbers["nccl_two_ranks_one_gpu"] = probe
+        log(f"  NCCL, two ranks on the one GPU: {probe}")
+        twin, *tp_res = results(started)
+        tp_two, tp_one = tp_res[:2], tp_res[2]
+        same_on_ranks("tp", tp_two)
+        a = {k: results(v) for k, v in held_runs.items()}
+        lap("held_twins_and_tp")
+        same_on_ranks("sfat step 1", a["sfat_two"])
+        same_on_ranks("tp step 1", a["tp_two"])
+        # 3 launches an image of an SFAT step, 1 of a base step (both
+        # tensor-parallel ranks step the whole batch)
+        for label, n in (("sfat_two", 3 * DIST_BATCH), ("sfat_one", 3 * DIST_BATCH), ("tp_two", 2 * DIST_BATCH),
+                         ("tp_one", DIST_BATCH)):
+            launches_as_counted(f"{label} step 1", a[label], n)
+        sfat_err = dist_check_step("sfat step 1", held_weights, dirs["sfat_one_1"], dirs["sfat_two_1"], ADAPT_LOSSES,
+                                   ("modelTeacher.", "modelStudent."))
+        log(f"  held: step 1 of {CLI_YAML} at {DIST_HELD} (batch {DIST_BATCH}; regression kernels 0: boxes from the "
+            f"biases) on two ranks (gloo, one GPU; states "
+            f"bit-equal, sha256 {a['sfat_two'][0]['hash'][:16]}...) against one process: "
+            + format_errors(sfat_err, ADAPT_LOSSES))
+        check(card_step_ok(sfat_err), "sfat step 1: two ranks differ from one process")
+        tp_err = dist_check_step("tp step 1", held_weights, dirs["tp_one_1"], dirs["tp_two_1"], TRAIN_LOSSES)
+        log(f"  held: step 1 of {SOURCE_YAML} at {DIST_HELD} (batch {DIST_BATCH}) on data 1 x model 2 (the box head "
+            f"split; states bit-equal) against one process: " + format_errors(tp_err, TRAIN_LOSSES))
+        check(card_step_ok(tp_err), "tp step 1: two ranks differ from one process")
+        numbers["held_step1"] = {k: dict(loss_err=max(e["loss"].values()), param_bound=e["param_bound"][0],
+                                         bn=e["bn"][0]) for k, e in (("sfat", sfat_err), ("tp", tp_err))}
+
+        # launches as counted: 3 an image of an SFAT step, 2 an image and
+        # model in test() (dealt over the ranks), 1 a validation image on
+        # each process; a base step 1 an image, its test() one model
+        test2 = 2 * 2 * 2 * DIST_TEST_FRAMES
+        launches_as_counted("sfat ranks", c, 3 * DIST_STEPS * DIST_BATCH + test2 + 2)
+        launches_as_counted("sfat twin", [twin], 3 * DIST_STEPS * DIST_BATCH + test2 + 1)
+        launches_as_counted("tp ranks", tp_two, 2 * DIST_TP_STEPS * DIST_BATCH + test2 // 2 + 2)
+        launches_as_counted("tp twin", [tp_one], DIST_TP_STEPS * DIST_BATCH + test2 // 2 + 1)
+        ev, last = {}, {}
+        for k in ("sfat_two", "sfat_one", "tp_two", "tp_one"):
+            m = metrics_lines(dirs[k])
+            steps = DIST_STEPS if k.startswith("sfat") else DIST_TP_STEPS
+            check(m and m[-1]["iteration"] == steps - 1
+                  and all(np.isfinite(v) for n, v in m[-1].items() if n.startswith("loss")), f"{k}: {m[-1:]}")
+            last[k] = m[-1]
+            with open(os.path.join(dirs[k], "eval_results.json")) as f:
+                ev[k] = json.load(f)
+            check(all(r.get("AP50") is not None and np.isfinite(r["AP50"]) for r in ev[k].values()), f"{k}: {ev[k]}")
+        ap = {k: (round(ev["sfat_two"][k]["AP50"], 4), round(ev["sfat_one"][k]["AP50"], 4)) for k in ev["sfat_one"]}
+        sfat_loss = loss_errors(last["sfat_two"], last["sfat_one"])
+        tp_loss = loss_errors(last["tp_two"], last["tp_one"])
+        tr = BaseTrainer(zoo_cfg(SOURCE_YAML, os.path.join(root, "tp_load")))
+        tr.load_checkpoint(torch.load(os.path.join(dirs["tp_two"], "model_final.pth"), map_location="cpu",
+                                      weights_only=True))  # strict: every key, the box head whole
+        check(tuple(tr.detector.model.roi_heads.box_head.fc1.weight.shape) == (1024, 25088)
+              and tr.state.step == DIST_TP_STEPS, "tp: the file does not load whole into one process")
+        del tr
+        dumps = {}
+        for name in ("cityscapes_instancesonly_val", "cityscapes_instancesonly_foggy_val_foggy_beta_0.02"):
+            pair = []
+            for k in ("tp_two", "tp_one"):
+                with open(os.path.join(dirs[k], "inference", name, "coco_instances_results.json")) as f:
+                    pair.append(json.load(f))
+            check(pair[0] and pair[1], f"tp: no detections of {name}")
+            dumps[name] = (*match_dumps(*pair), len(pair[1]))
+        log(f"  reported, full width: {CLI_YAML} (bfloat16) on two ranks for {DIST_STEPS} steps and test() on "
+            f"{DIST_TEST_FRAMES} frames of each TEST set against one process: step {DIST_STEPS}'s losses within "
+            f"{max(sfat_loss.values()):.3g}, AP50 (two ranks, one process) {ap}; {SOURCE_YAML} (float32) on data 1 x "
+            f"model 2 for {DIST_TP_STEPS} steps: losses within {max(tp_loss.values()):.3g}, its model_final.pth loaded "
+            f"strictly into one process (fc1 1024 x 25088 whole), detection dumps (unpaired, box px, score, "
+            f"detections) {dumps}")
+        numbers["sfat_two_ranks"] = dict(step_ms=[r["step_ms"] for r in c], wall_s=[r["wall"] for r in c],
+                                         launches=[r["launches"] for r in c], twin_wall_s=twin["wall"], ap50=ap,
+                                         last_loss_err=max(sfat_loss.values()))
+        numbers["tp"] = dict(step_ms=[r["step_ms"] for r in tp_two], last_loss_err=max(tp_loss.values()),
+                             dumps=dumps)
+        log(f"  sfat ranks, 608x1216 bfloat16 [{smi}]: {[r['step_ms'] for r in c]} ms a step (median after the "
+            f"first, host clock: gloo stages each step's gradient through host memory, so the step waits for it), "
+            f"walls {[round(r['wall'], 2) for r in c]} s; tensor-parallel ranks (float32, beside the twins) "
+            f"{[r['step_ms'] for r in tp_two]} ms a step; two ranks on one card measure correctness, not scaling")
+        lap("checks")
+
+        calls = [(f"{k} step 1 rank {i}", r["captured"]) for k in ("sfat_two", "tp_two") for i, r in enumerate(a[k])]
+        calls += [(f"sfat full width rank {i}", r["captured"]) for i, r in enumerate(c)]
+        for label, cs in calls + list(captured.items()):
+            check(len(cs) >= 1, f"{label}: no NMS input captured")
+            kept = [check_kernels_against_plain(bx.cuda(), sc.cuda(), v.cuda(), thr, f"{label} call {i}", cpu=i == 0)
+                    for i, (bx, sc, v, thr) in enumerate(cs)]
+            log(f"  {label}: {len(cs)} NMS inputs (N {sorted({int(x[0].shape[0]) for x in cs})}), kernels "
+                f"bit-equal to the plain versions, kept {kept}")
+        lap("nms_checks")
+        log(f"  the phase's parts (s): {secs}")
+        numbers["parts_s"] = secs
+    finally:
+        for r in runs:
+            r.stop()
+        for name in names:
+            DATASET_REGISTRY.pop(name, None)
+        tmp.cleanup()
+    log(f"  launches on the dist path: {total}")
+    return total, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4517,6 +4986,9 @@ def main() -> int:
     with Phase("settings"):
         settings_launches, settings_numbers = settings_phase(smi)
 
+    with Phase("dist"):
+        dist_launches, dist_numbers = dist_phase(smi)
+
     replaces = {
         "suppress_relation_bits": "simple_sfod_tpu/ops/pallas_kernels.py:26",
         "greedy_keep_from_bits": "simple_sfod_tpu/ops/pallas_kernels.py:123",
@@ -4553,7 +5025,8 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": launches[name] + train_launches[name] + adapt_launches[name] + eval_launches[name] +
                         cli_launches_total[name] + r101_launches[name] + wq_launches[name] + car_launches[name] +
-                        export_launches[name] + da_launches[name] + zoo_launches[name] + settings_launches[name],
+                        export_launches[name] + da_launches[name] + zoo_launches[name] + settings_launches[name] +
+                        dist_launches[name],
             "max_abs_err": float(max(r["err"] for r in per + rows[name] + large_rows[name])),
             "ms": sum(r["ms"] for r in per),
             "call_ms": sum(r["call_ms"] for r in per),
@@ -4566,10 +5039,11 @@ def main() -> int:
                                  "eval": eval_launches[name], "cli": cli_launches_total[name],
                                  "r101": r101_launches[name], "wq": wq_launches[name], "car": car_launches[name],
                                  "export": export_launches[name], "da": da_launches[name], "zoo": zoo_launches[name],
-                                 "settings": settings_launches[name]},
+                                 "settings": settings_launches[name], "dist": dist_launches[name]},
             "da_steps": da_numbers,
             "zoo_runs": zoo_numbers,
             "settings_runs": settings_numbers,
+            "dist_runs": dist_numbers,
             "adapt_per_step": per,
             "r101_per_step": r101_rows[name],
             "per_call": rows[name],

@@ -22,6 +22,12 @@ thread and writes it on a non-daemon thread, so the loop does not wait for
 the disk; the file is written under a temporary name and renamed, and the
 marker is written only after that, so a resume never sees a half-written
 file. `wait()` joins the write and raises its error.
+
+Several processes (`distributed`): rank 0 alone writes, synchronously, and
+every rank waits at a barrier after the write, so no rank reads a file or a
+marker that is not on disk yet (the JAX package's multi-process saves are
+synchronous for the same reason). The trainers hand over the full tensors
+of a tensor-parallel box head, so a file has no topology.
 """
 
 from __future__ import annotations
@@ -129,8 +135,9 @@ def overlay_state_dict(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> 
 class Checkpointer:
     """Saves and loads `<output_dir>/<name>.pth`; see the module docstring."""
 
-    def __init__(self, output_dir: str):
+    def __init__(self, output_dir: str, distributed: bool = False):
         self.dir = os.path.abspath(output_dir)
+        self.distributed = distributed
         self._pending: Optional[threading.Thread] = None
         self._save_err: Optional[BaseException] = None
         # the last save's timings: blocking_s (the caller's snapshot),
@@ -151,7 +158,20 @@ class Checkpointer:
 
     def save(self, name: str, state: Dict[str, Any], block: bool = True) -> None:
         """Write `state` as `<name>.pth` and point the marker at it; on disk
-        when this returns unless `block=False`."""
+        when this returns unless `block=False` (several processes: always
+        on disk, written by rank 0)."""
+        if self.distributed:
+            from ..parallel import mesh
+
+            try:
+                if mesh.is_main():
+                    self._save(name, state, block=True)
+            finally:
+                mesh.barrier()
+            return
+        self._save(name, state, block)
+
+    def _save(self, name: str, state: Dict[str, Any], block: bool) -> None:
         t0 = time.perf_counter()
         host = to_host(state)
         blocking = time.perf_counter() - t0

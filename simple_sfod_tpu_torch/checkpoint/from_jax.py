@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..models.backbones import resnet
+from ..models.backbones.tiny import TinyBackbone
 from ..models.backbones.vgg import D2_STAGE_CONVS_NOBN, STAGE_PLAN
 
 
@@ -88,6 +89,16 @@ def _vgg(sd: Dict[str, np.ndarray], bp, bs, bn: bool, prefix: str = "backbone") 
             p, s = bp[f"bn{conv_i}"], bs[f"bn{conv_i}"]
             _bn(sd, f"{prefix}.vgg{stage}.{3 * j + 1}", p["scale"], p["bias"], s["mean"], s["var"])
             conv_i += 1
+
+
+def _tiny(sd: Dict[str, np.ndarray], bp, bs, bn: bool) -> None:
+    """The tiny backbone: conv{i} and bn{i} keep their flax names."""
+    for i in range(len(TinyBackbone.out_strides())):
+        sd[f"backbone.conv{i}.weight"] = _conv(bp[f"conv{i}"]["kernel"])
+        sd[f"backbone.conv{i}.bias"] = _f32(bp[f"conv{i}"]["bias"])
+        if bn:
+            p, s = bp[f"bn{i}"], bs[f"bn{i}"]
+            _bn(sd, f"backbone.bn{i}", p["scale"], p["bias"], s["mean"], s["var"])
 
 
 def _fpn(sd: Dict[str, np.ndarray], bp, bs, cfg) -> None:
@@ -152,6 +163,8 @@ def state_dict_from_jax(variables: Dict[str, Any], cfg) -> Dict[str, torch.Tenso
         _fpn(sd, params["backbone"], stats.get("backbone", {}), cfg)
     elif cfg.backbone == "vgg16":
         _vgg(sd, params["backbone"], stats.get("backbone", {}), cfg.vgg_bn)
+    elif cfg.backbone == "tiny":
+        _tiny(sd, params["backbone"], stats.get("backbone", {}), cfg.vgg_bn)
     else:
         _resnet(sd, params["backbone"], stats["backbone"], cfg)
 

@@ -1,5 +1,5 @@
 """Dataset inference and evaluation (the port of
-`simple_sfod_tpu/engine/eval_loop.py:inference_on_dataset`), in one process.
+`simple_sfod_tpu/engine/eval_loop.py:inference_on_dataset`).
 
 Detections are mapped back to the records' file coordinates (divided by the
 per-axis resize scale, clipped to the file size) in numpy float32 in the JAX
@@ -12,6 +12,12 @@ through a pinned host buffer of their own and copied without blocking (a
 copy from pageable memory would synchronise the stream and serialise the
 pipeline); a batch's detections are read back, the only host sync, when it
 leaves the queue, and only then is its buffer reused.
+
+Several processes (`distributed`): batch k runs on rank k % world (the JAX
+loop's `bi % nproc != pid`); the ranks' records are gathered with their
+batch indices and merged in batch order, so every rank ends with the one
+process's list and its results. A rank with no batch left joins the gather
+all the same; rank 0 alone writes the detections file.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from ..evaluation import COCOEvaluator, F1Evaluator
 from ..models.detector import Detector
+from ..parallel import mesh
 
 
 class Staging:
@@ -84,6 +91,18 @@ def _file_records(batch, dets, seen: set, records: list) -> None:
         )
 
 
+def _collect(item, seen: set, records: list, world: int) -> None:
+    """One batch's records: one process's file records, or on several ranks
+    (batch index, record) pairs with every image kept until the merge."""
+    k, batch, dets = item
+    if world == 1:
+        _file_records(batch, dets, seen, records)
+        return
+    recs: list = []
+    _file_records(batch, dets, set(), recs)
+    records.extend((k, rec) for rec in recs)
+
+
 def inference_on_dataset(
     detector: Detector,
     loader,
@@ -93,6 +112,7 @@ def inference_on_dataset(
     dump_json: Optional[str] = None,
     category_ids: Optional[dict] = None,
     pipeline_depth: int = 4,
+    distributed: bool = False,
 ) -> Dict:
     """Run `detector` (on its device) over a test loader and evaluate.
 
@@ -101,8 +121,9 @@ def inference_on_dataset(
     in the JAX loop). dump_json: a COCO detections file
     (`coco_instances_results.json`), with category_ids mapping contiguous
     ids to the dataset's category ids (default id + 1). pipeline_depth:
-    TPU.EVAL_PIPELINE_DEPTH, the batches in flight. Returns the evaluators'
-    merged results."""
+    TPU.EVAL_PIPELINE_DEPTH, the batches in flight. `distributed`: every rank
+    of the process group calls this on the same loader (module docstring).
+    Returns the evaluators' merged results."""
     if evaluators is None:
         evaluators = [COCOEvaluator(thing_classes), F1Evaluator()]
     depth = max(1, int(pipeline_depth))
@@ -110,13 +131,25 @@ def inference_on_dataset(
     seen: set = set()
     records: list = []
     inflight = collections.deque()
+    world, me = (mesh.world_size(), mesh.rank()) if distributed else (1, 0)
+    taken = 0
     for k, batch in enumerate(loader):
-        images, sizes = staging.stage(k, batch)
-        inflight.append((batch, detector.infer(images, sizes, train_mode_bn=train_mode_bn)))
+        if k % world != me:
+            continue
+        images, sizes = staging.stage(taken, batch)
+        taken += 1
+        inflight.append((k, batch, detector.infer(images, sizes, train_mode_bn=train_mode_bn)))
         if len(inflight) >= depth:
-            _file_records(*inflight.popleft(), seen, records)
+            _collect(inflight.popleft(), seen, records, world)
     while inflight:
-        _file_records(*inflight.popleft(), seen, records)
+        _collect(inflight.popleft(), seen, records, world)
+    if world > 1:
+        gathered = sorted((item for part in mesh.all_gather_object(records) for item in part), key=lambda t: t[0])
+        seen, records = set(), []
+        for _, rec in gathered:
+            if rec["image_id"] not in seen:  # the final batch's padding repeats records
+                seen.add(rec["image_id"])
+                records.append(rec)
 
     for rec in records:
         for ev in evaluators:
@@ -124,7 +157,7 @@ def inference_on_dataset(
                 rec["image_id"], rec["boxes"], rec["scores"], rec["classes"], rec["gt_boxes"], rec["gt_classes"]
             )
 
-    if dump_json:
+    if dump_json and me == 0:
         dump = []
         for rec in records:
             for b, sc, c in zip(rec["boxes"], rec["scores"], rec["classes"]):

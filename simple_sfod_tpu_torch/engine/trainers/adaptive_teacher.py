@@ -54,6 +54,7 @@ from ...data.loader import build_train_loader
 from ...data.transforms import StrongDraws, make_strong_draws, strong_augment_batch
 from ...models.detector import DetectionBatch
 from ...models.faster_rcnn import anchor_counts, box_dropout_masks, keep_on, roi_pool_size
+from ...parallel import mesh
 from ...structures.instances import Instances
 from ..train_state import ema_tensors, ema_update
 from . import register_trainer
@@ -94,6 +95,8 @@ def concat_instances(a: Instances, b: Instances) -> Instances:
 class AdaptiveTeacherTrainer(PairedTargetMixin, SourceFreeAdaptiveTeacherTrainer):
     pseudo_from_student = False
     ema_enabled = True
+    _SHARD_BATCH_KEYS = ("IMS_PER_BATCH", "IMS_PER_BATCH_TARGET")
+    _TARGET_DRAWS = ("flip_t", "strong_t", "rpn_t", "roi_t", "box_keep_t")
 
     def __init__(self, cfg, *args, **kw):
         super().__init__(cfg, *args, **kw)
@@ -144,11 +147,48 @@ class AdaptiveTeacherTrainer(PairedTargetMixin, SourceFreeAdaptiveTeacherTrainer
         for t, s in zip(ema_tensors(self.state.teacher), ema_tensors(self.state.model)):
             t.copy_(s)
 
+    def _local_draws(self, draws: ATDraws, batch_size: int) -> ATDraws:
+        """BaseTrainer's rows, except that rpn, roi and box_keep cover the
+        source batch twice (its strong view, then its weak one): each half
+        keeps this rank's rows."""
+        def halves(t):
+            return torch.cat(mesh.shard_batch(self.layout, tuple(t.chunk(2)), batch_size))
+
+        local = super()._local_draws(draws._replace(rpn=None, roi=None, box_keep=None), batch_size)
+        keep = draws.box_keep
+        if keep is not None:
+            keep = mesh.slice_box_keep(tuple(halves(k) for k in keep), self.layout)
+        return local._replace(rpn=halves(draws.rpn), roi=halves(draws.roi), box_keep=keep)
+
+    def _local_paired_draws(self, draws: ATDraws, batch_size: int, target_size: int) -> ATDraws:
+        """PairedTargetMixin's, with the instance classifier's masks split:
+        the source call's two by the source batch, the target call's two by
+        the target batch."""
+        dropout = draws.dropout
+        draws = super()._local_paired_draws(draws._replace(dropout=None), batch_size, target_size)
+        if dropout is not None:
+            dropout = (*mesh.shard_batch(self.layout, dropout[:2], batch_size),
+                       *mesh.shard_batch(self.layout, dropout[2:], target_size))
+        return draws._replace(dropout=dropout)
+
     def step_on_device(self, images, sizes, gt: Instances, t_images, t_sizes, draws: ATDraws) -> Dict[str, torch.Tensor]:
-        """One step on a (source, target) pair already on the device. Reads
+        """One step on a (source, target) pair already on the device (on
+        several ranks this rank's rows of each, and of the draws). Reads
         nothing back to the host. Returns the metrics (the supervised losses,
         the pseudo ones suffixed `_pseudo`, the DC losses where built,
         total_loss, num_pseudo) as tensors on the device."""
+        st = self.state
+        with mesh.data_parallel(self.layout):
+            metrics = self._at_losses(images, sizes, gt, t_images, t_sizes, draws)
+        self._optimizer_step()
+        if st.step > self.burn_up and (st.step - self.burn_up) % self.update_iter == 0:
+            ema_update(ema_tensors(st.teacher), ema_tensors(st.model), self.keep_rate)
+        st.step += 1
+        return metrics
+
+    def _at_losses(self, images, sizes, gt: Instances, t_images, t_sizes, draws: ATDraws) -> Dict[str, torch.Tensor]:
+        """The step up to the gradients (the burn-in boundary's copy
+        first). -> the metrics."""
         st, det = self.state, self.detector
         model = det.model
         images, t_images = images.to(torch.float32), t_images.to(torch.float32)
@@ -192,18 +232,16 @@ class AdaptiveTeacherTrainer(PairedTargetMixin, SourceFreeAdaptiveTeacherTrainer
             if self.ins_dc_enabled:
                 total = total + gate * (dc["loss_DC_ins_s"] + dc["loss_DC_ins_t"])
         total.backward()
-        st.optimizer.step()
-        if st.step > self.burn_up and (st.step - self.burn_up) % self.update_iter == 0:
-            ema_update(ema_tensors(st.teacher), ema_tensors(st.model), self.keep_rate)
-        st.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()
         metrics["num_pseudo"] = pseudo_gt.valid.to(torch.int32).sum()
         return metrics
 
     def step_staged(self, staged, draws: Optional[ATDraws] = None) -> Dict[str, torch.Tensor]:
-        """Draw (unless `draws` is given) and step on a staged pair."""
+        """Draw for the global batches (unless `draws`, theirs, is given),
+        keep this rank's rows and step on a staged pair."""
         images, sizes, gt, t_images, t_sizes = staged
+        b, bt = self.global_batch(images.shape[0]), self.global_batch(t_images.shape[0])
         if draws is None:
-            draws = self.make_draws(images.shape[0], tuple(images.shape[1:3]), gt.boxes.shape[1], t_images.shape[0])
-        return self.step_on_device(images, sizes, gt, t_images, t_sizes, draws)
+            draws = self.make_draws(b, tuple(images.shape[1:3]), gt.boxes.shape[1], bt)
+        return self.step_on_device(images, sizes, gt, t_images, t_sizes, self._local_paired_draws(draws, b, bt))

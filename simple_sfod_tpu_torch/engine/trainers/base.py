@@ -26,6 +26,26 @@ after PreciseBN where TEST.PRECISE_BN is on. AdaBN: `reset_bn_stats`,
 `refine_bn_stats` (train-mode forwards over the train loader),
 `test_refinement` (refine, test, save `adabn`) and `adabn_refinement`
 (reset first).
+
+Several processes (parallel/mesh.py; the JAX package's mesh width,
+`base.py:143-180`): in a process group the trainer lays the world out as
+data x model, the data width TPU.MESH_DATA or, at -1, the world over
+TPU.MESH_MODEL reduced by gcd to divide every batch in `_SHARD_BATCH_KEYS`
+(again after SOLVER.REFERENCE_WORLD_SIZE's scaling at that width); a world
+the layout does not fill raises. Each rank stages its rows of the global
+batch, draws for the global batch and keeps its rows, steps under
+`mesh.data_parallel` (BatchNorm and the loss counts over the global batch),
+sums the gradients over the data group and updates: every rank holds the
+same parameters, and they are those of one process on the global batch.
+With MESH_MODEL > 1 each model rank holds its slices of the box heads'
+fc1/fc2; checkpoints, evaluation and MODEL.WEIGHTS see the full tensors.
+Logged metrics are summed over the data group (each rank's are partial
+sums over global counts); rank 0 alone writes metrics, TensorBoard,
+checkpoints and results. Evaluation deals the test batches round-robin
+over the ranks and gathers the records; AdaBN and PreciseBN take the
+global batch's statistics. A trainer whose augmentation mixes the images
+of a batch (`augments_whole_batch`: mosaic, mixup) stages and augments the
+whole global batch on every rank, then keeps its rows.
 """
 
 from __future__ import annotations
@@ -51,6 +71,7 @@ from ...device import resolve_device
 from ...models.backbones.vgg import BatchNorm2d
 from ...models.detector import DetectionBatch, Detector
 from ...models.faster_rcnn import anchor_counts, box_dropout_masks, init_weights, keep_on, roi_pool_size
+from ...parallel import mesh
 from ...solver.build import auto_scale_workers, build_optimizer
 from ...structures.instances import Instances
 from ..eval_loop import inference_on_dataset
@@ -192,9 +213,16 @@ class BaseTrainer:
     lowers to: a detector that no backbone name of the YAML schema builds,
     ResNet under FPN (as the JAX package, which builds it only from a
     DetectorConfig). SOLVER.REFERENCE_WORLD_SIZE applies the linear-scaling
-    rule for one device before anything is built. float32 work runs in full
+    rule at the data width before anything is built. float32 work runs in full
     float32: TF32 is switched off for cuDNN and cuBLAS when the trainer is
     built (bfloat16 runs under autocast, `TPU.DTYPE`)."""
+
+    # the batch sizes this trainer splits over the data width: the auto
+    # width divides these, and only these (an unused one would collapse it)
+    _SHARD_BATCH_KEYS = ("IMS_PER_BATCH",)
+    # the augmentation mixes the images of a batch (mosaic, mixup): every
+    # rank stages and augments the whole global batch, then keeps its rows
+    augments_whole_batch = False
 
     def __init__(
         self,
@@ -204,7 +232,7 @@ class BaseTrainer:
         synthetic: bool = False,
         det_cfg=None,
     ):
-        cfg = auto_scale_workers(cfg, 1)  # one device until data parallelism is ported
+        cfg, self.layout = self._layout(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.output_dir = cfg.OUTPUT_DIR
@@ -223,11 +251,67 @@ class BaseTrainer:
         self.state = self._init_state()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.storage = EventStorage()
-        self.checkpointer = Checkpointer(self.output_dir)
+        self.checkpointer = Checkpointer(self.output_dir, distributed=self.layout is not None)
         self.train_loader = None
         self.writers: List = []
         self._feeder: Optional[_ChunkFeeder] = None
         self._preempted = False
+        for head in self._box_heads():
+            mesh.shard_box_head(head, self.layout, self.state.optimizer)
+
+    def _layout(self, cfg):
+        """(cfg scaled by SOLVER.REFERENCE_WORLD_SIZE at the data width, the
+        process layout or None): the class docstring's rule."""
+        tpu = cfg.TPU
+        if tpu.SPATIAL_SHARD:
+            raise NotImplementedError(mesh.SPATIAL_SHARD)
+        world, model = mesh.world_size(), max(int(tpu.MESH_MODEL), 1)
+
+        def width(c, n):
+            return mesh.data_width(n, int(tpu.MESH_DATA), model, [getattr(c.SOLVER, k) for k in self._SHARD_BATCH_KEYS])
+
+        n = width(cfg, world)
+        cfg = auto_scale_workers(cfg, n)
+        n = width(cfg, n * model)  # the scaled batches may no longer split over the auto width
+        for key in self._SHARD_BATCH_KEYS:
+            if getattr(cfg.SOLVER, key) % n:
+                raise ValueError(f"SOLVER.{key} {getattr(cfg.SOLVER, key)} does not split over the data width {n}")
+        return cfg, mesh.make_layout(n, model)
+
+    def _box_heads(self) -> List[torch.nn.Module]:
+        """The box heads that tensor parallelism splits (the trained model's)."""
+        return [self.detector.model.roi_heads.box_head]
+
+    def full_state(self):
+        """Within: the box heads and their momentum whole (mesh.full_box_heads)."""
+        return mesh.full_box_heads(self.layout, self._box_heads(), self.state.optimizer)
+
+    def save(self, name: str, block: bool = True) -> None:
+        """`checkpoint_state()` as `<name>.pth` (with the full box heads;
+        several ranks: rank 0 writes, synchronously, and every rank waits)."""
+        with self.full_state():
+            self.checkpointer.save(name, self.checkpoint_state(), block=block)
+
+    def _shard(self, batch: Mapping[str, np.ndarray]) -> Mapping[str, np.ndarray]:
+        """This rank's rows of a global batch in the loader's layout."""
+        return mesh.shard_batch(self.layout, batch, len(batch["images"]))
+
+    def _local_draws(self, draws, batch_size: int):
+        """This rank's rows of a global batch's draws, and under tensor
+        parallelism its columns of the box head's first keep mask."""
+        draws = mesh.shard_batch(self.layout, draws, batch_size)
+        if getattr(draws, "box_keep", None) is not None:
+            draws = draws._replace(box_keep=mesh.slice_box_keep(draws.box_keep, self.layout))
+        return draws
+
+    def global_batch(self, local: int) -> int:
+        return local * (self.layout.data if self.layout is not None else 1)
+
+    def _optimizer_step(self) -> None:
+        """The gradient summed over the data group, then the update."""
+        if self.layout is not None:
+            mesh.all_reduce_grads(self.state.optimizer.params, self.layout)
+        self.state.optimizer.step()
 
     def _init_state(self) -> TrainState:
         model = self.detector.model
@@ -261,6 +345,11 @@ class BaseTrainer:
         """With `resume` and a checkpoint in OUTPUT_DIR, restore it; else
         load MODEL.WEIGHTS (detector weights only). Sets the storage's
         iteration to the steps taken."""
+        with self.full_state():
+            self._resume_or_load(resume)
+        self.storage.iter = self.state.step
+
+    def _resume_or_load(self, resume: bool) -> None:
         kind, data = self.checkpointer.resume_or_load(self.cfg.MODEL.WEIGHTS, resume, self.det_cfg)
         if kind == "resume":
             self.load_checkpoint(data)
@@ -272,7 +361,6 @@ class BaseTrainer:
             backbone = sum(k.startswith("backbone.") and not k.startswith("backbone.fpn_") for k in kept)
             print(f"[checkpoint] loaded {self.cfg.MODEL.WEIGHTS}; {len(kept)} tensors kept their initialisation "
                   f"({backbone} of the backbone's)", flush=True)
-        self.storage.iter = self.state.step
 
     # -- the step ------------------------------------------------------------
     def make_draws(self, batch_size: int, canvas_hw: Tuple[int, int], gt_capacity: int) -> Draws:
@@ -288,9 +376,11 @@ class BaseTrainer:
         )
 
     def stage(self, batch: Mapping[str, np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor, Instances]:
-        """A batch in the loader's layout on the device: (images uint8,
-        sizes int32, padded GT with scores 1)."""
+        """A batch in the loader's layout (this rank's rows of it) on the
+        device: (images uint8, sizes int32, padded GT with scores 1)."""
         dev = self.device
+        if not self.augments_whole_batch:
+            batch = self._shard(batch)
         classes = to_device(batch["gt_classes"], dev, torch.int32)
         gt = Instances(
             boxes=to_device(batch["gt_boxes"], dev, torch.float32),
@@ -309,24 +399,33 @@ class BaseTrainer:
         return images, sizes, gt
 
     def step_staged(self, staged, draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
-        """One training step on a staged batch. Returns the metrics (losses,
-        num_fg, num_sampled, total_loss) as tensors on the device."""
+        """One training step on a staged batch and the global batch's draws.
+        Returns the metrics (losses, num_fg, num_sampled, total_loss) as
+        tensors on the device (this rank's partial sums on several ranks)."""
         images, sizes, gt = staged
         dev = self.device
         images = images.to(torch.float32)
+        b = images.shape[0] if self.augments_whole_batch else self.global_batch(images.shape[0])
         if draws is None:
-            draws = self.make_draws(images.shape[0], tuple(images.shape[1:3]), gt.boxes.shape[1])
-        images, sizes, gt = self.augment(images, sizes, gt, draws)
+            draws = self.make_draws(b, tuple(images.shape[1:3]), gt.boxes.shape[1])
+        if self.augments_whole_batch:  # the global batch's augmentation, then this rank's rows
+            images, sizes, gt = self.augment(images, sizes, gt, draws)
+            images, sizes = mesh.shard_batch(self.layout, (images, sizes), b)
+            gt = Instances(*mesh.shard_batch(self.layout, (gt.boxes, gt.scores, gt.classes, gt.valid), b))
+        draws = self._local_draws(draws, b)
 
         state = self.state
         for p in state.optimizer.params:
             p.grad = None
-        total, metrics = self.detector.supervised_losses(
-            DetectionBatch(images, sizes, gt), draws.rpn.to(dev), draws.roi.to(dev),
-            box_keep=keep_on(draws.box_keep, dev),
-        )
-        total.backward()
-        state.optimizer.step()
+        with mesh.data_parallel(self.layout):
+            if not self.augments_whole_batch:
+                images, sizes, gt = self.augment(images, sizes, gt, draws)
+            total, metrics = self.detector.supervised_losses(
+                DetectionBatch(images, sizes, gt), draws.rpn.to(dev), draws.roi.to(dev),
+                box_keep=keep_on(draws.box_keep, dev),
+            )
+            total.backward()
+        self._optimizer_step()
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()
@@ -354,6 +453,9 @@ class BaseTrainer:
         )
 
     def _open_writers(self) -> None:
+        if not mesh.is_main():
+            self.writers = []
+            return
         self.writers = [ConsoleWriter(self.max_iter), JSONWriter(os.path.join(self.output_dir, "metrics.json"))]
         try:
             self.writers.append(TensorboardWriter(os.path.join(self.output_dir, "tb")))
@@ -393,9 +495,13 @@ class BaseTrainer:
             if self._feeder is not None:
                 self._feeder.stop()
             step = self.state.step
+            if self.layout is not None:  # the save is collective, and the other ranks may not be there
+                print(f"[trainer] exception at iteration {step} on rank {self.layout.rank}; several ranks: no "
+                      "emergency checkpoint", flush=True)
+                raise
             print(f"[trainer] exception at iteration {step}; saving emergency checkpoint", flush=True)
             try:
-                self.checkpointer.save(f"model_crash_{step:07d}", self.checkpoint_state())
+                self.save(f"model_crash_{step:07d}")
             except Exception as save_err:  # the original error stays the one raised
                 print(f"[trainer] emergency save failed: {save_err!r}", flush=True)
             raise
@@ -416,6 +522,7 @@ class BaseTrainer:
         if chunk > 1 and int(cfg.TPU.CHUNK_STAGE_AHEAD) > 0 and self.max_iter > start:
             feeder = _ChunkFeeder(self, it, chunk, self.max_iter - start, depth=int(cfg.TPU.CHUNK_STAGE_AHEAD))
         self._feeder = feeder
+        step_s = []  # each loop iteration's steps, host clock, a step
         try:
             while i < self.max_iter:
                 if feeder is not None:
@@ -426,8 +533,10 @@ class BaseTrainer:
                     batches = [next(it) for _ in range(k)]
                     staged = [self.stage(b) for b in batches]
                     data_time = time.perf_counter() - t0
+                t_step = time.perf_counter()
                 for s in staged:
                     metrics = self.step_staged(s)
+                step_s.append((time.perf_counter() - t_step) / k)
                 self._after_steps(batches[-1])
                 last = i + k - 1
                 for _ in range(k - 1):  # the writers see iter == last
@@ -435,7 +544,7 @@ class BaseTrainer:
                 self.storage.put_scalar("data_time", data_time / k)
                 self.storage.put_scalar("lr", float(self.state.optimizer.schedule(last)))
                 if crossed(LOG_PERIOD, i, last + 1) or last == self.max_iter - 1:
-                    for name, v in metrics.items():
+                    for name, v in mesh.sum_metrics(metrics, self.layout).items():
                         v = float(v)
                         if name.startswith("loss") or name == "total_loss":
                             detect_anomaly(last, v, name)
@@ -443,30 +552,35 @@ class BaseTrainer:
                     for w in self.writers:
                         w.write(self.storage)
                 if crossed(cfg.SOLVER.CHECKPOINT_PERIOD, i, last + 1):
-                    self.checkpointer.save(f"model_{last:07d}", self.checkpoint_state(), block=False)
+                    self.save(f"model_{last:07d}", block=False)
                 if crossed(cfg.TEST.EVAL_PERIOD, i, last + 1):
                     self.test()
                 if val_hook is not None:
                     val_hook.after_step(last, self.storage, prev_step=i - 1)
                 self.storage.step()
                 i += k
+                self._preempted = mesh.any_rank(self._preempted, self.layout)
                 if self._preempted:
                     if feeder is not None:
                         feeder.stop()  # nothing staged beside the save
                     name = f"model_preempt_{i - 1:07d}"
                     print(f"[trainer] preempted: saving {name} and stopping", flush=True)
-                    self.checkpointer.save(name, self.checkpoint_state())
+                    self.save(name)
                     return
         finally:
             if feeder is not None:
                 feeder.stop()
             self._feeder = None
+        if self.layout is not None and len(step_s) > 1:
+            # the collectives wait for the device every step, so the host clock times the step
+            print(f"[trainer] rank {self.layout.rank}: {1e3 * float(np.median(step_s[1:])):.2f} ms a step (median of "
+                  f"the loop's {len(step_s) - 1} iterations after the first, host clock)", flush=True)
         # the final evaluation of detectron2's EvalHook, except at
         # EVAL_PERIOD 0, which means no evaluation (the JAX package's rule)
         ep = cfg.TEST.EVAL_PERIOD
         if ep > 0 and self.max_iter % ep != 0 and cfg.DATASETS.TEST:
             self.test()
-        self.checkpointer.save("model_final", self.checkpoint_state())
+        self.save("model_final")
 
     # -- data and evaluation --------------------------------------------------
     def build_train_loader(self):
@@ -478,8 +592,9 @@ class BaseTrainer:
         evaluation."""
         if not self.cfg.TEST.PRECISE_BN.ENABLED:
             return
-        loader = self.build_train_loader()
-        n = precise_bn(self.detector, loader, int(self.cfg.TEST.PRECISE_BN.NUM_ITER))
+        loader = (self._shard(b) for b in self.build_train_loader())
+        with mesh.data_parallel(self.layout):
+            n = precise_bn(self.detector, loader, int(self.cfg.TEST.PRECISE_BN.NUM_ITER))
         print(f"[precise_bn] BatchNorm statistics from {n} batches", flush=True)
 
     def _evaluate(self, detector: Detector, name: str, **kw) -> Dict:
@@ -493,10 +608,13 @@ class BaseTrainer:
             ds["thing_classes"],
             build_evaluators(self.cfg, name, ds["thing_classes"]),
             pipeline_depth=self.cfg.TPU.EVAL_PIPELINE_DEPTH,
+            distributed=self.layout is not None,
             **kw,
         )
 
     def _write_results(self, results: Dict) -> None:
+        if not mesh.is_main():
+            return
         os.makedirs(self.output_dir, exist_ok=True)
         with open(os.path.join(self.output_dir, "eval_results.json"), "w") as f:
             json.dump(_jsonable(results), f, indent=2)
@@ -507,6 +625,10 @@ class BaseTrainer:
         OUTPUT_DIR (`inference/<name>/` with several datasets), an `[eval]`
         line and the per-class table for each, `<name>/AP50` into the
         storage, and every result to `eval_results.json`."""
+        with self.full_state():
+            return self._test(dataset_names)
+
+    def _test(self, dataset_names=None) -> Dict:
         self._maybe_precise_bn()
         results = {}
         names = list(dataset_names or self.cfg.DATASETS.TEST)
@@ -551,7 +673,8 @@ class BaseTrainer:
         for batch in loader:
             if taken >= max_batches:
                 break
-            self.detector.bn_update(to_device(batch["images"], self.device))
+            with mesh.data_parallel(self.layout):
+                self.detector.bn_update(to_device(self._shard(batch)["images"], self.device))
             taken += 1
         return taken
 
@@ -561,7 +684,7 @@ class BaseTrainer:
         n = self.refine_bn_stats(max_batches=max_batches, loader=loader)
         print(f"[adabn] BatchNorm statistics refined over {n} batches", flush=True)
         results = self.test()
-        self.checkpointer.save("adabn", self.checkpoint_state())
+        self.save("adabn")
         return results
 
     def adabn_refinement(self, max_batches: Optional[int] = None, loader=None) -> Dict:
@@ -611,6 +734,20 @@ class PairedTargetMixin:
     TPU.STEPS_PER_DISPATCH and staging ahead leave a trajectory as it is."""
 
     target_loader = None
+    # the fields of the trainer's draws sized by the target batch
+    _TARGET_DRAWS: Tuple[str, ...] = ()
+
+    def _local_paired_draws(self, draws, batch_size: int, target_size: int):
+        """This rank's rows of a (source, target) step's draws: the
+        `_TARGET_DRAWS` fields by the target batch, the rest by the source's
+        (BaseTrainer._local_draws); a target box-head mask's fc1 columns
+        under tensor parallelism."""
+        target = {f: getattr(draws, f) for f in self._TARGET_DRAWS}
+        draws = self._local_draws(draws._replace(**dict.fromkeys(target)), batch_size)
+        target = mesh.shard_batch(self.layout, target, target_size)
+        if target.get("box_keep_t") is not None:
+            target["box_keep_t"] = mesh.slice_box_keep(target["box_keep_t"], self.layout)
+        return draws._replace(**target)
 
     def _build_target_loader(self):
         return build_train_loader(
@@ -630,8 +767,9 @@ class PairedTargetMixin:
     def stage(self, batch: Mapping[str, np.ndarray], target: Optional[Mapping[str, np.ndarray]] = None):
         """A source batch staged with its GT (BaseTrainer.stage) and a target
         batch (`target`, else the target loader's next): (images, sizes, GT,
-        target images, target sizes) on the device."""
-        target = self.next_target() if target is None else target
+        target images, target sizes) on the device, this rank's rows of
+        each."""
+        target = self._shard(self.next_target() if target is None else target)
         return (*BaseTrainer.stage(self, batch), to_device(target["images"], self.device),
                 to_device(target["sizes"], self.device, torch.int32))
 

@@ -47,6 +47,7 @@ from ...models.faster_rcnn import (
     roi_pool_size,
 )
 from ...ops.losses import sigmoid_ce
+from ...parallel import mesh
 from ...solver.build import build_optimizer
 from ..train_state import DAState
 from . import register_trainer
@@ -93,7 +94,7 @@ def dc_losses(
     b = feature_batch(feature)
     df = dc_image_feature(cfg, feature)
     img_out = img_head(gradient_scalar(df, -w_img))
-    loss_img = torch.mean(sigmoid_ce(img_out, torch.full_like(img_out, domain_label)))
+    loss_img = mesh.batch_mean(sigmoid_ce(img_out, torch.full_like(img_out, domain_label)))
 
     with torch.no_grad():  # the boxes carry no gradient
         anchors = anchors_for(cfg, canvas_hw, feature_device(feature))
@@ -111,14 +112,14 @@ def dc_losses(
     if entropy_conditioning:
         ent = -torch.sum(probs * torch.log(probs + 1e-5), dim=-1)
         w = 1.0 + torch.exp(-ent)
-        ins_bce = ins_bce * (w / torch.mean(w)).reshape(ins_out.shape)
-    loss_ins = torch.mean(ins_bce)
+        ins_bce = ins_bce * (w / mesh.global_mean(w)).reshape(ins_out.shape)
+    loss_ins = mesh.batch_mean(ins_bce)
 
     prob_map = torch.sigmoid(img_head(gradient_scalar(df, w_cst * w_img)))  # [B, 1, h, w]
     roi_img_prob = pool_rois(cfg, prob_map, boxes).mean(dim=(1, 2, 3)).reshape(b, k)
     ins_out_c = ins_head(gradient_scalar(feats, w_cst * w_ins), None if keep is None else keep[2:])
     ins_prob = torch.sigmoid(ins_out_c).reshape(b, k)
-    loss_cst = torch.mean(torch.abs(roi_img_prob - ins_prob))
+    loss_cst = mesh.batch_mean(torch.abs(roi_img_prob - ins_prob))
     return loss_img, loss_ins, loss_cst
 
 
@@ -145,6 +146,8 @@ class _DATrainerBase(PairedTargetMixin, BaseTrainer):
     detector) with seeded DA heads, or seeded random weights."""
 
     conditional = False
+    _SHARD_BATCH_KEYS = ("IMS_PER_BATCH", "IMS_PER_BATCH_TARGET")
+    _TARGET_DRAWS = ("flip_t", "dropout_t")
 
     def __init__(
         self,
@@ -224,8 +227,19 @@ class _DATrainerBase(PairedTargetMixin, BaseTrainer):
         images, sizes, gt, t_images, t_sizes = staged
         images, t_images = images.to(torch.float32), t_images.to(torch.float32)
         canvas, t_canvas = tuple(images.shape[1:3]), tuple(t_images.shape[1:3])
+        b, bt = self.global_batch(images.shape[0]), self.global_batch(t_images.shape[0])
         if draws is None:
-            draws = self.make_draws(images.shape[0], canvas, gt.boxes.shape[1], t_images.shape[0])
+            draws = self.make_draws(b, canvas, gt.boxes.shape[1], bt)
+        draws = self._local_paired_draws(draws, b, bt)
+        with mesh.data_parallel(self.layout):
+            metrics = self._step_losses(images, sizes, gt, t_images, t_sizes, draws)
+        self._optimizer_step()
+        self.state.step += 1
+        return metrics
+
+    def _step_losses(self, images, sizes, gt, t_images, t_sizes, draws: DADraws) -> Dict[str, torch.Tensor]:
+        """The step up to the gradients. -> the metrics."""
+        canvas, t_canvas = tuple(images.shape[1:3]), tuple(t_images.shape[1:3])
         images, sizes, gt = self.augment(images, sizes, gt, draws)
         t_images = weak_flip(draws.flip_t, t_images, t_sizes, self.flip)
 
@@ -245,8 +259,6 @@ class _DATrainerBase(PairedTargetMixin, BaseTrainer):
             metrics[name] = 0.5 * (s + t)
             total = total + metrics[name]
         total.backward()
-        st.optimizer.step()
-        st.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()
         return metrics

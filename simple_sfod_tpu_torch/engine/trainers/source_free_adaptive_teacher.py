@@ -86,6 +86,7 @@ from ...models.faster_rcnn import (
     split_feature,
 )
 from ...ops.losses import masked_mean, sigmoid_ce
+from ...parallel import mesh
 from ...solver.build import build_optimizer
 from ...structures.instances import Instances
 from ..train_state import AdaptiveThresholdState, TeacherStudentState, ema_tensors, ema_update
@@ -143,7 +144,7 @@ def dc_losses(
     if image:
         for tag, feat, label in (("s", feat_s, 0.0), ("t", feat_t, 1.0)):
             logits = dc["dc"](gradient_scalar(dc_image_feature(cfg, feat), -1.0))
-            out[f"loss_DC_img_{tag}"] = torch.mean(sigmoid_ce(logits, torch.full_like(logits, label)))
+            out[f"loss_DC_img_{tag}"] = mesh.batch_mean(sigmoid_ce(logits, torch.full_like(logits, label)))
     if instance:
         for i, (tag, feat, label) in enumerate((("s", feat_s, 0.0), ("t", feat_t, 1.0))):
             feats, valid = detector.box_features_from_feature(feat, sizes[i], canvases[i])
@@ -161,6 +162,7 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
 
     pseudo_from_student = False
     ema_enabled = False
+    _SHARD_BATCH_KEYS = ("IMS_PER_BATCH_TARGET",)
 
     def __init__(
         self,
@@ -284,6 +286,11 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
             module = module.to(memory_format=torch.channels_last)
         return module
 
+    def _box_heads(self):
+        """The student's box head and the teacher's (both split under tensor
+        parallelism: the EMA blends slice with slice)."""
+        return [self.detector.model.roi_heads.box_head, self.teacher.model.roi_heads.box_head]
+
     # -- checkpoints -------------------------------------------------------
     def checkpoint_state(self) -> Dict:
         """BaseTrainer's file with the teacher beside the student, both
@@ -328,8 +335,9 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
 
     # -- draws ---------------------------------------------------------------
     def make_draws(self, batch_size: int, canvas_hw: Tuple[int, int]) -> AdaptDraws:
-        """One step's draws: the scalar decisions of the strong view from the
-        host generator, the rest from the device generator."""
+        """One step's draws for a (global) batch of `batch_size`: the scalar
+        decisions of the strong view from the host generator, the rest from
+        the device generator."""
         counts = anchor_counts(self.det_cfg, canvas_hw)
         n, pool = sum(counts), roi_pool_size(self.det_cfg, counts, self.det_cfg.detections_per_image)
         g, dev = self.generator, self.device
@@ -367,6 +375,7 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         fixed_mask = dets.valid & (dets.scores > self.bbox_threshold)
         cls = torch.arange(c, dtype=dets.classes.dtype, device=dets.classes.device)
         counts = ((dets.classes[..., None] == cls) & fixed_mask[..., None]).sum(dim=(0, 1)).to(torch.int32)
+        counts = mesh.global_sum(counts)  # over the global batch
         reserve = th.reserve.clone()
         reserve[step % reserve.shape[0]] = counts
         # the pinned classes as a mask made on the device: writing a Python
@@ -385,7 +394,7 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         valid_f = dets.valid.to(torch.float32)
         stats = {
             "num_pseudo": pseudo_valid.to(torch.int32).sum(),
-            "pseudo_mean_conf": torch.sum(dets.scores * valid_f) / torch.clamp_min(valid_f.sum(), 1.0),
+            "pseudo_mean_conf": torch.sum(dets.scores * valid_f) / torch.clamp_min(mesh.global_sum(valid_f.sum()), 1.0),
         }
         return Instances(boxes=dets.boxes, scores=dets.scores, classes=dets.classes, valid=pseudo_valid), stats
 
@@ -416,10 +425,24 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
 
     def step_on_device(self, images: torch.Tensor, sizes: torch.Tensor, draws: AdaptDraws) -> Dict[str, torch.Tensor]:
         """One adaptation step on a batch already on the device: images
-        [B, H, W, 3] (uint8 or float), sizes [B, 2] int32. Reads nothing back
-        to the host. Returns the metrics (the losses suffixed `_pseudo`,
-        total_loss, num_pseudo, pseudo_mean_conf, and the DC losses where
-        built, zeros where not weighted) as tensors on the device."""
+        [B, H, W, 3] (uint8 or float), sizes [B, 2] int32, and their draws
+        (on several ranks this rank's rows of each, `step_staged`). Reads
+        nothing back to the host. Returns the metrics (the losses suffixed
+        `_pseudo`, total_loss, num_pseudo, pseudo_mean_conf, and the DC
+        losses where built, zeros where not weighted) as tensors on the
+        device."""
+        with mesh.data_parallel(self.layout):
+            metrics = self._step_losses(images, sizes, draws)
+        self._optimizer_step()
+        st = self.state
+        if self.ema_enabled and st.step % self.update_iter == 0:
+            ema_update(ema_tensors(st.teacher), ema_tensors(st.model), self.keep_rate)
+        st.step += 1
+        return metrics
+
+    def _step_losses(self, images: torch.Tensor, sizes: torch.Tensor, draws: AdaptDraws) -> Dict[str, torch.Tensor]:
+        """The step up to the gradients: views, pseudo-labels, losses and
+        backward. -> the metrics."""
         st = self.state
         images = images.to(torch.float32)
         dev = images.device
@@ -461,10 +484,6 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
                 if f"loss_DC_{kind}_s" in dc:
                     total = total + self.dis_w * (dc[f"loss_DC_{kind}_s"] + dc[f"loss_DC_{kind}_t"])
         total.backward()
-        st.optimizer.step()
-        if self.ema_enabled and st.step % self.update_iter == 0:
-            ema_update(ema_tensors(st.teacher), ema_tensors(st.model), self.keep_rate)
-        st.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()
         metrics.update(pstats)
@@ -487,6 +506,10 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         `<name>/student` and `<name>/teacher`, an `[eval:<tag>]` line each,
         `<name>/<tag>/AP50` into the storage, all written to
         `eval_results.json`."""
+        with self.full_state():
+            return self._test(dataset_names)
+
+    def _test(self, dataset_names=None) -> Dict:
         self._maybe_precise_bn()
         results = {}
         for tag, detector in (("student", self.detector), ("teacher", self.teacher)):
@@ -502,15 +525,19 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
 
     def stage(self, batch: Mapping[str, np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
         """A target batch in the loader's layout (images uint8 [B, H, W, 3],
-        sizes [B, 2]) on the device, copied without blocking."""
+        sizes [B, 2]; this rank's rows of it) on the device, copied without
+        blocking."""
+        batch = self._shard(batch)
         return to_device(batch["images"], self.device), to_device(batch["sizes"], self.device, torch.int32)
 
     def step_staged(self, staged, draws: Optional[AdaptDraws] = None) -> Dict[str, torch.Tensor]:
-        """Draw (unless `draws` is given) and step on a staged batch."""
+        """Draw for the global batch (unless `draws`, the global batch's, is
+        given), keep this rank's rows and step on a staged batch."""
         images, sizes = staged
+        b = self.global_batch(images.shape[0])
         if draws is None:
-            draws = self.make_draws(images.shape[0], tuple(images.shape[1:3]))
-        return self.step_on_device(images, sizes, draws)
+            draws = self.make_draws(b, tuple(images.shape[1:3]))
+        return self.step_on_device(images, sizes, self._local_draws(draws, b))
 
     def run_step(self, batch: Mapping[str, np.ndarray], draws: Optional[AdaptDraws] = None) -> Dict[str, torch.Tensor]:
         """Stage the batch, draw (unless `draws` is given) and step."""
@@ -521,7 +548,7 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         """VIS_PERIOD > 0 writes to TensorBoard: the hook is built here, so a
         machine without a backend fails before the first step (the JAX
         package fails at step VIS_PERIOD - 1)."""
-        if self.cfg.VIS_PERIOD > 0 and self._vis_hook is None:
+        if self.cfg.VIS_PERIOD > 0 and self._vis_hook is None and mesh.is_main():
             from ...utils.visualize import VisualizationHook
 
             try:
@@ -546,9 +573,15 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         first image above BBOX_THRESHOLD to TensorBoard (the only read-back
         of those steps)."""
         hook = self._vis_hook
-        if hook is None or not hook.fires(self.storage.iter):
+        period, step = self.cfg.VIS_PERIOD, self.storage.iter
+        if period <= 0 or (step + 1) % period:
+            return
+        # rank 0 writes; a tensor-parallel teacher's forward takes its model group
+        if hook is None and (self.layout is None or self.layout.model == 1 or mesh.is_main()):
             return
         dets = self.teacher.infer(batch["images"][:1], batch["sizes"][:1])
+        if hook is None:
+            return
         valid = dets.valid[0].cpu().numpy()
         scores = dets.scores[0].float().cpu().numpy()
         keep = valid & (scores > self.bbox_threshold)

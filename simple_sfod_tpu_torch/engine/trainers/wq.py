@@ -73,6 +73,7 @@ class WQTrainer(BaseTrainer):
     subclasses: "wq" | "mosaic" | "mixup" | "mosaic_wq"."""
 
     aug: str = "wq"
+    augments_whole_batch = True  # mosaic and mixup take other images of the batch
 
     def __init__(self, cfg, **kw):
         super().__init__(cfg, **kw)

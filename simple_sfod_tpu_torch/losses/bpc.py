@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import mesh
 from ..structures.instances import Instances
 
 
@@ -54,4 +55,4 @@ def bpc_loss(pred: Instances, gt: Instances, iou_thresh: float = 0.5) -> torch.T
         loss = torch.log1p((an + ic) / torch.clamp_min(denom, 1e-12))
         losses.append(torch.where(denom > 0, loss, torch.zeros_like(loss)))
         valid.append((denom > 0).to(torch.float32))
-    return torch.sum(torch.stack(losses)) / torch.clamp_min(torch.sum(torch.stack(valid)), 1.0)
+    return torch.sum(torch.stack(losses)) / torch.clamp_min(mesh.global_sum(torch.sum(torch.stack(valid))), 1.0)

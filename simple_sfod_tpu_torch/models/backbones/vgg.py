@@ -32,6 +32,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ...parallel import mesh
+
 STAGE_PLAN: Sequence[Sequence[int]] = (
     (64, 64),
     (128, 128),
@@ -71,7 +73,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     the float32 statistics in eval mode, and the update writes float32.
     With reduced-precision statistics too (an artifact's bfloat16 weights,
     engine/export.py), eval mode computes as flax's BatchNorm does with
-    them."""
+    them.
+
+    Within `parallel.mesh.data_parallel` the batch is one rank's slice of a
+    global batch: train mode normalises by, and the update takes, the
+    global batch's statistics (`mesh.SyncBatchNorm`)."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -96,10 +102,14 @@ class BatchNorm2d(nn.BatchNorm2d):
             w, b = self._affine(self.running_mean.dtype)
             return F.batch_norm(x, self.running_mean, self.running_var, w, b, False, 0.0, self.eps)
         w, b = self._affine(x.dtype)
-        y = F.batch_norm(x, None, None, w, b, True, 0.0, self.eps)
+        if mesh.active() is not None:  # a slice of a global batch: its statistics
+            y, mean, var = mesh.sync_batch_norm(x, w, b, self.eps)
+        else:
+            y = F.batch_norm(x, None, None, w, b, True, 0.0, self.eps)
         if update_stats:
             with torch.no_grad():
-                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+                if mesh.active() is None:
+                    var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
                 keep = 1.0 - self.momentum
                 self.running_mean.mul_(keep).add_((1.0 - keep) * mean)
                 self.running_var.mul_(keep).add_((1.0 - keep) * var)

@@ -46,10 +46,12 @@ from ..ops.losses import sigmoid_ce, smooth_l1, softmax_ce
 from ..ops.matcher import ROI_MATCHER, RPN_MATCHER, match_boxes
 from ..ops.roi_align import roi_align
 from ..ops.sampler import subsample_labels, subsample_labels_mask
+from ..parallel import mesh
 from ..structures.boxes import BoxTransform, clip_boxes, nonempty, pairwise_iou
 from ..structures.instances import Instances, topk_indices
 from .backbones.fpn import FPN
 from .backbones.resnet import FrozenBatchNorm2d, ResNetBackbone
+from .backbones.tiny import TinyBackbone
 from .backbones.vgg import VGG16Backbone
 from .heads import FastRCNNConvFCHead, FastRCNNPredictor, RPNHead
 
@@ -156,7 +158,7 @@ class DetectorConfig:
     def _check_ported(self) -> None:
         if self.backbone not in _BACKBONES:
             raise NotImplementedError(
-                f"the vgg16, resnet50 and resnet101 detectors are ported, with and without FPN (got backbone="
+                f"the vgg16, resnet50, resnet101 and tiny detectors are ported, with and without FPN (got backbone="
                 f"{self.backbone!r})"
             )
         if self.fpn and not self.fpn_in_features:
@@ -177,13 +179,15 @@ class DetectorConfig:
         return _BACKBONES[self.backbone].out_channels()[self.in_feature]
 
 
-_BACKBONES = {"vgg16": VGG16Backbone, "resnet50": ResNetBackbone, "resnet101": ResNetBackbone}
+_BACKBONES = {"vgg16": VGG16Backbone, "resnet50": ResNetBackbone, "resnet101": ResNetBackbone, "tiny": TinyBackbone}
 
 
 def build_backbone(cfg: DetectorConfig) -> nn.Module:
     """The backbone of `cfg`, as the JAX FasterRCNN.setup builds it."""
     if cfg.backbone == "vgg16":
         bottom_up = VGG16Backbone(bn=cfg.vgg_bn)
+    elif cfg.backbone == "tiny":
+        bottom_up = TinyBackbone(bn=cfg.vgg_bn)
     else:
         depth = 50 if cfg.backbone == "resnet50" else 101
         out_features = cfg.fpn_in_features if cfg.fpn else (cfg.in_feature,)
@@ -497,8 +501,9 @@ def rpn_losses(
     priorities: torch.Tensor,
 ) -> Dict[str, torch.Tensor]:
     """RPN objectness and box-regression losses, each a sum over the sampled
-    anchors / (B * rpn_batch_size_per_image) (detectron2). gt: Instances
-    [B, M]; priorities [B, N_anchors], the sampler's uniform draws."""
+    anchors / (B * rpn_batch_size_per_image) (detectron2; B the global
+    batch within parallel.mesh.data_parallel). gt: Instances [B, M];
+    priorities [B, N_anchors], the sampler's uniform draws."""
     if isinstance(anchors, tuple):  # FPN: matched over every level at once
         anchors = torch.cat(anchors, dim=0)
     b = rpn_out.objectness.shape[0]
@@ -513,7 +518,7 @@ def rpn_losses(
         reg_targets.append(RPN_BOX_TRANSFORM.get_deltas(anchors, gt.boxes[i][matched_idx]))
     labels, sel, sel_pos, reg_targets = (torch.stack(t) for t in (labels, sel, sel_pos, reg_targets))
 
-    normalizer = float(b * cfg.rpn_batch_size_per_image)
+    normalizer = float(mesh.global_batch(b) * cfg.rpn_batch_size_per_image)
     obj_loss = sigmoid_ce(rpn_out.objectness, (labels == 1).to(torch.float32))
     loss_cls = torch.sum(obj_loss * sel.to(torch.float32)) / normalizer
     reg = smooth_l1(rpn_out.deltas, reg_targets, cfg.rpn_smooth_l1_beta)
@@ -563,14 +568,15 @@ def roi_losses(
     """Fast R-CNN classification and class-specific box-regression losses
     (detectron2 FastRCNNOutputLayers.losses): cross-entropy averaged over
     the sampled rows, smooth-L1 summed over the foreground rows, both
-    divided by the sampled count. scores [B*S, C+1], deltas [B*S, 4C]."""
+    divided by the sampled count (the global batch's within
+    parallel.mesh.data_parallel). scores [B*S, C+1], deltas [B*S, 4C]."""
     classes = sampled.gt_classes.reshape(-1)
     valid = sampled.valid.reshape(-1).to(torch.float32)
     is_fg = sampled.is_fg.reshape(-1).to(torch.float32)
     reg_targets = sampled.reg_targets.reshape(-1, 4)
 
     ce = softmax_ce(scores, classes)
-    denom = torch.clamp_min(torch.sum(valid), 1.0)
+    denom = torch.clamp_min(mesh.global_sum(torch.sum(valid)), 1.0)
     loss_cls = torch.sum(ce * valid) / denom
 
     k = deltas.shape[-1] // 4

@@ -50,12 +50,20 @@ class FastRCNNConvFCHead(nn.Module):
     the deterministic mode (flax's deterministic=True). Masks of k * N rows
     for N ROIs run k dropout passes at once (MC dropout,
     models/uncertainty.py): the layers before the first dropout run once
-    and their output is repeated k times, sample-major."""
+    and their output is repeated k times, sample-major.
+
+    Tensor-parallel (parallel/mesh.py:shard_box_head sets `model_group`):
+    fc1 holds a slice of its output rows and fc2 the same slice of its
+    input columns; fc1's input passes Megatron's f and fc2's partial output
+    is summed by g before fc2's bias, and fc1's keep mask is the slice of
+    its columns."""
 
     def __init__(self, in_dim: int, fc_dim: int = 1024, num_fc: int = 2, dropout: float = 0.0):
         super().__init__()
         self.num_fc = num_fc
         self.dropout = dropout
+        self.model_group = None  # the model group of a tensor-parallel head
+        self.model_width = 1
         for i in range(num_fc):
             self.add_module(f"fc{i + 1}", nn.Linear(in_dim if i == 0 else fc_dim, fc_dim))
 
@@ -64,13 +72,26 @@ class FastRCNNConvFCHead(nn.Module):
         if keep is not None and not self.dropout > 0:
             raise ValueError("keep masks given to a box head without dropout")
         x = x.flatten(1)
+        if self.model_group is not None:
+            from ..parallel.mesh import copy_to_model
+
+            x = copy_to_model(x, self.model_group)
         for i in range(self.num_fc):
-            x = torch.relu(getattr(self, f"fc{i + 1}")(x))
+            x = torch.relu(self._fc(i, x))
             if keep is not None:
                 if x.shape[0] != keep[i].shape[0]:
                     x = x.repeat(keep[i].shape[0] // x.shape[0], 1)
                 x = dropout(x, keep[i], self.dropout)
         return x
+
+    def _fc(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        fc = getattr(self, f"fc{i + 1}")
+        if self.model_group is None or i != 1:
+            return fc(x)
+        from ..parallel.mesh import reduce_from_model
+
+        y = reduce_from_model(nn.functional.linear(x, fc.weight), self.model_group)
+        return (y + fc.bias.float()).to(x.dtype)
 
 
 class FastRCNNPredictor(nn.Module):

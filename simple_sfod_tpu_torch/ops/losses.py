@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import mesh
+
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 0.0) -> torch.Tensor:
     """Elementwise smooth-L1 (Huber). beta <= 0 is pure L1, detectron2's
@@ -29,9 +31,10 @@ def softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor, floor: float = 1.0) -> torch.Tensor:
-    """Mean over the masked entries; the denominator is floored at `floor`."""
+    """Mean over the masked entries; the denominator is floored at `floor`.
+    The count is the global batch's within `parallel.mesh.data_parallel`."""
     m = mask.to(values.dtype)
-    return torch.sum(values * m) / torch.clamp_min(torch.sum(m), floor)
+    return torch.sum(values * m) / torch.clamp_min(mesh.global_sum(torch.sum(m)), floor)
 
 
 def masked_sum(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,9 @@
 `tools/train_net.py`):
 
     python -m simple_sfod_tpu_torch.tools.train_net --config-file configs/X.yaml \
-        [--eval-only [--adabn-batches N]] [--resume] [--synthetic] [--device cpu] [KEY VALUE ...]
+        [--eval-only [--adabn-batches N]] [--resume] [--synthetic] [--device cpu] \
+        [--num-gpus N] [--num-machines M --machine-rank r --dist-url tcp://host:port] \
+        [--dist-backend nccl|gloo] [KEY VALUE ...]
 
 It reads the config (the file, then the KEY VALUE overrides), registers the
 datasets (with --synthetic, every DATASETS name that resolves to no
@@ -11,17 +13,25 @@ the newest checkpoint of OUTPUT_DIR (--resume) or loads MODEL.WEIGHTS, and
 trains. --eval-only refines the BatchNorm statistics on the train set from
 the loaded ones, evaluates and saves `adabn.pth` (test_refinement);
 `train_net_mt` resets them first (AdaBN). The device is CUDA unless
---device says otherwise, and a run without a GPU raises. One GPU: more
-GPUs, machines or mesh axes raise until data parallelism is ported.
-The last line is the NMS kernels' launch counts of the run.
+--device says otherwise, and a run without a GPU raises.
+
+Several processes (parallel/launch.py): --num-gpus N starts N processes on
+this machine, one a device (N local processes on the CPU); --num-machines M
+with --machine-rank r and --dist-url joins M such groups into one world
+(the JAX package's spellings --num-processes, --process-id and
+--coordinator work too). --dist-backend defaults to nccl on CUDA and gloo on
+the CPU; several ranks sharing one GPU take gloo. The trainer lays the world
+out as TPU.MESH_DATA x TPU.MESH_MODEL (engine/trainers/base.py) and its
+numbers are those of one process on the global batch. TPU.SPATIAL_SHARD
+raises (ROADMAP item 1). On several ranks each prints a hash of its state
+(`[state] rank r: sha256 ...`, student and teacher, box heads whole), and
+each rank's last line is the NMS kernels' launch counts of its run.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-
-MULTI_DEVICE = "ROADMAP item 6.9 (data parallelism) is not ported yet: the port runs on one GPU"
 
 
 def default_argument_parser() -> argparse.ArgumentParser:
@@ -34,29 +44,31 @@ def default_argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--adabn-batches", type=int, default=None, metavar="N",
                    help="batches of the --eval-only BatchNorm refinement (default 1400, the reference's)")
     p.add_argument("--num-gpus", "--num-chips", dest="num_gpus", type=int, default=1,
-                   help="data-parallel width; only 1 is supported")
+                   help="processes on this machine, one a device")
     p.add_argument("--num-machines", "--num-processes", dest="num_machines", type=int, default=1,
-                   help="processes; only 1 is supported")
+                   help="machines, each with --num-gpus processes")
+    p.add_argument("--machine-rank", "--process-id", dest="machine_rank", type=int, default=0,
+                   help="this machine's index in [0, --num-machines)")
+    p.add_argument("--dist-url", "--coordinator", dest="dist_url", default=None,
+                   help="tcp://host:port of machine 0 (default with one machine: a free localhost port)")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="default: nccl on CUDA, gloo on the CPU")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[], help="KEY VALUE config overrides")
     return p
 
 
 def setup(args):
-    """The frozen config of `args`; multi-device settings raise."""
+    """The frozen config of `args`; TPU.SPATIAL_SHARD raises."""
     from ..config import get_cfg
+    from ..parallel.mesh import SPATIAL_SHARD
 
-    if args.num_gpus > 1 or args.num_machines > 1:
-        raise NotImplementedError(f"--num-gpus {args.num_gpus} --num-machines {args.num_machines}: {MULTI_DEVICE}")
     cfg = get_cfg()
     if args.config_file:
         cfg.merge_from_file(args.config_file, allow_new=True)
     if args.opts:
         cfg.merge_from_list(args.opts)
-    tpu = cfg.TPU
-    if tpu.MESH_DATA > 1 or tpu.MESH_MODEL > 1 or tpu.SPATIAL_SHARD:
-        raise NotImplementedError(
-            f"TPU.MESH_DATA {tpu.MESH_DATA}, TPU.MESH_MODEL {tpu.MESH_MODEL}, TPU.SPATIAL_SHARD {tpu.SPATIAL_SHARD}: "
-            f"{MULTI_DEVICE}")
+    if cfg.TPU.SPATIAL_SHARD:
+        raise NotImplementedError(SPATIAL_SHARD)
     cfg.freeze()
     return cfg
 
@@ -82,7 +94,19 @@ def register_datasets(cfg, synthetic: bool) -> None:
 
 
 def main(args, eval_mode: str = "test"):
-    """Run the CLI; returns the evaluation results with --eval-only."""
+    """Run the CLI on the processes of --num-gpus / --num-machines; returns
+    the evaluation results with --eval-only where it runs in this process."""
+    from ..device import resolve_device
+    from ..parallel.launch import launch
+
+    setup(args)  # a config that raises raises here, before any process starts
+    device = resolve_device(args.device)
+    return launch(_main, args.num_gpus, args.num_machines, args.machine_rank, args.dist_url, args.dist_backend,
+                  str(device), args=(args, eval_mode))
+
+
+def _main(args, eval_mode: str):
+    """One rank's run."""
     from ..device import resolve_device
     from ..engine.trainers import build_trainer
     from ..ops import _kernels
@@ -98,6 +122,12 @@ def main(args, eval_mode: str = "test"):
     else:
         trainer.train()
         result = None
+    if trainer.layout is not None:  # the ranks must hold the same state
+        from ..parallel.dryrun import state_hash
+        from ..parallel.mesh import rank
+
+        with trainer.full_state():
+            print(f"[state] rank {rank()}: sha256 {state_hash(trainer)}", flush=True)
     print(f"[launches] {json.dumps(dict(_kernels.LAUNCHES))}", flush=True)
     return result
 

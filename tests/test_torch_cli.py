@@ -3,8 +3,9 @@ train_net_mt.py) on the CPU, on configs/synthetic_tiny.yaml with
 --synthetic: training writes metrics and model_final.pth and --resume
 continues it; --eval-only refines the BatchNorm statistics (train_net_mt
 from reset ones: AdaBN), evaluates and saves adabn.pth; without a GPU and
-without --device cpu the CLI raises, and multi-device settings raise
-rather than being ignored."""
+without --device cpu the CLI raises, and multi-device settings that cannot
+run raise rather than being ignored (tests/test_torch_parallel.py runs the
+ones that can)."""
 
 import json
 import os
@@ -86,9 +87,25 @@ def test_raises_without_a_gpu(tmp_path, monkeypatch):
      ["TPU.SPATIAL_SHARD", "True"]],
     ids=["num-gpus", "num-machines", "mesh-data", "mesh-model", "spatial-shard"],
 )
-def test_multi_device_settings_raise(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6.9"):
-        train_net.main(args(tmp_path, *extra))
+def test_multi_device_settings_raise(tmp_path, monkeypatch, extra):
+    """The multi-device settings that cannot run here raise before a step
+    rather than being ignored: more local processes than GPUs, several
+    machines without --dist-url, a mesh of more ranks than processes, and
+    spatial sharding (ROADMAP item 1)."""
+    error, match = {
+        "--num-gpus": (ValueError, "--num-gpus 2 exceeds the 1 visible CUDA device"),
+        "--num-machines": (ValueError, "--num-machines 2 needs --dist-url"),
+        "TPU.MESH_DATA": (ValueError, "data 2 x model 1 layout needs 2 processes"),
+        "TPU.MESH_MODEL": (ValueError, "data 1 x model 2 layout needs 2 processes"),
+        "TPU.SPATIAL_SHARD": (NotImplementedError, "ROADMAP item 1"),
+    }[extra[0]]
+    device = "cpu"
+    if extra[0] == "--num-gpus":  # one visible GPU
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        device = "cuda"
+    with pytest.raises(error, match=match):
+        train_net.main(args(tmp_path, *extra, device=device))
 
 
 # the three ResNet-101 C4 workloads, cut to the CPU: a 64x128 canvas, a
