@@ -23,11 +23,12 @@ the disk; the file is written under a temporary name and renamed, and the
 marker is written only after that, so a resume never sees a half-written
 file. `wait()` joins the write and raises its error.
 
-Several processes (`distributed`): rank 0 alone writes, synchronously, and
-every rank waits at a barrier after the write, so no rank reads a file or a
-marker that is not on disk yet (the JAX package's multi-process saves are
-synchronous for the same reason). The trainers hand over the full tensors
-of a tensor-parallel box head, so a file has no topology.
+Several processes (a process group of more than one): rank 0 alone
+writes, synchronously, and every rank waits at a barrier after the write,
+so no rank reads a file or a marker that is not on disk yet (the JAX
+package's multi-process saves are synchronous for the same reason). The
+trainers hand over the full tensors of a tensor-parallel box head, so a
+file has no topology.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from . import torch_import
 
 TORCH_SUFFIXES = (".pth", ".pt", ".pkl", ".pth.tar")
@@ -135,9 +137,8 @@ def overlay_state_dict(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> 
 class Checkpointer:
     """Saves and loads `<output_dir>/<name>.pth`; see the module docstring."""
 
-    def __init__(self, output_dir: str, distributed: bool = False):
+    def __init__(self, output_dir: str):
         self.dir = os.path.abspath(output_dir)
-        self.distributed = distributed
         self._pending: Optional[threading.Thread] = None
         self._save_err: Optional[BaseException] = None
         # the last save's timings: blocking_s (the caller's snapshot),
@@ -160,9 +161,7 @@ class Checkpointer:
         """Write `state` as `<name>.pth` and point the marker at it; on disk
         when this returns unless `block=False` (several processes: always
         on disk, written by rank 0)."""
-        if self.distributed:
-            from ..parallel import mesh
-
+        if mesh.world_size() > 1:
             try:
                 if mesh.is_main():
                     self._save(name, state, block=True)

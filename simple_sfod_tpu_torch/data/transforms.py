@@ -96,6 +96,10 @@ class StrongDraws(NamedTuple):
     erase_offset: torch.Tensor
     fill: torch.Tensor
 
+    # every field: one row an image (parallel.mesh.shard_draws)
+    SHARD = {f: "batch" for f in ("do", "jitter", "perm", "sigma", "erase_scale", "erase_log_ratio", "erase_offset",
+                                  "fill")}
+
     def to(self, device) -> "StrongDraws":
         """The device-side draws moved to `device`; the CPU-side ones stay."""
         return self._replace(**{f: getattr(self, f).to(device) for f in self._fields[4:]})

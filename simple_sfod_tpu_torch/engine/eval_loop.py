@@ -13,7 +13,7 @@ copy from pageable memory would synchronise the stream and serialise the
 pipeline); a batch's detections are read back, the only host sync, when it
 leaves the queue, and only then is its buffer reused.
 
-Several processes (`distributed`): batch k runs on rank k % world (the JAX
+Several processes (a process group): batch k runs on rank k % world (the JAX
 loop's `bi % nproc != pid`); the ranks' records are gathered with their
 batch indices and merged in batch order, so every rank ends with the one
 process's list and its results. A rank with no batch left joins the gather
@@ -58,17 +58,14 @@ class Staging:
         return slot[0].to(self.device, non_blocking=True), slot[1].to(self.device, non_blocking=True)
 
 
-def _file_records(batch, dets, seen: set, records: list) -> None:
-    """Per-image records of one batch in file coordinates, each image once."""
+def _file_records(k: int, batch, dets) -> list:
+    """(k, record) of each image of batch k, in file coordinates."""
     boxes = dets.boxes.float().cpu().numpy()
     scores = dets.scores.float().cpu().numpy()
     classes = dets.classes.cpu().numpy()
     valid = dets.valid.cpu().numpy()
+    records = []
     for i in range(len(batch["image_ids"])):
-        img_id = int(batch["image_ids"][i])
-        if img_id in seen:  # the final batch's padding repeats records
-            continue
-        seen.add(img_id)
         keep = valid[i]
         # per-axis un-scaling (detectron2 ResizeTransform.apply_coords)
         s = np.asarray(batch["scale"][i], np.float32).reshape(-1)
@@ -79,28 +76,15 @@ def _file_records(batch, dets, seen: set, records: list) -> None:
         h, w = float(batch["heights"][i]), float(batch["widths"][i])
         file_boxes = np.clip(file_boxes, 0, [w, h, w, h])
         gt_keep = batch["gt_valid"][i]
-        records.append(
-            {
-                "image_id": img_id,
-                "boxes": file_boxes,
-                "scores": scores[i][keep],
-                "classes": classes[i][keep],
-                "gt_boxes": batch["gt_boxes"][i][gt_keep] * inv,
-                "gt_classes": np.asarray(batch["gt_classes"][i][gt_keep]),
-            }
-        )
-
-
-def _collect(item, seen: set, records: list, world: int) -> None:
-    """One batch's records: one process's file records, or on several ranks
-    (batch index, record) pairs with every image kept until the merge."""
-    k, batch, dets = item
-    if world == 1:
-        _file_records(batch, dets, seen, records)
-        return
-    recs: list = []
-    _file_records(batch, dets, set(), recs)
-    records.extend((k, rec) for rec in recs)
+        records.append((k, {
+            "image_id": int(batch["image_ids"][i]),
+            "boxes": file_boxes,
+            "scores": scores[i][keep],
+            "classes": classes[i][keep],
+            "gt_boxes": batch["gt_boxes"][i][gt_keep] * inv,
+            "gt_classes": np.asarray(batch["gt_classes"][i][gt_keep]),
+        }))
+    return records
 
 
 def inference_on_dataset(
@@ -112,7 +96,6 @@ def inference_on_dataset(
     dump_json: Optional[str] = None,
     category_ids: Optional[dict] = None,
     pipeline_depth: int = 4,
-    distributed: bool = False,
 ) -> Dict:
     """Run `detector` (on its device) over a test loader and evaluate.
 
@@ -121,17 +104,16 @@ def inference_on_dataset(
     in the JAX loop). dump_json: a COCO detections file
     (`coco_instances_results.json`), with category_ids mapping contiguous
     ids to the dataset's category ids (default id + 1). pipeline_depth:
-    TPU.EVAL_PIPELINE_DEPTH, the batches in flight. `distributed`: every rank
-    of the process group calls this on the same loader (module docstring).
-    Returns the evaluators' merged results."""
+    TPU.EVAL_PIPELINE_DEPTH, the batches in flight. In a process group
+    every rank calls this on the same loader (module docstring). Returns
+    the evaluators' merged results."""
     if evaluators is None:
         evaluators = [COCOEvaluator(thing_classes), F1Evaluator()]
     depth = max(1, int(pipeline_depth))
     staging = Staging(detector.device, depth)
-    seen: set = set()
     records: list = []
     inflight = collections.deque()
-    world, me = (mesh.world_size(), mesh.rank()) if distributed else (1, 0)
+    world, me = mesh.world_size(), mesh.rank()
     taken = 0
     for k, batch in enumerate(loader):
         if k % world != me:
@@ -140,16 +122,17 @@ def inference_on_dataset(
         taken += 1
         inflight.append((k, batch, detector.infer(images, sizes, train_mode_bn=train_mode_bn)))
         if len(inflight) >= depth:
-            _collect(inflight.popleft(), seen, records, world)
+            records.extend(_file_records(*inflight.popleft()))
     while inflight:
-        _collect(inflight.popleft(), seen, records, world)
-    if world > 1:
-        gathered = sorted((item for part in mesh.all_gather_object(records) for item in part), key=lambda t: t[0])
-        seen, records = set(), []
-        for _, rec in gathered:
-            if rec["image_id"] not in seen:  # the final batch's padding repeats records
-                seen.add(rec["image_id"])
-                records.append(rec)
+        records.extend(_file_records(*inflight.popleft()))
+    # every rank's records (one process: its own) in batch order, each image
+    # once: the final batch's padding repeats records
+    seen: set = set()
+    gathered, records = mesh.all_gather_object(records), []
+    for _, rec in sorted((item for part in gathered for item in part), key=lambda t: t[0]):
+        if rec["image_id"] not in seen:
+            seen.add(rec["image_id"])
+            records.append(rec)
 
     for rec in records:
         for ev in evaluators:

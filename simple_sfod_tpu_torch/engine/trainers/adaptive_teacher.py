@@ -81,6 +81,13 @@ class ATDraws(NamedTuple):
     box_keep: Optional[Tuple[torch.Tensor, ...]] = None
     box_keep_t: Optional[Tuple[torch.Tensor, ...]] = None
 
+    # how each field lays out the images of the source ("batch") or target
+    # batch: rpn, roi and box_keep cover the source batch twice, its strong
+    # view's block, then its weak view's (parallel.mesh.shard_draws)
+    SHARD = {"flip": "batch", "strong": "batch", "rpn": "2*batch", "roi": "2*batch", "flip_t": "target",
+             "strong_t": "target", "rpn_t": "target", "roi_t": "target",
+             "dropout": ("batch", "batch", "target", "target"), "box_keep": "2*batch", "box_keep_t": "target"}
+
     def to(self, device) -> "ATDraws":
         """The draws on `device` (the strong views' CPU-side ones stay)."""
         return ATDraws(*(keep_on(v, device) if v is None or type(v) is tuple else v.to(device) for v in self))
@@ -96,7 +103,6 @@ class AdaptiveTeacherTrainer(PairedTargetMixin, SourceFreeAdaptiveTeacherTrainer
     pseudo_from_student = False
     ema_enabled = True
     _SHARD_BATCH_KEYS = ("IMS_PER_BATCH", "IMS_PER_BATCH_TARGET")
-    _TARGET_DRAWS = ("flip_t", "strong_t", "rpn_t", "roi_t", "box_keep_t")
 
     def __init__(self, cfg, *args, **kw):
         super().__init__(cfg, *args, **kw)
@@ -146,30 +152,6 @@ class AdaptiveTeacherTrainer(PairedTargetMixin, SourceFreeAdaptiveTeacherTrainer
     def _copy_student_to_teacher(self) -> None:
         for t, s in zip(ema_tensors(self.state.teacher), ema_tensors(self.state.model)):
             t.copy_(s)
-
-    def _local_draws(self, draws: ATDraws, batch_size: int) -> ATDraws:
-        """BaseTrainer's rows, except that rpn, roi and box_keep cover the
-        source batch twice (its strong view, then its weak one): each half
-        keeps this rank's rows."""
-        def halves(t):
-            return torch.cat(mesh.shard_batch(self.layout, tuple(t.chunk(2)), batch_size))
-
-        local = super()._local_draws(draws._replace(rpn=None, roi=None, box_keep=None), batch_size)
-        keep = draws.box_keep
-        if keep is not None:
-            keep = mesh.slice_box_keep(tuple(halves(k) for k in keep), self.layout)
-        return local._replace(rpn=halves(draws.rpn), roi=halves(draws.roi), box_keep=keep)
-
-    def _local_paired_draws(self, draws: ATDraws, batch_size: int, target_size: int) -> ATDraws:
-        """PairedTargetMixin's, with the instance classifier's masks split:
-        the source call's two by the source batch, the target call's two by
-        the target batch."""
-        dropout = draws.dropout
-        draws = super()._local_paired_draws(draws._replace(dropout=None), batch_size, target_size)
-        if dropout is not None:
-            dropout = (*mesh.shard_batch(self.layout, dropout[:2], batch_size),
-                       *mesh.shard_batch(self.layout, dropout[2:], target_size))
-        return draws._replace(dropout=dropout)
 
     def step_on_device(self, images, sizes, gt: Instances, t_images, t_sizes, draws: ATDraws) -> Dict[str, torch.Tensor]:
         """One step on a (source, target) pair already on the device (on
@@ -241,7 +223,7 @@ class AdaptiveTeacherTrainer(PairedTargetMixin, SourceFreeAdaptiveTeacherTrainer
         """Draw for the global batches (unless `draws`, theirs, is given),
         keep this rank's rows and step on a staged pair."""
         images, sizes, gt, t_images, t_sizes = staged
-        b, bt = self.global_batch(images.shape[0]), self.global_batch(t_images.shape[0])
+        b, bt = mesh.global_batch(images.shape[0], self.layout), mesh.global_batch(t_images.shape[0], self.layout)
         if draws is None:
             draws = self.make_draws(b, tuple(images.shape[1:3]), gt.boxes.shape[1], bt)
-        return self.step_on_device(images, sizes, gt, t_images, t_sizes, self._local_paired_draws(draws, b, bt))
+        return self.step_on_device(images, sizes, gt, t_images, t_sizes, self._local_draws(draws, b, bt))

@@ -17,7 +17,8 @@ every 20 iterations and at the last, a non-blocking checkpoint every
 SOLVER.CHECKPOINT_PERIOD, `test()` every TEST.EVAL_PERIOD and the
 validation loss beside it (TEST.VAL_LOSS), a final `test()` when MAX_ITER
 is not a multiple of EVAL_PERIOD, and `model_final`. SIGTERM finishes the
-steps in flight, saves `model_preempt_<iter>` and returns; an exception
+steps in flight, saves `model_preempt_<iter>` and returns (on several
+ranks at the next multiple of 20 iterations, where they agree); an exception
 saves `model_crash_<iter>` and is raised again. `resume_or_load` restores a
 checkpoint or loads MODEL.WEIGHTS (checkpoint/checkpointer.py).
 
@@ -90,6 +91,9 @@ class Draws(NamedTuple):
     # the box head's dropout keep masks, one bool [B * ROI batch, FC_DIM] a
     # fc layer (`box_dropout_masks`); None without MODEL.ROI_BOX_HEAD.DROPOUT
     box_keep: Optional[Tuple[torch.Tensor, ...]] = None
+
+    # how each field lays out the global batch's images (parallel.mesh.shard_draws)
+    SHARD = {"flip": "batch", "rpn": "batch", "roi": "batch", "box_keep": "batch"}
 
 
 def _flip_enabled(cfg) -> bool:
@@ -251,7 +255,7 @@ class BaseTrainer:
         self.state = self._init_state()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.storage = EventStorage()
-        self.checkpointer = Checkpointer(self.output_dir, distributed=self.layout is not None)
+        self.checkpointer = Checkpointer(self.output_dir)
         self.train_loader = None
         self.writers: List = []
         self._feeder: Optional[_ChunkFeeder] = None
@@ -296,16 +300,15 @@ class BaseTrainer:
         """This rank's rows of a global batch in the loader's layout."""
         return mesh.shard_batch(self.layout, batch, len(batch["images"]))
 
-    def _local_draws(self, draws, batch_size: int):
-        """This rank's rows of a global batch's draws, and under tensor
-        parallelism its columns of the box head's first keep mask."""
-        draws = mesh.shard_batch(self.layout, draws, batch_size)
-        if getattr(draws, "box_keep", None) is not None:
-            draws = draws._replace(box_keep=mesh.slice_box_keep(draws.box_keep, self.layout))
-        return draws
-
-    def global_batch(self, local: int) -> int:
-        return local * (self.layout.data if self.layout is not None else 1)
+    def _local_draws(self, draws, batch_size: int, target_size: Optional[int] = None):
+        """This rank's part of the draws of a global batch of `batch_size`
+        images (and of `target_size` target images, for a paired trainer),
+        by the layout the draws' class declares (mesh.shard_draws), and under
+        tensor parallelism its columns of the box heads' first keep masks."""
+        draws = mesh.shard_draws(self.layout, draws, {"batch": batch_size, "target": target_size})
+        keep = {f: mesh.slice_box_keep(getattr(draws, f), self.layout)
+                for f in ("box_keep", "box_keep_t") if getattr(draws, f, None) is not None}
+        return draws._replace(**keep)
 
     def _optimizer_step(self) -> None:
         """The gradient summed over the data group, then the update."""
@@ -405,7 +408,7 @@ class BaseTrainer:
         images, sizes, gt = staged
         dev = self.device
         images = images.to(torch.float32)
-        b = images.shape[0] if self.augments_whole_batch else self.global_batch(images.shape[0])
+        b = images.shape[0] if self.augments_whole_batch else mesh.global_batch(images.shape[0], self.layout)
         if draws is None:
             draws = self.make_draws(b, tuple(images.shape[1:3]), gt.boxes.shape[1])
         if self.augments_whole_batch:  # the global batch's augmentation, then this rank's rows
@@ -543,7 +546,8 @@ class BaseTrainer:
                     self.storage.step()
                 self.storage.put_scalar("data_time", data_time / k)
                 self.storage.put_scalar("lr", float(self.state.optimizer.schedule(last)))
-                if crossed(LOG_PERIOD, i, last + 1) or last == self.max_iter - 1:
+                logged = crossed(LOG_PERIOD, i, last + 1)
+                if logged or last == self.max_iter - 1:
                     for name, v in mesh.sum_metrics(metrics, self.layout).items():
                         v = float(v)
                         if name.startswith("loss") or name == "total_loss":
@@ -559,8 +563,13 @@ class BaseTrainer:
                     val_hook.after_step(last, self.storage, prev_step=i - 1)
                 self.storage.step()
                 i += k
-                self._preempted = mesh.any_rank(self._preempted, self.layout)
-                if self._preempted:
+                stop = self._preempted
+                if self.layout is not None:
+                    # the ranks stop together: they agree on the flag where
+                    # the metrics are read back anyway, every LOG_PERIOD
+                    # steps, so no other step waits for the device
+                    stop = logged and mesh.any_rank(self._preempted, self.layout)
+                if stop:
                     if feeder is not None:
                         feeder.stop()  # nothing staged beside the save
                     name = f"model_preempt_{i - 1:07d}"
@@ -572,7 +581,8 @@ class BaseTrainer:
                 feeder.stop()
             self._feeder = None
         if self.layout is not None and len(step_s) > 1:
-            # the collectives wait for the device every step, so the host clock times the step
+            # gloo's gradient all-reduce waits for the device every step, so
+            # there the host clock times the step (under nccl, the host's part)
             print(f"[trainer] rank {self.layout.rank}: {1e3 * float(np.median(step_s[1:])):.2f} ms a step (median of "
                   f"the loop's {len(step_s) - 1} iterations after the first, host clock)", flush=True)
         # the final evaluation of detectron2's EvalHook, except at
@@ -608,7 +618,6 @@ class BaseTrainer:
             ds["thing_classes"],
             build_evaluators(self.cfg, name, ds["thing_classes"]),
             pipeline_depth=self.cfg.TPU.EVAL_PIPELINE_DEPTH,
-            distributed=self.layout is not None,
             **kw,
         )
 
@@ -734,20 +743,6 @@ class PairedTargetMixin:
     TPU.STEPS_PER_DISPATCH and staging ahead leave a trajectory as it is."""
 
     target_loader = None
-    # the fields of the trainer's draws sized by the target batch
-    _TARGET_DRAWS: Tuple[str, ...] = ()
-
-    def _local_paired_draws(self, draws, batch_size: int, target_size: int):
-        """This rank's rows of a (source, target) step's draws: the
-        `_TARGET_DRAWS` fields by the target batch, the rest by the source's
-        (BaseTrainer._local_draws); a target box-head mask's fc1 columns
-        under tensor parallelism."""
-        target = {f: getattr(draws, f) for f in self._TARGET_DRAWS}
-        draws = self._local_draws(draws._replace(**dict.fromkeys(target)), batch_size)
-        target = mesh.shard_batch(self.layout, target, target_size)
-        if target.get("box_keep_t") is not None:
-            target["box_keep_t"] = mesh.slice_box_keep(target["box_keep_t"], self.layout)
-        return draws._replace(**target)
 
     def _build_target_loader(self):
         return build_train_loader(

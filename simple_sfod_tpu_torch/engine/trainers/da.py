@@ -134,6 +134,11 @@ class DADraws(NamedTuple):
     dropout_t: Tuple[torch.Tensor, ...]  # the target's, [B_t * num_ins, 1024]
     box_keep: Optional[Tuple[torch.Tensor, ...]] = None  # the box head's dropout keep masks (base.Draws)
 
+    # how each field lays out the images of the source ("batch") or target
+    # batch (parallel.mesh.shard_draws)
+    SHARD = {"flip": "batch", "rpn": "batch", "roi": "batch", "flip_t": "target", "dropout_s": "batch",
+             "dropout_t": "target", "box_keep": "batch"}
+
     def to(self, device) -> "DADraws":
         return DADraws(*(tuple(t.to(device) for t in x) if isinstance(x, tuple) else None if x is None
                          else x.to(device) for x in self))
@@ -147,7 +152,6 @@ class _DATrainerBase(PairedTargetMixin, BaseTrainer):
 
     conditional = False
     _SHARD_BATCH_KEYS = ("IMS_PER_BATCH", "IMS_PER_BATCH_TARGET")
-    _TARGET_DRAWS = ("flip_t", "dropout_t")
 
     def __init__(
         self,
@@ -227,10 +231,10 @@ class _DATrainerBase(PairedTargetMixin, BaseTrainer):
         images, sizes, gt, t_images, t_sizes = staged
         images, t_images = images.to(torch.float32), t_images.to(torch.float32)
         canvas, t_canvas = tuple(images.shape[1:3]), tuple(t_images.shape[1:3])
-        b, bt = self.global_batch(images.shape[0]), self.global_batch(t_images.shape[0])
+        b, bt = mesh.global_batch(images.shape[0], self.layout), mesh.global_batch(t_images.shape[0], self.layout)
         if draws is None:
             draws = self.make_draws(b, canvas, gt.boxes.shape[1], bt)
-        draws = self._local_paired_draws(draws, b, bt)
+        draws = self._local_draws(draws, b, bt)
         with mesh.data_parallel(self.layout):
             metrics = self._step_losses(images, sizes, gt, t_images, t_sizes, draws)
         self._optimizer_step()

@@ -113,6 +113,10 @@ class AdaptDraws(NamedTuple):
     # (base.Draws.box_keep); None without MODEL.ROI_BOX_HEAD.DROPOUT
     box_keep: Optional[Tuple[torch.Tensor, ...]] = None
 
+    # how each field lays out the global batch's images (parallel.mesh.shard_draws)
+    SHARD = {"flip": "batch", "strong": "batch", "rpn": "batch", "roi": "batch", "dropout": "batch",
+             "box_keep": "batch"}
+
     def to(self, device) -> "AdaptDraws":
         """The draws on `device` (the strong view's CPU-side ones stay)."""
         strong = self.strong.to(device) if self.strong is not None else None
@@ -534,7 +538,7 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
         """Draw for the global batch (unless `draws`, the global batch's, is
         given), keep this rank's rows and step on a staged batch."""
         images, sizes = staged
-        b = self.global_batch(images.shape[0])
+        b = mesh.global_batch(images.shape[0], self.layout)
         if draws is None:
             draws = self.make_draws(b, tuple(images.shape[1:3]))
         return self.step_on_device(images, sizes, self._local_draws(draws, b))

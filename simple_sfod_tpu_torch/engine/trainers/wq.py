@@ -61,6 +61,10 @@ class WQDraws(NamedTuple):
     roi: torch.Tensor  # [B, pool]: the ROI sampler's, pool for the augmented GT capacity
     box_keep: Optional[Tuple[torch.Tensor, ...]] = None  # the box head's dropout keep masks (base.Draws)
 
+    # how each field lays out the global batch's images (parallel.mesh.shard_draws)
+    SHARD = {f: "batch" for f in ("flip", "mosaic", "affine", "mixup_flip", "jitter", "jitter_offset", "crop",
+                                  "strong", "rpn", "roi", "box_keep")}
+
     def to(self, device) -> "WQDraws":
         """The draws on `device` (the strong view's CPU-side ones stay)."""
         return WQDraws(*(

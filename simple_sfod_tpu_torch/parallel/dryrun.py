@@ -56,15 +56,6 @@ def tiny_cfg(data: int, canvas=(32, 64), model: int = 1, output_dir: str = ""):
     return cfg
 
 
-def state_hash(trainer) -> str:
-    """mesh.state_hash of the trainer's student and teacher (take it within
-    `trainer.full_state()` to compare the ranks of a tensor-parallel layout)."""
-    from . import mesh
-
-    teacher = getattr(trainer.state, "teacher", None)
-    return mesh.state_hash(trainer.state.model, *([teacher] if teacher is not None else []))
-
-
 def _step(n_images: int, data: int, model: int, device: str) -> float:
     from ..engine.trainers import build_trainer
     from . import mesh
@@ -80,7 +71,7 @@ def _step(n_images: int, data: int, model: int, device: str) -> float:
     if not np.isfinite(total):
         raise FloatingPointError(f"non-finite loss {total}")
     with trainer.full_state():  # the full box heads of a tensor-parallel layout
-        hashes = mesh.all_gather_object(state_hash(trainer))
+        hashes = mesh.all_gather_object(mesh.state_hash(trainer.state))
     if len(set(hashes)) != 1:
         raise AssertionError(f"the ranks' states differ after the step: {hashes}")
     return total

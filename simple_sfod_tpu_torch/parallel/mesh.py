@@ -18,7 +18,9 @@ Batches. Every rank holds the same global batch (loaders with the same
 seed) and takes rows [d * b, (d + 1) * b) of it (`shard_batch`), d its data
 index, b the global batch over the data width: the JAX package's loader
 contract (`_place`). A step's draws are drawn for the global batch and
-sliced the same way, so a W-rank run consumes what one process consumes.
+each rank keeps its part by the layout that the draws' class declares
+for every field (`shard_draws`), so a W-rank run consumes what one process
+consumes.
 
 Global-batch numerics, while `data_parallel(layout)` is entered:
   BatchNorm   train-mode statistics over the data group (`SyncBatchNorm`):
@@ -195,9 +197,11 @@ def global_sum(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def global_batch(b: int) -> int:
-    """The global batch of which this rank holds `b` images."""
-    return b * (_ACTIVE.data if _ACTIVE is not None else 1)
+def global_batch(b: int, layout: Optional[Layout] = None) -> int:
+    """The global batch of which this rank holds `b` images, under `layout`
+    or the active one."""
+    lay = layout if layout is not None else _ACTIVE
+    return b * (lay.data if lay is not None else 1)
 
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
@@ -320,14 +324,16 @@ def any_rank(flag: bool, layout: Optional[Layout]) -> bool:
     return bool(t.item() > 0)
 
 
-def state_hash(*modules) -> str:
-    """sha256 of the modules' state (parameters and buffers, in name order,
-    as this rank holds them; within a trainer's `full_state()` the ranks of
-    a tensor-parallel layout compare whole)."""
+def state_hash(state) -> str:
+    """sha256 of a train state's student (`state.model`) and teacher, where
+    it has one: parameters and buffers in name order, as this rank holds
+    them (within a trainer's `full_state()` the ranks of a tensor-parallel
+    layout compare whole)."""
     import hashlib
 
     h = hashlib.sha256()
-    for module in modules:
+    teacher = getattr(state, "teacher", None)
+    for module in (state.model, *([teacher] if teacher is not None else [])):
         for name, t in sorted(module.state_dict().items()):
             h.update(name.encode())
             h.update(t.detach().float().cpu().contiguous().numpy().tobytes())
@@ -345,17 +351,34 @@ def all_gather_object(obj) -> List:
 
 # -- batches --------------------------------------------------------------------
 
-def shard_batch(layout: Optional[Layout], tree: Any, batch_size: int) -> Any:
-    """This rank's rows of a global batch of `batch_size` images: every
-    array or tensor leaf whose first dimension is a multiple k * batch_size
-    keeps rows [d * b * k, (d + 1) * b * k) (k rows an image: the dropout
-    masks of a box head's ROIs); other leaves pass. The identity at data
-    width 1."""
+def shard_rows(layout: Optional[Layout], x, batch_size: int, blocks: int = 1):
+    """This rank's rows of an array or tensor whose first dimension holds
+    `blocks` blocks of `batch_size` images, one after the other, and k rows
+    an image within a block, image after image: rows [d * b * k,
+    (d + 1) * b * k) of each block, d the data index and b the global batch
+    over the data width. Raises unless the first dimension is a multiple of
+    blocks * batch_size. The identity at data width 1."""
+    if x.shape[0] % (blocks * batch_size):
+        raise ValueError(f"{x.shape[0]} rows are not {blocks} block(s) of {batch_size} images")
     if layout is None or layout.data == 1:
-        return tree
+        return x
     if batch_size % layout.data:
         raise ValueError(f"the global batch of {batch_size} images does not split over the data width {layout.data}")
     b, d = batch_size // layout.data, layout.data_index
+    k = x.shape[0] // (blocks * batch_size)
+    parts = [blk[d * b * k:(d + 1) * b * k] for blk in (x.chunk(blocks) if blocks > 1 else (x,))]
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat(parts) if isinstance(x, torch.Tensor) else np.concatenate(parts)
+
+
+def shard_batch(layout: Optional[Layout], tree: Any, batch_size: int) -> Any:
+    """This rank's rows of a global batch in the loader's layout: every
+    array or tensor leaf (of dicts, lists and tuples) holds one row an
+    image, else this raises; other leaves pass. The identity at data width
+    1."""
+    if layout is None or layout.data == 1:
+        return tree
 
     def take(x):
         if isinstance(x, dict):
@@ -364,12 +387,53 @@ def shard_batch(layout: Optional[Layout], tree: Any, batch_size: int) -> Any:
             return type(x)(*(take(v) for v in x))
         if isinstance(x, (list, tuple)):
             return type(x)(take(v) for v in x)
-        if isinstance(x, (np.ndarray, torch.Tensor)) and x.ndim and x.shape[0] and x.shape[0] % batch_size == 0:
-            k = x.shape[0] // batch_size
-            return x[d * b * k:(d + 1) * b * k]
+        if isinstance(x, (np.ndarray, torch.Tensor)):
+            if not x.ndim or x.shape[0] != batch_size:
+                raise ValueError(f"a leaf of shape {tuple(x.shape)} in a batch of {batch_size} images: one row an "
+                                 "image expected")
+            return shard_rows(layout, x, batch_size)
         return x
 
     return take(tree)
+
+
+def shard_draws(layout: Optional[Layout], draws, sizes: Dict[str, Optional[int]]):
+    """This rank's part of a step's draws: a NamedTuple whose class declares
+    in `SHARD` how every field lays its images out. A declaration names the
+    batch that the field covers, a key of `sizes` ("batch", and "target" for
+    a paired trainer's target batch), as "<key>" (one block: k rows an
+    image) or "<n>*<key>" (n blocks of that batch, `shard_rows`). A tuple
+    field (keep masks) takes one declaration for every element, or a tuple
+    of them; a NamedTuple field (StrongDraws) is split by its own `SHARD`,
+    whose "batch" is the batch its parent declares; None passes. A field
+    without a declaration raises, at any width: a layout is never guessed
+    from a shape."""
+    shard = getattr(type(draws), "SHARD", None)
+    missing = [f for f in draws._fields if shard is None or f not in shard]
+    if missing:
+        raise TypeError(f"{type(draws).__name__} declares no layout (SHARD) for {missing}")
+
+    def rule(decl: str):
+        blocks, _, key = decl.rpartition("*")
+        n = sizes.get(key)
+        if n is None:
+            raise ValueError(f"{type(draws).__name__}: no batch size for {decl!r} (given {sizes})")
+        return n, int(blocks or 1)
+
+    def take(x, decl):
+        if x is None:
+            return None
+        if hasattr(x, "_fields"):
+            n, blocks = rule(decl)
+            if blocks != 1:
+                raise ValueError(f"{type(x).__name__} in {blocks} blocks: not a layout shard_draws splits")
+            return shard_draws(layout, x, {"batch": n})
+        if isinstance(x, tuple):
+            decls = decl if isinstance(decl, tuple) else (decl,) * len(x)
+            return tuple(take(v, dv) for v, dv in zip(x, decls, strict=True))
+        return shard_rows(layout, x, *rule(decl))
+
+    return type(draws)(*(take(getattr(draws, f), shard[f]) for f in draws._fields))
 
 
 # -- tensor parallelism -----------------------------------------------------------

@@ -123,11 +123,10 @@ def _main(args, eval_mode: str):
         trainer.train()
         result = None
     if trainer.layout is not None:  # the ranks must hold the same state
-        from ..parallel.dryrun import state_hash
-        from ..parallel.mesh import rank
+        from ..parallel import mesh
 
         with trainer.full_state():
-            print(f"[state] rank {rank()}: sha256 {state_hash(trainer)}", flush=True)
+            print(f"[state] rank {mesh.rank()}: sha256 {mesh.state_hash(trainer.state)}", flush=True)
     print(f"[launches] {json.dumps(dict(_kernels.LAUNCHES))}", flush=True)
     return result
 

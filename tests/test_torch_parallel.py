@@ -41,6 +41,10 @@ What is held, and how closely:
   resume        2 -> 1, 1 -> 2 and (data 1 x model 2) -> 1: a checkpoint
                 loads strictly at any width with the full tensors, and the
                 continued runs agree by the movement rule
+  preemption    SIGTERM's flag on one rank stops both ranks at the next
+                multiple of LOG_PERIOD iterations, where they agree
+  batches       a loader batch splits one row an image; draws by the layout
+                their class declares, and an undeclared field raises
   CLIs          train_net --num-gpus 2 --device cpu and train_net_mt
                 --eval-only on two processes joined by the JAX package's
                 spellings; the refusals; dryrun_multigpu(2)
@@ -57,6 +61,7 @@ import json
 import os
 import subprocess
 import sys
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -207,19 +212,60 @@ def test_tp_placement_as_jax_tp_spec(tmp_path, model):
 
 def test_shard_batch_and_box_keep_slices():
     """Rank (d, m) of a data 2 x model 2 layout: rows [d*b, (d+1)*b) of each
-    per-image leaf (k rows an image), fc1's keep-mask columns of model index m."""
+    leaf of a loader batch, which must hold one row an image; a step's draws
+    by the layout their class declares (the adaptive teacher's: k rows an
+    image, the source batch in two blocks, the target batch, nested strong
+    views), and a class that declares no layout for a field raises; fc1's
+    keep-mask columns of model index m."""
+    from simple_sfod_tpu_torch.data.transforms import StrongDraws
+    from simple_sfod_tpu_torch.engine.trainers.adaptive_teacher import ATDraws
+
     lay = mesh.Layout(2, 2, 3, None, None, torch.device("cpu"))
     assert (lay.data_index, lay.model_index) == (1, 1)
-    tree = {"images": np.arange(4 * 3).reshape(4, 3), "keep": (torch.arange(8 * 6).reshape(8, 6),), "n": 5}
+    tree = {"images": np.arange(4 * 3).reshape(4, 3), "ids": (torch.arange(4),), "n": 5}
     got = mesh.shard_batch(lay, tree, 4)
     np.testing.assert_array_equal(got["images"], tree["images"][2:])
-    assert torch.equal(got["keep"][0], tree["keep"][0][4:]) and got["n"] == 5
+    assert torch.equal(got["ids"][0], tree["ids"][0][2:]) and got["n"] == 5
+    with pytest.raises(ValueError, match="one row an image"):
+        mesh.shard_batch(lay, {"keep": torch.zeros(8, 6)}, 4)  # k rows an image: draws declare theirs
+    with pytest.raises(ValueError, match="does not split"):
+        mesh.shard_batch(lay, {"images": np.zeros((3, 2))}, 3)
+
+    def rows(n, k=1):
+        return torch.arange(n * k * 2).reshape(n * k, 2)
+
+    def strong(n):
+        return StrongDraws(*(rows(n) for _ in StrongDraws._fields))
+
+    r = 3  # ROIs an image
+    draws = ATDraws(flip=rows(4), strong=strong(4), rpn=rows(8), roi=rows(8), flip_t=rows(2), strong_t=strong(2),
+                    rpn_t=rows(2), roi_t=rows(2), dropout=(rows(4, r), rows(4, r), rows(2, r), rows(2, r)),
+                    box_keep=(rows(8, r), rows(8, r)), box_keep_t=(rows(2, r),))
+    got = mesh.shard_draws(lay, draws, {"batch": 4, "target": 2})
+    assert torch.equal(got.flip, draws.flip[2:]) and torch.equal(got.rpn_t, draws.rpn_t[1:])
+    assert all(torch.equal(a, b[2:]) for a, b in zip(got.strong, draws.strong))
+    assert all(torch.equal(a, b[1:]) for a, b in zip(got.strong_t, draws.strong_t))
+    for name in ("rpn", "roi"):  # the strong view's block, then the weak view's
+        assert torch.equal(getattr(got, name), getattr(draws, name)[[2, 3, 6, 7]])
+    assert torch.equal(got.box_keep[0], torch.cat([draws.box_keep[0][6:12], draws.box_keep[0][18:24]]))
+    assert [tuple(t.shape) for t in got.dropout] == [(6, 2), (6, 2), (3, 2), (3, 2)]
+    assert torch.equal(got.dropout[0], draws.dropout[0][6:]) and torch.equal(got.dropout[3], draws.dropout[3][3:])
+    assert torch.equal(got.box_keep_t[0], draws.box_keep_t[0][3:])
+    with pytest.raises(ValueError, match="not 2 block"):
+        mesh.shard_draws(lay, draws._replace(rpn=rows(6)), {"batch": 4, "target": 2})
+
+    class Undeclared(NamedTuple):
+        flip: torch.Tensor
+        masks: torch.Tensor
+        SHARD = {"flip": "batch"}
+
+    with pytest.raises(TypeError, match=r"declares no layout \(SHARD\) for \['masks'\]"):
+        mesh.shard_draws(None, Undeclared(rows(4), rows(8)), {"batch": 4})
+
     keep = (torch.ones(4, 64, dtype=torch.bool), torch.zeros(4, 64, dtype=torch.bool))
     keep[0][:, 32:] = False
     mine = mesh.slice_box_keep(keep, lay)
     assert mine[0].shape == (4, 32) and not mine[0].any() and mine[1].shape == (4, 64)
-    with pytest.raises(ValueError, match="does not split"):
-        mesh.shard_batch(lay, tree, 3)
 
 
 def test_tiny_backbone_as_jax():
@@ -555,6 +601,21 @@ def test_resume_across_widths(tmp_path):
     assert data["optimizer"]["mu"]["roi_heads.box_head.fc2.weight"].shape == (64, 64)
     for k, v in ranks[0]["tp"]["model"].items():
         assert torch.equal(data["model"][k], v), k
+
+
+def test_preemption_stops_every_rank_together(tmp_path):
+    """SIGTERM's flag on one rank alone: both ranks stop at the next
+    multiple of LOG_PERIOD iterations, where they agree on it (no step
+    in between waits for the device), and rank 0 saves model_preempt; one
+    process stops after the step in flight."""
+    opts = EVAL_OPTS + ["SOLVER.MAX_ITER", str(base_mod.LOG_PERIOD + 5)]
+    job = dict(job="preempt", opts=opts, output_dir=str(tmp_path / "two"))
+    ranks = W.spawn(tmp_path / "jobs.pt", [("p", job)])
+    name = f"model_preempt_{base_mod.LOG_PERIOD - 1:07d}.pth"
+    assert [r["p"]["step"] for r in ranks] == [base_mod.LOG_PERIOD] * 2
+    assert name in ranks[0]["p"]["files"] and "model_final.pth" not in ranks[0]["p"]["files"]
+    one = W.one_process([("p", dict(job, output_dir=str(tmp_path / "one"), flag_rank=0))])["p"]
+    assert one["step"] == 4 and "model_preempt_0000003.pth" in one["files"]
 
 
 # -- the CLIs --------------------------------------------------------------------------

@@ -20,7 +20,6 @@ from simple_sfod_tpu_torch.engine.trainers.base import _jsonable
 from simple_sfod_tpu_torch.models.backbones.vgg import BatchNorm2d
 from simple_sfod_tpu_torch.models.heads import FastRCNNConvFCHead
 from simple_sfod_tpu_torch.parallel import mesh
-from simple_sfod_tpu_torch.parallel.dryrun import state_hash
 
 
 def make_cfg(opts, output_dir, yaml=None):
@@ -39,7 +38,7 @@ def full_state(trainer):
         data = copy.deepcopy({k: v for k, v in trainer.checkpoint_state().items() if k != "trainer"})
         thresh = getattr(trainer.state, "thresh", None)
         data["thresh"] = copy.deepcopy(thresh.state_dict()) if thresh is not None else None
-        data["hash"] = state_hash(trainer)
+        data["hash"] = mesh.state_hash(trainer.state)
     return data
 
 
@@ -170,7 +169,26 @@ def job_train(opts, output_dir, resume=False, copy_from=None, **_):
     return full_state(trainer)
 
 
-JOBS = {"steps": job_steps, "bn": job_bn, "tp_head": job_tp_head, "eval_adabn": job_eval_adabn, "train": job_train}
+def job_preempt(opts, output_dir, flag_rank=1, flag_step=3, **_):
+    """train() with SIGTERM's flag raised on rank `flag_rank` alone as its
+    step `flag_step` starts. -> the steps taken and the files written."""
+    register_datasets()
+    trainer = build_trainer(make_cfg(opts, output_dir), device="cpu", synthetic=True)
+    trainer.resume_or_load(resume=False)
+    step_staged = trainer.step_staged
+
+    def step(*args, **kw):
+        if mesh.rank() == flag_rank and trainer.state.step == flag_step:
+            trainer._preempted = True
+        return step_staged(*args, **kw)
+
+    trainer.step_staged = step
+    trainer.train()
+    return {"step": trainer.state.step, "files": sorted(_walk(output_dir)) if mesh.is_main() else None}
+
+
+JOBS = {"preempt": job_preempt, "steps": job_steps, "bn": job_bn, "tp_head": job_tp_head, "eval_adabn": job_eval_adabn,
+        "train": job_train}
 
 
 def run(path):
