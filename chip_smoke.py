@@ -315,12 +315,23 @@ Phases (each prints one progress line with its wall time):
               float32 on data 1 x model 2 ranks (the box head split) and on
               one process for 4 steps and test(), step 1 held by
               card_step_ok's bound, the rest reported (losses, detection
-              dumps); and two processes asking NCCL for two ranks on the one
+              dumps); in height bands (TPU.SPATIAL_SHARD, data 1 x model
+              2: 320 and 288 rows for VGG16) the same source YAML run, its
+              step 1 held to the same twin by card_step_ok's bound (a), and
+              the main YAML for 6 steps and test(), step 1 within 4 times
+              the control (b), each rank's peak memory beside the unbanded
+              runs'; and two processes asking NCCL for two ranks on the one
               device (NCCL's answer logged). Every run: the ranks' state
               hashes equal, launches summed over the ranks as counted,
-              finite losses and AP50; the tensor-parallel model_final.pth
-              loaded strictly into a one-process trainer; every rank's
-              first-step NMS inputs kernel == plain
+              finite losses and AP50; the tensor-parallel and the banded
+              model_final.pth loaded strictly into a one-process trainer;
+              every rank's first-step NMS inputs kernel == plain. Then (c),
+              two processes: VGG16-BN, ResNet-101 C4 and VGG16-BN-FPN in
+              float32 at 608x1216 in bands against the whole image
+              (parallel/dryrun.py:compare_bands), maps and statistics by
+              their largest difference, gradients by their norm, each kind
+              within 4 times a control (the whole pass in the other memory
+              format) or a floor (BANDS_CASES)
 
 Prints the card's name and power limit and a JSON line of the kernels'
 numbers, then, as the last line, {"ok": true, "device": {...}}. Any failure
@@ -365,7 +376,7 @@ from simple_sfod_tpu_torch.engine.train_state import ema_tensors
 from simple_sfod_tpu_torch.engine.trainers import build_trainer
 from simple_sfod_tpu_torch.engine.trainers.base import BaseTrainer
 from simple_sfod_tpu_torch.models.detector import Detector
-from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, anchor_counts, init_weights, proposal_counts
+from simple_sfod_tpu_torch.models.faster_rcnn import anchor_counts, empty_model, init_weights, proposal_counts
 from simple_sfod_tpu_torch.ops import _kernels, nms
 from simple_sfod_tpu_torch.structures.instances import Instances
 from simple_sfod_tpu_torch.tools import kitti_to_coco, prediction_to_gt, run_workflow_synthetic, sim10k_to_coco, train_net
@@ -765,7 +776,7 @@ def card_vs_cpu_step(canvas=(256, 512), image_hw=(250, 500), seed: int = SEED):
     its largest entry, and the largest movement of a conv bias that feeds a
     BatchNorm relative to its weight's movement (its exact gradient is 0)."""
     cfg = train_cfg("float32", canvas)
-    state = init_weights(FasterRCNN(detector_config_from_cfg(cfg)), SEED).state_dict()
+    state = init_weights(empty_model(detector_config_from_cfg(cfg)), SEED).state_dict()
     batch = train_batch(cfg, image_hw, seed)
     cpu = BaseTrainer(cfg, device="cpu", state_dict=state)
     card = BaseTrainer(cfg, device="cuda", state_dict=state)
@@ -847,7 +858,7 @@ def adapt_cfg(base, trainer: str = "source_free_adaptive_teacher", dtype: str = 
 
 def adapt_start(cfg) -> dict:
     """Seeded weights with the class-1 logit bias raised."""
-    model = init_weights(FasterRCNN(detector_config_from_cfg(cfg)), SEED)
+    model = init_weights(empty_model(detector_config_from_cfg(cfg)), SEED)
     with torch.no_grad():
         model.roi_heads.box_predictor.cls_score.bias[1] += CLS_BIAS_BOOST
     return model.state_dict()
@@ -1089,7 +1100,7 @@ def card_vs_cpu_eval(root: str):
     cfg.merge_from_list(["TPU.DTYPE", "float32", "TPU.CANVAS", repr(EVAL_SMALL["canvas"]), "INPUT.MIN_SIZE_TEST", str(ms),
                          "INPUT.MAX_SIZE_TEST", str(EVAL_SMALL["canvas"][1]), "TEST.IMS_PER_BATCH", "2"])
     dcfg = detector_config_from_cfg(cfg)
-    sd = init_weights(FasterRCNN(dcfg), SEED).state_dict()
+    sd = init_weights(empty_model(dcfg), SEED).state_dict()
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     out = {}
@@ -1226,7 +1237,7 @@ def write_cli_weights(path: str, boost: float = CLS_BIAS_BOOST, boxes_from_biase
     biases alone, the same float32 operations on the same anchors however
     the features were summed (tests/test_torch_sfat_trainer.py: pseudo
     boxes a rounding apart flip RPN labels)."""
-    model = init_weights(FasterRCNN(detector_config_from_cfg(get_main_cfg())), SEED)
+    model = init_weights(empty_model(detector_config_from_cfg(get_main_cfg())), SEED)
     with torch.no_grad():
         model.roi_heads.box_predictor.cls_score.bias[1] += boost
         if boxes_from_biases:
@@ -1682,7 +1693,7 @@ def r101_card_vs_cpu(smi: str) -> None:
     sizes = np.asarray([[120, 250], [128, 200]], np.int32)
     for norm, train in (("BN", False), ("BN", True), ("FrozenBN", False)):
         det_cfg = detector_config_from_cfg(r101_cfg(R101_ADABN_YAML, **R101_SMALL, **{"MODEL.RESNETS.NORM": norm}))
-        model = init_weights(FasterRCNN(det_cfg), SEED)
+        model = init_weights(empty_model(det_cfg), SEED)
         g = torch.Generator().manual_seed(SEED + 5)
         with torch.no_grad():
             model.roi_heads.box_predictor.cls_score.bias[1] += CLS_BIAS_BOOST
@@ -1733,7 +1744,7 @@ def r101_phase(smi: str):
         t0 = time.perf_counter()
         write_cli_datasets(data_root)
         weights = os.path.join(root, "r101_source.pth")
-        model = init_weights(FasterRCNN(detector_config_from_cfg(r101_cfg(R101_ADABN_YAML))), SEED)
+        model = init_weights(empty_model(detector_config_from_cfg(r101_cfg(R101_ADABN_YAML))), SEED)
         with torch.no_grad():
             model.roi_heads.box_predictor.cls_score.bias[1] += CLS_BIAS_BOOST
         torch.save({"model": model.state_dict()}, weights)
@@ -1820,7 +1831,7 @@ def r101_phase(smi: str):
         det_cfg = detector_config_from_cfg(cfg)
         check(det_cfg.backbone == "resnet101" and det_cfg.dtype == torch.bfloat16 and det_cfg.resnet_norm == "BN",
               f"R101 SFAT config: {det_cfg}")
-        init = frozen_state(init_weights(FasterRCNN(det_cfg), SEED))  # adapt_trainer's student before any step
+        init = frozen_state(init_weights(empty_model(det_cfg), SEED))  # adapt_trainer's student before any step
         captured = []
         _kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -2387,7 +2398,7 @@ def car_weights(path: str) -> None:
     source YAML's model (VGG16-BN, 1 class; KITTI's is the same)."""
     cfg = get_cfg()
     cfg.merge_from_file(os.path.join(ROOT, CAR_DOMAINS["sim10k"]["source"]), allow_new=True)
-    torch.save({"model": init_weights(FasterRCNN(detector_config_from_cfg(cfg)), SEED).state_dict()}, path)
+    torch.save({"model": init_weights(empty_model(detector_config_from_cfg(cfg)), SEED).state_dict()}, path)
 
 
 def car_cfg(yaml: str, out: str, weights: str, *opts: str):
@@ -2797,7 +2808,7 @@ def export_phase(smi: str, before_timing=lambda: None):
     try:
         weights, r101_weights = os.path.join(root, "main.pth"), os.path.join(root, "r101.pth")
         write_cli_weights(weights)
-        r101 = init_weights(FasterRCNN(detector_config_from_cfg(r101_cfg(R101_ADABN_YAML))), SEED)
+        r101 = init_weights(empty_model(detector_config_from_cfg(r101_cfg(R101_ADABN_YAML))), SEED)
         with torch.no_grad():
             r101.roi_heads.box_predictor.cls_score.bias[1] += CLS_BIAS_BOOST  # detections from random weights
         torch.save({"model": r101.state_dict()}, r101_weights)
@@ -3026,7 +3037,7 @@ def da_cfg(kind: str, out: str, *opts: str, canvas=None, dtype=None, kind_opts: 
 def da_weights(det_cfg) -> dict:
     """Seeded weights with the class-1 logit bias raised (pseudo-labels from
     random weights)."""
-    model = init_weights(FasterRCNN(det_cfg), SEED)
+    model = init_weights(empty_model(det_cfg), SEED)
     with torch.no_grad():
         model.roi_heads.box_predictor.cls_score.bias[1] += CLS_BIAS_BOOST
     return model.state_dict()
@@ -3452,7 +3463,7 @@ def zoo_cfg(yaml: str, out: str, *opts: str):
 def zoo_weights(cfg, boost: float = CLS_BIAS_BOOST) -> dict:
     """Seeded weights of the config's detector with the class-1 logit bias
     raised (pseudo-labels from random weights)."""
-    model = init_weights(FasterRCNN(detector_config_from_cfg(cfg)), SEED)
+    model = init_weights(empty_model(detector_config_from_cfg(cfg)), SEED)
     with torch.no_grad():
         model.roi_heads.box_predictor.cls_score.bias[1] += boost
     return model.state_dict()
@@ -3818,7 +3829,7 @@ def rfpn_config(cfg):
 def rfpn_card_vs_cpu(cfg, det_cfg, canvas=(128, 256), image_hw=(120, 250)):
     """One float32 base step of the R50-FPN detector on the card and on the
     CPU from the same seeded weights, batch and draws (state_errors)."""
-    sd = init_weights(FasterRCNN(det_cfg), SEED).state_dict()
+    sd = init_weights(empty_model(det_cfg), SEED).state_dict()
     cpu, card = (BaseTrainer(cfg, device=d, state_dict=sd, det_cfg=det_cfg) for d in ("cpu", "cuda"))
     start = {k: v.clone() for k, v in cpu.state.model.state_dict().items()}
     batch = synthetic_batch(make_synthetic_records(2, tuple(image_hw), 8, 6, seed=SEED), tuple(canvas),
@@ -4114,6 +4125,27 @@ DIST_HELD_CANVAS = (128, 256)
 CONTROL_FACTOR = 4.0
 # NCCL's answer to two ranks on one GPU: the probe's processes join a world
 # of 2 over NCCL on device 0 and take one all-reduce
+# (c) of the height bands (TPU.SPATIAL_SHARD): each backbone in float32 at
+# 608x1216, one image, forward and backward with train-mode BatchNorm, in
+# bands over two ranks against the whole image in one process
+# (parallel/dryrun.py:compare_bands). Held per kind, maps and BatchNorm
+# statistics by the largest difference over the tensor's largest entry,
+# gradients (input and every parameter, summed over the bands) by the L2
+# norm of the difference over the tensor's: the worst of each kind within
+# CONTROL_FACTOR times the worst of its control (the whole pass in the
+# other memory format: other kernels, another summation order), or within
+# BANDS_FLOOR. In float32 a rounding difference flips a ReLU or a max
+# pool's choice, which moves a gradient entry whole, so no largest-entry
+# bound holds for gradients in either; the CPU tests hold the bands in
+# float64 to 1e-5 of each tensor's largest entry.
+_FPN = {"fpn": True, "fpn_in_features": ("vgg1", "vgg2", "vgg3", "vgg4"),
+        "rpn_in_features": ("p2", "p3", "p4", "p5", "p6"), "roi_in_features": ("p2", "p3", "p4", "p5")}
+BANDS_CASES = {name: {"det": det, "shape": (1, 3, 608, 1216), "dtype": "float32"} for name, det in (
+    ("vgg16_bn", {"backbone": "vgg16"}),  # bands of 320 and 288 rows
+    ("r101_c4_bn", {"backbone": "resnet101", "in_feature": "res4"}),  # 304 and 304
+    ("vgg16_bn_fpn", _FPN),  # 320 and 288
+)}
+BANDS_FLOOR = {"map": 1e-4, "stat": 1e-4, "grad": 1e-3}
 NCCL_PROBE = (
     "import sys, torch\n"
     "from simple_sfod_tpu_torch.parallel import mesh\n"
@@ -4221,7 +4253,94 @@ def dist_rank(spec_path: str) -> None:
             train_net.main(train_net.default_argument_parser().parse_args(spec["argv"]))
     finally:
         nms.nms_mask_matrix = orig
+    print(f"[peak] {torch.cuda.max_memory_allocated()} bytes allocated at most", flush=True)
     torch.save([(b.cpu(), s.cpu(), v.cpu(), thr) for b, s, v, thr in captured], spec["capture_path"])
+
+
+def bands_worst(errs: dict) -> dict:
+    """compare_bands' errors -> the worst of each kind, (error, tensor):
+    maps and statistics by the largest difference, gradients by the norm."""
+    out = {}
+    for k, e in errs.items():
+        kind = k.split(".")[0]
+        out[kind] = max(out.get(kind, (0.0, "")), (e["norm"] if kind == "grad" else e["max"], k))
+    return out
+
+
+def bands_ok(res: dict) -> bool:
+    """A compare_bands case within its control (BANDS_CASES' comment)."""
+    worst, ctrl = bands_worst(res["errs"]), bands_worst(res["control"])
+    return all(v <= max(BANDS_FLOOR[k], CONTROL_FACTOR * ctrl[k][0]) for k, (v, _) in worst.items())
+
+
+def dist_bands_rank(spec_path: str) -> None:
+    """One of the two processes of the dist phase's banded backbones, started
+    by `python -c "import chip_smoke; chip_smoke.dist_bands_rank(spec)"`:
+    rank `spec["rank"]` of a gloo world of 2 on the one GPU runs
+    compare_bands on BANDS_CASES (float32: TF32 off) and writes its results
+    and peak memory to `spec["out"]`."""
+    from simple_sfod_tpu_torch.parallel import mesh
+    from simple_sfod_tpu_torch.parallel.dryrun import compare_bands
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh.initialize_distributed(spec["url"], 2, spec["rank"], "gloo")
+    try:
+        res = compare_bands(BANDS_CASES, device="cuda")
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(spec["out"], "w") as f:
+        json.dump({"res": res, "peak": torch.cuda.max_memory_allocated()}, f)
+
+
+class BandsRun:
+    """The two dist_bands_rank processes, their output in files."""
+
+    def __init__(self, root: str, data_root: str):
+        from simple_sfod_tpu_torch.parallel.launch import free_port
+
+        url = f"tcp://127.0.0.1:{free_port()}"
+        self.procs, self.outs, self.logs, self.files = [], [], [], []
+        self.t0 = time.perf_counter()
+        for r in (0, 1):
+            spec, out = os.path.join(root, f"bands_rank{r}.json"), os.path.join(root, f"bands_rank{r}.out.json")
+            with open(spec, "w") as f:
+                json.dump({"url": url, "rank": r, "out": out}, f)
+            self.logs.append(os.path.join(root, f"bands_rank{r}.log"))
+            self.files.append(open(self.logs[-1], "w"))
+            self.outs.append(out)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.dist_bands_rank({spec!r})"], cwd=ROOT,
+                env=cli_env(data_root), stdout=self.files[-1], stderr=subprocess.STDOUT))
+
+    def result(self, timeout: float = DIST_TIMEOUT_S) -> list:
+        """Wait. -> each rank's {"res", "peak"}, and the wall."""
+        try:
+            for p in self.procs:
+                p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise AssertionError(f"banded backbones: no end within {timeout} s")
+        finally:
+            for f in self.files:
+                f.close()
+        for p, log_path in zip(self.procs, self.logs):
+            with open(log_path) as f:
+                check(p.returncode == 0, f"banded backbones: exit code {p.returncode}\n{f.read()[-4000:]}")
+        out = []
+        for path in self.outs:
+            with open(path) as f:
+                out.append(json.load(f))
+        return out, time.perf_counter() - self.t0
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 class DistRun:
@@ -4260,8 +4379,9 @@ class DistRun:
         state = [ln.split("sha256 ")[1] for ln in lines if ln.startswith("[state] ")]
         step = [float(ln.split(": ")[1].split(" ms")[0]) for ln in lines if ln.startswith("[trainer] rank ")]
         launches = json.loads([ln for ln in lines if ln.startswith("[launches] ")][-1][len("[launches] "):])
+        peak = [int(ln.split()[1]) for ln in lines if ln.startswith("[peak] ")]
         return dict(stdout=out, wall=wall, launches=launches, hash=state[0] if state else None,
-                    step_ms=step[0] if step else None,
+                    step_ms=step[0] if step else None, peak_gib=round(peak[-1] / 2 ** 30, 3) if peak else None,
                     captured=torch.load(self.capture_path, weights_only=False))
 
     def stop(self) -> None:
@@ -4469,8 +4589,10 @@ def dist_phase(smi: str):
     data_root = os.path.join(root, "datasets")
     names = ("cityscapes_instancesonly_train",) + DA_DATASETS
     dirs = {k: os.path.join(root, k) for k in ("sfat_two_1", "sfat_one_1", "sfat_two", "sfat_one", "sfat_control",
-                                              "tp_two", "tp_one")}
+                                              "tp_two", "tp_one", "sp_two", "sfat_sp")}
     runs = []
+    bands = None
+    banded = ["TPU.MESH_DATA", "1", "TPU.MESH_MODEL", "2", "TPU.SPATIAL_SHARD", "True"]
 
     def sfat(out, steps, *opts):  # the main YAML; test() after a run of more than one step
         return ["--config-file", os.path.join(ROOT, CLI_YAML), *DIST_OPTS, "SOLVER.IMS_PER_BATCH_TARGET",
@@ -4511,15 +4633,26 @@ def dist_phase(smi: str):
         add(nccl_world1(smi, numbers, captured, "float32"))
         add(nccl_world1(smi, numbers, captured, "bfloat16"))
         lap("nccl_world1")
+        # the 14 processes below share the card with this one, whose
+        # allocator still caches what every earlier phase freed: hand it back
+        torch.cuda.empty_cache()
+        free, whole = torch.cuda.mem_get_info()
+        numbers["free_gib_before_cli_runs"] = round(free / 2 ** 30, 2)
+        log(f"  device memory free before the CLI runs: {free / 2 ** 30:.2f} of {whole / 2 ** 30:.2f} GiB")
 
         # B. beside each other: the main YAML at full width (608x1216,
         # bfloat16) on two ranks for DIST_STEPS steps and test(), the first
         # step's state kept, its one-process twin and the twin's control
         # (one step under bn_reordered); held, one step of the main YAML at
         # DIST_HELD on two ranks and one process; the source YAML in float32
-        # on data 1 x model 2 and one process; NCCL's probe
+        # on data 1 x model 2 and one process; both again on data 1 x
+        # model 2 in height bands; NCCL's probe
         sfat_ranks = dist_ranks(root, "sfat", sfat(dirs["sfat_two"], DIST_STEPS), data_root, 3, step1=True)
         runs.extend(sfat_ranks)
+        sp_ranks = {"sp": dist_ranks(root, "sp", tp(dirs["sp_two"], *banded), data_root, 1, step1=True),
+                    "sfat_sp": dist_ranks(root, "sfat_sp", sfat(dirs["sfat_sp"], DIST_STEPS, *banded), data_root, 3,
+                                          step1=True)}
+        runs.extend(r for v in sp_ranks.values() for r in v)
         held = [*DIST_HELD, "MODEL.WEIGHTS", held_weights]
         held_runs = {"sfat_two": dist_ranks(root, "sfat_1", sfat(dirs["sfat_two_1"], 1, *held), data_root, 3),
                      "sfat_one": [DistRun(root, "sfat_one_1", sfat(dirs["sfat_one_1"], 1, *held), data_root, 3)]}
@@ -4536,10 +4669,15 @@ def dist_phase(smi: str):
         a = {k: results(v) for k, v in held_runs.items()}
         twin, control, *tp_res = results(started)
         tp_two, tp_one = tp_res[:2], tp_res[2]
+        sp = {k: results(v) for k, v in sp_ranks.items()}
         lap("cli_runs")
+        # (c) the banded backbones, alone with this process's checks
+        bands = BandsRun(root, data_root)
         same_on_ranks("sfat", c)
         same_on_ranks("sfat step 1", a["sfat_two"])
         same_on_ranks("tp", tp_two)
+        same_on_ranks("sp (bands)", sp["sp"])
+        same_on_ranks("sfat_sp (bands)", sp["sfat_sp"])
         for label, n in (("sfat_two", 3 * DIST_BATCH), ("sfat_one", 3 * DIST_BATCH)):  # 3 launches an image
             launches_as_counted(f"{label} step 1", a[label], n)
         launches_as_counted("sfat control", [control], 3 * DIST_BATCH)
@@ -4561,10 +4699,22 @@ def dist_phase(smi: str):
             f"data 1 x model 2 (the box head split; states bit-equal) against one process: "
             + format_errors(tp_err, TRAIN_LOSSES))
         check(card_step_ok(tp_err), "tp step 1: two ranks differ from one process")
+        # (a) the source YAML in height bands (float32, 608x1216) against the same one-process twin
+        sp_err = dist_step_errors(held_weights, dirs["tp_one"], dirs["sp_two"])
+        log(f"  held (a): step 1 of {SOURCE_YAML} at 608x1216 in float32 (batch {DIST_BATCH}; regression kernels 0) "
+            f"on data 1 x model 2 in height bands (320 and 288 rows; the box head split; states bit-equal) against "
+            f"one process: " + format_errors(sp_err, TRAIN_LOSSES))
+        check(card_step_ok(sp_err), "sp step 1: the banded ranks differ from one process")
+        # (b) the main YAML in height bands (bfloat16, 608x1216) against its twin, within 4x the control
+        sfat_sp_err = dist_step_errors(weights, dirs["sfat_one"], dirs["sfat_sp"], ts)
+        log(f"  held (b): step 1 of {CLI_YAML} (608x1216, bfloat16, batch {DIST_BATCH}) on data 1 x model 2 in "
+            f"height bands against one process: " + format_errors(sfat_sp_err, ADAPT_LOSSES))
+        check(control_ok(sfat_sp_err, ctrl_err), f"sfat_sp step 1: the banded ranks part from one process by more "
+                                                 f"than {CONTROL_FACTOR} times the control")
         numbers["step1"] = {k: dict(loss_err=max(e["loss"].values()), param_bound=e["param_bound"][0], bn=e["bn"][0],
                                     bn_fed_bias=e["bn_fed_bias"][0], counts_equal=e["counts_equal"])
                             for k, e in (("sfat_held", held_err), ("sfat_full", full_err), ("sfat_control", ctrl_err),
-                                         ("tp", tp_err))}
+                                         ("tp", tp_err), ("sp", sp_err), ("sfat_sp", sfat_sp_err))}
 
         # launches as counted: 3 an image of an SFAT step, 2 an image and
         # model in test() (dealt over the ranks), 1 a validation image on
@@ -4575,8 +4725,11 @@ def dist_phase(smi: str):
         launches_as_counted("sfat twin", [twin], 3 * DIST_STEPS * DIST_BATCH + test2 + 1)
         launches_as_counted("tp ranks", tp_two, 2 * DIST_TP_STEPS * DIST_BATCH + test2 // 2 + 2)
         launches_as_counted("tp twin", [tp_one], DIST_TP_STEPS * DIST_BATCH + test2 // 2 + 1)
+        # in bands both ranks run every test batch (one data index)
+        launches_as_counted("sp ranks", sp["sp"], 2 * DIST_TP_STEPS * DIST_BATCH + test2 + 2)
+        launches_as_counted("sfat_sp ranks", sp["sfat_sp"], 2 * 3 * DIST_STEPS * DIST_BATCH + 2 * test2 + 2)
         ev, last = {}, {}
-        for k in ("sfat_two", "sfat_one", "tp_two", "tp_one"):
+        for k in ("sfat_two", "sfat_one", "tp_two", "tp_one", "sp_two", "sfat_sp"):
             m = metrics_lines(dirs[k])
             steps = DIST_STEPS if k.startswith("sfat") else DIST_TP_STEPS
             check(m and m[-1]["iteration"] == steps - 1
@@ -4598,14 +4751,20 @@ def dist_phase(smi: str):
         check(tuple(tr.detector.model.roi_heads.box_head.fc1.weight.shape) == (1024, 25088)
               and tr.state.step == DIST_TP_STEPS, "tp: the file does not load whole into one process")
         del tr
-        dumps = {}
+        tr = BaseTrainer(zoo_cfg(SOURCE_YAML, os.path.join(root, "sp_load")))
+        tr.load_checkpoint(torch.load(os.path.join(dirs["sp_two"], "model_final.pth"), map_location="cpu",
+                                      weights_only=True))  # strict: the backbone whole on every rank
+        check(tr.state.step == DIST_TP_STEPS, "sp: the file does not load into one process")
+        del tr
+        dumps, sp_dumps = {}, {}
         for name in ("cityscapes_instancesonly_val", "cityscapes_instancesonly_foggy_val_foggy_beta_0.02"):
-            pair = []
-            for k in ("tp_two", "tp_one"):
-                with open(os.path.join(dirs[k], "inference", name, "coco_instances_results.json")) as f:
-                    pair.append(json.load(f))
-            check(pair[0] and pair[1], f"tp: no detections of {name}")
-            dumps[name] = (*match_dumps(*pair), len(pair[1]))
+            for out, k2 in ((dumps, "tp_two"), (sp_dumps, "sp_two")):
+                pair = []
+                for k in (k2, "tp_one"):
+                    with open(os.path.join(dirs[k], "inference", name, "coco_instances_results.json")) as f:
+                        pair.append(json.load(f))
+                check(pair[0] and pair[1], f"{k2}: no detections of {name}")
+                out[name] = (*match_dumps(*pair), len(pair[1]))
         log(f"  reported, full width: {CLI_YAML} (bfloat16) on two ranks for {DIST_STEPS} steps and test() on "
             f"{DIST_TEST_FRAMES} frames of each TEST set against one process: step {DIST_STEPS}'s losses within "
             f"{max(sfat_loss.values()):.3g}, final states: worst diff / bound {sfat_final['param_bound'][0]:.3g}, BN "
@@ -4618,7 +4777,25 @@ def dist_phase(smi: str):
                                          last_loss_err=max(sfat_loss.values()),
                                          final_param_bound=sfat_final["param_bound"][0], final_bn=sfat_final["bn"][0])
         numbers["tp"] = dict(step_ms=[r["step_ms"] for r in tp_two], last_loss_err=max(tp_loss.values()),
-                             dumps=dumps)
+                             dumps=dumps, peak_gib=[r["peak_gib"] for r in tp_two])
+        sp_loss = loss_errors(last["sp_two"], last["tp_one"])
+        sfat_sp_loss = loss_errors(last["sfat_sp"], last["sfat_one"])
+        ap_sp = {k: (round(ev["sfat_sp"][k]["AP50"], 4), round(ev["sfat_one"][k]["AP50"], 4)) for k in ev["sfat_one"]}
+        numbers["bands"] = dict(
+            sp=dict(step_ms=[r["step_ms"] for r in sp["sp"]], peak_gib=[r["peak_gib"] for r in sp["sp"]],
+                    last_loss_err=max(sp_loss.values()), dumps=sp_dumps),
+            sfat_sp=dict(step_ms=[r["step_ms"] for r in sp["sfat_sp"]], peak_gib=[r["peak_gib"] for r in sp["sfat_sp"]],
+                         last_loss_err=max(sfat_sp_loss.values()), ap50=ap_sp))
+        log(f"  reported, height bands: {SOURCE_YAML} (float32) for {DIST_TP_STEPS} steps: losses within "
+            f"{max(sp_loss.values()):.3g} of one process, its model_final.pth loaded strictly into one process, "
+            f"detection dumps (unpaired, box px, score, detections) {sp_dumps}; {CLI_YAML} (bfloat16) for "
+            f"{DIST_STEPS} steps: losses within {max(sfat_sp_loss.values()):.3g}, AP50 (bands, one process) {ap_sp}")
+        log(f"  each rank's peak memory [{smi}]: the source YAML in bands (a) {numbers['bands']['sp']['peak_gib']} GiB "
+            f"beside the tensor-parallel run's {numbers['tp']['peak_gib']} GiB; the main YAML in bands (b) "
+            f"{numbers['bands']['sfat_sp']['peak_gib']} GiB beside the two data ranks' "
+            f"{[r['peak_gib'] for r in c]} GiB; step ms (host clock, beside the other runs): (a) "
+            f"{numbers['bands']['sp']['step_ms']}, tensor-parallel {numbers['tp']['step_ms']}, (b) "
+            f"{numbers['bands']['sfat_sp']['step_ms']}")
         log(f"  beside each other and the other runs [{smi}]: the sfat ranks, 608x1216 bfloat16, "
             f"{[r['step_ms'] for r in c]} ms a step (median after the first, host clock: gloo stages each step's "
             f"gradient through host memory, so the step waits for it), walls {[round(r['wall'], 2) for r in c]} s; "
@@ -4630,6 +4807,7 @@ def dist_phase(smi: str):
         calls += [("sfat control", control["captured"])]
         calls += [(f"tp rank {i}", r["captured"]) for i, r in enumerate(tp_two)]
         calls += [(f"sfat full width rank {i}", r["captured"]) for i, r in enumerate(c)]
+        calls += [(f"{k} (bands) rank {i}", r["captured"]) for k, v in sp.items() for i, r in enumerate(v)]
         for label, cs in calls + list(captured.items()):
             check(len(cs) >= 1, f"{label}: no NMS input captured")
             kept = [check_kernels_against_plain(bx.cuda(), sc.cuda(), v.cuda(), thr, f"{label} call {i}", cpu=i == 0)
@@ -4637,9 +4815,30 @@ def dist_phase(smi: str):
             log(f"  {label}: {len(cs)} NMS inputs (N {sorted({int(x[0].shape[0]) for x in cs})}), kernels "
                 f"bit-equal to the plain versions, kept {kept}")
         lap("nms_checks")
+        band_res, band_wall = bands.result()
+        for name, r0 in band_res[0]["res"].items():
+            for rank, r in enumerate(band_res):
+                res = r["res"][name]
+                worst, ctrl = bands_worst(res["errs"]), bands_worst(res["control"])
+                log(f"  held (c): {name} in float32 at 608x1216 in bands {res['plan']} (rank {rank}, {res['ms']:.1f} "
+                    f"ms the banded pass) against one process: worst " + ", ".join(
+                        f"{k} {v:.3g} ({n})" for k, (v, n) in worst.items()) + "; control (other memory format) "
+                    + ", ".join(f"{k} {v:.3g}" for k, (v, _) in ctrl.items()))
+                check(bands_ok(res), f"banded {name}: beyond {CONTROL_FACTOR}x its control or the floor {BANDS_FLOOR}")
+        numbers["bands"]["backbones"] = {
+            name: dict(worst={k: v for k, (v, _) in bands_worst(r0["errs"]).items()},
+                       control={k: v for k, (v, _) in bands_worst(r0["control"]).items()},
+                       ms=[r["res"][name]["ms"] for r in band_res])
+            for name, r0 in band_res[0]["res"].items()}
+        numbers["bands"]["backbones_peak_gib"] = [round(r["peak"] / 2 ** 30, 3) for r in band_res]
+        log(f"  the banded backbones' two processes: {band_wall:.2f} s, peak "
+            f"{numbers['bands']['backbones_peak_gib']} GiB")
+        lap("bands")
         log(f"  the phase's parts (s): {secs}")
         numbers["parts_s"] = secs
     finally:
+        if bands is not None:
+            bands.stop()
         for r in runs:
             r.stop()
         for name in names:
@@ -4715,7 +4914,7 @@ def main() -> int:
         cfg.freeze()
         det_cfg = detector_config_from_cfg(cfg)
         check(det_cfg.dtype == torch.bfloat16 and tuple(cfg.TPU.CANVAS) == (608, 1216), "main config")
-        state = init_weights(FasterRCNN(det_cfg), SEED).state_dict()
+        state = init_weights(empty_model(det_cfg), SEED).state_dict()
         service = DetectionService(cfg, state, batch=2, max_wait_ms=10.0, config_name="main")
         srv, url = serve_in_thread(service)
         captured = []
@@ -4854,7 +5053,7 @@ def main() -> int:
         small = get_main_cfg()
         small.merge_from_list(["TPU.DTYPE", "float32", "TPU.CANVAS", "(128, 256)"])
         small_cfg = detector_config_from_cfg(small)
-        sd = init_weights(FasterRCNN(small_cfg), SEED).state_dict()
+        sd = init_weights(empty_model(small_cfg), SEED).state_dict()
         rng = np.random.RandomState(SEED + 2)
         img = rng.randint(0, 256, (1, 128, 256, 3)).astype(np.uint8)
         sizes = np.asarray([[120, 250]], np.int32)

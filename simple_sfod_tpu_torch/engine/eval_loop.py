@@ -17,7 +17,10 @@ Several processes (a process group): batch k runs on rank k % world (the JAX
 loop's `bi % nproc != pid`); the ranks' records are gathered with their
 batch indices and merged in batch order, so every rank ends with the one
 process's list and its results. A rank with no batch left joins the gather
-all the same; rank 0 alone writes the detections file.
+all the same; rank 0 alone writes the detections file. Under height bands
+(a spatial `layout`, TPU.SPATIAL_SHARD) batch k runs on data index
+k % data, banded over that index's model ranks (parallel/spatial.py), and
+model rank 0 of each index keeps the records.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from ..evaluation import COCOEvaluator, F1Evaluator
 from ..models.detector import Detector
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 
 
 class Staging:
@@ -96,6 +99,7 @@ def inference_on_dataset(
     dump_json: Optional[str] = None,
     category_ids: Optional[dict] = None,
     pipeline_depth: int = 4,
+    layout: Optional[mesh.Layout] = None,
 ) -> Dict:
     """Run `detector` (on its device) over a test loader and evaluate.
 
@@ -105,8 +109,9 @@ def inference_on_dataset(
     (`coco_instances_results.json`), with category_ids mapping contiguous
     ids to the dataset's category ids (default id + 1). pipeline_depth:
     TPU.EVAL_PIPELINE_DEPTH, the batches in flight. In a process group
-    every rank calls this on the same loader (module docstring). Returns
-    the evaluators' merged results."""
+    every rank calls this on the same loader (module docstring); `layout`
+    is the trainer's, read only for height bands. Returns the evaluators'
+    merged results."""
     if evaluators is None:
         evaluators = [COCOEvaluator(thing_classes), F1Evaluator()]
     depth = max(1, int(pipeline_depth))
@@ -114,17 +119,23 @@ def inference_on_dataset(
     records: list = []
     inflight = collections.deque()
     world, me = mesh.world_size(), mesh.rank()
+    banded = layout if layout is not None and layout.spatial else None
+    if banded is not None:
+        world, me = banded.data, banded.data_index
     taken = 0
-    for k, batch in enumerate(loader):
-        if k % world != me:
-            continue
-        images, sizes = staging.stage(taken, batch)
-        taken += 1
-        inflight.append((k, batch, detector.infer(images, sizes, train_mode_bn=train_mode_bn)))
-        if len(inflight) >= depth:
-            records.extend(_file_records(*inflight.popleft()))
+    with spatial.bands(banded):
+        for k, batch in enumerate(loader):
+            if k % world != me:
+                continue
+            images, sizes = staging.stage(taken, batch)
+            taken += 1
+            inflight.append((k, batch, detector.infer(images, sizes, train_mode_bn=train_mode_bn)))
+            if len(inflight) >= depth:
+                records.extend(_file_records(*inflight.popleft()))
     while inflight:
         records.extend(_file_records(*inflight.popleft()))
+    if banded is not None and banded.model_index:  # model rank 0 of its data index holds the same records
+        records = []
     # every rank's records (one process: its own) in batch order, each image
     # once: the final batch's padding repeats records
     seen: set = set()
@@ -140,7 +151,7 @@ def inference_on_dataset(
                 rec["image_id"], rec["boxes"], rec["scores"], rec["classes"], rec["gt_boxes"], rec["gt_classes"]
             )
 
-    if dump_json and me == 0:
+    if dump_json and mesh.is_main():
         dump = []
         for rec in records:
             for b, sc, c in zip(rec["boxes"], rec["scores"], rec["classes"]):

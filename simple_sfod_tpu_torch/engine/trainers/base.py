@@ -47,6 +47,13 @@ over the ranks and gathers the records; AdaBN and PreciseBN take the
 global batch's statistics. A trainer whose augmentation mixes the images
 of a batch (`augments_whole_batch`: mosaic, mixup) stages and augments the
 whole global batch on every rank, then keeps its rows.
+
+TPU.SPATIAL_SHARD (MESH_MODEL > 1, else ValueError as in the JAX package):
+the model ranks of a data index run each image in height bands through the
+backbone (parallel/spatial.py), with halo exchanges, BatchNorm statistics
+over every rank and the backbone's gradients summed over the bands; the
+heads run on the gathered maps. Evaluation then deals the test batches over
+the data indices and runs each banded on that index's model ranks.
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ from ...device import resolve_device
 from ...models.backbones.vgg import BatchNorm2d
 from ...models.detector import DetectionBatch, Detector
 from ...models.faster_rcnn import anchor_counts, box_dropout_masks, init_weights, keep_on, roi_pool_size
-from ...parallel import mesh
+from ...parallel import mesh, spatial
 from ...solver.build import auto_scale_workers, build_optimizer
 from ...structures.instances import Instances
 from ..eval_loop import inference_on_dataset
@@ -262,13 +269,14 @@ class BaseTrainer:
         self._preempted = False
         for head in self._box_heads():
             mesh.shard_box_head(head, self.layout, self.state.optimizer)
+        if self.layout is not None and self.layout.spatial:
+            spatial.tag_banded(self.state.model.backbone)
 
     def _layout(self, cfg):
         """(cfg scaled by SOLVER.REFERENCE_WORLD_SIZE at the data width, the
         process layout or None): the class docstring's rule."""
         tpu = cfg.TPU
-        if tpu.SPATIAL_SHARD:
-            raise NotImplementedError(mesh.SPATIAL_SHARD)
+        spatial.check_config(tpu)
         world, model = mesh.world_size(), max(int(tpu.MESH_MODEL), 1)
 
         def width(c, n):
@@ -280,7 +288,10 @@ class BaseTrainer:
         for key in self._SHARD_BATCH_KEYS:
             if getattr(cfg.SOLVER, key) % n:
                 raise ValueError(f"SOLVER.{key} {getattr(cfg.SOLVER, key)} does not split over the data width {n}")
-        return cfg, mesh.make_layout(n, model)
+        layout = mesh.make_layout(n, model)
+        if layout is not None:
+            layout.spatial = bool(tpu.SPATIAL_SHARD)
+        return cfg, layout
 
     def _box_heads(self) -> List[torch.nn.Module]:
         """The box heads that tensor parallelism splits (the trained model's)."""
@@ -382,6 +393,7 @@ class BaseTrainer:
         """A batch in the loader's layout (this rank's rows of it) on the
         device: (images uint8, sizes int32, padded GT with scores 1)."""
         dev = self.device
+        check_gt_classes(batch, self.det_cfg.num_classes)
         if not self.augments_whole_batch:
             batch = self._shard(batch)
         classes = to_device(batch["gt_classes"], dev, torch.int32)
@@ -618,6 +630,7 @@ class BaseTrainer:
             ds["thing_classes"],
             build_evaluators(self.cfg, name, ds["thing_classes"]),
             pipeline_depth=self.cfg.TPU.EVAL_PIPELINE_DEPTH,
+            layout=self.layout,
             **kw,
         )
 
@@ -701,6 +714,23 @@ class BaseTrainer:
         `train_net_mt.py --eval-only`)."""
         self.reset_bn_stats()
         return self.test_refinement(max_batches=max_batches, loader=loader)
+
+
+def check_gt_classes(batch: Mapping[str, np.ndarray], num_classes: int) -> None:
+    """Raise ValueError where a valid GT box of a loader batch (host arrays)
+    has a class outside the model's `num_classes`: index num_classes is the
+    background and anything above it is out of range. The JAX package
+    trains such a box as background, or logs a NaN loss_cls (ROADMAP.md,
+    faults of the reference); `kitti_to_coco` keeps Pedestrian and Cyclist
+    as categories 2 and 3, which the 1-class KITTI YAMLs do not name."""
+    classes, valid = batch["gt_classes"], batch["gt_valid"]
+    if not isinstance(classes, np.ndarray) or not isinstance(valid, np.ndarray) or not valid.any():
+        return
+    top = int(classes[valid].max())
+    if top >= num_classes:
+        raise ValueError(f"a training box has class {top}, outside the model's {num_classes} class(es) "
+                         "(MODEL.ROI_HEADS.NUM_CLASSES): the dataset's categories are more than the config "
+                         "names (a KITTI JSON with Pedestrian or Cyclist boxes under a car-only config?)")
 
 
 def float_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:

@@ -22,17 +22,20 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from ...parallel import spatial
 from .vgg import BatchNorm2d
 
 
 def upsample2x(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample of [B, C, h, w], cropped to `like`'s
-    spatial size (the JAX package's repeat-then-crop)."""
+    spatial size (the JAX package's repeat-then-crop). Under height bands
+    both are this rank's band, which starts on the same row of each map, so
+    the crop is the band's."""
     x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
     return x[:, :, : like.shape[2], : like.shape[3]]
 
 
-class _ConvNorm(nn.Conv2d):
+class _ConvNorm(spatial.Conv2d):
     """A conv with an optional BatchNorm held as the submodule `norm`
     (Detectron2's Conv2d wrapper); the conv has a bias only without it."""
 
@@ -62,6 +65,7 @@ class FPN(nn.Module):
         self.fuse_type = fuse_type
         strides, chans = bottom_up.out_strides(), bottom_up.out_channels()
         self.levels = [strides[f].bit_length() - 1 for f in self.in_features]
+        self.band_stride = 2 ** (self.levels[-1] + 1)  # p{top + 1}'s (parallel/spatial.py)
         for f, lvl in zip(self.in_features, self.levels):
             self.add_module(f"fpn_lateral{lvl}", _ConvNorm(chans[f], out_channels, 1, norm))
             self.add_module(f"fpn_output{lvl}", _ConvNorm(out_channels, out_channels, 3, norm))
@@ -81,5 +85,6 @@ class FPN(nn.Module):
         out = {f"p{lvl}": getattr(self, f"fpn_output{lvl}")(m, train, update_stats)
                for m, lvl in zip(merged, self.levels)}
         top = self.levels[-1]
+        spatial.check_even(out[f"p{top}"])  # the band plan aligns the stride-2 slice
         out[f"p{top + 1}"] = out[f"p{top}"][:, :, ::2, ::2].contiguous(memory_format=fmt)
         return out

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ...parallel import spatial
 from .vgg import BatchNorm2d
 
 BLOCK_COUNTS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
@@ -75,9 +76,10 @@ def make_norm(kind: str, channels: int) -> nn.Module:
     raise NotImplementedError(f"MODEL.RESNETS.NORM={kind!r} is not ported (BN and FrozenBN are)")
 
 
-class Conv2d(nn.Conv2d):
+class Conv2d(spatial.Conv2d):
     """Detectron2's conv wrapper: a bias-free conv followed by its norm,
-    held as the submodule `norm`."""
+    held as the submodule `norm` (banded under height bands, as every
+    backbone conv)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0, norm: str = "BN"):
         super().__init__(in_ch, out_ch, kernel, stride=stride, padding=padding, bias=False)
@@ -94,7 +96,7 @@ class BasicStem(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, update_stats: bool = True) -> torch.Tensor:
         x = F.relu(self.conv1(x, train, update_stats))
-        return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+        return spatial.max_pool2d(x, 3, 2, 1)
 
 
 class BottleneckBlock(nn.Module):
@@ -140,6 +142,12 @@ class ResNetBackbone(nn.Module):
             self.stages.append(name)
             out_ch *= 2
             bottleneck_ch *= 2
+
+    @property
+    def band_stride(self) -> int:
+        """The deepest stage's stride: the alignment of height bands
+        (parallel/spatial.py)."""
+        return self.out_strides()[self.stages[-1]]
 
     def forward(self, x: torch.Tensor, train: bool = False, update_stats: bool = True) -> Dict[str, torch.Tensor]:
         x = self.stem(x, train, update_stats)

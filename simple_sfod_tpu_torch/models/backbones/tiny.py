@@ -19,6 +19,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from ...parallel import spatial
 from .vgg import BatchNorm2d, max_pool_2x2
 
 WIDTH = 16
@@ -28,11 +29,13 @@ NUM_STAGES = 2
 class TinyBackbone(nn.Module):
     """x [B, 3, H, W] -> {"tiny0": stride 2, "tiny1": stride 4} NCHW."""
 
+    band_stride = 4  # tiny1's: the alignment of height bands (parallel/spatial.py)
+
     def __init__(self, bn: bool = True):
         super().__init__()
         self.bn = bn
         for i in range(NUM_STAGES):
-            self.add_module(f"conv{i}", nn.Conv2d(3 if i == 0 else WIDTH, WIDTH, 3, padding=1))
+            self.add_module(f"conv{i}", spatial.Conv2d(3 if i == 0 else WIDTH, WIDTH, 3, padding=1))
             if bn:
                 self.add_module(f"bn{i}", BatchNorm2d(WIDTH))
 

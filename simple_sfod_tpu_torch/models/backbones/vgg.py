@@ -32,7 +32,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ...parallel import mesh
+from ...parallel import mesh, spatial
 
 STAGE_PLAN: Sequence[Sequence[int]] = (
     (64, 64),
@@ -46,7 +46,9 @@ D2_STAGE_CONVS_NOBN: Sequence[Sequence[int]] = ((0, 2, 5), (0, 3, 5), (0, 3, 5, 
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    """2x2/2 max pool, floor mode (odd trailing rows/cols dropped), NCHW."""
+    """2x2/2 max pool, floor mode (odd trailing rows/cols dropped), NCHW.
+    Under height bands it needs no halo: each band starts on an even row."""
+    spatial.check_even(x)
     return nn.functional.max_pool2d(x, 2, 2)
 
 
@@ -77,7 +79,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     Within `parallel.mesh.data_parallel` the batch is one rank's slice of a
     global batch: train mode normalises by, and the update takes, the
-    global batch's statistics (`mesh.SyncBatchNorm`)."""
+    global batch's statistics (`mesh.SyncBatchNorm`); under height bands
+    (parallel/spatial.py) over every band of it, count-weighted."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -102,13 +105,14 @@ class BatchNorm2d(nn.BatchNorm2d):
             w, b = self._affine(self.running_mean.dtype)
             return F.batch_norm(x, self.running_mean, self.running_var, w, b, False, 0.0, self.eps)
         w, b = self._affine(x.dtype)
-        if mesh.active() is not None:  # a slice of a global batch: its statistics
-            y, mean, var = mesh.sync_batch_norm(x, w, b, self.eps)
+        synced = mesh.active() is not None or spatial.active() is not None
+        if synced:  # a slice or a band of a global batch: its statistics
+            y, mean, var = spatial.sync_batch_norm(x, w, b, self.eps)
         else:
             y = F.batch_norm(x, None, None, w, b, True, 0.0, self.eps)
         if update_stats:
             with torch.no_grad():
-                if mesh.active() is None:
+                if not synced:
                     var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
                 keep = 1.0 - self.momentum
                 self.running_mean.mul_(keep).add_((1.0 - keep) * mean)
@@ -123,6 +127,8 @@ class VGG16Backbone(nn.Module):
     running ones); otherwise it uses the running statistics. Without BN
     (`bn=False`) both are taken and ignored."""
 
+    band_stride = 32  # vgg4's: the alignment of height bands (parallel/spatial.py)
+
     def __init__(self, bn: bool = True):
         super().__init__()
         self.bn = bn
@@ -133,13 +139,14 @@ class VGG16Backbone(nn.Module):
             for s, stage in enumerate(STAGE_PLAN):
                 layers = []
                 for width in stage:
-                    layers += [nn.Conv2d(in_chs[i], width, 3, padding=1), BatchNorm2d(width), nn.ReLU(inplace=True)]
+                    conv = spatial.Conv2d(in_chs[i], width, 3, padding=1)
+                    layers += [conv, BatchNorm2d(width), nn.ReLU(inplace=True)]
                     i += 1
                 layers.append(_MaxPool2x2())
                 self.add_module(f"vgg{s}", nn.Sequential(*layers))
             return
         # the convs under their Detectron2 names, and in canonical order
-        convs = iter(nn.Conv2d(c_in, c_out, 3, padding=1) for c_in, c_out in zip(in_chs, widths))
+        convs = iter(spatial.Conv2d(c_in, c_out, 3, padding=1) for c_in, c_out in zip(in_chs, widths))
         for s, idxs in enumerate(D2_STAGE_CONVS_NOBN):
             self.add_module(f"vgg{s}", nn.ModuleDict({str(idx): next(convs) for idx in idxs}))
         self._convs = [getattr(self, f"vgg{s}")[str(idx)] for s, idxs in enumerate(D2_STAGE_CONVS_NOBN) for idx in idxs]

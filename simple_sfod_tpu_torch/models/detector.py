@@ -32,6 +32,7 @@ from .faster_rcnn import (
     RPNOutput,
     anchors_for,
     bpc_candidates,
+    empty_model,
     feature_device,
     label_and_sample_proposals,
     pool_rois,
@@ -94,13 +95,16 @@ class Detector:
 
     `device=None` means CUDA, and raises when no GPU is present; tests pass
     `device="cpu"`. Weights come from `load_state_dict` (a port state dict,
-    for example from checkpoint/from_jax.py) or `models.faster_rcnn.init_weights`.
+    for example from checkpoint/from_jax.py) or `models.faster_rcnn.init_weights`,
+    each of which writes every parameter and buffer: the modules are built
+    without PyTorch's default initialisation (`faster_rcnn.empty_model`),
+    and hold uninitialised memory until one of them runs.
     """
 
     def __init__(self, cfg: DetectorConfig, device: Optional[Union[str, torch.device]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = FasterRCNN(cfg).to(self.device).eval()
+        self.model = empty_model(cfg, self.device).eval()
         if self.device.type == "cuda":
             self.model = self.model.to(memory_format=torch.channels_last)
 

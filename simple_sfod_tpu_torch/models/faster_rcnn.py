@@ -46,7 +46,7 @@ from ..ops.losses import sigmoid_ce, smooth_l1, softmax_ce
 from ..ops.matcher import ROI_MATCHER, RPN_MATCHER, match_boxes
 from ..ops.roi_align import roi_align
 from ..ops.sampler import subsample_labels, subsample_labels_mask
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 from ..structures.boxes import BoxTransform, clip_boxes, nonempty, pairwise_iou
 from ..structures.instances import Instances, topk_indices
 from .backbones.fpn import FPN
@@ -240,18 +240,23 @@ class FasterRCNN(nn.Module):
         float32 BEFORE the mean is subtracted (a uint8 subtraction would
         wrap around). `train` runs BatchNorm on batch statistics, and
         `update_bn` then moves the running ones (models/backbones/vgg.py; a
-        FrozenBN layer has one mode; a backbone without BN ignores both)."""
+        FrozenBN layer has one mode; a backbone without BN ignores both).
+        Under height bands (parallel/spatial.py) the backbone runs on this
+        rank's band of the normalised images and the maps it returns are
+        gathered whole."""
         x = images.permute(0, 3, 1, 2)
         if not x.is_floating_point():
             x = x.to(torch.float32)
         x = (x - self.pixel_mean) / self.pixel_std
         if x.device.type == "cuda":
             x = x.contiguous(memory_format=torch.channels_last)
+        x = spatial.take_band(x, self.backbone.band_stride)
         with self._autocast(x.device):
             feats = self.backbone(x, train, update_bn)
         if self.cfg.fpn:
-            return {k: feats[k] for k in dict.fromkeys(self.cfg.rpn_in_features + self.cfg.roi_in_features)}
-        return feats[self.cfg.in_feature]
+            return spatial.gather({k: feats[k] for k in dict.fromkeys(self.cfg.rpn_in_features +
+                                                                        self.cfg.roi_in_features)})
+        return spatial.gather({self.cfg.in_feature: feats[self.cfg.in_feature]})[self.cfg.in_feature]
 
     def rpn(self, feature: "Feature") -> "RPNOutput":
         """A map -> RPN outputs; an FPN level dict -> the shared head on each
@@ -282,13 +287,37 @@ class FasterRCNN(nn.Module):
             return self.roi_heads.box_head(pooled)
 
 
+def empty_model(cfg: DetectorConfig, device="cpu") -> FasterRCNN:
+    """FasterRCNN(cfg) allocated on `device` without PyTorch's default
+    initialisation (built on the meta device), for a caller that writes
+    every parameter and buffer next: `init_weights`, or a strict load.
+    Each tensor is allocated by `torch.empty` from its shape: `to_empty`
+    (`empty_like` of a meta tensor) imports ~480 modules on its first call,
+    most of a second in a fresh process."""
+    with torch.device("meta"):
+        model = FasterRCNN(cfg)
+    device = torch.device(device)
+    for m in model.modules():
+        for name, p in m._parameters.items():
+            if p is not None:
+                m._parameters[name] = nn.Parameter(torch.empty(p.shape, dtype=p.dtype, device=device),
+                                                   p.requires_grad)
+        for name, b in m._buffers.items():
+            if b is not None:
+                m._buffers[name] = torch.empty(b.shape, dtype=b.dtype, device=device)
+    return model
+
+
 @torch.no_grad()
 def init_weights(model: FasterRCNN, seed: int) -> FasterRCNN:
     """Seeded random weights with the JAX package's initialiser scales:
     convs normal with std 1/sqrt(fan_in), RPN convs normal(0.01), box-head FCs fan-in uniform,
     cls_score normal(0.01), bbox_pred normal(0.001), zero biases, BN and
-    FrozenBN scale 1 / bias 0 / mean 0 / var 1. Drawn on the CPU from one
-    torch.Generator, so a seed gives the same weights on every machine."""
+    FrozenBN scale 1 / bias 0 / mean 0 / var 1, and the pixel mean and std of
+    the config: every parameter and buffer (a model built without PyTorch's
+    default initialisation, `empty_model`, needs no other). Drawn
+    on the CPU from one torch.Generator, so a seed gives the same weights on
+    every machine."""
     g = torch.Generator().manual_seed(seed)
 
     def fill(t: torch.Tensor, std: float = None, bound: float = None):
@@ -322,6 +351,8 @@ def init_weights(model: FasterRCNN, seed: int) -> FasterRCNN:
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
             m.num_batches_tracked.zero_()
+    model.pixel_mean.copy_(torch.tensor(model.cfg.pixel_mean).view(3, 1, 1))
+    model.pixel_std.copy_(torch.tensor(model.cfg.pixel_std).view(3, 1, 1))
     return model
 
 

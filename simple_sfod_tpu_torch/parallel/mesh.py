@@ -35,6 +35,11 @@ Global-batch numerics, while `data_parallel(layout)` is entered:
 Outside it every function here is the identity, and a process without a
 group computes exactly as before.
 
+Spatial sharding (TPU.SPATIAL_SHARD, a layout with `spatial`): each model
+rank runs its height band of every image through the backbone
+(parallel/spatial.py); the backbone's gradients are then partial sums over
+the bands, summed over the model group.
+
 Tensor parallelism (model > 1): the box head's fc1 is column-parallel and
 fc2 row-parallel (`tp_dim`, the placement of the JAX package's `_tp_spec`
 by the port's Detectron2 names: the JAX package's fc0/fc1 are fc1/fc2
@@ -56,10 +61,6 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
-
-SPATIAL_SHARD = ("TPU.SPATIAL_SHARD (image height bands over the model axis, with halo-exchanging convolutions) "
-                 "is ROADMAP item 1 and not ported yet")
-
 
 def default_backend(device) -> str:
     """nccl for a CUDA device, gloo otherwise."""
@@ -120,6 +121,7 @@ class Layout:
     data_group: Any
     model_group: Any  # None at model width 1
     device: torch.device  # where the collectives' own tensors live
+    spatial: bool = False  # the model ranks hold height bands of each image (parallel/spatial.py)
 
     @property
     def data_index(self) -> int:
@@ -221,31 +223,44 @@ def global_mean(x: torch.Tensor) -> torch.Tensor:
 
 
 class SyncBatchNorm(torch.autograd.Function):
-    """Train-mode batch normalisation over the data group, NCHW, in float32.
-    Forward: each rank's per-channel variance, mean and squared mean (equal
-    counts) are summed once; the global mean is their mean and the global
-    biased variance mean(var_r) + mean(mean_r^2) - mean^2, which cancels
-    only across the ranks' means (flax's E[x^2] - E[x]^2 cancels across
-    every element). Backward: the per-channel sums of dy and dy * xhat are
-    summed over the group; the weight and bias gradients stay this rank's
-    partial sums (the gradient all-reduce completes them). Returns (y in
-    x's dtype, mean, var)."""
+    """Train-mode batch normalisation over `group`, NCHW, in float32 (float64
+    for float64 input).
+    Forward: each rank's per-channel variance, mean and squared mean are
+    summed once; the global mean is their mean and the global biased
+    variance mean(var_r) + mean(mean_r^2) - mean^2, which cancels only
+    across the ranks' means (flax's E[x^2] - E[x]^2 cancels across every
+    element). The means are plain over `width` ranks of equal counts; with
+    `width` None (height bands of uneven sizes) each rank's moments are
+    weighted by its element count, in float64, and the count is summed too.
+    Backward: the per-channel sums of dy and dy * xhat are summed over the
+    group and divided by the global count; the weight and bias gradients
+    stay this rank's partial sums (the gradient all-reduce completes them).
+    Returns (y in x's dtype, mean, var)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps: float, group, width: int):
-        xf = x.float()
+    def forward(ctx, x, weight, bias, eps: float, group, width: Optional[int]):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # float64 stays float64
         c = xf.shape[1]
         var_r, mean_r = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
-        stats = torch.cat([var_r, mean_r, mean_r * mean_r])
-        dist.all_reduce(stats, group=group)
-        stats = stats / width
+        n = xf.numel() // c
+        if width is None:
+            stats = torch.cat([var_r, mean_r, mean_r * mean_r]).double() * n
+            stats = torch.cat([stats, stats.new_full((1,), float(n))])
+            dist.all_reduce(stats, group=group)
+            count = stats[-1]  # a 0-dim tensor: no read-back
+            stats = (stats[:-1] / count).to(xf.dtype)
+        else:
+            stats = torch.cat([var_r, mean_r, mean_r * mean_r])
+            dist.all_reduce(stats, group=group)
+            stats = stats / width
+            count = n * width
         mean = stats[c:2 * c]
         var = stats[:c] + torch.clamp_min(stats[2 * c:] - mean * mean, 0.0)
         invstd = torch.rsqrt(var + eps)
         shape = (1, c, 1, 1)
-        y = (xf - mean.view(shape)) * (invstd * weight.float()).view(shape) + bias.float().view(shape)
+        y = (xf - mean.view(shape)) * (invstd * weight.to(xf.dtype)).view(shape) + bias.to(xf.dtype).view(shape)
         ctx.save_for_backward(x, weight, mean, invstd)
-        ctx.group, ctx.count = group, xf.numel() // c * width
+        ctx.group, ctx.count = group, count
         ctx.mark_non_differentiable(mean, var)
         return y.to(x.dtype), mean, var
 
@@ -253,14 +268,14 @@ class SyncBatchNorm(torch.autograd.Function):
     def backward(ctx, gy, _gmean, _gvar):
         x, weight, mean, invstd = ctx.saved_tensors
         c, shape = mean.shape[0], (1, mean.shape[0], 1, 1)
-        g = gy.float()
-        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        g = gy.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - mean.view(shape)) * invstd.view(shape)
         sum_dy = g.sum(dim=(0, 2, 3))
         sum_dy_xhat = (g * xhat).sum(dim=(0, 2, 3))
         both = torch.cat([sum_dy, sum_dy_xhat])
         dist.all_reduce(both, group=ctx.group)
         both = both / ctx.count
-        gx = (g - both[:c].view(shape) - xhat * both[c:].view(shape)) * (weight.float() * invstd).view(shape)
+        gx = (g - both[:c].view(shape) - xhat * both[c:].view(shape)) * (weight.to(g.dtype) * invstd).view(shape)
         gw = sum_dy_xhat.to(weight.dtype) if ctx.needs_input_grad[1] else None
         gb = sum_dy.to(weight.dtype) if ctx.needs_input_grad[2] else None
         return gx.to(x.dtype), gw, gb, None, None, None
@@ -279,15 +294,21 @@ def all_reduce_grads(params: Sequence[torch.Tensor], layout: Layout) -> None:
     rank holds whole are then averaged over the model group: the ranks
     computed them from the same data, but a GPU's backward kernels may sum
     in another order in each process, and the replicas must stay bit-equal
-    (the JAX package computes them once)."""
+    (the JAX package computes them once). Under height bands the backbone's
+    (tagged `band_sum`, parallel/spatial.py) are each band's partial sums:
+    summed over the model group, not averaged."""
     _all_reduce(params, layout.data_group)
     if layout.model > 1:
-        _all_reduce([p for p in params if getattr(p, "tp_dim", None) is None], layout.model_group, layout.model)
+        whole = [p for p in params if getattr(p, "tp_dim", None) is None]
+        _all_reduce([p for p in whole if getattr(p, "band_sum", False)], layout.model_group)
+        _all_reduce([p for p in whole if not getattr(p, "band_sum", False)], layout.model_group, layout.model)
 
 
 def _all_reduce(params: Sequence[torch.Tensor], group, divide: int = 1) -> None:
     """The gradients of `params` summed over `group` (then divided by
     `divide`) through one float32 buffer."""
+    if not params:
+        return
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     flat = torch.cat([g.reshape(-1).float() for g in grads])
     dist.all_reduce(flat, group=group)

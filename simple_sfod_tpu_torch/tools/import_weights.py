@@ -29,7 +29,7 @@ import torch
 
 from ..checkpoint.checkpointer import load_torch_weights
 from ..config import detector_config_from_cfg, get_cfg
-from ..models.faster_rcnn import FasterRCNN, init_weights
+from ..models.faster_rcnn import empty_model, init_weights
 
 SKIPPED = ("num_batches_tracked", "pixel_mean", "pixel_std")
 
@@ -51,7 +51,7 @@ def convert(path: str, kind: str, cfg) -> Dict[str, torch.Tensor]:
     replaced by the file's; detector: every parameter and statistic of the
     detector from the file. A missing tensor or another shape raises."""
     det_cfg = detector_config_from_cfg(cfg)
-    own = init_weights(FasterRCNN(det_cfg), max(cfg.SEED, 0)).state_dict()
+    own = init_weights(empty_model(det_cfg), max(cfg.SEED, 0)).state_dict()
     sd = load_torch_weights(path, det_cfg)
     want = list(own)
     if kind == "torchvision_vgg":

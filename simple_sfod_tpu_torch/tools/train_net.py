@@ -23,7 +23,8 @@ with --machine-rank r and --dist-url joins M such groups into one world
 the CPU; several ranks sharing one GPU take gloo. The trainer lays the world
 out as TPU.MESH_DATA x TPU.MESH_MODEL (engine/trainers/base.py) and its
 numbers are those of one process on the global batch. TPU.SPATIAL_SHARD
-raises (ROADMAP item 1). On several ranks each prints a hash of its state
+runs each image in height bands over the model ranks (parallel/spatial.py);
+without TPU.MESH_MODEL > 1 it raises ValueError. On several ranks each prints a hash of its state
 (`[state] rank r: sha256 ...`, student and teacher, box heads whole), and
 each rank's last line is the NMS kernels' launch counts of its run.
 """
@@ -58,17 +59,17 @@ def default_argument_parser() -> argparse.ArgumentParser:
 
 
 def setup(args):
-    """The frozen config of `args`; TPU.SPATIAL_SHARD raises."""
+    """The frozen config of `args`; TPU.SPATIAL_SHARD without a model axis
+    raises ValueError."""
     from ..config import get_cfg
-    from ..parallel.mesh import SPATIAL_SHARD
+    from ..parallel.spatial import check_config
 
     cfg = get_cfg()
     if args.config_file:
         cfg.merge_from_file(args.config_file, allow_new=True)
     if args.opts:
         cfg.merge_from_list(args.opts)
-    if cfg.TPU.SPATIAL_SHARD:
-        raise NotImplementedError(SPATIAL_SHARD)
+    check_config(cfg.TPU)
     cfg.freeze()
     return cfg
 

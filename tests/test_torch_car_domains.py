@@ -122,9 +122,10 @@ def write_sim10k(root, n=4, hw=(105, 191), seed=0):
     return ann_dir
 
 
-def write_kitti(root, n=5, seed=1):
+def write_kitti(root, n=5, seed=1, classes=("Car", "Pedestrian", "Cyclist", "Van", "DontCare", "Car")):
     """n KITTI-style records: PNG frames of varying size and label files with
-    Car, Pedestrian, Cyclist, Van, DontCare and a degenerate box."""
+    a box of each of `classes` (default Car, Pedestrian, Cyclist, Van,
+    DontCare, Car) and a degenerate car box."""
     img_dir, lab_dir = os.path.join(root, "image_2"), os.path.join(root, "label_2")
     os.makedirs(img_dir)
     os.makedirs(lab_dir)
@@ -133,7 +134,7 @@ def write_kitti(root, n=5, seed=1):
         h, w = 40 + 3 * i, 131 - 5 * i
         Image.fromarray(frame(h, w, seed + i)).save(os.path.join(img_dir, f"{2 * i:06d}.png"))
         lines = []
-        for cls in ("Car", "Pedestrian", "Cyclist", "Van", "DontCare", "Car"):
+        for cls in classes:
             x1, y1, x2, y2 = seeded_boxes(rs, h, w, 1)[0]
             lines.append(f"{cls} 0.00 0 -1.57 {x1:.2f} {y1:.2f} {x2:.2f} {y2:.2f} 1.5 1.6 3.9 1.0 1.7 20.0 -1.5")
         lines.append("Car 0.00 0 0.0 50.00 10.00 50.00 30.00 1 1 1 1 1 1 0")
@@ -171,11 +172,11 @@ def test_kitti_converter_matches_tools_without_pil(tmp_path):
     assert kitti_to_coco.convert(lab_dir, img_dir) == want
 
 
-def _lockstep_cfgs(tmp_path):
+def _lockstep_cfgs(tmp_path, yaml=SIM10K_YAML):
     out = []
     for get in (get_cfg, jax_get_cfg):
         cfg = get()
-        cfg.merge_from_file(SIM10K_YAML)
+        cfg.merge_from_file(yaml)
         cfg.merge_from_list(OPTS)
         cfg.OUTPUT_DIR = str(tmp_path / "out")
         out.append(cfg)
@@ -237,6 +238,49 @@ def test_sim10k_source_lockstep_from_jpeg_files(registries):
     for k in bn_fed:
         w = k[:-4] + "weight"
         assert (got[k] - start[k]).abs().max() <= 1e-3 * (got[w] - start[w]).abs().max(), k
+
+
+@pytest.mark.parametrize("classes", [("Car", "Pedestrian", "DontCare", "Car"),
+                                     ("Car", "Pedestrian", "Cyclist", "DontCare")], ids=["pedestrian", "cyclist"])
+def test_kitti_labels_beyond_cars(registries, classes):
+    """KITTI label files with Pedestrian (and Cyclist) lines under the
+    1-class KITTI source YAML. Both converters keep them as categories 2
+    and 3, and both packages' records and contiguous ids agree: {1: 0, 2: 1,
+    3: 2} beside thing_classes ["car"]. The JAX BaseTrainer's first step
+    then trains a pedestrian as background (class 1 is the background
+    index: finite losses) and gives a NaN loss_cls on a cyclist (class 2 is
+    out of range): faults of the reference (ROADMAP.md). The port refuses
+    either batch with a ValueError before the step."""
+    from simple_sfod_tpu.data.loader import build_train_loader as jax_loader
+
+    root = str(registries)
+    lab_dir, img_dir = write_kitti(os.path.join(root, "kitti", "training"), n=4, classes=classes)
+    out = os.path.join(root, "kitti", "annotations", "kitti_train.json")
+    got = kitti_to_coco.main(["--label-dir", lab_dir, "--image-dir", img_dir, "--output", out])
+    assert got == _tools_converter("kitti_to_coco").convert(lab_dir, img_dir)
+    want_ids = {c for c, name in ((1, "Car"), (2, "Pedestrian"), (3, "Cyclist")) if name in classes}
+    assert {a["category_id"] for a in got["annotations"]} == want_ids
+    pcfg_node, jcfg = _lockstep_cfgs(registries, os.path.join(ROOT, "configs", "faster_rcnn_VGG_kitti_source.yaml"))
+    assert pcfg_node.MODEL.ROI_HEADS.NUM_CLASSES == 1 and pcfg_node.DATASETS.TRAIN == ("kitti_train",)
+    pd, jd = PD.get_dataset("kitti_train"), JD.get_dataset("kitti_train")
+    assert pd["thing_classes"] == jd["thing_classes"] == ["car"]
+    assert pd["id_map"] == jd["id_map"] == {1: 0, 2: 1, 3: 2}
+    for a, b in zip(pd["records"], jd["records"], strict=True):
+        np.testing.assert_array_equal(a["classes"], b["classes"])
+        np.testing.assert_array_equal(a["boxes"], b["boxes"])
+    batch, jbatch = next(iter(build_train_loader(pcfg_node))), next(iter(jax_loader(jcfg)))
+    assert_batches_equal(batch, jbatch)
+    assert set(batch["gt_classes"][batch["gt_valid"]]) == {c - 1 for c in want_ids}
+
+    jtr = JaxBaseTrainer(jcfg)
+    _, jm = jax.jit(jtr._step_fn_raw)(jtr.state, jnp.asarray(jbatch["images"]), jnp.asarray(jbatch["sizes"]),
+                                      jax_gt_instances(jbatch), jtr.base_rng)
+    assert np.isfinite(float(jm["loss_rpn_cls"])) and np.isfinite(float(jm["loss_box_reg"]))
+    assert np.isnan(float(jm["loss_cls"])) == ("Cyclist" in classes)
+    ptr = BaseTrainer(pcfg_node, device="cpu")
+    with pytest.raises(ValueError, match=f"a training box has class {max(want_ids) - 1}, outside the model's 1 class"):
+        ptr.run_step(batch)
+    assert ptr.state.step == 0
 
 
 def test_one_class_source_into_eight_class_model_skips_the_same_keys(tmp_path):

@@ -91,13 +91,13 @@ def test_multi_device_settings_raise(tmp_path, monkeypatch, extra):
     """The multi-device settings that cannot run here raise before a step
     rather than being ignored: more local processes than GPUs, several
     machines without --dist-url, a mesh of more ranks than processes, and
-    spatial sharding (ROADMAP item 1)."""
+    spatial sharding without a model axis (the JAX package's ValueError)."""
     error, match = {
         "--num-gpus": (ValueError, "--num-gpus 2 exceeds the 1 visible CUDA device"),
         "--num-machines": (ValueError, "--num-machines 2 needs --dist-url"),
         "TPU.MESH_DATA": (ValueError, "data 2 x model 1 layout needs 2 processes"),
         "TPU.MESH_MODEL": (ValueError, "data 1 x model 2 layout needs 2 processes"),
-        "TPU.SPATIAL_SHARD": (NotImplementedError, "ROADMAP item 1"),
+        "TPU.SPATIAL_SHARD": (ValueError, r"TPU.SPATIAL_SHARD=True requires TPU.MESH_MODEL > 1"),
     }[extra[0]]
     device = "cpu"
     if extra[0] == "--num-gpus":  # one visible GPU

@@ -305,12 +305,14 @@ def test_tiny_backbone_as_jax():
 
 # -- steps against the JAX mesh ----------------------------------------------------
 
-def base_case(tmp_path, data, model):
+def base_case(tmp_path, data, model, spatial=False):
     """The JAX BaseTrainer (tiny backbone) on a data x model mesh for 2 free
-    steps; the port's jobs for the same on data x model ranks."""
-    opts = opts_of(SOURCE_CONFIG, BASE_OPTS, TINY, {"TPU": {"MESH_DATA": data, "MESH_MODEL": model}})
+    steps (`spatial`: TPU.SPATIAL_SHARD); the port's jobs for the same on
+    data x model ranks."""
+    opts = opts_of(SOURCE_CONFIG, BASE_OPTS, TINY,
+                   {"TPU": {"MESH_DATA": data, "MESH_MODEL": model, "SPATIAL_SHARD": spatial}})
     jtr = jax_build_trainer(node(jax_get_cfg, opts, tmp_path / "jax"))
-    assert jtr.mesh.devices.size == 2
+    assert jtr.mesh.devices.size == data * model
     pcfg = detector_config_from_cfg(node(get_cfg, opts, tmp_path / "p"))
     init = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jtr.state.variables()), pcfg)
     n = anchors_for(pcfg, CANVAS, torch.device("cpu")).shape[0]
@@ -377,12 +379,19 @@ def test_two_ranks_sfat_step_as_the_jax_two_device_step(tmp_path):
     """The main path: VGG16-BN, strong view, adaptive threshold, 2 ranks
     against the JAX SFAT trainer on a 2-device mesh, each step from the JAX
     state (test_torch_sfat_trainer.py explains why) on the JAX draws."""
+    sfat_steps_as_jax(tmp_path, {"MESH_DATA": 2}, {"data": 2})
+
+
+def sfat_steps_as_jax(tmp_path, tpu, mesh_shape):
+    """The SFAT main path's 2 steps on 2 ranks laid out by the TPU options
+    `tpu` against the JAX SFAT trainer on the mesh they build (of
+    `mesh_shape`), each step from the JAX state on the JAX draws."""
     from test_torch_sfat_trainer import LOCKSTEP_OPTS
 
     opts = opts_of(SFAT_BENCH_CONFIG, LOCKSTEP_OPTS, {"ADAPTIVE_THRESHOLD": {"WARM_UP": 1, "RESERVE": 2},
-                                                     "TPU": {"MESH_DATA": 2}})
+                                                     "TPU": tpu})
     jtr = jax_build_trainer(node(jax_get_cfg, opts, tmp_path / "jax"))
-    assert dict(jtr.mesh.shape) == {"data": 2}
+    assert dict(jtr.mesh.shape) == mesh_shape
     state = jtr.state
     params = dict(state.params)
     params["det"] = boost(state.params["det"], {1: 5.0, 5: 2.5}, 1e-2)
@@ -480,6 +489,15 @@ def test_trainers_on_two_ranks_as_one(tmp_path, trainer):
     the trainers' own draws (drawn for the global batch), a labelled batch
     of 2 a step (and for the paired trainers an unlabelled target batch of
     2)."""
+    job, sd = trainer_job(tmp_path, trainer)
+    ranks = W.spawn(tmp_path / "jobs.pt", [("t", job)])
+    one = W.one_process([("t", dict(job, output_dir=str(tmp_path / "one")))])["t"]
+    check_trainer(trainer, [r["t"] for r in ranks], one, sd)
+
+
+def trainer_job(tmp_path, trainer, layout=()):
+    """The steps job of a TRAINERS case with the TPU options `layout`
+    (opts), and its seeded weights (the docstring above)."""
     from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, init_weights
 
     yaml, extra, steps = TRAINERS[trainer]
@@ -501,12 +519,16 @@ def test_trainers_on_two_ranks_as_one(tmp_path, trainer):
         src = synthetic_batch(records[4 * i:4 * i + 2], CANVAS, GT_CAP)
         tgt = synthetic_batch(records[4 * i + 2:4 * i + 4], CANVAS, GT_CAP)
         pairs.append((src, {"images": tgt["images"], "sizes": tgt["sizes"]}) if trainer in PAIRED else src)
-    job = dict(job="steps", yaml=yaml, opts=opts, output_dir=str(tmp_path / "two"), batches=pairs,
+    job = dict(job="steps", yaml=yaml, opts=opts + list(layout), output_dir=str(tmp_path / "two"), batches=pairs,
                draws=[None] * steps, weights=sd)
-    ranks = W.spawn(tmp_path / "jobs.pt", [("t", job)])
-    one = W.one_process([("t", dict(job, output_dir=str(tmp_path / "one")))])["t"]
-    assert ranks[0]["t"][-1]["state"]["hash"] == ranks[1]["t"][-1]["state"]["hash"]
-    for step, (got, want) in enumerate(zip(ranks[0]["t"], one)):
+    return job, sd
+
+
+def check_trainer(trainer, ranks, one, sd):
+    """Every rank's steps (`ranks`: each the steps job's result) against
+    one process's (`one`) by the bounds of the docstring above."""
+    assert all(r[-1]["state"]["hash"] == ranks[0][-1]["state"]["hash"] for r in ranks)
+    for step, (got, want) in enumerate(zip(ranks[0], one)):
         m, w = got["metrics"], want["metrics"]
         assert set(m) == set(w)
         for k in w:
@@ -515,7 +537,7 @@ def test_trainers_on_two_ranks_as_one(tmp_path, trainer):
             elif k.startswith("loss") or k == "total_loss":
                 tol = 1e-4 if step == 0 else 1e-3
                 assert abs(m[k] - w[k]) <= tol * max(abs(w[k]), 1e-3), (step, k, m[k], w[k])
-    got, want = ranks[0]["t"][-1]["state"]["model"], one[-1]["state"]["model"]
+    got, want = ranks[0][-1]["state"]["model"], one[-1]["state"]["model"]
     if "modelTeacher.pixel_mean" in want:  # a teacher-student state
         assert one[-1]["metrics"]["num_pseudo"] > 0
         start = {f"{p}.{k}": v for p in ("modelTeacher", "modelStudent") for k, v in sd.items()}
@@ -664,17 +686,19 @@ def test_cli_on_two_processes(tmp_path):
 
 @pytest.mark.parametrize("case", ["spatial_shard", "idle_rank", "gpus_beyond_devices", "machines_without_url"])
 def test_cli_refusals(tmp_path, monkeypatch, case):
-    """TPU.SPATIAL_SHARD names its ROADMAP item; a world the layout does not
-    fill raises in the ranks; --num-gpus beyond the visible GPUs and
-    --num-machines without --dist-url raise before any process starts."""
+    """TPU.SPATIAL_SHARD without TPU.MESH_MODEL > 1 raises ValueError in the
+    JAX package's words; a world the layout does not fill raises in the
+    ranks; --num-gpus beyond the visible GPUs and --num-machines without
+    --dist-url raise before any process starts (all three before any
+    process starts but the idle rank's)."""
     opts = ["OUTPUT_DIR", str(tmp_path), *CLI_CUTS]
 
     def parse(*flags, extra=()):
         return train_net.default_argument_parser().parse_args(CLI + list(flags) + opts + list(extra))
 
     if case == "spatial_shard":
-        with pytest.raises(NotImplementedError, match="SPATIAL_SHARD .* is ROADMAP item 1"):
-            train_net.main(parse(extra=["TPU.SPATIAL_SHARD", "True"]))
+        with pytest.raises(ValueError, match=r"TPU.SPATIAL_SHARD=True requires TPU.MESH_MODEL > 1"):
+            train_net.main(parse("--num-gpus", "2", extra=["TPU.SPATIAL_SHARD", "True"]))
     elif case == "idle_rank":
         p = run_cli("train_net", *CLI, "--num-gpus", "2", *opts, "SOLVER.IMS_PER_BATCH", "1")
         _, stderr = p.communicate(timeout=600)

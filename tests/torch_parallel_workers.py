@@ -187,8 +187,15 @@ def job_preempt(opts, output_dir, flag_rank=1, flag_step=3, **_):
     return {"step": trainer.state.step, "files": sorted(_walk(output_dir)) if mesh.is_main() else None}
 
 
+def job_bands(cases, **_):
+    """parallel/dryrun.py:compare_bands on this rank (data 1 x model W)."""
+    from simple_sfod_tpu_torch.parallel.dryrun import compare_bands
+
+    return compare_bands(cases)
+
+
 JOBS = {"preempt": job_preempt, "steps": job_steps, "bn": job_bn, "tp_head": job_tp_head, "eval_adabn": job_eval_adabn,
-        "train": job_train}
+        "train": job_train, "bands": job_bands}
 
 
 def run(path):
