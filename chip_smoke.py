@@ -79,7 +79,8 @@ Phases (each prints one progress line with its wall time):
               at pipeline depth 1 and 4, one pass under torch.profiler (busy
               share), peak memory, host decode+resize ms an image; and a
               float32 eval loop on 4 images at 128x256 on the card against
-              the CPU's
+              the CPU's. The teacher's detections on the first TEST set are
+              written as a COCO results file for the tools phase
  11. cli      the adaptation CLI on the main YAML, as a user runs it:
               `python -m simple_sfod_tpu_torch.tools.train_net_mt
               --config-file configs/faster_rcnn_VGG_cityscapes_foggy_adaptive_teacher_source_free.yaml`
@@ -107,7 +108,30 @@ Phases (each prints one progress line with its wall time):
               repeated batch beside the bare step, host syncs a step,
               a non-blocking save's blocking and write time, the file's
               size, the resume's load time, peak memory
- 12. r101     ResNet-101 C4 (full depth, seeded weights): features and
+ 12. tools    the last modules, on the main YAML's detector (VGG16-BN,
+              608x1216, bfloat16, seeded weights) and the earlier phases'
+              outputs: Detector.infer_raw (no score filter, no class-wise
+              NMS) on 2 synthetic 600x1200 frames, exactly one launch of
+              each NMS op an image (the RPN's), bit-equal to the same call
+              through the ops' plain versions on the card, and again under
+              set_sync_debug_mode("error"); infer(score_thresh=0.0,
+              topk=300) at the config's NMS and at nms_thresh 1.0 (a looser
+              NMS keeps no fewer); in processes of their own beside those,
+              `python -m simple_sfod_tpu_torch.tools.metrics_tool` (coco,voc,f1
+              and --html) on the eval phase's teacher detections (a COCO
+              results file of its first TEST set) and COCO GT, its AP50
+              equal to test()'s to 1e-6, and `python -m
+              simple_sfod_tpu_torch.tools.export_weights --which auto` on
+              the cli phase's teacher-student model_final.pth (a file of
+              "model" and "iteration" alone, its student loaded strictly on
+              the card and bit-equal to the checkpoint's); the metrics GUI
+              (serve_in_thread): 200 on the form, the statistics and the
+              run page, whose AP50 is test()'s; device_trace around one
+              infer_raw call, a trace naming both sfod:: ops; StepTimer's
+              median of 10 infer_raw calls at batch 1. inspect_coco is a CPU
+              tool (it draws with PIL, which this machine may lack) and is
+              not run here
+ 13. r101     ResNet-101 C4 (full depth, seeded weights): features and
               detections on the card against the CPU's at 128x256 (FC_DIM
               64, float32) for NORM BN in eval and train mode and FrozenBN;
               AdaBN from the CLI in a process of its own, beside those cells
@@ -126,7 +150,7 @@ Phases (each prints one progress line with its wall time):
               timed; 6 base steps on configs/r_101_c4_cs_source_frozen.yaml
               (FrozenBN, IMS_PER_BATCH 4): finite losses, stem, res2 and
               every FrozenBN buffer bit-identical
- 13. wq       fixed-pseudo-label self-training: mosaic_batch, mixup_batch
+ 14. wq       fixed-pseudo-label self-training: mosaic_batch, mixup_batch
               (content-aware, with the companion flip, without and with the
               scale jitter) and random_affine_batch on the card against the
               CPU at 128x256 on the same draws (gathers and blends bit for
@@ -151,7 +175,7 @@ Phases (each prints one progress line with its wall time):
               each stage), beside the WQ CLI, the NMS checks and the ops
               against the CPU, after the timed runs, and on beside the
               export phase's exports, which wait for it before timing
- 14. export   the detector as a standalone artifact: seeded weights (the
+ 15. export   the detector as a standalone artifact: seeded weights (the
               cli phase's .pth, and a seeded ResNet-101 .pth) through
               `python -m simple_sfod_tpu_torch.tools.export_model`, five runs
               at once, each with --selfcheck (the reloaded artifact against
@@ -179,7 +203,7 @@ Phases (each prints one progress line with its wall time):
               gated call padded to 4, launches); the R101 artifact served by
               serve_model's main with the port's models, config and
               trainers poisoned in sys.modules
- 15. car      the paper's car-only source domains: the committed JPEG
+ 16. car      the paper's car-only source domains: the committed JPEG
               fixtures (tests/torch_jpeg/) decoded by the port's baseline
               decoder bit-equal to libjpeg-turbo's recorded SHA-256, the
               progressive one refused; decode (and decode + resize) ms of a
@@ -203,7 +227,7 @@ Phases (each prints one progress line with its wall time):
               beside the NMS checks): exit 0, finite losses in metrics.json, finite AP/AP50
               in eval_results.json, launches as counted from the code; and
               test() images/s of the Sim10k source model
- 16. da       domain-adversarial training: one float32 step of da, cda
+ 17. da       domain-adversarial training: one float32 step of da, cda
               (ENTROPY_CONDITIONING), adaptive_teacher (the boundary step,
               with the instance classifier) and the source-free main YAML
               with DOMAIN_CLASSIFIER.IMAGE and INSTANCE on the card against
@@ -237,7 +261,7 @@ Phases (each prints one progress line with its wall time):
               test(), metrics.json, eval_results.json, launches as
               counted), the DA model_final.pth restored bit for bit in this
               process and `--resume` to 8 steps
- 17. zoo      the rest of the model zoo: VGG16 without BN, the VGG-FPN
+ 18. zoo      the rest of the model zoo: VGG16 without BN, the VGG-FPN
               detector and AdaIN style enhancement, at 608x1216 in each
               YAML's dtype (bfloat16) from the loaders on the PNG frames
               under a temporary SFOD_DATASETS, BASE_LR cut to 0.0025 (0.04
@@ -263,7 +287,7 @@ Phases (each prints one progress line with its wall time):
               set_sync_debug_mode("error"), and stylize alone timed. Each
               run's ms a step, busy share, peak memory and launches; each
               run's first-step NMS inputs kernel == plain
- 18. settings every model setting of the JAX package: box-head dropout, MC
+ 19. settings every model setting of the JAX package: box-head dropout, MC
               dropout, ResNet-50 under FPN and ImageNet initialisation, at
               608x1216 (1120 for Sim10k) from seeded weights and the PNG and
               JPEG frames under a temporary SFOD_DATASETS: the main SFAT YAML
@@ -289,7 +313,7 @@ Phases (each prints one progress line with its wall time):
               backbone tensor equal to the file's), one float32 R50-FPN step
               and MC dropout on the same masks on the card against the CPU
               at 128x256, and every captured NMS input kernel == plain
- 19. dist     more than one rank (parallel/) on the one GPU: two ranks are two
+ 20. dist     more than one rank (parallel/) on the one GPU: two ranks are two
               processes of `train_net --num-machines 2 --machine-rank r
               --dist-url ... --dist-backend gloo` (NCCL refuses two ranks on
               one device), from seeded weights (class-1 logit bias raised by
@@ -344,6 +368,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import signal
 import struct
 import subprocess
@@ -351,6 +376,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.parse
 import urllib.request
 import warnings
 import zlib
@@ -363,7 +389,7 @@ from simple_sfod_tpu_torch.checkpoint.checkpointer import Checkpointer
 from simple_sfod_tpu_torch.config import detector_config_from_cfg, get_cfg, get_main_cfg, get_source_cfg
 from simple_sfod_tpu_torch.config.defaults import MAIN_CONFIG, SFAT_BENCH_CONFIG, config_opts
 from simple_sfod_tpu_torch.data import mosaic, native_codec, transforms
-from simple_sfod_tpu_torch.data.datasets import CITYSCAPES_THING_CLASSES, DATASET_REGISTRY, register_dataset
+from simple_sfod_tpu_torch.data.datasets import CITYSCAPES_THING_CLASSES, DATASET_REGISTRY, get_dataset, register_dataset
 from simple_sfod_tpu_torch.engine.events import tensorboard_summary_writer
 from simple_sfod_tpu_torch.data.loader import build_test_loader, d2_output_shape
 from simple_sfod_tpu_torch.data.synthetic import make_synthetic_records, synthetic_batch, synthetic_image
@@ -1412,9 +1438,11 @@ def sigterm_run(out: str, weights: str, vis: int, data_root: str, log_path: str)
     return stopped_out, marker, stopped, resumed
 
 
-def cli_phase(smi: str, adapt_step_ms: dict) -> dict:
+def cli_phase(smi: str, adapt_step_ms: dict, keep: dict) -> dict:
     """The cli phase (module docstring); `adapt_step_ms` the adapt phase's
-    step medians by run. -> the NMS launches of the path."""
+    step medians by run; run 2's model_final.pth is moved into keep["dir"]
+    for the tools phase (keep["model_final"]). -> the NMS launches of the
+    path."""
     try:
         tensorboard_summary_writer()
         vis = CLI_VIS_PERIOD
@@ -1581,8 +1609,12 @@ def cli_phase(smi: str, adapt_step_ms: dict) -> dict:
         check(all(c == want for c in got.values()), f"run 2 launches {got}, expected {want} of each")
         log(f"  run 2 (--resume, to 32, beside AdaBN and the determinism runs) [{smi}]: rc 0 in {wall:.2f} s, "
             f"iterations 24-31, final test(); launches {got}")
+        # run 2's model_final.pth (teacher and student, iteration 32) goes to
+        # the tools phase
+        keep["model_final"] = shutil.move(os.path.join(out1, "model_final.pth"), keep["dir"])
         for f in names:
-            os.remove(os.path.join(out1, f))
+            if f != "model_final.pth":
+                os.remove(os.path.join(out1, f))
 
         # the loop's time a step, from disk and from a repeated batch
         loop = {}
@@ -4848,6 +4880,215 @@ def dist_phase(smi: str):
     return total, numbers
 
 
+# ---------------------------------------------------------------- tools
+TOOLS_FRAMES = 2  # synthetic 600x1200 frames of the raw path
+TOOLS_RAW_TOPK = 512  # Detector.infer_raw's default
+TOOLS_TIMED, TOOLS_WARMUP = 10, 3  # StepTimer's infer_raw calls at batch 1
+TOOLS_TIMEOUT_S = 300
+
+
+def plain_nms(boxes, scores, valid, thr):
+    """A stand-in for nms.nms_mask_matrix through the plain versions on the
+    tensors' device, one image at a time."""
+    if valid.dim() == 1:
+        return plain_keep(boxes, scores, valid, thr)
+    return torch.stack([plain_keep(b, s, v, thr) for b, s, v in zip(boxes, scores, valid)])
+
+
+def infer_raw_vs_plain(det, images, sizes, topk: int = TOOLS_RAW_TOPK):
+    """det.infer_raw through the NMS ops, then through their plain versions
+    on the card. -> (kernel detections, plain detections, the ops' launches
+    in the first call)."""
+    before = dict(_kernels.LAUNCHES)
+    got = det.infer_raw(images, sizes, topk=topk)
+    torch.cuda.synchronize()
+    launches = {k: c - before[k] for k, c in _kernels.LAUNCHES.items()}
+    orig = nms.nms_mask_matrix
+    nms.nms_mask_matrix = plain_nms
+    try:
+        want = det.infer_raw(images, sizes, topk=topk)
+    finally:
+        nms.nms_mask_matrix = orig
+    return got, want, launches
+
+
+def same_detections(a, b) -> bool:
+    return all(torch.equal(getattr(a, k), getattr(b, k)) for k in ("boxes", "scores", "classes", "valid"))
+
+
+def tools_frames(n: int = TOOLS_FRAMES, seed: int = SEED + 5):
+    """n seeded 600x1200 uint8 frames on the 608x1216 canvas, and their sizes."""
+    rng = np.random.RandomState(seed)
+    canvas = np.zeros((n, 608, 1216, 3), np.uint8)
+    canvas[:, :IMAGE_HW[0], :IMAGE_HW[1]] = rng.randint(0, 256, (n, *IMAGE_HW, 3))
+    return canvas, np.asarray([IMAGE_HW] * n, np.int32)
+
+
+def tool_run(args: list, label: str) -> str:
+    """A host tool of the port in a process of its own. -> its stdout."""
+    out = subprocess.run([sys.executable, *args], cwd=ROOT, env=cli_env(ROOT), capture_output=True, text=True,
+                         timeout=TOOLS_TIMEOUT_S)
+    if out.returncode != 0:
+        raise AssertionError(f"{label}: exit code {out.returncode}\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout
+
+
+METRICS_CALL = ("import json, sys\n"
+                "from simple_sfod_tpu_torch.tools import metrics_tool\n"
+                "res = metrics_tool.main(sys.argv[1:])\n"
+                "print('[ap50] ' + json.dumps(res['coco']['AP50']))\n")
+
+
+def http_get(url: str):
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return r.status, r.read().decode()
+
+
+def tools_phase(smi: str, keep: dict):
+    """The tools phase (module docstring). `keep`: the eval phase's COCO GT
+    and teacher detections and the AP50 test() reported on them, and the
+    cli phase's teacher-student model_final.pth, in keep["dir"]. -> (the
+    NMS launches of the path, its numbers)."""
+    from simple_sfod_tpu_torch.evaluation.gui import serve_in_thread as serve_gui
+    from simple_sfod_tpu_torch.utils.profiling import StepTimer, device_trace
+
+    root = keep["dir"]
+    numbers = {}
+    background = []
+    try:
+        # the host tools in processes of their own, beside the untimed checks
+        html = os.path.join(root, "report.html")
+        metrics = Background(tool_run, ["-c", METRICS_CALL, "--gt", keep["gt"], "--gt-format", "coco",
+                                        "--det", keep["dets"], "--det-format", "coco", "--metrics", "coco,voc,f1",
+                                        "--html", html], "metrics_tool")
+        exported = os.path.join(root, "exported_d2.pth")
+        export = Background(tool_run, ["-m", "simple_sfod_tpu_torch.tools.export_weights", "--ckpt",
+                                       keep["model_final"], "--output", exported, "--which", "auto",
+                                       "--config-file", os.path.join(ROOT, CLI_YAML)], "export_weights")
+        background += [metrics, export]
+
+        cfg = get_main_cfg()
+        cfg.freeze()
+        det_cfg = detector_config_from_cfg(cfg)
+        check(det_cfg.dtype == torch.bfloat16 and tuple(cfg.TPU.CANVAS) == (608, 1216), "main config")
+        det = Detector(det_cfg).load_state_dict(init_weights(empty_model(det_cfg), SEED).state_dict())
+        canvas, sizes = tools_frames()
+        images_t, sizes_t = torch.from_numpy(canvas).cuda(), torch.from_numpy(sizes).cuda()
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+
+        # 1. the raw path: one launch of each op an image, kernel == plain
+        got, want, launches = infer_raw_vs_plain(det, images_t, sizes_t)
+        check(all(c == TOOLS_FRAMES for c in launches.values()),
+              f"infer_raw: launches {launches}, expected {TOOLS_FRAMES} of each (the RPN's NMS, one an image)")
+        check(same_detections(got, want), "infer_raw: the NMS kernels' detections differ from the plain versions'")
+        check(got.boxes.shape == (TOOLS_FRAMES, TOOLS_RAW_TOPK, 4) and bool(got.valid.all())
+              and bool(torch.isfinite(got.scores).all()), f"infer_raw: {got.boxes.shape}, valid {int(got.valid.sum())}")
+        check(bool((got.scores[:, :-1] >= got.scores[:, 1:]).all()), "infer_raw: scores not in descending order")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            synced = det.infer_raw(images_t, sizes_t)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(same_detections(synced, got), "infer_raw under set_sync_debug_mode differs")
+        log(f"  infer_raw ({TOOLS_FRAMES} x {IMAGE_HW[0]}x{IMAGE_HW[1]}, bfloat16, topk {TOOLS_RAW_TOPK}): launches "
+            f"{launches}, bit-equal to the plain NMS on the card, scores {float(got.scores.min()):.4f}.."
+            f"{float(got.scores.max()):.4f}; no host sync (set_sync_debug_mode('error'))")
+
+        # 2. a looser NMS never keeps fewer
+        strict = det.infer(images_t, sizes_t, score_thresh=0.0, topk=300)
+        loose = det.infer(images_t, sizes_t, score_thresh=0.0, topk=300, nms_thresh=1.0)
+        n_strict, n_loose = strict.valid.sum(1).tolist(), loose.valid.sum(1).tolist()
+        check(all(0 < a <= b <= 300 for a, b in zip(n_strict, n_loose)), f"valid counts {n_strict} vs {n_loose}")
+        check(bool(torch.isfinite(loose.boxes).all()), "infer(nms_thresh=1.0): non-finite boxes")
+        log(f"  infer(score_thresh=0.0, topk=300): valid {n_strict} at the config's NMS {det_cfg.nms_thresh_test}, "
+            f"{n_loose} at nms_thresh 1.0")
+
+        # the metrics tool: COCO AP50 as test() reported it
+        stdout = metrics.result()
+        tool_ap50 = json.loads(stdout.strip().splitlines()[-1][len("[ap50] "):])
+        check("== coco ==" in stdout and "== voc ==" in stdout and "== f1 ==" in stdout, f"metrics_tool: {stdout[-500:]}")
+        check(abs(tool_ap50 - keep["test_ap50"]) <= 1e-6,
+              f"metrics_tool AP50 {tool_ap50} vs test()'s {keep['test_ap50']}")
+        with open(html) as f:
+            check(f.read().startswith("<!doctype html"), "metrics_tool --html")
+        log(f"  metrics_tool on the eval phase's teacher detections: COCO AP50 {tool_ap50!r}, test() "
+            f"{keep['test_ap50']!r} (difference {abs(tool_ap50 - keep['test_ap50']):.3g}); the detections file's own "
+            f"evaluation {keep['dump_ap50']!r}; report.html written")
+
+        # the GUI: form, statistics and run pages
+        srv, base = serve_gui()
+        try:
+            state = {"gt": keep["gt"], "gt_format": "coco", "det": keep["dets"], "det_format": "coco",
+                     "out": os.path.join(root, "gui")}
+            q = urllib.parse.urlencode(state)
+            pages = {}
+            for label, path in (("form", "/"), ("stats", f"/stats?which=gt&{q}"), ("det stats", f"/stats?which=det&{q}"),
+                                ("run", f"/run?{q}&metrics=coco&metrics=voc&metrics=f1")):
+                status, pages[label] = http_get(base + path)
+                check(status == 200 and "class='err'" not in pages[label], f"GUI {label}: {status} {pages[label][:300]}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        with open(os.path.join(root, "gui", "results.json")) as f:
+            gui_ap50 = json.load(f)["coco"]["AP50"]
+        tile = f'<div class="v">{gui_ap50:.2f}</div><div class="l">AP50</div>'
+        check(abs(gui_ap50 - keep["test_ap50"]) <= 1e-6 and tile in pages["run"],
+              f"GUI run: AP50 {gui_ap50} vs test()'s {keep['test_ap50']}")
+        log(f"  metrics GUI: 200 on the form, GT and detection statistics and the run page; the run page's AP50 tile "
+            f"{gui_ap50:.2f}, its results.json {gui_ap50!r}")
+
+        # the weights out to the reference stack
+        stdout = export.result()
+        data = torch.load(exported, map_location="cpu", weights_only=True)
+        check(set(data) == {"model", "iteration"}, f"exported file holds {sorted(data)}")
+        saved = torch.load(keep["model_final"], map_location="cpu", weights_only=True)
+        student = {k[len("modelStudent."):]: v for k, v in data["model"].items() if k.startswith("modelStudent.")}
+        check(len(student) + sum(k.startswith("modelTeacher.") for k in data["model"]) == len(data["model"]) and student,
+              "exported keys")
+        cli_cfg = get_cfg()
+        cli_cfg.merge_from_file(os.path.join(ROOT, CLI_YAML))
+        Detector(detector_config_from_cfg(cli_cfg)).load_state_dict(student)  # strict, on the card
+        differ = [k for k, v in student.items() if not k.endswith("num_batches_tracked")
+                  and not (v.dtype == torch.float32 and torch.equal(v, saved["model"]["modelStudent." + k]))]
+        check(not differ, f"exported student tensors differ from the checkpoint's: {differ[:3]}")
+        check(data["iteration"] == saved["iteration"], f"iteration {data['iteration']} vs {saved['iteration']}")
+        log(f"  export_weights --which auto: {stdout.strip().splitlines()[-1]}; keys model, iteration "
+            f"({data['iteration']}); {len(student)} student tensors loaded strictly on the card, bit-equal to the "
+            "checkpoint's")
+
+        # device_trace around one raw call, then the raw path's time at batch 1
+        trace_dir = os.path.join(root, "trace")
+        with device_trace(trace_dir):
+            det.infer_raw(images_t, sizes_t)
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            trace = f.read()
+        named = {op: trace.count(op) for op in ("sfod::suppress_relation_bits", "sfod::greedy_keep_from_bits")}
+        check(all(named.values()), f"device_trace: {named}")
+        timer = StepTimer(warmup=TOOLS_WARMUP)
+        for _ in range(TOOLS_WARMUP + TOOLS_TIMED):
+            timer.start()
+            timer.stop(det.infer_raw(images_t[:1], sizes_t[:1]))
+        summary = timer.summary()
+        check(summary["steps"] == TOOLS_TIMED, f"StepTimer {summary}")
+        numbers["infer_raw_batch1_median_ms"] = summary["median_s"] * 1e3
+        log(f"  device_trace: {trace_dir}/trace.json ({len(trace) / 2**20:.2f} MiB) names {named}")
+        log(f"  infer_raw at batch 1 [{smi}]: median {summary['median_s'] * 1e3:.2f} ms, mean "
+            f"{summary['mean_s'] * 1e3:.2f} ms of {summary['steps']} (StepTimer, {TOOLS_WARMUP} warm-up)")
+        total = dict(_kernels.LAUNCHES)
+        # raw: 2 frames x 3 calls (kernel, sync-checked, traced); infer x 2:
+        # RPN and detection NMS on 2 frames; StepTimer: 1 an image
+        want_each = 3 * TOOLS_FRAMES + 2 * 2 * TOOLS_FRAMES + TOOLS_WARMUP + TOOLS_TIMED
+        check(all(c == want_each for c in total.values()), f"tools launches {total}, expected {want_each} of each")
+        numbers.update(tool_ap50=tool_ap50, test_ap50=keep["test_ap50"], valid_strict=n_strict, valid_loose=n_loose)
+        log(f"  launches on the tools path: {total}")
+    finally:
+        for b in background:
+            b.join()
+    return total, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5239,6 +5480,10 @@ def main() -> int:
             if held:
                 check(card_step_ok(err), f"adaptation step on the card differs from the CPU's: {err}")
 
+    # what the tools phase reads from the eval and cli phases
+    tools_dir = tempfile.TemporaryDirectory(prefix="sfod_tools_")
+    keep = {"dir": tools_dir.name}
+
     with Phase("eval"):
         # the host libraries, built in the build phase from the checkout's sources
         for name in ("imgcodec", "cocoeval"):
@@ -5300,6 +5545,18 @@ def main() -> int:
                 f"decode included), launches {eval_launches}, peak memory {peak_eval:.2f} GiB")
             for key, v in written.items():
                 log(f"    {key}: AP {v['AP']:.4f} AP50 {v['AP50']:.4f} F1 {v['F1']:.4f} DECE {v['DECE']}")
+            # the teacher's detections on the first TEST set as a COCO results
+            # file beside its GT, and test()'s AP50 on them: the tools phase's
+            # metrics tool and GUI read these
+            name = cfg.DATASETS.TEST[0]
+            id_map = get_dataset(name).get("id_map") or {}
+            keep["dets"] = os.path.join(keep["dir"], "coco_instances_results.json")
+            keep["gt"] = shutil.copy(path, os.path.join(keep["dir"], "annotations.json"))
+            keep["test_ap50"] = results[f"{name}/teacher"]["AP50"]
+            keep["dump_ap50"] = tr._evaluate(tr.teacher, name, dump_json=keep["dets"],
+                                             category_ids={v: k for k, v in id_map.items()})["AP50"]
+            log(f"  {name}: the teacher's detections written as a COCO results file (its evaluation's AP50 "
+                f"{keep['dump_ap50']!r}, test()'s {keep['test_ap50']!r})")
 
             # the whole eval loop (loader, dispatch, read-back, evaluators) by
             # pipeline depth, on the teacher (the fixed bfloat16 one)
@@ -5354,7 +5611,13 @@ def main() -> int:
             eval_dir.cleanup()
 
     with Phase("cli"):
-        cli_launches_total = cli_phase(smi, adapt_step_ms)
+        cli_launches_total = cli_phase(smi, adapt_step_ms, keep)
+
+    with Phase("tools"):
+        try:
+            tools_launches, tools_numbers = tools_phase(smi, keep)
+        finally:
+            tools_dir.cleanup()
 
     with Phase("r101"):
         r101_launches, r101_rows = r101_phase(smi)
@@ -5410,7 +5673,9 @@ def main() -> int:
         # weighted source-free steps and their CLIs) and zoo (the bare-VGG,
         # FPN and style runs, FPN test() and its artifact's requests, the
         # enhance CLI) and settings (the dropout SFAT steps, MC dropout, the
-        # R50-FPN steps and inference, the ImageNet-init CLIs). r101_per_step: the
+        # R50-FPN steps and inference, the ImageNet-init CLIs) and tools (the
+        # raw path, inference with overrides, device_trace and StepTimer's
+        # calls). r101_per_step: the
         # ResNet-101 adaptation step's three calls.
         # per_call: one served image's two calls; train_per_step: one
         # supervised step's RPN call; large_n: N above the keep kernel's
@@ -5423,9 +5688,9 @@ def main() -> int:
             "source": "simple_sfod_tpu_torch/ops/csrc/nms.cu",
             "replaces": replaces[name],
             "launches": launches[name] + train_launches[name] + adapt_launches[name] + eval_launches[name] +
-                        cli_launches_total[name] + r101_launches[name] + wq_launches[name] + car_launches[name] +
-                        export_launches[name] + da_launches[name] + zoo_launches[name] + settings_launches[name] +
-                        dist_launches[name],
+                        cli_launches_total[name] + tools_launches[name] + r101_launches[name] + wq_launches[name] +
+                        car_launches[name] + export_launches[name] + da_launches[name] + zoo_launches[name] +
+                        settings_launches[name] + dist_launches[name],
             "max_abs_err": float(max(r["err"] for r in per + rows[name] + large_rows[name])),
             "ms": sum(r["ms"] for r in per),
             "call_ms": sum(r["call_ms"] for r in per),
@@ -5436,6 +5701,7 @@ def main() -> int:
             "ptxas": ptxas[name],
             "launches_by_path": {"serve": launches[name], "train": train_launches[name], "adapt": adapt_launches[name],
                                  "eval": eval_launches[name], "cli": cli_launches_total[name],
+                                 "tools": tools_launches[name],
                                  "r101": r101_launches[name], "wq": wq_launches[name], "car": car_launches[name],
                                  "export": export_launches[name], "da": da_launches[name], "zoo": zoo_launches[name],
                                  "settings": settings_launches[name], "dist": dist_launches[name]},
@@ -5443,6 +5709,7 @@ def main() -> int:
             "zoo_runs": zoo_numbers,
             "settings_runs": settings_numbers,
             "dist_runs": dist_numbers,
+            "tools_runs": tools_numbers,
             "adapt_per_step": per,
             "r101_per_step": r101_rows[name],
             "per_call": rows[name],

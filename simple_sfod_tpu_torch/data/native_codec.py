@@ -13,6 +13,7 @@ and without any system image library.
                    lossless, hierarchical, arithmetic-coded, CMYK and
                    non-8-bit files are refused, each by name
   image_size       (height, width) of a PNG or JPEG from its header alone
+  encode_png       RGB uint8 [H, W, 3] -> the bytes of a PNG file (zlib)
 
 The JAX package's binding (`simple_sfod_tpu/data/native_codec.py`) returns
 None on any failure and its loader then decodes with PIL. This one raises:
@@ -154,6 +155,22 @@ def image_size(path: str) -> tuple:
             f.seek(n - 2, os.SEEK_CUR)
             if f.read(1) != b"\xff":
                 raise ValueError(f"{path}: corrupt JPEG marker segment")
+
+
+def encode_png(rgb: np.ndarray, level: int = 6) -> bytes:
+    """An 8-bit RGB PNG of rgb uint8 [H, W, 3]: every scanline unfiltered,
+    the stream deflated by zlib at `level`."""
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_png takes RGB [H, W, 3], not {rgb.shape}")
+    h, w = rgb.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return PNG_MAGIC + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw, level)) + chunk(b"IEND", b"")
 
 
 def _decode_png(data: bytes, path: str) -> np.ndarray:

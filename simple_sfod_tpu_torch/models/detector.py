@@ -1,7 +1,8 @@
 """Detector API (the port of `simple_sfod_tpu/models/detector.py`): the
 supervised losses (`supervised_losses`, `losses_from_feature`, with the BPC
 loss logged on request) with train-mode BatchNorm; inference (`infer`,
-`infer_from_feature`) under `torch.inference_mode`, with eval-mode or
+`infer_from_feature`, and `infer_raw` without score filter or class-wise
+NMS) under `torch.inference_mode`, with eval-mode or
 batch-statistics BatchNorm, through `InferenceModule`, the inference path
 as an `nn.Module` that `engine/export.py` exports; and the teacher's side of
 adaptation: `pseudo_labels`, a train-mode-BN forward that moves the running
@@ -52,16 +53,17 @@ class DetectionBatch(NamedTuple):
     gt: Instances
 
 
-def detect(model: FasterRCNN, feature: Feature, sizes: torch.Tensor, canvas_hw: Tuple[int, int]) -> Instances:
+def detect(model: FasterRCNN, feature: Feature, sizes: torch.Tensor, canvas_hw: Tuple[int, int], **roi) -> Instances:
     """Head-side inference of `model` on a backbone feature computed from
     padded canvases of size canvas_hw, sizes int32 [B, 2], all images at
-    once, in the caller's grad mode."""
+    once, in the caller's grad mode. `roi` goes to `roi_inference` (its
+    thresholds, topk and switches; the config's TEST values by default)."""
     cfg = model.cfg
     anchors = anchors_for(cfg, canvas_hw, feature_device(feature))
     proposals = propose(cfg, anchors, model.rpn(feature), sizes)
     scores, deltas = model.box(pool_rois(cfg, feature, proposals.boxes))
     b, r = proposals.boxes.shape[:2]
-    return roi_inference(cfg, scores.reshape(b, r, -1), deltas.reshape(b, r, -1), proposals, sizes)
+    return roi_inference(cfg, scores.reshape(b, r, -1), deltas.reshape(b, r, -1), proposals, sizes, **roi)
 
 
 class InferenceModule(nn.Module):
@@ -75,18 +77,19 @@ class InferenceModule(nn.Module):
             "valid" bool [B, K]},  K = TEST.DETECTIONS_PER_IMAGE
 
     `train_mode_bn` normalises by the batch statistics without moving the
-    running ones (the AdaBN probe). It sets no grad mode: `Detector.infer`
-    runs it under inference mode, `engine/export.py` traces it under
-    no_grad."""
+    running ones (the AdaBN probe); `roi` overrides `roi_inference`'s
+    thresholds and topk (K). It sets no grad mode: `Detector.infer` runs it
+    under inference mode, `engine/export.py` traces it under no_grad."""
 
-    def __init__(self, model: FasterRCNN, train_mode_bn: bool = False):
+    def __init__(self, model: FasterRCNN, train_mode_bn: bool = False, **roi):
         super().__init__()
         self.model = model
         self.train_mode_bn = train_mode_bn
+        self.roi = roi
 
     def forward(self, images: torch.Tensor, sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
         feature = self.model.features(images, train=self.train_mode_bn, update_bn=False)
-        dets = detect(self.model, feature, sizes, tuple(images.shape[1:3]))
+        dets = detect(self.model, feature, sizes, tuple(images.shape[1:3]), **self.roi)
         return {"boxes": dets.boxes, "scores": dets.scores, "classes": dets.classes, "valid": dets.valid}
 
 
@@ -205,10 +208,11 @@ class Detector:
             x = torch.from_numpy(np.ascontiguousarray(x))
         return x.to(self.device, dtype=dtype) if dtype else x.to(self.device)
 
-    def detect(self, feature: Feature, sizes, canvas_hw: Tuple[int, int]) -> Instances:
+    def detect(self, feature: Feature, sizes, canvas_hw: Tuple[int, int], **roi) -> Instances:
         """Head-side inference on a backbone feature computed from a padded
-        canvas of size canvas_hw, in the caller's grad mode."""
-        return detect(self.model, feature, self._tensor(sizes, torch.int32), canvas_hw)
+        canvas of size canvas_hw, in the caller's grad mode (`roi` as in
+        the module function `detect`)."""
+        return detect(self.model, feature, self._tensor(sizes, torch.int32), canvas_hw, **roi)
 
     @torch.inference_mode()
     def infer_from_feature(
@@ -216,19 +220,44 @@ class Detector:
         feature: Feature,
         sizes: torch.Tensor,
         canvas_hw: Tuple[int, int],
+        score_thresh: Optional[float] = None,
+        nms_thresh: Optional[float] = None,
+        topk: Optional[int] = None,
     ) -> Instances:
-        """`detect` under inference mode."""
-        return self.detect(feature, sizes, canvas_hw)
+        """`detect` under inference mode, with the JAX package's overrides
+        of the config's TEST thresholds and detections per image."""
+        return self.detect(feature, sizes, canvas_hw, score_thresh=score_thresh, nms_thresh=nms_thresh, topk=topk)
 
     @torch.inference_mode()
-    def infer(self, images, sizes, train_mode_bn: bool = False) -> Instances:
+    def infer(
+        self,
+        images,
+        sizes,
+        score_thresh: Optional[float] = None,
+        nms_thresh: Optional[float] = None,
+        topk: Optional[int] = None,
+        train_mode_bn: bool = False,
+    ) -> Instances:
         """images [B, H, W, 3] (uint8 canvases, the loader's layout), sizes
         [B, 2] int32 true (h, w) -> detections [B, topk]: boxes, scores,
-        classes, valid. `train_mode_bn` normalises by the batch statistics
-        without moving the running ones (the JAX package's AdaBN probe).
-        The code of an exported program (`InferenceModule`)."""
-        out = InferenceModule(self.model, train_mode_bn)(self._tensor(images), self._tensor(sizes, torch.int32))
-        return Instances(**out)
+        classes, valid. `score_thresh`, `nms_thresh` and `topk` override the
+        config's TEST values. `train_mode_bn` normalises by the batch
+        statistics without moving the running ones (the JAX package's AdaBN
+        probe). The code of an exported program (`InferenceModule`)."""
+        module = InferenceModule(self.model, train_mode_bn, score_thresh=score_thresh, nms_thresh=nms_thresh, topk=topk)
+        return Instances(**module(self._tensor(images), self._tensor(sizes, torch.int32)))
+
+    @torch.inference_mode()
+    def infer_raw(self, images, sizes, topk: int = 512) -> Instances:
+        """No score filter and no class-wise NMS: the reference's
+        fast_rcnn_inference_new, which feeds raw (box, score) pairs to the
+        BPC loss. Eval-mode BatchNorm; the RPN's proposals as in `infer`
+        (its NMS included). -> Instances [B, topk], the top-k of the
+        capped candidates by score."""
+        images = self._tensor(images)
+        feature = self.model.features(images, train=False)
+        return self.detect(feature, sizes, tuple(images.shape[1:3]), topk=topk, apply_nms=False,
+                           apply_score_thresh=False)
 
     @torch.no_grad()
     def pseudo_labels(self, images: torch.Tensor, sizes: torch.Tensor) -> Instances:

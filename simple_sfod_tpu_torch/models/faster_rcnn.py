@@ -706,13 +706,26 @@ def roi_inference(
     deltas: torch.Tensor,
     proposals: Instances,
     image_sizes: torch.Tensor,
+    score_thresh: Optional[float] = None,
+    nms_thresh: Optional[float] = None,
+    topk: Optional[int] = None,
+    apply_nms: bool = True,
+    apply_score_thresh: bool = True,
+    candidate_cap: Optional[int] = None,
 ) -> Instances:
     """Fast R-CNN inference (detectron2 fast_rcnn_inference with fixed
     shapes), all images at once. scores [B, R, C+1] logits, deltas
     [B, R, 4C] -> Instances [B, topk]: softmax, per-class decode and clip,
-    score threshold, a candidate cap of max(8 * topk, 1024), class-wise NMS,
-    top-k."""
-    topk = cfg.detections_per_image
+    score threshold, a candidate cap (`candidate_cap`, else
+    max(8 * topk, 1024), at most R*C), class-wise NMS, top-k. The
+    thresholds and topk default to the config's TEST values.
+
+    Without `apply_score_thresh` and `apply_nms` this is the reference's
+    fast_rcnn_inference_new, which feeds raw (box, score) pairs to the BPC
+    loss: the top-k of the capped candidates."""
+    score_thresh = cfg.score_thresh_test if score_thresh is None else score_thresh
+    nms_thresh = cfg.nms_thresh_test if nms_thresh is None else nms_thresh
+    topk = cfg.detections_per_image if topk is None else topk
     b, r = scores.shape[:2]
     num_classes = scores.shape[-1] - 1
     probs = torch.softmax(scores, dim=-1)[..., :-1]  # [B, R, C]
@@ -722,9 +735,13 @@ def roi_inference(
     flat_scores = probs.reshape(b, r * num_classes)
     flat_classes = torch.arange(num_classes, dtype=torch.int32, device=scores.device).repeat(r).expand(b, -1)
     valid = proposals.valid[..., None].expand(b, r, num_classes).reshape(b, -1) & nonempty(flat_boxes)
-    valid = valid & (flat_scores > cfg.score_thresh_test)
-    cap = min(r * num_classes, max(8 * topk, 1024))
+    if apply_score_thresh:
+        valid = valid & (flat_scores > score_thresh)
+    cap = min(r * num_classes, candidate_cap or max(8 * topk, 1024))
+    if cap < topk:  # the JAX package's top_k refuses k above its input's size
+        raise ValueError(f"topk {topk} exceeds the {cap} candidates (R*C {r * num_classes}, candidate_cap {candidate_cap})")
     key = torch.where(valid, flat_scores, torch.full_like(flat_scores, -float("inf")))
     cand = Instances(flat_boxes, flat_scores, flat_classes, valid).take(topk_indices(key, cap))
-    keep = nms.batched_class_nms(cand.boxes, cand.scores, cand.classes, cand.valid, cfg.nms_thresh_test)
-    return cand.mask(keep).top_k(topk)
+    if apply_nms:
+        cand = cand.mask(nms.batched_class_nms(cand.boxes, cand.scores, cand.classes, cand.valid, nms_thresh))
+    return cand.top_k(topk)

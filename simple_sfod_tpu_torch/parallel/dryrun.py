@@ -1,13 +1,15 @@
 """A dry run of the adaptation step on several processes (the counterpart of
 the JAX package's `__graft_entry__.py:dryrun_multichip`).
 
-    python -m simple_sfod_tpu_torch.parallel.dryrun N [--device cuda]
+    python -m simple_sfod_tpu_torch.parallel.dryrun N [--device cpu]
 
-`dryrun_multigpu(n)` starts n ranks (gloo on the CPU by default) that each
-build the source-free adaptive-teacher trainer on the tiny backbone
-(models/backbones/tiny.py) at a 32x64 canvas and take one full step on a
-seeded uint8 batch of n images, rank r holding image r: teacher forward,
-pseudo-labels, student forward and backward, the collectives. Each rank
+`dryrun_multigpu(n)` starts n ranks, one GPU each (NCCL), or on the CPU
+(gloo) when asked for with `device="cpu"`; without a GPU the default
+raises. Each rank builds the source-free adaptive-teacher trainer on the
+tiny backbone (models/backbones/tiny.py) at a 32x64 canvas and takes one
+full step on a seeded uint8 batch of n images, rank r holding image r:
+teacher forward, pseudo-labels, student forward and backward, the
+collectives. Each rank
 checks a finite loss and that every rank holds the same parameters, teacher
 included (a hash of the state). With n even, a second trainer runs data
 n/2 x model 2 on n/2 images with the box head split over the model axis
@@ -246,17 +248,20 @@ def compare_bands(cases: Dict[str, dict], device: str = "cpu") -> Dict[str, dict
     return out
 
 
-def dryrun_multigpu(n: int, device: str = "cpu", backend: str = None) -> None:
-    """n ranks, one SFAT step each (module docstring); raises on a failure."""
+def dryrun_multigpu(n: int, device: str = "cuda", backend: str = None) -> None:
+    """n ranks, one SFAT step each (module docstring); raises on a failure,
+    and on `device="cuda"` without a GPU."""
+    from ..device import resolve_device
     from .launch import launch
 
+    resolve_device(device)
     launch(_rank, n, device=device, backend=backend, args=(n, device), threads=1)
 
 
 if __name__ == "__main__":
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("n", type=int)
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default="cuda")
     p.add_argument("--backend", default=None)
     a = p.parse_args()
     dryrun_multigpu(a.n, a.device, a.backend)

@@ -367,3 +367,30 @@ def test_domain_adversarial_step_launches_as_counted(cuda, tmp_path, kind):
     want = chip_smoke.da_launches_per_step(kind, cfg)
     assert _kernels.LAUNCHES == {"suppress_relation_bits": want, "greedy_keep_from_bits": want}
     assert all(torch.isfinite(v) for k, v in metrics.items() if k.startswith("loss"))
+
+
+def test_infer_raw_kernel_equals_plain(cuda):
+    """The raw path (Detector.infer_raw: no score filter, no class-wise NMS)
+    through the NMS ops and through their plain versions on the card, bit
+    for bit, with one launch of each op an image (the RPN's) and nothing
+    read back (set_sync_debug_mode("error"))."""
+    from simple_sfod_tpu_torch.config import detector_config_from_cfg, get_main_cfg
+    from simple_sfod_tpu_torch.models.detector import Detector
+    from simple_sfod_tpu_torch.models.faster_rcnn import FasterRCNN, init_weights
+
+    cfg = get_main_cfg()
+    cfg.merge_from_list(["TPU.DTYPE", "float32", "TPU.CANVAS", "(128, 256)"])
+    dcfg = detector_config_from_cfg(cfg)
+    det = Detector(dcfg, device=cuda).load_state_dict(init_weights(FasterRCNN(dcfg), 0).state_dict())
+    images = torch.from_numpy(np.random.RandomState(1).randint(0, 256, (2, 128, 256, 3)).astype(np.uint8)).to(cuda)
+    sizes = torch.tensor([[128, 256], [120, 250]], dtype=torch.int32, device=cuda)
+    got, want, launches = chip_smoke.infer_raw_vs_plain(det, images, sizes, topk=64)
+    assert launches == {"suppress_relation_bits": 2, "greedy_keep_from_bits": 2}
+    assert chip_smoke.same_detections(got, want) and bool(got.valid.all())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = det.infer_raw(images, sizes, topk=64)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert chip_smoke.same_detections(again, got)

@@ -19,7 +19,9 @@ PKG = os.path.join(ROOT, "simple_sfod_tpu_torch")
 FILES = sorted(
     os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")
 ) + [os.path.join(ROOT, "chip_smoke.py")]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "simple_sfod_tpu"}
+# `tools` is the repo's JAX-side tools/ directory (the port's tools are
+# relative imports of simple_sfod_tpu_torch/tools/)
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "simple_sfod_tpu", "tools"}
 LAZY = {"yaml", "PIL"}
 
 
@@ -49,6 +51,22 @@ def test_no_jax_and_lazy_yaml_pil(path):
     assert not [m for m, in_fn in imports if m in LAZY and not in_fn], imports
 
 
+def test_pil_only_inside_draw_detections():
+    """PIL is imported by utils/visualize.py:draw_detections and nowhere
+    else: the GPU machine has no PIL, and the metrics toolkit and GUI read
+    image sizes from the file headers (data/native_codec.py:image_size)."""
+    users = {}
+    for path in FILES:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                for m, _ in _imports(ast.Module(body=node.body, type_ignores=[])):
+                    if m == "PIL":
+                        users.setdefault(os.path.relpath(path, ROOT), set()).add(node.name)
+    assert users == {"simple_sfod_tpu_torch/utils/visualize.py": {"draw_detections"}}, users
+
+
 def test_scanner_flags_module_level_imports():
     tree = ast.parse("import yaml\nfrom jax import numpy\ndef f():\n    import PIL\n")
     assert _imports(tree) == [("yaml", False), ("jax", False), ("PIL", True)]
@@ -70,6 +88,24 @@ def test_package_files_were_scanned():
     assert {"tools/sim10k_to_coco.py", "tools/kitti_to_coco.py"} <= names
     assert {"engine/export.py", "tools/export_model.py", "tools/serve_model.py", "utils/bench.py"} <= names
     assert {"models/dann.py", "engine/trainers/da.py", "engine/trainers/adaptive_teacher.py"} <= names
+    assert {
+        "evaluation/gui.py", "evaluation/toolkit.py", "evaluation/runner.py", "evaluation/report.py",
+        "evaluation/tube.py", "checkpoint/torch_export.py", "structures/image_list.py", "utils/profiling.py",
+        "utils/env.py", "tools/metrics_tool.py", "tools/metrics_gui.py", "tools/export_weights.py",
+        "tools/cityscapes_to_coco.py", "tools/inspect_coco.py",
+    } <= names
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each module of the JAX package has one of the same relative path in
+    the port, except ops/pallas_kernels.py, whose two kernels are the port's
+    ops/csrc/nms.cu (ops/nms.py registers them)."""
+    jax_pkg = os.path.join(ROOT, "simple_sfod_tpu")
+    jax_modules = {os.path.relpath(os.path.join(d, f), jax_pkg) for d, _, fs in os.walk(jax_pkg) for f in fs
+                   if f.endswith(".py")}
+    names = {os.path.relpath(p, PKG) for p in FILES}
+    assert jax_modules - names == {"ops/pallas_kernels.py"}
+    assert os.path.isfile(os.path.join(PKG, "ops", "csrc", "nms.cu"))
 
 
 def _build_sources():
@@ -170,6 +206,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Detector(detector_config_from_cfg(cfg))
     with pytest.raises(RuntimeError, match="CUDA"):
         DetectionService(cfg, {})
+    from simple_sfod_tpu_torch.parallel.dryrun import dryrun_multigpu
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multigpu(2)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

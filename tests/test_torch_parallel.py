@@ -718,5 +718,5 @@ def test_cli_refusals(tmp_path, monkeypatch, case):
 def test_dryrun_multigpu_two_ranks(capfd):
     from simple_sfod_tpu_torch.parallel.dryrun import dryrun_multigpu
 
-    dryrun_multigpu(2)
+    dryrun_multigpu(2, device="cpu")
     assert "dryrun_multigpu(2): total_loss=" in capfd.readouterr().out
