@@ -204,14 +204,18 @@ Phases (each prints one progress line with its wall time):
               serve_model's main with the port's models, config and
               trainers poisoned in sys.modules
  16. car      the paper's car-only source domains: the committed JPEG
-              fixtures (tests/torch_jpeg/) decoded by the port's baseline
-              decoder bit-equal to libjpeg-turbo's recorded SHA-256, the
-              progressive one refused; decode (and decode + resize) ms of a
-              1914x1052 JPEG beside a 1024x2048 PNG on one thread; 16
-              Sim10k records (the fixture frames with seeded VOC boxes,
+              fixtures (tests/torch_jpeg/: baseline, progressive, CMYK,
+              YCCK) decoded by the port's decoder bit-equal to the recorded
+              SHA-256 of libjpeg-turbo's (Pillow's) RGB, the ones it does
+              not read refused by name; decode (and decode + resize) ms of
+              a 1914x1052 JPEG, baseline and progressive, beside a
+              1024x2048 PNG and KITTI's Adam7 and 16-bit PNGs on one
+              thread; 16 Sim10k records (the fixture frames, the
+              progressive one among them, with seeded VOC boxes,
               converted by `python -m simple_sfod_tpu_torch.tools.sim10k_to_coco`'s
-              main) and 16 KITTI records (seeded 375x1242 PNGs and label
-              files, converted by kitti_to_coco from the PNG headers), and 8
+              main) and 16 KITTI records (seeded 375x1242 PNGs, two
+              Adam7-interlaced and two 16-bit, and label files, converted
+              by kitti_to_coco from the PNG headers), and 8
               Cityscapes 1024x2048 PNG frames (the first 4 as
               cityscapes_car_val) under a temporary SFOD_DATASETS; for each
               domain: its source YAML (configs/faster_rcnn_VGG_{sim10k,kitti}
@@ -1015,33 +1019,46 @@ def card_vs_cpu_adapt_step(canvas=(128, 256), image_hw=(120, 250)):
 
 
 # ---------------------------------------------------------------- eval data
-def png_bytes(rgb: np.ndarray, level: int = 1) -> bytes:
-    """An 8-bit RGB PNG of rgb [H, W, 3] uint8, written with the standard
-    library (zlib, struct): the rows filtered by types 0-4 in turn, so that
-    a decoder meets every filter."""
+def png_bytes(rgb: np.ndarray, level: int = 1, adam7: bool = False) -> bytes:
+    """An RGB PNG of rgb [H, W, 3] (uint8: 8 bits a sample, uint16: 16),
+    written with the standard library (zlib, struct): the rows filtered by
+    types 0-4 in turn, so that a decoder meets every filter; with `adam7`,
+    interlaced, each of the seven passes filtered on its own."""
     h, w, _ = rgb.shape
-    x = rgb.reshape(h, w * 3).astype(np.int16)
+    depth = 16 if rgb.dtype == np.uint16 else 8
+    passes = native_codec.ADAM7 if adam7 else ((0, 0, 1, 1),)
+    raw = b"".join(_filtered_rows(rgb[y0::dy, x0::dx], depth) for x0, y0, dx, dy in passes
+                   if x0 < w and y0 < h)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, 2, 0, 0, int(adam7))
+    return native_codec.PNG_MAGIC + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw, level)) + chunk(b"IEND", b"")
+
+
+def _filtered_rows(rgb: np.ndarray, depth: int) -> bytes:
+    """The scanlines of rgb [h, w, 3] at `depth` bits, row y behind filter
+    type y % 5."""
+    h = rgb.shape[0]
+    bpp = 3 * depth // 8
+    x = (rgb.astype(">u2").view(np.uint8) if depth == 16 else rgb).reshape(h, -1).astype(np.int16)
     a = np.zeros_like(x)
-    a[:, 3:] = x[:, :-3]
+    a[:, bpp:] = x[:, :-bpp]
     b = np.zeros_like(x)
     b[1:] = x[:-1]
     c = np.zeros_like(x)
-    c[1:, 3:] = x[:-1, :-3]
+    c[1:, bpp:] = x[:-1, :-bpp]
     p = a + b - c
     pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
     paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
     preds = (np.zeros_like(x), a, b, (a + b) // 2, paeth)
     ft = np.arange(h) % 5
-    rows = np.empty((h, w * 3 + 1), np.uint8)
+    rows = np.empty((h, x.shape[1] + 1), np.uint8)
     rows[:, 0] = ft
     for t, pred in enumerate(preds):
         rows[ft == t, 1:] = ((x - pred)[ft == t] % 256).astype(np.uint8)
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return native_codec.PNG_MAGIC + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + chunk(b"IEND", b"")
+    return rows.tobytes()
 
 
 # the frames of write_eval_dataset by (n, hw, seed): (records, [(file name,
@@ -2274,6 +2291,8 @@ CAR_DOMAINS = {
                   canvas=(608, 2016)),
 }
 CAR_FRAMES = 16  # source-domain records written
+KITTI_ADAM7 = (1, 3)  # the KITTI frames written Adam7-interlaced
+KITTI_16BIT = (2, 3)  # and at 16 bits a sample
 CAR_TEST_FRAMES = 4  # cityscapes_car_val frames (the cli phase's 1024x2048 PNGs)
 CAR_TARGET_FRAMES = 8  # cityscapes_instancesonly_train frames, the adaptation's target
 CAR_BATCH = 4  # the source runs' IMS_PER_BATCH
@@ -2288,32 +2307,34 @@ CAR_SKIPPED = {"roi_heads.box_predictor.cls_score.weight", "roi_heads.box_predic
 
 def jpeg_fixtures() -> dict:
     """tests/torch_jpeg/fixtures.json: each committed JPEG's shape, sampling
-    and the SHA-256 of the RGB that libjpeg-turbo decodes from it (sha256
-    null: a file the port must refuse)."""
+    and the SHA-256 of the RGB that libjpeg-turbo (Pillow) decodes from it,
+    or, for a file the port must refuse, the refusal's message."""
     with open(os.path.join(JPEG_FIXTURES, "fixtures.json")) as f:
         return json.load(f)
 
 
 def check_jpeg_fixtures() -> dict:
     """Each fixture decoded by the port's decoder on this host, its RGB's
-    SHA-256 equal to libjpeg's recorded one; the progressive one refused.
-    -> {name: sampling} of the files checked."""
+    SHA-256 equal to libjpeg's recorded one; each refused one refused by
+    its recorded message. -> {name: sampling, or "refused"} of the files
+    checked."""
     import hashlib
 
     done = {}
     for name, rec in sorted(jpeg_fixtures().items()):
         path = os.path.join(JPEG_FIXTURES, name)
-        if rec["sha256"] is None:
+        if rec["refused"] is not None:
             try:
                 native_codec.decode(path)
             except ValueError as e:
-                check("progressive" in str(e), f"{name}: refused as {e}")
+                check(rec["refused"] in str(e), f"{name}: refused as {e}, not for {rec['refused']}")
             else:
-                check(False, f"{name}: the progressive fixture decoded")
-        else:
-            rgb = native_codec.decode(path)
-            check(list(rgb.shape) == rec["shape"] and hashlib.sha256(rgb.tobytes()).hexdigest() == rec["sha256"],
-                  f"{name}: decode differs from libjpeg's recorded digest")
+                check(False, f"{name}: decoded, but the port does not read it ({rec['refused']})")
+            done[name] = "refused"
+            continue
+        rgb = native_codec.decode(path)
+        check(list(rgb.shape) == rec["shape"] and hashlib.sha256(rgb.tobytes()).hexdigest() == rec["sha256"],
+              f"{name}: decode differs from libjpeg's recorded digest")
         done[name] = rec["sampling"]
     return done
 
@@ -2346,7 +2367,8 @@ def car_boxes(rng: np.random.RandomState, hw, k: int) -> list:
 
 def write_sim10k(root: str, n: int = CAR_FRAMES, seed: int = SEED) -> dict:
     """n Sim10k-style records under root/sim10k: JPEGImages/<id>.jpg copied
-    from the committed 1914x1052 fixture frames, Annotations/<id>.xml with
+    in turn from the committed 1914x1052 fixture frames (three baseline, one
+    progressive), Annotations/<id>.xml with
     seeded VOC boxes (cars, and a person and a motorbike that the car-only
     converter drops), converted by the port's sim10k_to_coco into
     annotations/sim10k_trainval.json. -> the converter's COCO dict."""
@@ -2375,20 +2397,30 @@ def write_sim10k(root: str, n: int = CAR_FRAMES, seed: int = SEED) -> dict:
 
 def write_kitti(root: str, n: int = CAR_FRAMES, seed: int = SEED) -> dict:
     """n KITTI-style records under root/kitti/training: image_2/<id>.png
-    (seeded synthetic frames at KITTI's 375x1242) and label_2/<id>.txt with
-    Car lines and a DontCare line, converted by the port's kitti_to_coco
-    (image sizes from the PNG headers) into annotations/kitti_train.json.
-    -> the converter's COCO dict."""
+    (seeded synthetic frames at KITTI's 375x1242; KITTI_ADAM7's written
+    Adam7-interlaced, KITTI_16BIT's at 16 bits a sample with the frame as
+    the high byte and seeded noise as the low, so that each decodes to the
+    8-bit frame) and label_2/<id>.txt with Car lines and a DontCare line,
+    converted by the port's kitti_to_coco (image sizes from the PNG headers)
+    into annotations/kitti_train.json. Each interlaced and 16-bit file is
+    decoded back to its frame here. -> the converter's COCO dict."""
     base = os.path.join(root, "kitti")
     img_dir, lab_dir = os.path.join(base, "training", "image_2"), os.path.join(base, "training", "label_2")
     os.makedirs(img_dir)
     os.makedirs(lab_dir)
     hw = CAR_DOMAINS["kitti"]["hw"]
     recs = make_synthetic_records(n, hw, 1, 6, seed=seed)
+    noise = np.random.RandomState(seed)
     for i, r in enumerate(recs):
         rgb = np.clip(synthetic_image(r), 0, 255).astype(np.uint8)
-        with open(os.path.join(img_dir, f"{i:06d}.png"), "wb") as f:
-            f.write(png_bytes(rgb))
+        img = rgb
+        if i in KITTI_16BIT:
+            img = (rgb.astype(np.uint16) << 8) | noise.randint(0, 256, rgb.shape).astype(np.uint16)
+        path = os.path.join(img_dir, f"{i:06d}.png")
+        with open(path, "wb") as f:
+            f.write(png_bytes(img, adam7=i in KITTI_ADAM7))
+        if i in KITTI_16BIT or i in KITTI_ADAM7:
+            check(np.array_equal(native_codec.decode(path), rgb), f"kitti {path}: decode differs from its frame")
         lines = [f"Car 0.00 0 -1.57 {x1:.2f} {y1:.2f} {x2:.2f} {y2:.2f} 1.50 1.60 3.90 1.0 1.7 20.0 -1.5"
                  for x1, y1, x2, y2 in r["boxes"]]
         lines.append("DontCare -1 -1 -10 10.00 10.00 40.00 40.00 -1 -1 -1 -1000 -1000 -1000 -10")
@@ -2529,12 +2561,14 @@ def car_phase(smi: str):
     """The car phase (module docstring). -> (the launches of each kernel on
     the path, a dict of numbers for the kernels line's notes)."""
     done = check_jpeg_fixtures()
-    log(f"  {len(done)} committed JPEG fixtures on this host: every decodable one bit-equal to libjpeg's recorded "
-        f"digest, the progressive one refused ({', '.join(sorted(set(done.values())))})")
-    frame = os.path.join(JPEG_FIXTURES, "sim10k_frame_0.jpg")
-    jpeg_dec, jpeg_both = decode_resize_ms(frame)
+    refused = sorted(k for k, v in done.items() if v == "refused")
+    log(f"  {len(done)} committed JPEG fixtures on this host: {len(done) - len(refused)} bit-equal to libjpeg's "
+        f"recorded digest ({', '.join(sorted(set(done.values()) - {'refused'}))}), {refused} refused by name")
+    jpeg_dec, jpeg_both = decode_resize_ms(os.path.join(JPEG_FIXTURES, "sim10k_frame_0.jpg"))
+    prog_dec, prog_both = decode_resize_ms(os.path.join(JPEG_FIXTURES, "sim10k_frame_0_progressive.jpg"))
     total = {k: 0 for k in _kernels.LAUNCHES}
-    numbers = {"jpeg_decode_ms": jpeg_dec, "jpeg_decode_resize_ms": jpeg_both}
+    numbers = {"jpeg_decode_ms": jpeg_dec, "jpeg_decode_resize_ms": jpeg_both,
+               "progressive_decode_ms": prog_dec, "progressive_decode_resize_ms": prog_both}
     background = []
 
     def add(d):
@@ -2549,21 +2583,29 @@ def car_phase(smi: str):
         sim = write_sim10k(data_root)
         kitti = write_kitti(data_root)
         write_cityscapes_car(data_root)
-        png = os.path.join(data_root, "kitti", "training", "image_2", "000000.png")
+        kitti_png = os.path.join(data_root, "kitti", "training", "image_2", "{:06d}.png")
+        png = kitti_png.format(0)
         city = os.path.join(data_root, "cityscapes", "leftImg8bit", "frame_0001.png")
         png_dec, png_both = decode_resize_ms(city)
-        numbers.update(png_decode_ms=png_dec, png_decode_resize_ms=png_both)
+        kitti_ms = {kind: decode_resize_ms(kitti_png.format(i))[0] for kind, i in
+                    (("8-bit", 0), ("Adam7", KITTI_ADAM7[0]), ("16-bit", KITTI_16BIT[0]),
+                     ("16-bit Adam7", KITTI_16BIT[-1]))}
+        numbers.update(png_decode_ms=png_dec, png_decode_resize_ms=png_both, kitti_png_decode_ms=kitti_ms)
         check(native_codec.image_size(png) == CAR_DOMAINS["kitti"]["hw"], "kitti PNG header size")
         check(all(im["height"] == 375 and im["width"] == 1242 for im in kitti["images"]),
               "kitti_to_coco image sizes")
         check(sum(a["category_id"] == 1 for a in sim["annotations"]) == len(sim["annotations"]) > 0,
               "sim10k_to_coco kept other classes or no car")
-        log(f"  wrote {CAR_FRAMES} Sim10k records (JPEG, {len(sim['annotations'])} cars after sim10k_to_coco), "
-            f"{CAR_FRAMES} KITTI records (PNG, {len(kitti['annotations'])} boxes after kitti_to_coco, sizes from the "
+        log(f"  wrote {CAR_FRAMES} Sim10k records (JPEG, a quarter progressive, {len(sim['annotations'])} cars after "
+            f"sim10k_to_coco), {CAR_FRAMES} KITTI records (PNG, frames {KITTI_ADAM7} Adam7, {KITTI_16BIT} 16-bit, "
+            f"each decoded back to its frame; {len(kitti['annotations'])} boxes after kitti_to_coco, sizes from the "
             f"headers) and {CAR_TARGET_FRAMES} Cityscapes frames ({CAR_TEST_FRAMES} as cityscapes_car_val) in "
             f"{time.perf_counter() - t0:.2f} s")
         log(f"  host decode on one thread [{smi}]: a 1914x1052 4:2:0 JPEG {jpeg_dec:.2f} ms, with the resize to "
-            f"600 px {jpeg_both:.2f} ms; a 1024x2048 PNG {png_dec:.2f} ms, with the resize {png_both:.2f} ms")
+            f"600 px {jpeg_both:.2f} ms; its progressive re-encoding {prog_dec:.2f} ms, with the resize "
+            f"{prog_both:.2f} ms ({prog_dec / jpeg_dec:.2f}x the baseline's decode); a 1024x2048 PNG {png_dec:.2f} ms, "
+            f"with the resize {png_both:.2f} ms; a 375x1242 KITTI PNG "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in kitti_ms.items()))
         w1 = os.path.join(root, "source_1class.pth")
         car_weights(w1)
         for name in ("sim10k_trainval", "kitti_train", "cityscapes_car_val", "cityscapes_instancesonly_train"):

@@ -1,14 +1,21 @@
-// Baseline JPEG decoder of the PyTorch port: plain C++17, no libjpeg.
+// JPEG decoder of the PyTorch port: plain C++17, no libjpeg.
 //
 // It gives the pixels that libjpeg-turbo gives with PIL's default settings
-// (ISLOW IDCT, fancy upsampling, RGB out) bit for bit, by following
-// libjpeg-turbo's integer code rather than the standard's real arithmetic:
+// (ISLOW IDCT, fancy upsampling, RGB out; CMYK out and Pillow's conversion
+// for 4 components) bit for bit, by following libjpeg-turbo's integer code
+// rather than the standard's real arithmetic:
 //
 //   entropy   jdhuff.c: canonical tables (jpeg_make_d_derived_tbl and its
 //             checks), HUFF_EXTEND, DC predictors summed in unsigned int and
 //             stored as 16-bit coefficients; a restart drops the bit buffer
 //             and resets the predictors; the standard tables (jstdhuff.c)
-//             stand in for DC/AC tables 0 and 1 that a file never defines
+//             stand in for DC/AC tables 0 and 1 that a sequential file never
+//             defines
+//   progress  jdphuff.c: decode_mcu_DC_first, _DC_refine, _AC_first and
+//             _AC_refine with the EOB run (reset with the predictors at a
+//             restart), the scan checks of start_pass_phuff_decoder and its
+//             coef_bits progression; coefficients collect across scans in
+//             the whole-image buffer and are transformed once, after EOI
 //   IDCT      jidctint.c:jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2,
 //             DESCALE rounding, the zero-column and zero-row shortcuts) and
 //             its output through the 1024-entry range-limit table
@@ -19,18 +26,29 @@
 //             h1v2 fancy, plain replication otherwise; context rows
 //             replicated at the image's top and bottom (jdmainct.c)
 //   colour    jdcolor.c: build_ycc_rgb_table (SCALEBITS 16), RGB copied,
-//             grey replicated; the colour space guessed as
-//             jdapimin.c:default_decompress_parms guesses it
+//             grey replicated, YCCK to CMYK (ycck_cmyk_convert), CMYK kept;
+//             the colour space guessed as jdapimin.c:default_decompress_parms
+//             guesses it (an unknown Adobe transform as the YCbCr or YCCK
+//             that libjpeg assumes after its warning). Pillow reads 4
+//             components as inverted CMYK ("CMYK;I", JpegImagePlugin.py)
+//             and its convert("RGB") is Convert.c:cmyk2rgb
 //
 // What it decodes: SOF0/SOF1 (8-bit Huffman sequential, 8- and 16-bit
-// quantisation tables), 1 or 3 components with integral sampling factors,
-// interleaved and non-interleaved scans, restart intervals. Everything else
-// is refused with its own code (kProgressive, ...), and so is every file on
-// which libjpeg would warn: data that ends early, bytes before a marker, a
-// missing or misnumbered restart marker, a Huffman code that is not in its
-// table, a sequential scan with progressive parameters. Where libjpeg only
-// warns and pads (a truncated file), this decoder refuses.
+// quantisation tables) and SOF2 (8-bit Huffman progressive); 1, 3 or 4
+// components with integral sampling factors, interleaved and non-interleaved
+// scans, restart intervals. Everything else is refused with its own code
+// (kLossless, kArithmetic, ...), and so is every file on which libjpeg would
+// warn: data that ends early, bytes before a marker, a missing or
+// misnumbered restart marker, a Huffman code that is not in its table, a
+// sequential scan with progressive parameters, a progression out of order
+// (JWRN_BOGUS_PROGRESSION, kBadProgression). Where libjpeg only warns and
+// pads (a truncated file), this decoder refuses. A progressive file whose
+// last scans leave any of the first nine AC coefficients unrefined is
+// refused too (kSmoothing): libjpeg-turbo smooths its blocks
+// (jdcoefct.c:decompress_smooth_data), which this decoder does not do.
 
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -45,7 +63,7 @@ enum Code : int {
   kCorrupt = -2,
   kTruncated = -3,
   kNoMemory = -4,
-  kProgressive = -5,
+  kBadProgression = -5,
   kLossless = -6,
   kHierarchical = -7,
   kArithmetic = -8,
@@ -53,6 +71,7 @@ enum Code : int {
   kComponents = -10,
   kFractionalSampling = -11,
   kBadSampling = -12,
+  kSmoothing = -13,
 };
 
 struct Refusal {
@@ -443,7 +462,11 @@ struct Component {
   bool latched = false;
   int16_t qt[64] = {};   // the latched table, natural order, as ISLOW_MULT_TYPE;
                          // zeros for a component no scan reaches (libjpeg's too)
+  int coef_bits[64];     // progressive: Al of the last scan of each coefficient
+                         // (zigzag order), -1 before its first (cinfo->coef_bits)
   std::vector<int16_t> coef;
+
+  Component() { std::fill(coef_bits, coef_bits + 64, -1); }
   std::vector<uint8_t> plane;
 };
 
@@ -456,8 +479,9 @@ struct Decoder {
   HuffSpec dc[4], ac[4];
   int restart_interval = 0;
   bool saw_sof = false, saw_jfif = false, saw_adobe = false, first_scan = true, multi_scan = false;
+  bool progressive = false;
   int adobe_transform = 0;
-  bool rgb = false;  // the colour space: RGB (else YCbCr or grey)
+  enum Colour { kGrey, kYCbCr, kRGB, kCMYK, kYCCK } colour = kGrey;
   int W = 0, H = 0, hmax = 1, vmax = 1;
   std::vector<Component> comps;
 
@@ -547,7 +571,7 @@ struct Decoder {
   void read_sof(int marker) {
     switch (marker) {
       case 0xC0: case 0xC1: break;
-      case 0xC2: refuse(kProgressive);
+      case 0xC2: progressive = true; break;
       case 0xC3: refuse(kLossless);
       case 0xC5: case 0xC6: case 0xC7: refuse(kHierarchical);
       default: refuse(kArithmetic);  // SOF9-SOF15
@@ -564,7 +588,7 @@ struct Decoder {
     p += 6;
     if (H == 0 || W == 0 || nc == 0 || len != 6 + 3 * nc) refuse(kCorrupt);
     if (precision != 8) refuse(kPrecision);
-    if (nc != 1 && nc != 3) refuse(kComponents);
+    if (nc != 1 && nc != 3 && nc != 4) refuse(kComponents);
     if (W > 65500 || H > 65500) refuse(kCorrupt);
     comps.resize(nc);
     for (auto& c : comps) {
@@ -592,11 +616,13 @@ struct Decoder {
 
   // jdapimin.c:default_decompress_parms
   void guess_colour_space() {
-    if (comps.size() != 3 || saw_jfif) return;
-    if (saw_adobe) {
-      rgb = adobe_transform == 0;
-    } else {
-      rgb = comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B';
+    if (comps.size() == 4) {
+      colour = saw_adobe && adobe_transform != 0 ? kYCCK : kCMYK;
+    } else if (comps.size() == 3) {
+      const bool rgb = saw_jfif    ? false
+                       : saw_adobe ? adobe_transform == 0
+                                   : comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B';
+      colour = rgb ? kRGB : kYCbCr;
     }
   }
 
@@ -621,11 +647,11 @@ struct Decoder {
       found->ta = tables & 15;
       scan.push_back(found);
     }
-    const int ss = d[p], se = d[p + 1], ahal = d[p + 2];
-    if (ss != 0 || se != 63 || ahal != 0) refuse(kCorrupt);  // JWRN_NOT_SEQUENTIAL
+    const int ss = d[p], se = d[p + 1], ah = d[p + 2] >> 4, al = d[p + 2] & 15;
+    if (!progressive && (ss != 0 || se != 63 || ah != 0 || al != 0)) refuse(kCorrupt);  // JWRN_NOT_SEQUENTIAL
     if (first_scan) {
       first_scan = false;
-      multi_scan = scan.size() < comps.size();
+      multi_scan = progressive || scan.size() < comps.size();
       guess_colour_space();
       for (auto& c : comps) {
         c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
@@ -643,24 +669,62 @@ struct Decoder {
       blocks += c->h * c->v;
     }
     if (scan.size() > 1 && blocks > 10) refuse(kBadSampling);  // JERR_BAD_MCU_SIZE
-    decode_scan(scan);
+    if (progressive) check_progression(scan, ss, se, ah, al);
+    decode_scan(scan, ss, se, ah, al);
+  }
+
+  // jdphuff.c:start_pass_phuff_decoder: JERR_BAD_PROGRESSION, and the
+  // coef_bits checks where libjpeg warns (JWRN_BOGUS_PROGRESSION)
+  static void check_progression(const std::vector<Component*>& scan, int ss, int se, int ah, int al) {
+    const bool dc_band = ss == 0;
+    bool bad = dc_band ? se != 0 : (ss > se || se > 63 || scan.size() != 1);
+    if (ah != 0 && al != ah - 1) bad = true;
+    if (al > 13) bad = true;
+    if (bad) refuse(kBadProgression);
+    for (auto* c : scan) {
+      if (!dc_band && c->coef_bits[0] < 0) refuse(kBadProgression);  // AC before the first DC scan
+      for (int k = ss; k <= se; k++) {
+        if (ah != std::max(c->coef_bits[k], 0)) refuse(kBadProgression);
+        c->coef_bits[k] = al;
+      }
+    }
+  }
+
+  // jdcoefct.c:smoothing_ok: libjpeg-turbo smooths the blocks of a
+  // progressive image whose scans leave any of the first nine AC
+  // coefficients unrefined, when every component has its DC and nonzero
+  // quantisers for those coefficients
+  void check_smoothing() const {
+    bool useful = false;
+    for (const auto& c : comps) {
+      if (!c.latched || c.coef_bits[0] < 0) return;
+      for (int k = 0; k < 10; k++)
+        if (c.qt[kNaturalOrder[k]] == 0) return;
+      for (int k = 1; k < 10; k++) useful = useful || c.coef_bits[k] != 0;
+    }
+    if (useful) refuse(kSmoothing);
   }
 
   const HuffSpec& table(HuffSpec* specs, int slot, bool is_ac) {
     if (slot >= 4) refuse(kCorrupt);
     if (!specs[slot].defined) {
-      if (slot >= 2) refuse(kCorrupt);
+      // jdphuff.c loads no standard tables: JERR_NO_HUFF_TABLE
+      if (slot >= 2 || progressive) refuse(kCorrupt);
       specs[slot] = std_table(is_ac, slot);
     }
     return specs[slot];
   }
 
-  void decode_scan(const std::vector<Component*>& scan) {
+  void decode_scan(const std::vector<Component*>& scan, int ss, int se, int ah, int al) {
     const int ns = static_cast<int>(scan.size());
+    // the tables a scan reads: both (sequential), DC (a first DC scan), AC
+    // (an AC scan), none (a DC refinement)
+    const bool dc_band = ss == 0;
+    const bool need_dc = !progressive || (dc_band && ah == 0), need_ac = !progressive || !dc_band;
     std::vector<Huffman> hdc(ns), hac(ns);
     for (int i = 0; i < ns; i++) {
-      hdc[i].derive(table(dc, scan[i]->td, false), true);
-      hac[i].derive(table(ac, scan[i]->ta, true), false);
+      if (need_dc) hdc[i].derive(table(dc, scan[i]->td, false), true);
+      if (need_ac) hac[i].derive(table(ac, scan[i]->ta, true), false);
     }
     int mcus_x, mcus_y;
     if (ns == 1) {
@@ -672,6 +736,7 @@ struct Decoder {
     }
     BitReader br(d, n, pos);
     int pred[4] = {0, 0, 0, 0};
+    unsigned eobrun = 0;
     int to_go = restart_interval, next_rst = 0;
     const int64_t total = static_cast<int64_t>(mcus_x) * mcus_y;
     for (int64_t m = 0; m < total; m++) {
@@ -680,6 +745,7 @@ struct Decoder {
           restart(&br, next_rst);
           next_rst = (next_rst + 1) & 7;
           for (int& p : pred) p = 0;
+          eobrun = 0;
           to_go = restart_interval;
         }
         to_go--;
@@ -691,7 +757,20 @@ struct Decoder {
         for (int y = 0; y < bh; y++) {
           for (int x = 0; x < bwid; x++) {
             const size_t by = static_cast<size_t>(my) * bh + y, bx = static_cast<size_t>(mx) * bwid + x;
-            decode_block(&br, hdc[i], hac[i], &pred[i], &c->coef[(by * c->bw + bx) * 64]);
+            int16_t* blk = &c->coef[(by * c->bw + bx) * 64];
+            if (!progressive) {
+              decode_block(&br, hdc[i], hac[i], &pred[i], blk);
+            } else if (dc_band) {
+              if (ah == 0) {
+                dc_first(&br, hdc[i], &pred[i], blk, al);
+              } else if (br.get(1)) {  // decode_mcu_DC_refine
+                blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+              }
+            } else if (ah == 0) {
+              ac_first(&br, hac[i], blk, ss, se, al, &eobrun);
+            } else {
+              ac_refine(&br, hac[i], blk, ss, se, al, &eobrun);
+            }
           }
         }
       }
@@ -716,6 +795,78 @@ struct Decoder {
         if (r != 15) break;
         k += 15;
       }
+    }
+  }
+
+  // jdphuff.c:decode_mcu_DC_first
+  static void dc_first(BitReader* br, const Huffman& hd, int* pred, int16_t* blk, int al) {
+    const int diff = br->receive_extend(br->decode(hd));
+    if ((*pred >= 0 && diff > INT_MAX - *pred) || (*pred < 0 && diff < INT_MIN - *pred))
+      refuse(kCorrupt);  // JERR_BAD_DCT_COEF
+    *pred += diff;
+    blk[0] = static_cast<int16_t>(static_cast<uint32_t>(*pred) << al);
+  }
+
+  // jdphuff.c:decode_mcu_AC_first (an AC scan codes one block an MCU)
+  static void ac_first(BitReader* br, const Huffman& ha, int16_t* blk, int ss, int se, int al, unsigned* eobrun) {
+    if (*eobrun > 0) {
+      (*eobrun)--;
+      return;
+    }
+    for (int k = ss; k <= se; k++) {
+      const int rs = br->decode(ha);
+      const int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNaturalOrder[k]] = static_cast<int16_t>(static_cast<uint32_t>(br->receive_extend(s)) << al);
+      } else if (r == 15) {
+        k += 15;  // ZRL
+      } else {  // EOBr: this block and the next 2^r - 1 + (r more bits) end their band here
+        *eobrun = (1u << r) - 1;
+        if (r) *eobrun += br->get(r);
+        break;
+      }
+    }
+  }
+
+  // jdphuff.c:decode_mcu_AC_refine: a correction bit for every nonzero
+  // coefficient passed, newly nonzero ones +-2^Al
+  static void ac_refine(BitReader* br, const Huffman& ha, int16_t* blk, int ss, int se, int al, unsigned* eobrun) {
+    const int p1 = 1 << al, m1 = -p1;
+    auto correct = [&](int16_t* c) {
+      if (br->get(1) && (*c & p1) == 0) *c = static_cast<int16_t>(*c >= 0 ? *c + p1 : *c + m1);
+    };
+    int k = ss;
+    if (*eobrun == 0) {
+      for (; k <= se; k++) {
+        const int rs = br->decode(ha);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1) refuse(kCorrupt);  // JWRN_HUFF_BAD_CODE
+          s = br->get(1) ? p1 : m1;
+        } else if (r != 15) {
+          *eobrun = 1u << r;
+          if (r) *eobrun += br->get(r);
+          break;
+        }
+        do {
+          int16_t* c = &blk[kNaturalOrder[k]];
+          if (*c != 0) {
+            correct(c);
+          } else if (--r < 0) {
+            break;  // the zero that the new coefficient takes
+          }
+          k++;
+        } while (k <= se);
+        if (s) blk[kNaturalOrder[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (*eobrun > 0) {
+      for (; k <= se; k++) {
+        int16_t* c = &blk[kNaturalOrder[k]];
+        if (*c != 0) correct(c);
+      }
+      (*eobrun)--;
     }
   }
 
@@ -769,6 +920,7 @@ struct Decoder {
       }
     }
     if (first_scan) refuse(kCorrupt);  // no image: JERR_NO_IMAGE
+    if (progressive) check_smoothing();
   }
 
   void output(uint8_t* rgb_out) {
@@ -784,20 +936,28 @@ struct Decoder {
     const int nc = static_cast<int>(comps.size());
     std::vector<std::vector<uint8_t>> rows(nc);
     for (int i = 0; i < nc; i++) rows[i].resize(static_cast<size_t>(comps[i].bw) * 8 * hmax + 16);
-    const uint8_t* row[3] = {nullptr, nullptr, nullptr};
+    const uint8_t* row[4] = {nullptr, nullptr, nullptr, nullptr};
     for (int y = 0; y < H; y++) {
       for (int i = 0; i < nc; i++) row[i] = upsample_row(comps[i], y, rows[i].data());
       uint8_t* o = rgb_out + static_cast<size_t>(y) * W * 3;
-      if (nc == 1) {
-        for (int x = 0; x < W; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = row[0][x];
-      } else if (rgb) {
-        for (int x = 0; x < W; x++) {
-          o[3 * x] = row[0][x];
-          o[3 * x + 1] = row[1][x];
-          o[3 * x + 2] = row[2][x];
-        }
-      } else {
-        ycc_rgb_row(row[0], row[1], row[2], W, o);
+      switch (colour) {
+        case kGrey:
+          for (int x = 0; x < W; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = row[0][x];
+          break;
+        case kRGB:
+          for (int x = 0; x < W; x++) {
+            o[3 * x] = row[0][x];
+            o[3 * x + 1] = row[1][x];
+            o[3 * x + 2] = row[2][x];
+          }
+          break;
+        case kYCbCr:
+          ycc_rgb_row(row[0], row[1], row[2], W, o);
+          break;
+        case kCMYK:
+        case kYCCK:
+          cmyk_rgb_row(row, W, colour == kYCCK, o);
+          break;
       }
     }
   }
@@ -829,30 +989,60 @@ struct Decoder {
     return tmp;
   }
 
-  // jdcolor.c:ycc_rgb_convert with build_ycc_rgb_table's tables
-  static void ycc_rgb_row(const uint8_t* yp, const uint8_t* cbp, const uint8_t* crp, int w, uint8_t* o) {
-    struct Tables {
-      int cr_r[256], cb_b[256];
-      int64_t cr_g[256], cb_g[256];
-      Tables() {
-        constexpr int kScale = 16;
-        constexpr int64_t kHalf = int64_t{1} << (kScale - 1);
-        auto fix = [](double x) { return static_cast<int64_t>(x * (1L << kScale) + 0.5); };
-        for (int i = 0, x = -128; i < 256; i++, x++) {
-          cr_r[i] = static_cast<int>((fix(1.40200) * x + kHalf) >> kScale);
-          cb_b[i] = static_cast<int>((fix(1.77200) * x + kHalf) >> kScale);
-          cr_g[i] = -fix(0.71414) * x;
-          cb_g[i] = -fix(0.34414) * x + kHalf;
-        }
+  // jdcolor.c:build_ycc_rgb_table
+  struct YccTables {
+    int cr_r[256], cb_b[256];
+    int64_t cr_g[256], cb_g[256];
+    YccTables() {
+      constexpr int kScale = 16;
+      constexpr int64_t kHalf = int64_t{1} << (kScale - 1);
+      auto fix = [](double x) { return static_cast<int64_t>(x * (1L << kScale) + 0.5); };
+      for (int i = 0, x = -128; i < 256; i++, x++) {
+        cr_r[i] = static_cast<int>((fix(1.40200) * x + kHalf) >> kScale);
+        cb_b[i] = static_cast<int>((fix(1.77200) * x + kHalf) >> kScale);
+        cr_g[i] = -fix(0.71414) * x;
+        cb_g[i] = -fix(0.34414) * x + kHalf;
       }
-    };
-    static const Tables t;
+    }
+  };
+
+  static const YccTables& ycc_tables() {
+    static const YccTables t;
+    return t;
+  }
+
+  // jdcolor.c:ycc_rgb_convert
+  static void ycc_rgb_row(const uint8_t* yp, const uint8_t* cbp, const uint8_t* crp, int w, uint8_t* o) {
+    const YccTables& t = ycc_tables();
     const uint8_t* rl = kRange.sample + 384;
     for (int x = 0; x < w; x++) {
       const int yy = yp[x], cb = cbp[x], cr = crp[x];
       o[3 * x] = rl[yy + t.cr_r[cr]];
       o[3 * x + 1] = rl[yy + static_cast<int>((t.cb_g[cb] + t.cr_g[cr]) >> 16)];
       o[3 * x + 2] = rl[yy + t.cb_b[cb]];
+    }
+  }
+
+  // libjpeg's CMYK (jdcolor.c:ycck_cmyk_convert first for YCCK), read by
+  // Pillow as inverted CMYK and converted by Convert.c:cmyk2rgb: with
+  // c' = 255 - c and nk = 255 - k' = k, each channel is
+  // nk - MULDIV255(c', nk)
+  static void cmyk_rgb_row(const uint8_t* const* row, int w, bool ycck, uint8_t* o) {
+    const YccTables& t = ycc_tables();
+    const uint8_t* rl = kRange.sample + 384;
+    for (int x = 0; x < w; x++) {
+      int cmy[3] = {row[0][x], row[1][x], row[2][x]};
+      if (ycck) {
+        const int yy = cmy[0], cb = cmy[1], cr = cmy[2];
+        cmy[0] = rl[255 - (yy + t.cr_r[cr])];
+        cmy[1] = rl[255 - (yy + static_cast<int>((t.cb_g[cb] + t.cr_g[cr]) >> 16))];
+        cmy[2] = rl[255 - (yy + t.cb_b[cb])];
+      }
+      const int nk = row[3][x];
+      for (int ch = 0; ch < 3; ch++) {
+        const int tmp = (255 - cmy[ch]) * nk + 128;
+        o[3 * x + ch] = static_cast<uint8_t>(nk - (((tmp >> 8) + tmp) >> 8));
+      }
     }
   }
 };

@@ -4,22 +4,28 @@ per-image work, decode and the detectron2 shortest-edge resize, without PIL
 and without any system image library.
 
   resize_bilinear  Pillow-BILINEAR-bit-exact resample of a uint8 array
-  decode           PNG or JPEG file -> RGB uint8 [H, W, 3]. PNG: the chunks
-                   are parsed here, the IDAT stream inflated by zlib and the
-                   scanlines reconstructed in C++; colour types map to PIL's
-                   convert("RGB") (palette and grey expand, alpha dropped).
-                   JPEG: the port's baseline decoder, bit-equal to what
-                   libjpeg-turbo gives with PIL's settings; progressive,
-                   lossless, hierarchical, arithmetic-coded, CMYK and
-                   non-8-bit files are refused, each by name
+  decode           PNG or JPEG file -> RGB uint8 [H, W, 3], the pixels of
+                   PIL's convert("RGB"). PNG: the chunks are parsed here,
+                   the IDAT stream inflated by zlib and the scanlines of
+                   each Adam7 pass (or of the whole image) reconstructed in
+                   C++; every colour type and bit depth maps as PIL maps it
+                   (palette and grey expand, alpha and tRNS dropped, 16-bit
+                   colour keeps its high byte, 16-bit grey opens as "I;16"
+                   and clips at 255). JPEG: the port's decoder (sequential
+                   and progressive Huffman; grey, YCbCr, RGB, CMYK and
+                   YCCK), bit-equal to what libjpeg-turbo and Pillow give;
+                   lossless, hierarchical, arithmetic-coded and non-8-bit
+                   files are refused, each by name, and so are the other
+                   formats PIL opens (BMP, GIF, TIFF, WebP)
   image_size       (height, width) of a PNG or JPEG from its header alone
   encode_png       RGB uint8 [H, W, 3] -> the bytes of a PNG file (zlib)
 
 The JAX package's binding (`simple_sfod_tpu/data/native_codec.py`) returns
-None on any failure and its loader then decodes with PIL. This one raises:
-a file it cannot decode, or a codec library that does not build, is an
-error, with the reason. Where libjpeg only warns and pads (a truncated
-file), the JAX package returns an image and this decoder raises.
+None on any failure and its loader then decodes with PIL, so it reads every
+file that PIL reads. This one raises: a file it cannot decode, or a codec
+library that does not build, is an error, with the reason. Where libjpeg
+only warns and pads (a truncated file), the JAX package returns an image
+and this decoder raises.
 """
 
 from __future__ import annotations
@@ -45,15 +51,23 @@ JPEG_ERRORS = {
     -2: "corrupt JPEG data",
     -3: "the JPEG data ends early (truncated file)",
     -4: "out of memory",
-    -5: "progressive JPEG (SOF2) is not supported",
+    -5: "progressive JPEG with an invalid or out-of-order scan progression (libjpeg refuses it or warns)",
     -6: "lossless JPEG (SOF3) is not supported",
     -7: "hierarchical JPEG (SOF5-7, DHP, EXP) is not supported",
     -8: "arithmetic-coded JPEG (SOF9-15) is not supported",
     -9: "JPEG sample precision other than 8 bits is not supported",
-    -10: "JPEG with other than 1 or 3 components (CMYK/YCCK) is not supported",
+    -10: "JPEG with 2 or more than 4 components is not supported (PIL refuses them too)",
     -11: "JPEG with fractional sampling factors is not supported (libjpeg refuses them too)",
     -12: "JPEG sampling factors out of range or too many blocks in an MCU",
+    -13: "progressive JPEG whose scans leave low-frequency AC coefficients unrefined (libjpeg-turbo's block "
+         "smoothing) is not supported",
 }
+# the other formats PIL opens, named in the refusal: (magic prefix, name)
+_OTHER_FORMATS = ((b"BM", "BMP"), (b"GIF8", "GIF"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"RIFF", "WebP"))
+# the bit depths each PNG colour type allows
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# the Adam7 passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # the JPEG frame markers that carry the image size (all SOFn)
 _SOF_MARKERS = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
 
@@ -103,6 +117,9 @@ def decode_bytes(data: bytes, name: str = "image") -> np.ndarray:
         return _decode_png(data, name)
     if data.startswith(JPEG_MAGIC):
         return _decode_jpeg(data, name)
+    fmt = next((f for magic, f in _OTHER_FORMATS if data.startswith(magic)), None)
+    if fmt is not None:
+        raise ValueError(f"{name}: neither PNG nor JPEG ({fmt} is not supported)")
     raise ValueError(f"{name}: neither PNG nor JPEG")
 
 
@@ -195,30 +212,18 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
     if channels is None:
         raise ValueError(f"{path}: PNG colour type {ctype} is not valid")
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNG is not supported")
-    # 16-bit PNGs are refused as the JAX codec refuses them: PIL opens 16-bit
-    # grey as mode "I" and its convert("RGB") clips rather than narrows
-    if depth == 16 or (depth != 8 and ctype not in (0, 3)):
-        raise ValueError(f"{path}: PNG bit depth {depth} with colour type {ctype} is not supported")
-    stride = (w * channels * depth + 7) // 8
+    if depth not in _PNG_DEPTHS[ctype]:
+        raise ValueError(f"{path}: PNG bit depth {depth} with colour type {ctype} is not valid")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: PNG interlace method {interlace} is not valid")
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < h * (stride + 1):
-        raise ValueError(f"{path}: PNG image data is short")
-    rows = np.empty((h, stride), np.uint8)
-    rc = _load().sfod_png_unfilter(
-        raw.ctypes.data_as(_U8P), h, stride, max(1, channels * depth // 8), rows.ctypes.data_as(_U8P)
-    )
-    if rc != 0:
-        raise ValueError(f"{path}: PNG scanline with an unknown filter type")
-    if depth < 8:
-        # pixels packed high bits first; grey is scaled to 8 bits as libpng's
-        # expand_gray_1_2_4_to_8 and PIL's L;1/L;2/L;4 unpackers do
-        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
-        vals = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(axis=2, dtype=np.uint16)
-        pix = (vals * (255 // ((1 << depth) - 1)) if ctype == 0 else vals).astype(np.uint8)[..., None]
-    else:
-        pix = rows[:, : w * channels].reshape(h, w, channels)
+    pix = np.empty((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    off = 0
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+        if pw and ph:  # a pass without pixels has no scanlines
+            samples, off = _png_pass(raw, off, pw, ph, channels, depth, ctype, path)
+            pix[y0::dy, x0::dx] = samples
     if ctype == 3:
         if plte is None:
             raise ValueError(f"{path}: palette PNG without PLTE")
@@ -226,6 +231,37 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
         if idx.max(initial=0) >= len(plte):
             raise ValueError(f"{path}: palette index out of range")
         return plte[idx]
+    if depth == 16:
+        # PIL opens 16-bit grey as "I;16", whose convert("RGB") clips at 255;
+        # its other 16-bit rawmodes (RGB;16B, RGBA;16B, LA;16B) keep the high byte
+        pix = np.minimum(pix, 255) if ctype == 0 else pix >> 8
+        pix = pix.astype(np.uint8)
     if ctype in (0, 4):
         return np.repeat(pix[..., :1], 3, axis=2)
     return np.ascontiguousarray(pix[..., :3])
+
+
+def _png_pass(raw, off, pw, ph, channels, depth, ctype, path):
+    """The samples [ph, pw, channels] of one pass (the whole image when not
+    interlaced) whose filtered scanlines start at raw[off]. -> (samples, the
+    offset of the next pass)."""
+    stride = (pw * channels * depth + 7) // 8
+    end = off + ph * (stride + 1)
+    if raw.size < end:
+        raise ValueError(f"{path}: PNG image data is short")
+    rows = np.empty((ph, stride), np.uint8)
+    rc = _load().sfod_png_unfilter(
+        np.ascontiguousarray(raw[off:end]).ctypes.data_as(_U8P), ph, stride, max(1, channels * depth // 8),
+        rows.ctypes.data_as(_U8P)
+    )
+    if rc != 0:
+        raise ValueError(f"{path}: PNG scanline with an unknown filter type")
+    if depth == 16:
+        return rows.view(">u2").reshape(ph, pw, channels), end
+    if depth == 8:
+        return rows.reshape(ph, pw, channels), end
+    # pixels packed high bits first; grey is scaled to 8 bits as libpng's
+    # expand_gray_1_2_4_to_8 and PIL's 1/L;2/L;4 unpackers do
+    bits = np.unpackbits(rows, axis=1).reshape(ph, -1, depth)[:, :pw]
+    vals = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(axis=2, dtype=np.uint16)
+    return (vals * (255 // ((1 << depth) - 1)) if ctype == 0 else vals).astype(np.uint8)[..., None], end

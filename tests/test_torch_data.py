@@ -244,7 +244,9 @@ def test_jpeg_decode_matches_pil_and_jax(tmp_path, quality):
 
 
 def test_decode_raises_on_bad_files(tmp_path):
-    """No silent fallback: unreadable, unknown and corrupt files raise."""
+    """No silent fallback: unreadable, unknown and corrupt files raise. A
+    16-bit PNG, refused before the codec read it, decodes as PIL's
+    convert("RGB") (I;16, clipped at 255)."""
     with pytest.raises(OSError):
         pnc.decode(str(tmp_path / "missing.png"))
     (tmp_path / "x.bin").write_bytes(b"hello, not an image")
@@ -253,9 +255,9 @@ def test_decode_raises_on_bad_files(tmp_path):
     (tmp_path / "g.jpg").write_bytes(b"\xff\xd8\xffgarbage")
     with pytest.raises(ValueError, match="JPEG decode failed"):
         pnc.decode(str(tmp_path / "g.jpg"))
-    Image.fromarray(np.zeros((8, 8), np.uint16)).save(tmp_path / "d16.png")
-    with pytest.raises(ValueError, match="bit depth 16"):
-        pnc.decode(str(tmp_path / "d16.png"))
+    Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 9).save(tmp_path / "d16.png")
+    with Image.open(tmp_path / "d16.png") as im:
+        np.testing.assert_array_equal(pnc.decode(str(tmp_path / "d16.png")), np.asarray(im.convert("RGB")))
 
 
 def test_host_library_build_failure_raises(tmp_path, monkeypatch):

@@ -1,18 +1,21 @@
-"""The port's baseline JPEG decoder (simple_sfod_tpu_torch/data/csrc/
+"""The port's JPEG decoder (simple_sfod_tpu_torch/data/csrc/
 jpeg_decode.cpp) against libjpeg-turbo, bit for bit (tolerance 0).
 
 The reference is the JAX package's codec (`simple_sfod_tpu.data.native_codec
 .decode`, libjpeg with PIL's settings), asserted not None so that it really
 decoded, and Pillow's own decode. Files come from Pillow (4:4:4, 4:2:2,
-4:2:0, grey, Adobe RGB, optimised tables, restart markers, progressive) and
-from `encode`, a small baseline encoder kept here for what Pillow cannot
-write: 4:4:0, 4:1:1 and other integral sampling factors, non-interleaved
-scans, SOF1 with 16-bit quantisation tables, 'R','G','B' component ids,
-files without DHT, and the headers that must be refused.
+4:2:0, grey, Adobe RGB, optimised tables, restart markers, progressive,
+CMYK) and from `encode`, a small baseline encoder kept here for what Pillow
+cannot write: 4:4:0, 4:1:1 and other integral sampling factors,
+non-interleaved scans, SOF1 with 16-bit quantisation tables, 'R','G','B'
+component ids, files without DHT, YCCK, and the headers that must be
+refused. tests/test_torch_image_formats.py holds the progressive, CMYK,
+YCCK and PNG cases against the JAX package's loader.
 
 The committed fixtures (tests/torch_jpeg/) are rebuilt by
 `python tests/test_torch_jpeg.py --write-fixtures`; fixtures.json records
-each file's shape, sampling and the SHA-256 of its libjpeg RGB.
+each file's shape, sampling and the SHA-256 of its libjpeg (Pillow) RGB,
+or the refusal that a file the port does not read must raise.
 """
 
 import hashlib
@@ -22,14 +25,17 @@ import math
 import os
 import sys
 
-import numpy as np
-import pytest
-from hypothesis import given, settings
-from hypothesis import strategies as st
-from PIL import Image
+if __name__ == "__main__":  # run as a script: the packages sit at the repo root
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from simple_sfod_tpu.data import native_codec as jnc
-from simple_sfod_tpu_torch.data import native_codec as pnc
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+from PIL import Image  # noqa: E402
+
+from simple_sfod_tpu.data import native_codec as jnc  # noqa: E402
+from simple_sfod_tpu_torch.data import native_codec as pnc  # noqa: E402
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_jpeg")
 
@@ -128,19 +134,25 @@ _DCT = np.array([[(0.5 / math.sqrt(2) if u == 0 else 0.5) * math.cos((2 * x + 1)
 
 def encode(rgb, factors=((1, 1), (1, 1), (1, 1)), quality=75, ids=None, interleaved=True, restart=0, sof=0xC0,
            scale16=1, jfif=True, adobe=None, dht=True, precision=8, ycc=True, skip_scan=None):
-    """Baseline-encode uint8 [H, W, 3] (or [H, W] grey) with the given
-    sampling factors per component; the header fields are free so that
-    files libjpeg refuses can be written too."""
+    """Baseline-encode uint8 [H, W, 3] (or [H, W] grey, or [H, W, 4] CMYK)
+    with the given sampling factors per component; the header fields are
+    free so that files libjpeg refuses can be written too. CMYK with `ycc`
+    is written as YCCK (libjpeg's cmyk_ycck_convert: the YCbCr of
+    255 - C, 255 - M, 255 - Y, and K)."""
     rgb = np.asarray(rgb)
     H, W = rgb.shape[:2]
     if rgb.ndim == 2:
         chans = [rgb.astype(np.float64)]
     elif ycc:
         r, g, b = (rgb[..., i].astype(np.float64) for i in range(3))
+        if rgb.shape[2] == 4:
+            r, g, b = 255 - r, 255 - g, 255 - b
         chans = [0.299 * r + 0.587 * g + 0.114 * b, 128 - 0.168736 * r - 0.331264 * g + 0.5 * b,
                  128 + 0.5 * r - 0.418688 * g - 0.081312 * b]
+        if rgb.shape[2] == 4:
+            chans.append(rgb[..., 3].astype(np.float64))
     else:
-        chans = [rgb[..., i].astype(np.float64) for i in range(3)]
+        chans = [rgb[..., i].astype(np.float64) for i in range(rgb.shape[2])]
     nc = len(chans)
     factors = list(factors)[:nc] + [(1, 1)] * (len(factors) < nc)
     ids = ids or list(range(1, len(factors) + 1))
@@ -239,8 +251,10 @@ def smooth_image(h, w, seed, noise=3.0):
 
 
 def pillow_jpeg(img, **kw) -> bytes:
+    """Pillow's JPEG of uint8 [H, W, 3] RGB, [H, W] grey or [H, W, 4] CMYK."""
     b = io.BytesIO()
-    Image.fromarray(img).save(b, "JPEG", **kw)
+    cmyk = img.ndim == 3 and img.shape[2] == 4
+    (Image.frombytes("CMYK", img.shape[1::-1], img.tobytes()) if cmyk else Image.fromarray(img)).save(b, "JPEG", **kw)
     return b.getvalue()
 
 
@@ -379,14 +393,12 @@ def _with_sof(marker):
 
 
 REFUSALS = {
-    "progressive": (lambda: pillow_jpeg(SMALL, progressive=True), "progressive JPEG \\(SOF2\\)"),
     "lossless": (lambda: _with_sof(0xC3), "lossless JPEG \\(SOF3\\)"),
     "hierarchical": (lambda: _with_sof(0xC5), "hierarchical JPEG"),
     "hierarchical-dhp": (lambda: b"\xff\xd8\xff\xde\x00\x02" + _with_sof(0xC0)[2:], "hierarchical JPEG"),
     "arithmetic": (lambda: _with_sof(0xC9), "arithmetic-coded JPEG"),
     "arithmetic-progressive": (lambda: _with_sof(0xCA), "arithmetic-coded JPEG"),
     "precision-12": (lambda: encode(SMALL, sof=0xC1, precision=12), "sample precision"),
-    "cmyk": (lambda: _cmyk(), "CMYK"),
     "fractional": (lambda: _resample_header(((3, 1), (2, 1), (1, 1))), "fractional sampling"),
     "sampling-5": (lambda: _resample_header(((5, 1), (1, 1), (1, 1))), "sampling factors out of range"),
     "too-many-blocks": (lambda: encode(SMALL, factors=((4, 4), (1, 1), (1, 1))), "sampling factors out of range"),
@@ -396,6 +408,13 @@ REFUSALS = {
     "garbage-before-marker": (lambda: _garbage_before_eoi(), "corrupt JPEG data"),
     "truncated": (lambda: pillow_jpeg(SMALL)[:-40], "ends early"),
     "no-eoi": (lambda: pillow_jpeg(SMALL)[:-2], "ends early"),
+}
+
+
+# refused until the decoder read them: their cases now decode as Pillow does
+DECODED_NOW = {
+    "progressive": lambda: pillow_jpeg(SMALL, progressive=True),
+    "cmyk": lambda: _cmyk(),
 }
 
 
@@ -440,8 +459,15 @@ def _garbage_before_eoi():
     return data[:-2] + b"\x12\x34" + data[-2:]
 
 
-@pytest.mark.parametrize("case", sorted(REFUSALS))
+@pytest.mark.parametrize("case", sorted(REFUSALS) + sorted(DECODED_NOW))
 def test_refusals_name_the_feature(case):
+    """Each refusal by its message; the cases of DECODED_NOW, refused
+    before the decoder read progressive and CMYK files, equal to Pillow."""
+    if case in DECODED_NOW:
+        data = DECODED_NOW[case]()
+        with Image.open(io.BytesIO(data)) as im:
+            np.testing.assert_array_equal(pnc.decode_bytes(data, "case"), np.asarray(im.convert("RGB")))
+        return
     make, message = REFUSALS[case]
     with pytest.raises(ValueError, match=f"JPEG decode failed: .*{message}"):
         pnc.decode_bytes(make(), "case")
@@ -477,10 +503,12 @@ def test_image_size_reads_headers_only(tmp_path):
 
 
 def fixture_files():
-    """name -> (bytes, sampling label) of every committed fixture."""
+    """name -> (bytes, sampling label, the refusal's message or None) of
+    every committed fixture."""
     frame = lambda seed: smooth_image(1052, 1914, seed=seed, noise=1.5)  # noqa: E731
     img = smooth_image(45, 63, seed=9, noise=20)
-    return {
+    cmyk = np.asarray(Image.fromarray(img).convert("CMYK"))
+    files = {
         "f444_q90_45x63.jpg": (pillow_jpeg(img, quality=90, subsampling=0), "4:4:4"),
         "f422_q75_17x33.jpg": (pillow_jpeg(img[:17, :33], quality=75, subsampling=1), "4:2:2"),
         "f420_q50_45x63.jpg": (pillow_jpeg(img, quality=50, subsampling=2), "4:2:0"),
@@ -492,25 +520,70 @@ def fixture_files():
         "f411_q80.jpg": (encode(img, ENCODER_SAMPLING["4:1:1"], quality=80), "4:1:1"),
         "noninterleaved_sof1_q16.jpg": (encode(img, ((2, 2), (1, 1), (1, 1)), interleaved=False, sof=0xC1, scale16=3,
                                                restart=5), "4:2:0"),
-        "progressive.jpg": (pillow_jpeg(img, progressive=True), "progressive"),
+        "progressive.jpg": (pillow_jpeg(img, progressive=True), "progressive 4:2:0"),
+        "progressive_420_restart.jpg": (pillow_jpeg(img, quality=80, progressive=True, restart_marker_blocks=2),
+                                        "progressive 4:2:0"),
+        "cmyk_q85.jpg": (pillow_jpeg(cmyk, quality=85), "CMYK"),
+        "ycck_q80.jpg": (encode(cmyk, ((2, 2), (1, 1), (1, 1), (2, 2)), quality=80, jfif=False, adobe=2), "YCCK"),
         **{f"sim10k_frame_{i}.jpg": (pillow_jpeg(frame(100 + i), quality=75), "4:2:0") for i in range(3)},
+        "sim10k_frame_0_progressive.jpg": (pillow_jpeg(frame(100), quality=75, progressive=True),
+                                           "progressive 4:2:0"),
     }
+    files = {k: (data, sampling, None) for k, (data, sampling) in files.items()}
+    files["arithmetic_sof9.jpg"] = (encode(img, sof=0xC9), "arithmetic", "arithmetic-coded JPEG")
+    files["progressive_unrefined.jpg"] = (
+        drop_scans(pillow_jpeg(img, progressive=True), keep=5), "progressive 4:2:0", "block smoothing")
+    return files
+
+
+def jpeg_parts(data: bytes) -> tuple:
+    """A JPEG file's (bytes before its first scan, [each scan: the segments
+    between it and the scan before (DHT, DRI), its SOS and its entropy-coded
+    data]); EOI left out."""
+    pos, mark, head, scans = 2, 2, None, []
+    while data[pos + 1] != 0xD9:
+        seg = int.from_bytes(data[pos + 2:pos + 4], "big")
+        if data[pos + 1] != 0xDA:
+            pos += 2 + seg
+            continue
+        end = pos + 2 + seg
+        while not (data[end] == 0xFF and data[end + 1] not in (0x00, *range(0xD0, 0xD8))):
+            end += 1
+        if head is None:
+            head, mark = data[:pos], pos
+        scans.append(data[mark:end])
+        pos = mark = end
+    return head, scans
+
+
+def drop_scans(data: bytes, keep: int) -> bytes:
+    """A JPEG file cut after its first `keep` scans, then EOI."""
+    head, scans = jpeg_parts(data)
+    return head + b"".join(scans[:keep]) + b"\xff\xd9"
 
 
 def write_fixtures(directory: str) -> dict:
-    """Write the fixtures and fixtures.json (the libjpeg RGB's SHA-256 of
-    each file that decodes; null for the progressive one)."""
+    """Write the fixtures and fixtures.json: the SHA-256 of Pillow's RGB of
+    each file the port decodes (libjpeg's through the JAX package's codec
+    too, where it reads the file), the refusal's message of each it does
+    not."""
     os.makedirs(directory, exist_ok=True)
     record = {}
-    for name, (data, sampling) in sorted(fixture_files().items()):
+    for name, (data, sampling, refused) in sorted(fixture_files().items()):
         path = os.path.join(directory, name)
         with open(path, "wb") as f:
             f.write(data)
-        ref = jnc.decode(path) if sampling != "progressive" else None
+        ref = None
+        if refused is None:
+            with Image.open(path) as im:
+                ref = np.asarray(im.convert("RGB"))
+            jax_ref = jnc.decode(path)
+            assert jax_ref is None or np.array_equal(jax_ref, ref), name
         record[name] = {
             "shape": list(ref.shape) if ref is not None else None,
             "sampling": sampling,
             "sha256": hashlib.sha256(ref.tobytes()).hexdigest() if ref is not None else None,
+            "refused": refused,
             "bytes": len(data),
         }
     with open(os.path.join(directory, "fixtures.json"), "w") as f:
@@ -519,8 +592,10 @@ def write_fixtures(directory: str) -> dict:
 
 
 def test_committed_fixtures_match_their_digests():
-    """Each committed fixture: libjpeg's RGB and the port's hash to the
-    recorded SHA-256; the progressive one is refused."""
+    """Each committed fixture: Pillow's RGB, libjpeg's through the JAX
+    package's codec (which reads every file here but the 4-component ones)
+    and the port's hash to the recorded SHA-256; a refused one raises its
+    recorded message."""
     with open(os.path.join(FIXTURES, "fixtures.json")) as f:
         record = json.load(f)
     assert len(record) == len(fixture_files())
@@ -528,14 +603,20 @@ def test_committed_fixtures_match_their_digests():
     for name, rec in record.items():
         path = os.path.join(FIXTURES, name)
         total += os.path.getsize(path)
-        if rec["sha256"] is None:
-            with pytest.raises(ValueError, match="progressive"):
+        if rec["refused"] is not None:
+            assert rec["sha256"] is None
+            with pytest.raises(ValueError, match=rec["refused"]):
                 pnc.decode(path)
             continue
         got = pnc.decode(path)
         assert list(got.shape) == rec["shape"]
         assert hashlib.sha256(got.tobytes()).hexdigest() == rec["sha256"], name
-        assert hashlib.sha256(jnc.decode(path).tobytes()).hexdigest() == rec["sha256"], name
+        with Image.open(path) as im:
+            assert hashlib.sha256(np.asarray(im.convert("RGB")).tobytes()).hexdigest() == rec["sha256"], name
+        jax_ref = jnc.decode(path)
+        assert (jax_ref is None) == (rec["sampling"] in ("CMYK", "YCCK")), name
+        if jax_ref is not None:
+            assert hashlib.sha256(jax_ref.tobytes()).hexdigest() == rec["sha256"], name
     assert total < 1 << 20
 
 
