@@ -203,7 +203,19 @@ Phases (each prints one progress line with its wall time):
               gated call padded to 4, launches); the R101 artifact served by
               serve_model's main with the port's models, config and
               trainers poisoned in sys.modules
- 16. car      the paper's car-only source domains: the committed JPEG
+ 16. roofline the steps' and forward paths' floors on the card through
+              `simple_sfod_tpu_torch/tools/roofline.py` (operations and bytes
+              counted by utils/cost.py against the card's published peaks):
+              the SFAT step (--headline) and the FPN supervised step with
+              --measure (3 windows of 5 steps), the eval stages (features,
+              raw, full) at batch 1 and 4 with --measure, and the export
+              phase's poly artifact (--serving) at batch 1, each line's
+              pct_of_roofline in (0, 100]; the stages' operations rising
+              features < raw < full; the headline step's counted NMS
+              launches equal to the kernels' counters (3 of each an image);
+              then `tools/profile_step.py --steps 3` on the SFAT step, both
+              NMS kernels among its device kernels
+ 17. car      the paper's car-only source domains: the committed JPEG
               fixtures (tests/torch_jpeg/: baseline, progressive, CMYK,
               YCCK) decoded by the port's decoder bit-equal to the recorded
               SHA-256 of libjpeg-turbo's (Pillow's) RGB, the ones it does
@@ -231,7 +243,7 @@ Phases (each prints one progress line with its wall time):
               beside the NMS checks): exit 0, finite losses in metrics.json, finite AP/AP50
               in eval_results.json, launches as counted from the code; and
               test() images/s of the Sim10k source model
- 17. da       domain-adversarial training: one float32 step of da, cda
+ 18. da       domain-adversarial training: one float32 step of da, cda
               (ENTROPY_CONDITIONING), adaptive_teacher (the boundary step,
               with the instance classifier) and the source-free main YAML
               with DOMAIN_CLASSIFIER.IMAGE and INSTANCE on the card against
@@ -265,7 +277,7 @@ Phases (each prints one progress line with its wall time):
               test(), metrics.json, eval_results.json, launches as
               counted), the DA model_final.pth restored bit for bit in this
               process and `--resume` to 8 steps
- 18. zoo      the rest of the model zoo: VGG16 without BN, the VGG-FPN
+ 19. zoo      the rest of the model zoo: VGG16 without BN, the VGG-FPN
               detector and AdaIN style enhancement, at 608x1216 in each
               YAML's dtype (bfloat16) from the loaders on the PNG frames
               under a temporary SFOD_DATASETS, BASE_LR cut to 0.0025 (0.04
@@ -291,7 +303,7 @@ Phases (each prints one progress line with its wall time):
               set_sync_debug_mode("error"), and stylize alone timed. Each
               run's ms a step, busy share, peak memory and launches; each
               run's first-step NMS inputs kernel == plain
- 19. settings every model setting of the JAX package: box-head dropout, MC
+ 20. settings every model setting of the JAX package: box-head dropout, MC
               dropout, ResNet-50 under FPN and ImageNet initialisation, at
               608x1216 (1120 for Sim10k) from seeded weights and the PNG and
               JPEG frames under a temporary SFOD_DATASETS: the main SFAT YAML
@@ -317,7 +329,7 @@ Phases (each prints one progress line with its wall time):
               backbone tensor equal to the file's), one float32 R50-FPN step
               and MC dropout on the same masks on the card against the CPU
               at 128x256, and every captured NMS input kernel == plain
- 20. dist     more than one rank (parallel/) on the one GPU: two ranks are two
+ 21. dist     more than one rank (parallel/) on the one GPU: two ranks are two
               processes of `train_net --num-machines 2 --machine-rank r
               --dist-url ... --dist-backend gloo` (NCCL refuses two ranks on
               one device), from seeded weights (class-1 logit bias raised by
@@ -411,15 +423,14 @@ from simple_sfod_tpu_torch.ops import _kernels, nms
 from simple_sfod_tpu_torch.structures.instances import Instances
 from simple_sfod_tpu_torch.tools import kitti_to_coco, prediction_to_gt, run_workflow_synthetic, sim10k_to_coco, train_net
 from simple_sfod_tpu_torch.utils.bench import synthetic_bench_batch
+# the NMS kernels' bounds and the card's peaks, one definition for the
+# per-kernel bounds here and the step's floor (tools/roofline.py)
+from simple_sfod_tpu_torch.utils.cost import kernel1_bound_ms, kernel2_bound_ms
 
 SEED = 0
 N_REQUESTS = 4
 IMAGE_HW = (600, 1200)  # Cityscapes' 1024x2048 after the shortest-edge-600 resize
 FRAME_HW = (1024, 2048)  # a Cityscapes frame
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
-# outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
 # training: steps on one repeated batch, of which the last TIMED are timed;
 # the loss must fall over the first 10 updates
 TRAIN_STEPS = 12
@@ -470,10 +481,6 @@ CLI_TIMEOUT_S = 300
 LOOP_STEPS, LOOP_WINDOW = 24, (4, 24)  # the loop timing: steps run, the window timed
 DET_STEPS, DET_SPLIT = 4, 2  # the determinism runs: steps, and where one saves and resumes
 ADABN_BATCHES = 16  # the refinement's batches (1400 in the reference)
-# float32 operations per (i < j, both valid) pair of the relation: 2 max,
-# 2 min, 2 sub, 2 clamp, 1 mul (intersection), 2 add/sub (union), 1 div,
-# 1 compare; the areas are per box, not per pair
-OPS_PER_PAIR = 13
 
 
 def check(cond: bool, msg: str) -> None:
@@ -758,27 +765,6 @@ def profile(fn, reps: int, host: bool = False, ops: bool = False):
 
 def top(d, k=6):
     return ", ".join(f"{name[:60]} {ms:.3f}" for name, ms in sorted(d.items(), key=lambda kv: -kv[1])[:k])
-
-
-def kernel1_bound_ms(sv: torch.Tensor):
-    n = sv.shape[0]
-    words = (n + 63) // 64
-    v = int(sv.sum().item())
-    bytes_ = n * 16 + n + n * words * 8
-    ops = OPS_PER_PAIR * v * (v - 1) // 2
-    return max(bytes_ / PEAK_BYTES_S, ops / PEAK_F32_S) * 1e3, ("bytes" if bytes_ / PEAK_BYTES_S >= ops / PEAK_F32_S else "operations")
-
-
-def kernel2_bound_ms(keep_sorted: torch.Tensor):
-    """Bytes this run's data needs: each row's diagonal word, the words right
-    of the diagonal of every kept row, valid in, keep out. The integer ORs
-    are far fewer than the bytes."""
-    n = keep_sorted.shape[0]
-    words = (n + 63) // 64
-    kept = torch.nonzero(keep_sorted).flatten().cpu().numpy()
-    right = int(np.sum(words - 1 - kept // 64)) if kept.size else 0
-    bytes_ = 8 * (n + right) + 2 * n
-    return bytes_ / PEAK_BYTES_S * 1e3, "bytes"
 
 
 # ---------------------------------------------------------------- training
@@ -2864,10 +2850,11 @@ def det_diff(got: dict, want) -> tuple:
     return same, (got["boxes"] - want.boxes).abs().max().item(), (got["scores"] - want.scores).abs().max().item()
 
 
-def export_phase(smi: str, before_timing=lambda: None):
+def export_phase(smi: str, before_timing=lambda: None, keep_artifact: str = ""):
     """The export phase (module docstring); `before_timing()` is called
     before the first call timed in this process (the wq phase's workflow,
-    which runs beside the exports, ends there). -> (the launches of each
+    which runs beside the exports, ends there); the poly artifact is copied
+    to `keep_artifact` for the roofline phase. -> (the launches of each
     kernel in this process, a dict of numbers for the kernels line's
     notes)."""
     tmp = tempfile.TemporaryDirectory(prefix="sfod_export_")
@@ -2899,6 +2886,8 @@ def export_phase(smi: str, before_timing=lambda: None):
         check(bf16 < 0.55 * f32 and res["teacher weights-as-argument b1"]["mib"] < 5, f"artifact sizes {res}")
         log(f"  student artifact float32 {f32:.1f} MiB, bfloat16 weights {bf16:.1f} MiB ({bf16 / f32:.1%})")
         poly_path = jobs["teacher poly"][1]
+        if keep_artifact:
+            shutil.copy(poly_path, keep_artifact)
         env = cli_env(ROOT)
         # the R101 artifact's server starts beside the poly one's and waits,
         # loaded and idle, for its requests below
@@ -5131,6 +5120,70 @@ def tools_phase(smi: str, keep: dict):
     return total, numbers
 
 
+# ---------------------------------------------------------------- roofline
+ROOFLINE_BATCHES = ("1", "4")  # the eval stages' batches
+# the timing's depth, below the tool's defaults (5 windows of 10 steps) to
+# keep the script near half its limit: a median of 3 windows of 5 steps
+ROOFLINE_WINDOWS, ROOFLINE_STEPS_PER_DISPATCH = 3, 5
+PROFILE_STEPS, PROFILE_TOP = 3, 12
+NMS_KERNELS = ("suppress_relation_bits", "greedy_keep_from_bits")
+
+
+def roofline_phase(smi: str, artifact: str, root: str):
+    """The steps' and forward paths' floors on the card and their share of
+    them, and the op profile of the adaptation step, through the two tools'
+    main(argv) in this process (no torch import a run): tools/roofline.py
+    --headline and the FPN default with --measure, --eval --stages at batch 1
+    and 4 with --measure, --serving on the export phase's poly artifact at
+    batch 1 with --measure; tools/profile_step.py --steps 3. Held: every
+    line's pct_of_roofline in (0, 100] (a count that is no lower bound
+    fails here), its bound_by and the card's name and power limit; the
+    stages' operations rising features < raw < full (flops features < raw:
+    the class-wise NMS adds no contraction); the counted NMS launches of the
+    headline step equal to the kernels' launch counters, 3 of each an image;
+    both NMS kernels among the profile's device kernels. -> (the launches of
+    each kernel in the phase, the lines' numbers for the kernels line)."""
+    from simple_sfod_tpu_torch.tools import profile_step, roofline
+
+    before = dict(_kernels.LAUNCHES)
+    out = ["--output-dir", os.path.join(root, "out"), "--windows", str(ROOFLINE_WINDOWS)]
+    steps = ["--measure", "--steps-per-dispatch", str(ROOFLINE_STEPS_PER_DISPATCH)]
+    lines = roofline.main(["--headline", *steps, *out])
+    lines += roofline.main([*steps, *out])
+    lines += roofline.main(["--eval", "--stages", "--batches", *ROOFLINE_BATCHES, "--measure", *out])
+    lines += roofline.main(["--serving", "--artifact", artifact, "--batches", "1", "--measure", *out])
+    for ln in lines:
+        label = f"roofline {ln['workload']} {ln.get('stage', '')} batch {ln['batch']}"
+        check(0 < ln["pct_of_roofline"] <= 100, f"{label}: pct_of_roofline {ln['pct_of_roofline']}")
+        check(ln["bound_by"] in ("operations", "bytes") and ln["gpu_name"] and ln["power_limit"], f"{label}: {ln}")
+        measured = ln.get("measured_ms_per_step", ln.get("measured_ms_per_batch"))
+        log(f"  {label} [{smi}]: {ln['flops'] / 1e9:.2f} GFLOP, bytes_min {ln['bytes_min'] / 1e6:.1f} MB, "
+            f"bytes_eager {ln['bytes_eager'] / 1e6:.1f} MB, floor {ln['floor_ms']:.3f} ms ({ln['bound_by']}), "
+            f"measured {measured:.3f} ms, {ln['pct_of_roofline']:.2f}% of the floor")
+    for b in ROOFLINE_BATCHES:
+        st = {ln["stage"]: ln for ln in lines if ln["workload"] == "eval_forward" and ln["batch"] == int(b)}
+        ops = [st[k]["flops"] + st[k]["elementwise_ops"] + st[k]["nms_ops"] for k in ("features", "raw", "full")]
+        check(ops[0] < ops[1] < ops[2] and st["features"]["flops"] < st["raw"]["flops"] <= st["full"]["flops"],
+              f"eval stages at batch {b}: operations {ops}")
+    head = lines[0]
+    want = {k: 3 * head["batch"] for k in NMS_KERNELS}
+    check(head["nms_launches"] == head["kernel_launches"] == want,
+          f"headline step: counted {head['nms_launches']}, launched {head['kernel_launches']}, want {want}")
+    trace_dir = os.path.join(root, "trace")
+    profile_step.main(["--steps", str(PROFILE_STEPS), "--out", trace_dir, "--top", str(PROFILE_TOP)])
+    full = profile_step.summarize_trace(os.path.join(trace_dir, "trace.json"), top=10 ** 6)
+    names = [name for name, _, _ in full["device"]["top"]]
+    check(all(any(k in n for n in names) for k in NMS_KERNELS), f"profile kernels {names[:20]}")
+    check(0 < full["device"]["busy_share"] <= 1, f"profile busy share {full['device']['busy_share']}")
+    log(f"  profile_step --steps {PROFILE_STEPS} [{smi}]: window {full['window_ms']:.2f} ms, device busy "
+        f"{full['device']['busy_ms']:.2f} ms ({full['device']['busy_share']:.1%}), {len(names)} kernel names")
+    keys = ("workload", "stage", "batch", "dtype", "flops", "elementwise_ops", "bytes_min", "bytes_eager", "nms_ops",
+            "nms_bytes", "floor_ms", "bound_by", "measured_ms_per_step", "measured_ms_per_batch", "pct_of_roofline")
+    numbers = {"lines": [{k: ln[k] for k in keys if k in ln} for ln in lines],
+               "profile": {"window_ms": full["window_ms"], "busy_share": full["device"]["busy_share"]}}
+    return {k: _kernels.LAUNCHES[k] - before[k] for k in before}, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5672,11 +5725,19 @@ def main() -> int:
             wq_launches[k] += v
         log(f"  launches on the wq path: {wq_launches}")
 
+    roofline_dir = tempfile.TemporaryDirectory(prefix="sfod_roofline_")
     try:
-        with Phase("export"):
-            export_launches, _ = export_phase(smi, before_timing=end_workflow)
+        artifact = os.path.join(roofline_dir.name, "teacher_poly.sfodx")
+        try:
+            with Phase("export"):
+                export_launches, _ = export_phase(smi, before_timing=end_workflow, keep_artifact=artifact)
+        finally:
+            workflow.close()
+
+        with Phase("roofline"):
+            roofline_launches, roofline_numbers = roofline_phase(smi, artifact, roofline_dir.name)
     finally:
-        workflow.close()
+        roofline_dir.cleanup()
 
     with Phase("car"):
         car_launches, _ = car_phase(smi)
@@ -5717,7 +5778,8 @@ def main() -> int:
         # enhance CLI) and settings (the dropout SFAT steps, MC dropout, the
         # R50-FPN steps and inference, the ImageNet-init CLIs) and tools (the
         # raw path, inference with overrides, device_trace and StepTimer's
-        # calls). r101_per_step: the
+        # calls) and roofline (the tools' counted and timed steps and
+        # forward calls, and the profiled steps). r101_per_step: the
         # ResNet-101 adaptation step's three calls.
         # per_call: one served image's two calls; train_per_step: one
         # supervised step's RPN call; large_n: N above the keep kernel's
@@ -5732,7 +5794,7 @@ def main() -> int:
             "launches": launches[name] + train_launches[name] + adapt_launches[name] + eval_launches[name] +
                         cli_launches_total[name] + tools_launches[name] + r101_launches[name] + wq_launches[name] +
                         car_launches[name] + export_launches[name] + da_launches[name] + zoo_launches[name] +
-                        settings_launches[name] + dist_launches[name],
+                        settings_launches[name] + dist_launches[name] + roofline_launches[name],
             "max_abs_err": float(max(r["err"] for r in per + rows[name] + large_rows[name])),
             "ms": sum(r["ms"] for r in per),
             "call_ms": sum(r["call_ms"] for r in per),
@@ -5746,12 +5808,14 @@ def main() -> int:
                                  "tools": tools_launches[name],
                                  "r101": r101_launches[name], "wq": wq_launches[name], "car": car_launches[name],
                                  "export": export_launches[name], "da": da_launches[name], "zoo": zoo_launches[name],
-                                 "settings": settings_launches[name], "dist": dist_launches[name]},
+                                 "settings": settings_launches[name], "dist": dist_launches[name],
+                                 "roofline": roofline_launches[name]},
             "da_steps": da_numbers,
             "zoo_runs": zoo_numbers,
             "settings_runs": settings_numbers,
             "dist_runs": dist_numbers,
             "tools_runs": tools_numbers,
+            "roofline_runs": roofline_numbers,
             "adapt_per_step": per,
             "r101_per_step": r101_rows[name],
             "per_call": rows[name],

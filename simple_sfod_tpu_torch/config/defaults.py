@@ -341,13 +341,12 @@ SFAT_BENCH_CONFIG: Dict[str, Any] = {
 
 
 def get_sfat_bench_cfg(output_dir: str = "./output/sfat_bench") -> CfgNode:
-    """The adaptation benchmark's configuration (`SFAT_BENCH_CONFIG`), frozen,
-    writing to `output_dir`."""
-    cfg = get_cfg()
-    cfg.merge_from_list(config_opts(SFAT_BENCH_CONFIG))
-    cfg.OUTPUT_DIR = output_dir
-    cfg.freeze()
-    return cfg
+    """The adaptation benchmark's configuration at its defaults (batch 1,
+    the main variant), frozen, writing to `output_dir`:
+    `utils/bench.py:sfat_bench_cfg`."""
+    from ..utils.bench import sfat_bench_cfg
+
+    return sfat_bench_cfg(output_dir=output_dir)
 
 
 def config_opts(tree: Dict[str, Any], prefix: str = "") -> List[str]:

@@ -163,8 +163,8 @@ def crossed(period: int, lo: int, hi: int) -> bool:
 class _ChunkFeeder:
     """Staging ahead for the chunked loop (TPU.STEPS_PER_DISPATCH > 1 with
     TPU.CHUNK_STAGE_AHEAD > 0): a thread pulls each chunk's batches from
-    the loader and stages them on the device (trainer.stage: pinned buffers,
-    copies that do not block), keeping up to `depth` chunks in a bounded
+    the loader and stages them on the device (trainer.stage_chunk: pinned
+    buffers, copies that do not block), keeping up to `depth` chunks in a bounded
     queue, while the main thread steps. The batch stream is the synchronous
     path's, so trajectories do not change. A loader or staging error is
     raised again in the main thread by `get`."""
@@ -181,8 +181,8 @@ class _ChunkFeeder:
                     k = min(chunk, total_steps - done)
                     t0 = time.perf_counter()
                     batches = [next(it) for _ in range(k)]
-                    staged = [trainer.stage(b) for b in batches]
-                    self._q.put((k, batches, staged, time.perf_counter() - t0))
+                    xs = trainer.stage_chunk(batches)
+                    self._q.put((k, batches, xs, time.perf_counter() - t0))
                     done += k
             except BaseException as e:  # raised again by get()
                 self._err = e
@@ -451,8 +451,27 @@ class BaseTrainer:
         [B, H, W, 3], sizes [B, 2], gt_boxes, gt_classes, gt_valid)."""
         return self.step_staged(self.stage(batch), draws)
 
+    def stage_chunk(self, batches: List[Mapping[str, np.ndarray]]) -> list:
+        """One chunk's batches on the device, each as `stage` puts it, in
+        step order (a paired trainer pulls one target batch for each):
+        `run_step_chunk`'s `xs`, which the loop's feeder thread stages ahead."""
+        return [self.stage(b) for b in batches]
+
+    def run_step_chunk(self, batches: List[Mapping[str, np.ndarray]], xs: Optional[list] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """len(batches) steps, each on its own batch and with its own draws
+        (`step_staged`), on `xs` from `stage_chunk(batches)` or, without
+        it, staged here; then `_after_steps` with the last batch. Reads
+        nothing back to the host; returns the last step's metrics. The
+        train loop's steps, at TPU.STEPS_PER_DISPATCH a call."""
+        for staged in self.stage_chunk(batches) if xs is None else xs:
+            metrics = self.step_staged(staged)
+        self._after_steps(batches[-1])
+        return metrics
+
     def _after_steps(self, batch) -> None:
-        """Called once a loop iteration, after its steps, with its last batch."""
+        """Called once a chunk (`run_step_chunk`), after its steps, with its
+        last batch."""
 
     # -- the loop ------------------------------------------------------------
     def _build_val_loss_hook(self) -> Optional[ValLossHook]:
@@ -541,18 +560,16 @@ class BaseTrainer:
         try:
             while i < self.max_iter:
                 if feeder is not None:
-                    k, batches, staged, data_time = feeder.get()
+                    k, batches, xs, data_time = feeder.get()
                 else:
                     k = min(chunk, self.max_iter - i)
                     t0 = time.perf_counter()
                     batches = [next(it) for _ in range(k)]
-                    staged = [self.stage(b) for b in batches]
+                    xs = self.stage_chunk(batches)
                     data_time = time.perf_counter() - t0
                 t_step = time.perf_counter()
-                for s in staged:
-                    metrics = self.step_staged(s)
+                metrics = self.run_step_chunk(batches, xs=xs)
                 step_s.append((time.perf_counter() - t_step) / k)
-                self._after_steps(batches[-1])
                 last = i + k - 1
                 for _ in range(k - 1):  # the writers see iter == last
                     self.storage.step()

@@ -40,7 +40,8 @@ Variants, by the JAX package's names:
 Every random decision of a step is an `AdaptDraws` input, so a test can
 hand over the JAX package's draws. `run_step` stages a numpy batch on the
 device; `step_on_device` runs the step and reads nothing back to the host
-(the strong view's scalar decisions are CPU tensors, read without a sync).
+(the strong view's scalar decisions are CPU tensors, read without a sync);
+`run_steps(batch, n)` takes n steps on one staged batch.
 
 `build_train_loader` reads the target domain (DATASETS.TRAIN_TARGET, else
 DATASETS.TRAIN) at SOLVER.IMS_PER_BATCH_TARGET; `test` evaluates both the
@@ -546,6 +547,13 @@ class SourceFreeAdaptiveTeacherTrainer(BaseTrainer):
     def run_step(self, batch: Mapping[str, np.ndarray], draws: Optional[AdaptDraws] = None) -> Dict[str, torch.Tensor]:
         """Stage the batch, draw (unless `draws` is given) and step."""
         return self.step_staged(self.stage(batch), draws)
+
+    def run_steps(self, batch: Mapping[str, np.ndarray], n: int) -> Dict[str, torch.Tensor]:
+        """n steps on one batch, staged once (a paired trainer's one target
+        batch with it): `run_step_chunk` on it n times. Each step takes its
+        own draws, as the JAX package's fold on the step. Reads nothing back
+        to the host; returns the last step's metrics."""
+        return self.run_step_chunk([batch] * n, xs=self.stage_chunk([batch]) * n)
 
     # -- visualisation ---------------------------------------------------------
     def _check_before_train(self) -> None:

@@ -94,6 +94,7 @@ def test_package_files_were_scanned():
         "utils/env.py", "tools/metrics_tool.py", "tools/metrics_gui.py", "tools/export_weights.py",
         "tools/cityscapes_to_coco.py", "tools/inspect_coco.py",
     } <= names
+    assert {"utils/cost.py", "tools/roofline.py", "tools/profile_step.py"} <= names
 
 
 def test_every_jax_module_has_a_counterpart():
@@ -106,6 +107,34 @@ def test_every_jax_module_has_a_counterpart():
     names = {os.path.relpath(p, PKG) for p in FILES}
     assert jax_modules - names == {"ops/pallas_kernels.py"}
     assert os.path.isfile(os.path.join(PKG, "ops", "csrc", "nms.cu"))
+
+
+# the repo's tools/*.py without a counterpart of the same name in
+# simple_sfod_tpu_torch/tools/, each with its reason
+TOOLS_NOT_PORTED = {
+    "bench_extra": "queued for the port's benchmark (inference at batch 1, the SFAT step at batch 4)",
+    "bench_fpn": "queued for the port's benchmark (the FPN supervised step)",
+    "bench_serving": "queued for the port's benchmark (the exported artifact reloaded and called)",
+    "bench_pallas_nms": "chip_smoke.py's timing phase times both NMS kernels against their bounds",
+    "ab_stats": "a measurement of the JAX package against the reference, not of the workload",
+    "endpoint_ab": "a measurement of the JAX package against the reference, not of the workload",
+    "endpoint_ab_sfat": "a measurement of the JAX package against the reference, not of the workload",
+    "lockstep_diff": "a measurement of the JAX package against the reference, not of the workload",
+    "measure_roi_cap": "a measurement of the JAX package's own cap, not of the workload",
+    "measure_rpn_caps": "a measurement of the JAX package's own caps, not of the workload",
+    "quantify_mosaic_padding": "a measurement of the JAX package's mosaic padding, not of the workload",
+    "diag_mosaic_padded": "a diagnosis of the JAX package's mosaic padding, not of the workload",
+}
+
+
+def test_every_jax_tool_has_a_counterpart_or_a_reason():
+    """Every tools/*.py of the repo has a counterpart in the port's tools/,
+    or stands in TOOLS_NOT_PORTED with its reason; a tool that is ported
+    leaves the list."""
+    jax_tools = {f[:-3] for f in os.listdir(os.path.join(ROOT, "tools")) if f.endswith(".py")}
+    port_tools = {f[:-3] for f in os.listdir(os.path.join(PKG, "tools")) if f.endswith(".py")}
+    assert jax_tools - port_tools == set(TOOLS_NOT_PORTED)
+    assert {"roofline", "profile_step"} <= port_tools and all(TOOLS_NOT_PORTED.values())
 
 
 def _build_sources():
@@ -210,6 +239,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         dryrun_multigpu(2)
+    from simple_sfod_tpu_torch.tools import profile_step, roofline
+
+    for argv in ([], ["--headline"], ["--eval", "--stages"], ["--serving", "--artifact", "x.sfodx"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            roofline.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profile_step.main(["--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
