@@ -215,14 +215,18 @@ Phases (each prints one progress line with its wall time):
               launches equal to the kernels' counters (3 of each an image);
               then `tools/profile_step.py --steps 3` on the SFAT step, both
               NMS kernels among its device kernels
- 17. car      the paper's car-only source domains: the committed JPEG
+ 17. car      the paper's car-only source domains: the committed image
               fixtures (tests/torch_jpeg/: baseline, progressive, CMYK,
-              YCCK) decoded by the port's decoder bit-equal to the recorded
-              SHA-256 of libjpeg-turbo's (Pillow's) RGB, the ones it does
-              not read refused by name; decode (and decode + resize) ms of
-              a 1914x1052 JPEG, baseline and progressive, beside a
-              1024x2048 PNG and KITTI's Adam7 and 16-bit PNGs on one
-              thread; 16 Sim10k records (the fixture frames, the
+              YCCK, arithmetic-coded, block-smoothed and lossless JPEG;
+              tests/torch_containers/: BMP, GIF, TIFF) decoded by the
+              port's codec bit-equal to the recorded SHA-256 of Pillow's
+              RGB; decode (and decode + resize) ms of a 1914x1052 JPEG,
+              baseline and progressive, beside a 1024x2048 PNG and KITTI's
+              Adam7 and 16-bit PNGs on one thread, and of the Sim10k frame
+              arithmetic-coded (the committed transcoding), block-smoothed
+              (its progressive file cut after 6 scans), as BMP and as TIFF
+              uncompressed, PackBits, LZW and Deflate (written here, each
+              decoded back to the frame); 16 Sim10k records (the fixture frames, the
               progressive one among them, with seeded VOC boxes,
               converted by `python -m simple_sfod_tpu_torch.tools.sim10k_to_coco`'s
               main) and 16 KITTI records (seeded 375x1242 PNGs, two
@@ -241,8 +245,12 @@ Phases (each prints one progress line with its wall time):
               and nothing else; 4 steps, test() through the car-only
               remap; both domains' CLIs at once, after the timed runs,
               beside the NMS checks): exit 0, finite losses in metrics.json, finite AP/AP50
-              in eval_results.json, launches as counted from the code; and
-              test() images/s of the Sim10k source model
+              in eval_results.json, launches as counted from the code;
+              test() images/s of the Sim10k source model; and its test()
+              on 4 Sim10k frames rewritten as arithmetic-coded JPEG, BMP
+              and TIFF beside the same frames as the original JPEG files:
+              the loader's batches and the detections equal, 2 launches of
+              each kernel an image
  18. da       domain-adversarial training: one float32 step of da, cda
               (ENTROPY_CONDITIONING), adaptive_teacher (the boundary step,
               with the instance classifier) and the source-free main YAML
@@ -2265,6 +2273,10 @@ def wq_phase(smi: str):
 # ---------------------------------------------------------------------------
 
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "torch_jpeg")
+CONTAINER_FIXTURES = os.path.join(ROOT, "tests", "torch_containers")
+# the TIFF compressions timed and decoded on the card
+TIFF_CODES = {"uncompressed": 1, "PackBits": 32773, "LZW": 5, "Deflate": 8}
+SMOOTHED_SCANS = 6  # scans of the progressive Sim10k frame kept for the block-smoothed timing
 # each source domain: its source YAML, its adaptation YAML, its frames and
 # the YAML's canvas; Sim10k's frames are the committed 1914x1052 JPEG
 # fixtures, KITTI's seeded PNGs at KITTI's ~1242x375
@@ -2291,38 +2303,91 @@ CAR_SKIPPED = {"roi_heads.box_predictor.cls_score.weight", "roi_heads.box_predic
                "roi_heads.box_predictor.bbox_pred.weight", "roi_heads.box_predictor.bbox_pred.bias"}
 
 
-def jpeg_fixtures() -> dict:
-    """tests/torch_jpeg/fixtures.json: each committed JPEG's shape, sampling
-    and the SHA-256 of the RGB that libjpeg-turbo (Pillow) decodes from it,
-    or, for a file the port must refuse, the refusal's message."""
-    with open(os.path.join(JPEG_FIXTURES, "fixtures.json")) as f:
+def jpeg_fixtures(directory: str = JPEG_FIXTURES) -> dict:
+    """<directory>/fixtures.json: each committed image's shape, kind and the
+    SHA-256 of the RGB that Pillow decodes from it (tests/torch_jpeg/ and
+    tests/torch_containers/)."""
+    with open(os.path.join(directory, "fixtures.json")) as f:
         return json.load(f)
 
 
 def check_jpeg_fixtures() -> dict:
-    """Each fixture decoded by the port's decoder on this host, its RGB's
-    SHA-256 equal to libjpeg's recorded one; each refused one refused by
-    its recorded message. -> {name: sampling, or "refused"} of the files
-    checked."""
+    """Each committed JPEG, BMP, GIF and TIFF fixture decoded by the port's
+    codec on this host, its RGB's SHA-256 equal to Pillow's recorded one.
+    -> {name: kind} of the files checked."""
     import hashlib
 
     done = {}
-    for name, rec in sorted(jpeg_fixtures().items()):
-        path = os.path.join(JPEG_FIXTURES, name)
-        if rec["refused"] is not None:
-            try:
-                native_codec.decode(path)
-            except ValueError as e:
-                check(rec["refused"] in str(e), f"{name}: refused as {e}, not for {rec['refused']}")
-            else:
-                check(False, f"{name}: decoded, but the port does not read it ({rec['refused']})")
-            done[name] = "refused"
-            continue
-        rgb = native_codec.decode(path)
-        check(list(rgb.shape) == rec["shape"] and hashlib.sha256(rgb.tobytes()).hexdigest() == rec["sha256"],
-              f"{name}: decode differs from libjpeg's recorded digest")
-        done[name] = rec["sampling"]
+    for directory in (JPEG_FIXTURES, CONTAINER_FIXTURES):
+        for name, rec in sorted(jpeg_fixtures(directory).items()):
+            rgb = native_codec.decode(os.path.join(directory, name))
+            check(list(rgb.shape) == rec["shape"] and hashlib.sha256(rgb.tobytes()).hexdigest() == rec["sha256"],
+                  f"{name}: decode differs from Pillow's recorded digest")
+            done[name] = rec.get("sampling") or rec["kind"]
     return done
+
+
+def bmp_bytes(rgb: np.ndarray) -> bytes:
+    """A 24-bit BI_RGB BMP of rgb [H, W, 3]: BITMAPINFOHEADER, rows
+    bottom-up in BGR, padded to 4 bytes."""
+    h, w, _ = rgb.shape
+    stride = (w * 3 + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = rgb[::-1, :, ::-1].reshape(h, -1)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    return b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54) + info + rows.tobytes()
+
+
+def tiff_strip(raw: bytes, compression: int) -> bytes:
+    """One strip coded as TIFF compression 1, 32773 (PackBits: literal runs
+    of 128 bytes), 5 (LZW: a 9-bit code a byte, a clear code every 250,
+    MSB first) or 8 (Deflate)."""
+    if compression == 32773:
+        return b"".join(bytes([len(raw[i:i + 128]) - 1]) + raw[i:i + 128] for i in range(0, len(raw), 128))
+    if compression == 8:
+        return zlib.compress(raw, 1)
+    if compression == 5:
+        data = np.frombuffer(raw, np.uint8).astype(np.uint16)
+        pad = -len(data) % 250
+        body = np.concatenate([data, np.zeros(pad, np.uint16)]).reshape(-1, 250)
+        codes = np.concatenate([np.full((len(body), 1), 256, np.uint16), body], axis=1).reshape(-1)
+        codes = np.concatenate([codes[:len(codes) - pad], [257]]).astype(np.uint16)
+        bits = ((codes[:, None] >> np.arange(8, -1, -1, dtype=np.uint16)) & 1).astype(np.uint8).reshape(-1)
+        return np.packbits(bits).tobytes()
+    return raw
+
+
+def tiff_bytes(rgb: np.ndarray, compression: int, rows: int = 64) -> bytes:
+    """An 8-bit chunky RGB TIFF (little-endian) of rgb [H, W, 3] in strips of
+    `rows` rows, each coded by tiff_strip."""
+    h, w, _ = rgb.shape
+    strips = [tiff_strip(rgb[y:y + rows].tobytes(), compression) for y in range(0, h, rows)]
+    offsets, body = [], bytearray(b"II*\x00\x00\x00\x00\x00")
+    for st in strips:
+        offsets.append(len(body))
+        body += st + bytes(len(st) % 2)
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]), (259, 3, [compression]), (262, 3, [2]),
+            (273, 4, offsets), (277, 3, [3]), (278, 4, [rows]), (279, 4, [len(st) for st in strips]), (284, 3, [1])]
+    ifd_at = len(body)
+    extra_at = ifd_at + 2 + 12 * len(tags) + 4
+    ifd, extra = bytearray(struct.pack("<H", len(tags))), bytearray()
+    for tag, typ, vals in tags:
+        blob = struct.pack("<" + ("I" if typ == 4 else "H") * len(vals), *vals)
+        if len(blob) <= 4:
+            ifd += struct.pack("<HHI", tag, typ, len(vals)) + blob.ljust(4, b"\x00")
+        else:
+            ifd += struct.pack("<HHII", tag, typ, len(vals), extra_at + len(extra))
+            extra += blob
+    body[4:8] = struct.pack("<I", ifd_at)
+    return bytes(body + ifd + b"\x00\x00\x00\x00" + extra)
+
+
+def jpeg_first_scans(data: bytes, keep: int) -> bytes:
+    """A progressive JPEG cut before its scan keep + 1, then EOI: the
+    decoder (libjpeg-turbo's, and the port's) smooths what the first scans
+    leave unrefined."""
+    at = [i for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] == 0xDA]
+    return data[:at[keep]] + b"\xff\xd9"
 
 
 def decode_resize_ms(path: str, reps: int = 5) -> tuple:
@@ -2338,6 +2403,82 @@ def decode_resize_ms(path: str, reps: int = 5) -> tuple:
         dec.append((t1 - t0) * 1e3)
         both.append((t2 - t0) * 1e3)
     return float(np.median(dec)), float(np.median(both))
+
+
+def write_format_frames(directory: str) -> dict:
+    """The Sim10k frame (sim10k_frame_0.jpg) in each new form under
+    directory: arithmetic-coded (the committed transcoding), block-smoothed
+    (its progressive file cut after SMOOTHED_SCANS scans), BMP and TIFF
+    with each of TIFF_CODES; the BMP and TIFF files decoded back to the
+    frame, the arithmetic one to the frame's pixels. -> {kind: path}."""
+    os.makedirs(directory)
+    frame = native_codec.decode(os.path.join(JPEG_FIXTURES, "sim10k_frame_0.jpg"))
+    out = {"arithmetic JPEG": os.path.join(JPEG_FIXTURES, "arithmetic_sim10k_frame_0.jpg")}
+    with open(os.path.join(JPEG_FIXTURES, "sim10k_frame_0_progressive.jpg"), "rb") as f:
+        files = {"smoothed JPEG": jpeg_first_scans(f.read(), SMOOTHED_SCANS), "BMP": bmp_bytes(frame),
+                 **{f"TIFF {k}": tiff_bytes(frame, c) for k, c in TIFF_CODES.items()}}
+    for kind, data in files.items():
+        out[kind] = os.path.join(directory, kind.replace(" ", "_"))
+        with open(out[kind], "wb") as f:
+            f.write(data)
+    for kind, path in out.items():
+        rgb = native_codec.decode(path)
+        check(rgb.shape == frame.shape, f"{kind}: shape {rgb.shape}")
+        if kind != "smoothed JPEG":
+            check(np.array_equal(rgb, frame), f"{kind}: decode differs from the frame")
+    return out
+
+
+def format_test(tr, formats: dict, root: str) -> tuple:
+    """test() of trainer tr on the Sim10k frames 0, 1, 2 and 0 as the
+    original JPEG files and rewritten (arithmetic-coded, BMP, TIFF LZW, TIFF
+    PackBits): both test loaders give the same batches, both dumps the same
+    detections. -> (launches, a line of numbers)."""
+    frames = [native_codec.decode(os.path.join(JPEG_FIXTURES, f"sim10k_frame_{i}.jpg")) for i in range(3)]
+    d = os.path.join(root, "formats")
+    rewritten = [formats["arithmetic JPEG"], os.path.join(d, "f1.bmp"), os.path.join(d, "f2.tif"),
+                 os.path.join(d, "f0.tif")]
+    for path, data in zip(rewritten[1:], (bmp_bytes(frames[1]), tiff_bytes(frames[2], 5),
+                                          tiff_bytes(frames[0], 32773))):
+        with open(path, "wb") as f:
+            f.write(data)
+    originals = [os.path.join(JPEG_FIXTURES, f"sim10k_frame_{i}.jpg") for i in (0, 1, 2, 0)]
+    h, w = CAR_DOMAINS["sim10k"]["hw"]
+    names = []
+    for label, paths in (("original", originals), ("rewritten", rewritten)):
+        coco = {"images": [{"id": i + 1, "file_name": p, "height": h, "width": w} for i, p in enumerate(paths)],
+                "annotations": [{"id": i + 1, "image_id": i + 1, "category_id": 1, "bbox": [100.0, 200.0, 300.0, 150.0],
+                                 "area": 45000.0, "iscrowd": 0} for i in range(len(paths))],
+                "categories": [{"id": 1, "name": "car"}]}
+        path = os.path.join(d, f"{label}.json")
+        with open(path, "w") as f:
+            json.dump(coco, f)
+        names.append(f"sim10k_formats_{label}")
+        register_dataset(names[-1], path, "/")
+    batches = [list(build_test_loader(tr.cfg, n)) for n in names]
+    check(len(batches[0]) == len(batches[1]) and all(
+        np.array_equal(a["images"], b["images"]) and np.array_equal(a["scale"], b["scale"])
+        for a, b in zip(*batches)), "the rewritten frames' batches differ from the originals'")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = tr.test(names)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = dict(_kernels.LAUNCHES)
+    check(all(c == 2 * 2 * len(originals) for c in got.values()), f"format test(): launches {got}")
+    dumps = []
+    for n in names:
+        with open(os.path.join(tr.output_dir, "inference", n, "coco_instances_results.json")) as f:
+            dumps.append(sorted(json.load(f), key=lambda e: (e["image_id"], -e["score"], e["bbox"])))
+    check(dumps[0] == dumps[1] and len(dumps[0]) > 0, f"format test(): detections differ "
+          f"({len(dumps[0])} and {len(dumps[1])}, {match_dumps(*dumps)})")
+    for n in names:
+        DATASET_REGISTRY.pop(n, None)
+    line = (f"test() of the Sim10k source model (VGG16-BN, {tr.cfg.TPU.CANVAS[0]}x{tr.cfg.TPU.CANVAS[1]}) on "
+            f"{len(originals)} Sim10k frames as arithmetic JPEG, BMP, TIFF LZW and TIFF PackBits beside the original "
+            f"JPEG files: batches equal, {len(dumps[0])} detections equal (AP50 {res[names[0]]['AP50']:.4f} and "
+            f"{res[names[1]]['AP50']:.4f}), {secs:.2f} s for both sets, launches {got}")
+    return got, line
 
 
 def car_boxes(rng: np.random.RandomState, hw, k: int) -> list:
@@ -2547,9 +2688,8 @@ def car_phase(smi: str):
     """The car phase (module docstring). -> (the launches of each kernel on
     the path, a dict of numbers for the kernels line's notes)."""
     done = check_jpeg_fixtures()
-    refused = sorted(k for k, v in done.items() if v == "refused")
-    log(f"  {len(done)} committed JPEG fixtures on this host: {len(done) - len(refused)} bit-equal to libjpeg's "
-        f"recorded digest ({', '.join(sorted(set(done.values()) - {'refused'}))}), {refused} refused by name")
+    log(f"  {len(done)} committed image fixtures on this host bit-equal to Pillow's recorded digest "
+        f"({', '.join(sorted(set(done.values())))})")
     jpeg_dec, jpeg_both = decode_resize_ms(os.path.join(JPEG_FIXTURES, "sim10k_frame_0.jpg"))
     prog_dec, prog_both = decode_resize_ms(os.path.join(JPEG_FIXTURES, "sim10k_frame_0_progressive.jpg"))
     total = {k: 0 for k in _kernels.LAUNCHES}
@@ -2587,6 +2727,13 @@ def car_phase(smi: str):
             f"each decoded back to its frame; {len(kitti['annotations'])} boxes after kitti_to_coco, sizes from the "
             f"headers) and {CAR_TARGET_FRAMES} Cityscapes frames ({CAR_TEST_FRAMES} as cityscapes_car_val) in "
             f"{time.perf_counter() - t0:.2f} s")
+        formats = write_format_frames(os.path.join(root, "formats"))
+        fmt_ms = {kind: decode_resize_ms(path) for kind, path in formats.items()}
+        numbers["format_decode_ms"] = {k: v[0] for k, v in fmt_ms.items()}
+        numbers["format_decode_resize_ms"] = {k: v[1] for k, v in fmt_ms.items()}
+        log(f"  the 1914x1052 Sim10k frame in each new form, one thread [{smi}]: decode ms (decode + resize to 600 "
+            "px ms): " + ", ".join(f"{k} {d:.2f} ({b:.2f})" for k, (d, b) in fmt_ms.items())
+            + f"; BMP and TIFF each decoded back to the frame, the arithmetic file to sim10k_frame_0.jpg's pixels")
         log(f"  host decode on one thread [{smi}]: a 1914x1052 4:2:0 JPEG {jpeg_dec:.2f} ms, with the resize to "
             f"600 px {jpeg_both:.2f} ms; its progressive re-encoding {prog_dec:.2f} ms, with the resize "
             f"{prog_both:.2f} ms ({prog_dec / jpeg_dec:.2f}x the baseline's decode); a 1024x2048 PNG {png_dec:.2f} ms, "
@@ -2679,6 +2826,9 @@ def car_phase(smi: str):
         check(all(np.isfinite(v["AP50"]) for v in res.values()), f"test(): {res}")
         log(f"  test() of the Sim10k source model on cityscapes_car_val [{smi}]: {CAR_TEST_FRAMES} images in "
             f"{test_s:.2f} s ({CAR_TEST_FRAMES / test_s:.2f} images/s, decode and evaluation included)")
+        got, line = format_test(tr, formats, root)
+        add(got)
+        log(f"  [{smi}] " + line)
         del tr
     finally:
         for b in background:

@@ -1,23 +1,31 @@
-"""ctypes binding of the port's host image codec (data/csrc/imgcodec.cpp
-and data/csrc/jpeg_decode.cpp, built by host_libs.py): the loader's
-per-image work, decode and the detectron2 shortest-edge resize, without PIL
-and without any system image library.
+"""ctypes binding of the port's host image codec (data/csrc/imgcodec.cpp,
+data/csrc/jpeg_decode.cpp and data/csrc/containers.cpp, built by
+host_libs.py): the loader's per-image work, decode and the detectron2
+shortest-edge resize, without PIL and without any system image library.
 
   resize_bilinear  Pillow-BILINEAR-bit-exact resample of a uint8 array
-  decode           PNG or JPEG file -> RGB uint8 [H, W, 3], the pixels of
-                   PIL's convert("RGB"). PNG: the chunks are parsed here,
-                   the IDAT stream inflated by zlib and the scanlines of
-                   each Adam7 pass (or of the whole image) reconstructed in
-                   C++; every colour type and bit depth maps as PIL maps it
-                   (palette and grey expand, alpha and tRNS dropped, 16-bit
-                   colour keeps its high byte, 16-bit grey opens as "I;16"
-                   and clips at 255). JPEG: the port's decoder (sequential
-                   and progressive Huffman; grey, YCbCr, RGB, CMYK and
+  decode           PNG, JPEG, BMP, GIF or TIFF file -> RGB uint8 [H, W, 3],
+                   the pixels of PIL's convert("RGB"). PNG: the chunks are
+                   parsed here, the IDAT stream inflated by zlib and the
+                   scanlines of each Adam7 pass (or of the whole image)
+                   reconstructed in C++; every colour type and bit depth
+                   maps as PIL maps it (palette and grey expand, alpha and
+                   tRNS dropped, 16-bit colour keeps its high byte, 16-bit
+                   grey opens as "I;16" and clips at 255). JPEG: the port's
+                   decoder (sequential and progressive, Huffman- and
+                   arithmetic-coded, block smoothing as libjpeg-turbo >= 2.1
+                   smooths; lossless SOF3; grey, YCbCr, RGB, CMYK and
                    YCCK), bit-equal to what libjpeg-turbo and Pillow give;
-                   lossless, hierarchical, arithmetic-coded and non-8-bit
-                   files are refused, each by name, and so are the other
-                   formats PIL opens (BMP, GIF, TIFF, WebP)
-  image_size       (height, width) of a PNG or JPEG from its header alone
+                   hierarchical, arithmetic lossless and non-8-bit files
+                   are refused, each by name. BMP (BmpImagePlugin's
+                   headers, depths, bitfield layouts and RLE), GIF (the
+                   first frame on the logical screen) and TIFF (the first
+                   page: strips or tiles, chunky or planar, none, PackBits,
+                   LZW or Deflate, predictor 2) parsed here, their LZW,
+                   PackBits and RLE decoded in C++, their samples mapped as
+                   Pillow's modes convert them. WebP, JPEG 2000, BigTIFF
+                   and the other formats PIL opens are refused by name
+  image_size       (height, width) of any of those from its header alone
   encode_png       RGB uint8 [H, W, 3] -> the bytes of a PNG file (zlib)
 
 The JAX package's binding (`simple_sfod_tpu/data/native_codec.py`) returns
@@ -25,7 +33,10 @@ None on any failure and its loader then decodes with PIL, so it reads every
 file that PIL reads. This one raises: a file it cannot decode, or a codec
 library that does not build, is an error, with the reason. Where libjpeg
 only warns and pads (a truncated file), the JAX package returns an image
-and this decoder raises.
+and this decoder raises. Where Pillow fails, on an arithmetic-coded JPEG
+longer than its 64 KiB read block (libjpeg's arithmetic decoder cannot
+suspend), this decoder reads the file, as the JAX package's native codec
+does.
 """
 
 from __future__ import annotations
@@ -52,18 +63,28 @@ JPEG_ERRORS = {
     -3: "the JPEG data ends early (truncated file)",
     -4: "out of memory",
     -5: "progressive JPEG with an invalid or out-of-order scan progression (libjpeg refuses it or warns)",
-    -6: "lossless JPEG (SOF3) is not supported",
-    -7: "hierarchical JPEG (SOF5-7, DHP, EXP) is not supported",
-    -8: "arithmetic-coded JPEG (SOF9-15) is not supported",
-    -9: "JPEG sample precision other than 8 bits is not supported",
+    -6: "lossless JPEG with an invalid predictor, point transform or restart interval",
+    -7: "hierarchical JPEG (SOF5-7, SOF13-15, DHP, EXP) is not supported",
+    -8: "arithmetic-coded lossless JPEG (SOF11) is not supported",
+    -9: "JPEG sample precision other than 8 bits is not supported (PIL refuses it too)",
     -10: "JPEG with 2 or more than 4 components is not supported (PIL refuses them too)",
     -11: "JPEG with fractional sampling factors is not supported (libjpeg refuses them too)",
     -12: "JPEG sampling factors out of range or too many blocks in an MCU",
-    -13: "progressive JPEG whose scans leave low-frequency AC coefficients unrefined (libjpeg-turbo's block "
-         "smoothing) is not supported",
+    -14: "lossless JPEG in YCbCr or YCCK is not supported (libjpeg converts no colour losslessly and refuses it too)",
 }
-# the other formats PIL opens, named in the refusal: (magic prefix, name)
-_OTHER_FORMATS = ((b"BM", "BMP"), (b"GIF8", "GIF"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"RIFF", "WebP"))
+BMP_MAGIC = b"BM"
+GIF_MAGICS = (b"GIF87a", b"GIF89a")
+TIFF_MAGICS = (b"II*\x00", b"MM\x00*")
+READS = "PNG, JPEG, BMP, GIF and TIFF"
+# formats PIL opens that the port refuses, named in the refusal: (magic
+# prefix, its offset, name)
+_OTHER_FORMATS = (
+    (b"WEBP", 8, "WebP"),
+    (b"\x00\x00\x00\x0cjP  \r\n\x87\n", 0, "JPEG 2000"),
+    (b"\xff\x4f\xff\x51", 0, "JPEG 2000 (codestream)"),
+    (b"II+\x00", 0, "BigTIFF"),
+    (b"MM\x00+", 0, "BigTIFF"),
+)
 # the bit depths each PNG colour type allows
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 # the Adam7 passes: (x0, y0, dx, dy)
@@ -87,6 +108,14 @@ def _load() -> ctypes.CDLL:
             lib.sfod_png_unfilter.restype = ctypes.c_int
             lib.sfod_png_unfilter.argtypes = [_U8P, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _U8P]
             lib.sfod_image_free.argtypes = [ctypes.c_void_p]
+            i64 = ctypes.c_int64
+            for fn, args in (("sfod_gif_lzw", [ctypes.c_char_p, i64, ctypes.c_int32, _U8P, i64]),
+                             ("sfod_tiff_lzw", [ctypes.c_char_p, i64, _U8P, i64]),
+                             ("sfod_packbits", [ctypes.c_char_p, i64, _U8P, i64]),
+                             ("sfod_bmp_rle", [ctypes.c_char_p, i64, i64, ctypes.c_int32, ctypes.c_int32,
+                                               ctypes.c_int32, _U8P])):
+                getattr(lib, fn).restype = i64
+                getattr(lib, fn).argtypes = args
             _lib = lib
         return _lib
 
@@ -104,23 +133,33 @@ def resize_bilinear(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
 
 
 def decode(path: str) -> np.ndarray:
-    """Decode a PNG or JPEG file to RGB uint8 [H, W, 3]. Raises on a file it
-    cannot read or decode."""
+    """Decode a PNG, JPEG, BMP, GIF or TIFF file to RGB uint8 [H, W, 3].
+    Raises on a file it cannot read or decode."""
     path = os.fspath(path)
     with open(path, "rb") as f:
         return decode_bytes(f.read(), path)
 
 
 def decode_bytes(data: bytes, name: str = "image") -> np.ndarray:
-    """Decode the bytes of a PNG or JPEG file (`name` labels errors)."""
+    """Decode the bytes of an image file (`name` labels errors)."""
     if data.startswith(PNG_MAGIC):
         return _decode_png(data, name)
     if data.startswith(JPEG_MAGIC):
         return _decode_jpeg(data, name)
-    fmt = next((f for magic, f in _OTHER_FORMATS if data.startswith(magic)), None)
+    if data.startswith(BMP_MAGIC):
+        return _decode_bmp(data, name)
+    if data.startswith(GIF_MAGICS):
+        return _decode_gif(data, name)
+    if data.startswith(TIFF_MAGICS):
+        return _decode_tiff(data, name)
+    raise ValueError(_unknown_format(data, name))
+
+
+def _unknown_format(head: bytes, name: str) -> str:
+    fmt = next((f for magic, at, f in _OTHER_FORMATS if head[at:at + len(magic)] == magic), None)
     if fmt is not None:
-        raise ValueError(f"{name}: neither PNG nor JPEG ({fmt} is not supported)")
-    raise ValueError(f"{name}: neither PNG nor JPEG")
+        return f"{name}: {fmt} is not supported (the port reads {READS})"
+    return f"{name}: not a PNG, JPEG, BMP, GIF or TIFF file (the formats the port reads)"
 
 
 def _decode_jpeg(data: bytes, path: str) -> np.ndarray:
@@ -136,8 +175,10 @@ def _decode_jpeg(data: bytes, path: str) -> np.ndarray:
 
 
 def image_size(path: str) -> tuple:
-    """(height, width) of a PNG (IHDR) or JPEG (its SOFn marker) file, read
-    from the header without decoding a pixel. Raises on other files."""
+    """(height, width) of an image file, read from its header without
+    decoding a pixel: PNG's IHDR, JPEG's SOFn marker, BMP's info header,
+    GIF's logical screen grown to its first frame (as PIL's size is), TIFF's
+    first IFD. Raises on other files."""
     path = os.fspath(path)
     with open(path, "rb") as f:
         head = f.read(24)
@@ -146,32 +187,57 @@ def image_size(path: str) -> tuple:
                 raise ValueError(f"{path}: PNG without IHDR")
             w, h = struct.unpack(">II", head[16:24])
             return int(h), int(w)
-        if not head.startswith(JPEG_MAGIC):
-            raise ValueError(f"{path}: neither PNG nor JPEG")
-        f.seek(2)
-        while True:
+        if head.startswith(JPEG_MAGIC):
+            return _jpeg_size(f, path)
+        read = _file_reader(f)
+        if head.startswith(BMP_MAGIC):
+            hdr = _bmp_header(read, path)
+            return hdr["height"], hdr["width"]
+        if head.startswith(GIF_MAGICS):
+            return _gif_layout(read, path)["size"]
+        if head.startswith(TIFF_MAGICS):
+            ifd = _tiff_ifd(read, path)
+            return ifd["height"], ifd["width"]
+        raise ValueError(_unknown_format(head, path))
+
+
+def _file_reader(f):
+    def read(offset: int, n: int) -> bytes:
+        f.seek(offset)
+        return f.read(n)
+
+    return read
+
+
+def _bytes_reader(data: bytes):
+    return lambda offset, n: data[offset:offset + n]
+
+
+def _jpeg_size(f, path: str) -> tuple:
+    f.seek(2)
+    while True:
+        b = f.read(1)
+        while b == b"\xff":  # fill bytes before the marker code
             b = f.read(1)
-            while b == b"\xff":  # fill bytes before the marker code
-                b = f.read(1)
-            if not b:
-                raise ValueError(f"{path}: JPEG without a frame header")
-            marker = b[0]
-            if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
-                f.read(1)  # the next marker's 0xFF
-                continue
-            seg = f.read(2)
-            if len(seg) < 2 or marker in (0xD9, 0xDA):
-                raise ValueError(f"{path}: JPEG without a frame header")
-            n = struct.unpack(">H", seg)[0]
-            if marker in _SOF_MARKERS:
-                sof = f.read(5)
-                if len(sof) < 5:
-                    raise ValueError(f"{path}: truncated JPEG frame header")
-                h, w = struct.unpack(">HH", sof[1:5])
-                return int(h), int(w)
-            f.seek(n - 2, os.SEEK_CUR)
-            if f.read(1) != b"\xff":
-                raise ValueError(f"{path}: corrupt JPEG marker segment")
+        if not b:
+            raise ValueError(f"{path}: JPEG without a frame header")
+        marker = b[0]
+        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
+            f.read(1)  # the next marker's 0xFF
+            continue
+        seg = f.read(2)
+        if len(seg) < 2 or marker in (0xD9, 0xDA):
+            raise ValueError(f"{path}: JPEG without a frame header")
+        n = struct.unpack(">H", seg)[0]
+        if marker in _SOF_MARKERS:
+            sof = f.read(5)
+            if len(sof) < 5:
+                raise ValueError(f"{path}: truncated JPEG frame header")
+            h, w = struct.unpack(">HH", sof[1:5])
+            return int(h), int(w)
+        f.seek(n - 2, os.SEEK_CUR)
+        if f.read(1) != b"\xff":
+            raise ValueError(f"{path}: corrupt JPEG marker segment")
 
 
 def encode_png(rgb: np.ndarray, level: int = 6) -> bytes:
@@ -265,3 +331,461 @@ def _png_pass(raw, off, pw, ph, channels, depth, ctype, path):
     bits = np.unpackbits(rows, axis=1).reshape(ph, -1, depth)[:, :pw]
     vals = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(axis=2, dtype=np.uint16)
     return (vals * (255 // ((1 << depth) - 1)) if ctype == 0 else vals).astype(np.uint8)[..., None], end
+
+
+# ---------------------------------------------------------------------------
+# BMP, as Pillow's BmpImagePlugin opens it
+# ---------------------------------------------------------------------------
+
+_BMP_HEADERS = (12, 40, 52, 56, 64, 108, 124)
+# BIT2MODE: bits -> (mode, raw mode) of an uncompressed file
+_BMP_MODES = {1: ("P", "P;1"), 4: ("P", "P;4"), 8: ("P", "P"), 16: ("RGB", "BGR;15"), 24: ("RGB", "BGR"),
+              32: ("RGB", "BGRX")}
+# the BI_BITFIELDS layouts Pillow reads: (bits, masks) -> raw mode
+_BMP_BITFIELDS = {
+    (32, (0xFF0000, 0xFF00, 0xFF, 0x0)): "BGRX", (32, (0xFF000000, 0xFF0000, 0xFF00, 0x0)): "XBGR",
+    (32, (0xFF000000, 0xFF00, 0xFF, 0x0)): "BGXR", (32, (0xFF000000, 0xFF0000, 0xFF00, 0xFF)): "ABGR",
+    (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)): "RGBA", (32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000)): "BGRA",
+    (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)): "BGAR", (32, (0x0, 0x0, 0x0, 0x0)): "BGRA",
+    (24, (0xFF0000, 0xFF00, 0xFF)): "BGR", (16, (0xF800, 0x7E0, 0x1F)): "BGR;16", (16, (0x7C00, 0x3E0, 0x1F)): "BGR;15",
+}
+# bits a pixel of each raw mode
+_RAW_BITS = {"1": 1, "P;1": 1, "P;4": 4, "P": 8, "L": 8, "BGR;15": 16, "BGR;16": 16, "BGR": 24}
+
+
+def _bmp_header(read, path: str) -> dict:
+    """BmpImageFile._bitmap: size, raw mode, palette and pixel data layout."""
+    head = read(0, 18)
+    if len(head) < 18:
+        raise ValueError(f"{path}: truncated BMP header")
+    offset, hsize = struct.unpack_from("<I", head, 10)[0], struct.unpack_from("<I", head, 14)[0]
+    if hsize not in _BMP_HEADERS:
+        raise ValueError(f"{path}: BMP header size {hsize} is not supported (PIL refuses it too)")
+    hd = read(18, hsize - 4)
+    if len(hd) < hsize - 4:
+        raise ValueError(f"{path}: truncated BMP header")
+    pos, masks, colors = 14 + hsize, None, 0
+    if hsize == 12:  # BITMAPCOREHEADER (OS/2 1.x): 16-bit size, 3-byte palette entries
+        width, height, _, bits = struct.unpack_from("<HHHH", hd)
+        comp, pad, direction = 0, 3, -1
+    else:
+        flip = hd[7] == 0xFF  # a negative height: top-down rows
+        width, height = struct.unpack_from("<II", hd)
+        height = 2**32 - height if flip else height
+        bits, comp = struct.unpack_from("<HI", hd, 10)
+        colors, pad, direction = struct.unpack_from("<I", hd, 28)[0], 4, 1 if flip else -1
+        if comp == 3:  # BI_BITFIELDS: the masks in the header, or after a 40-byte one
+            if len(hd) >= 48:
+                alpha = struct.unpack_from("<I", hd, 48) if len(hd) >= 52 else (0,)
+                masks = struct.unpack_from("<III", hd, 36) + alpha
+            else:
+                m = read(pos, 12)
+                if len(m) < 12:
+                    raise ValueError(f"{path}: truncated BMP bitfield masks")
+                masks, pos = struct.unpack("<III", m) + (0,), pos + 12
+    colors = colors or 1 << bits
+    if offset == 14 + hsize and bits <= 8:
+        offset += 4 * colors
+    if bits not in _BMP_MODES:
+        raise ValueError(f"{path}: BMP pixel depth {bits} is not supported (PIL refuses it too)")
+    mode, raw = _BMP_MODES[bits]
+    rle = False
+    if comp == 3:
+        key = (bits, masks if bits == 32 else masks[:3])
+        if key not in _BMP_BITFIELDS:
+            raise ValueError(f"{path}: BMP bitfields layout {bits} bits {masks} is not supported (PIL refuses it too)")
+        raw = _BMP_BITFIELDS[key]
+    elif comp in (1, 2):
+        rle = True
+    elif comp in (4, 5):
+        kind = "JPEG (BI_JPEG)" if comp == 4 else "PNG (BI_PNG)"
+        raise ValueError(f"{path}: BMP with {kind} compression is not supported (PIL refuses it too)")
+    elif comp != 0:
+        raise ValueError(f"{path}: BMP compression {comp} is not supported (PIL refuses it too)")
+    palette = None
+    if mode == "P":
+        if not 0 < colors <= 256:
+            raise ValueError(f"{path}: BMP palette of {colors} colours is not supported (PIL refuses it too)")
+        pal = read(pos, pad * colors)
+        grey = all(pal[i * pad:i * pad + 3] == bytes([v & 255]) * 3
+                   for i, v in enumerate((0, 255) if colors == 2 else range(colors)))
+        if grey:  # a grey palette is dropped: mode "1" or "L" of the raw indices
+            mode = raw = "1" if colors == 2 else "L"
+        else:
+            n = len(pal) // pad
+            palette = np.frombuffer(pal[:n * pad], np.uint8).reshape(n, pad)[:, 2::-1]
+    return dict(width=int(width), height=int(height), bits=bits, offset=offset, direction=direction, mode=mode,
+                raw=raw, rle=rle, rle4=comp == 2, palette=palette)
+
+
+def _decode_bmp(data: bytes, path: str) -> np.ndarray:
+    hdr = _bmp_header(_bytes_reader(data), path)
+    w, h, mode, raw = hdr["width"], hdr["height"], hdr["mode"], hdr["raw"]
+    if w == 0 or h == 0:
+        raise ValueError(f"{path}: BMP of size {w}x{h}")
+    if hdr["rle"]:
+        if mode == "1":
+            raise ValueError(f"{path}: RLE BMP with a black-and-white palette is not supported (PIL refuses it too)")
+        idx = np.zeros(w * h, np.uint8)
+        body = data[hdr["offset"]:]
+        got = _load().sfod_bmp_rle(body, len(body), hdr["offset"], w, h, int(hdr["rle4"]),
+                                   idx.ctypes.data_as(_U8P))
+        if got < w * h:
+            raise ValueError(f"{path}: BMP RLE data ends before the image does (PIL refuses it too)")
+        pix = idx.reshape(h, w)
+    else:
+        stride = ((w * hdr["bits"] + 31) >> 3) & ~3
+        need = (w * _RAW_BITS.get(raw, 32) + 7) // 8
+        if stride < need:
+            raise ValueError(f"{path}: BMP rows shorter than its {mode} pixels (PIL refuses it too)")
+        body = data[hdr["offset"]:hdr["offset"] + stride * h]
+        if len(body) < stride * (h - 1) + need:
+            raise ValueError(f"{path}: truncated BMP pixel data")
+        rows = np.frombuffer(body + bytes(stride * h - len(body)), np.uint8).reshape(h, stride)[:, :need]
+        pix = _bmp_unpack(rows, w, raw)
+    if hdr["direction"] == -1:
+        pix = pix[::-1]
+    if mode == "P":
+        return _palette_rgb(pix, hdr["palette"])
+    if pix.ndim == 2:  # "1" (its pixels 0 or 255) and "L"
+        return np.repeat(pix[..., None], 3, axis=2)
+    return np.ascontiguousarray(pix)
+
+
+def _bmp_unpack(rows: np.ndarray, w: int, raw: str) -> np.ndarray:
+    """Pillow's unpacker of raw mode `raw` over rows [h, bytes]."""
+    if raw in ("1", "P;1", "P;4"):
+        bits = np.unpackbits(rows, axis=1)
+        if raw == "P;4":
+            return (bits.reshape(rows.shape[0], -1, 4) * np.array([8, 4, 2, 1], np.uint8)).sum(2, dtype=np.uint8)[:, :w]
+        return bits[:, :w] * np.uint8(255 if raw == "1" else 1)
+    if raw in ("P", "L"):
+        return rows[:, :w]
+    if raw in ("BGR;15", "BGR;16"):
+        p = rows[:, :2 * w].view("<u2").astype(np.uint32)
+        six = raw == "BGR;16"
+        r = ((p >> (11 if six else 10)) & 31) * 255 // 31
+        g = ((p >> 5) & (63 if six else 31)) * 255 // (63 if six else 31)
+        return np.stack([r, g, (p & 31) * 255 // 31], axis=-1).astype(np.uint8)
+    px = rows[:, :w * len(raw.split(";")[0])].reshape(rows.shape[0], w, -1)
+    return px[..., [raw.index(c) for c in "RGB"]]
+
+
+def _palette_rgb(idx: np.ndarray, palette: np.ndarray) -> np.ndarray:
+    """P -> RGB as Pillow converts it: indices past the palette are black."""
+    lut = np.zeros((256, 3), np.uint8)
+    lut[:min(len(palette), 256)] = palette[:256]
+    return lut[idx]
+
+
+# ---------------------------------------------------------------------------
+# GIF: the first frame, as Pillow's GifImagePlugin opens it
+# ---------------------------------------------------------------------------
+
+
+def _gif_block(read, pos: int) -> tuple:
+    """GifImageFile.data: (one data sub-block, or None at a terminator or
+    the end of the file; the offset after it)."""
+    n = read(pos, 1)
+    if not n or not n[0]:
+        return None, pos + len(n)
+    return read(pos + 1, n[0]), pos + 1 + n[0]
+
+
+def _gif_blocks(read, pos: int) -> tuple:
+    """The data sub-blocks from pos up to a terminator: (their bytes joined,
+    the offset after it)."""
+    out = []
+    block, pos = _gif_block(read, pos)
+    while block:
+        out.append(block)
+        block, pos = _gif_block(read, pos)
+    return b"".join(out), pos
+
+
+def _gif_palette(p: bytes):
+    """A colour table, or None where it is the grey ramp i -> (i, i, i)
+    (Pillow drops it and opens the image as "L")."""
+    ramp = all(i // 3 == p[i] == p[i + 1] == p[i + 2] for i in range(0, len(p) - 2, 3))
+    return None if ramp else np.frombuffer(p[:len(p) // 3 * 3], np.uint8).reshape(-1, 3)
+
+
+def _gif_layout(read, path: str) -> dict:
+    """GifImageFile._open and _seek(0): the size (the logical screen grown to
+    the first frame), the frame's box, palette, transparency, interlacing
+    and the offset of its LZW data."""
+    s = read(0, 13)
+    if len(s) < 13:
+        raise ValueError(f"{path}: truncated GIF header")
+    w, h, flags = struct.unpack_from("<HHB", s, 6)
+    pos, palette = 13, None
+    if flags & 128:
+        n = 3 << ((flags & 7) + 1)
+        palette = _gif_palette(read(pos, n))
+        pos += n
+    transparency = None
+    while True:
+        b = read(pos, 1)
+        pos += 1
+        if not b or b == b";":
+            raise ValueError(f"{path}: GIF without an image (PIL refuses it too)")
+        if b == b"!":  # an extension, read block by block as Pillow reads it
+            label = read(pos, 1)
+            pos += 1
+            block, pos = _gif_block(read, pos)
+            if label == b"\xfe":  # a comment: its blocks up to the terminator
+                _, pos = _gif_blocks(read, pos) if block else (None, pos)
+                continue
+            if label == b"\xf9" and block is not None:  # graphic control: the transparency index
+                if len(block) < 4:
+                    raise ValueError(f"{path}: truncated GIF graphic control extension (PIL refuses it too)")
+                if block[0] & 1:
+                    transparency = block[3]
+            elif label == b"\xff" and block is not None and block.startswith(b"NETSCAPE2.0"):
+                _, pos = _gif_block(read, pos)  # its loop count
+            _, pos = _gif_blocks(read, pos)
+        elif b == b",":
+            d = read(pos, 9)
+            if len(d) < 9:
+                raise ValueError(f"{path}: truncated GIF image descriptor")
+            x0, y0, fw, fh, fflags = struct.unpack("<HHHHB", d)
+            pos += 9
+            if fflags & 128:
+                n = 3 << ((fflags & 7) + 1)
+                local = _gif_palette(read(pos, n))
+                pos += n
+                if local is not None:  # a grey-ramp local table leaves the global one in force
+                    palette = local
+            bits = read(pos, 1)
+            if not bits:
+                raise ValueError(f"{path}: truncated GIF image")
+            return dict(size=(max(y0 + fh, h), max(x0 + fw, w)), box=(x0, y0, fw, fh), palette=palette,
+                        transparency=transparency, interlace=bool(fflags & 64), min_size=bits[0], data=pos + 1)
+        # any other byte: skipped, as Pillow skips it
+
+
+def _decode_gif(data: bytes, path: str) -> np.ndarray:
+    read = _bytes_reader(data)
+    lay = _gif_layout(read, path)
+    (H, W), (x0, y0, fw, fh) = lay["size"], lay["box"]
+    lzw, _ = _gif_blocks(read, lay["data"])
+    idx = np.zeros(fw * fh, np.uint8)
+    got = _load().sfod_gif_lzw(lzw, len(lzw), lay["min_size"], idx.ctypes.data_as(_U8P), fw * fh)
+    if got < 0:
+        what = "corrupt LZW data" if got == -1 else f"LZW minimum code size {lay['min_size']}"
+        raise ValueError(f"{path}: GIF with {what} (PIL refuses it too)")
+    # the frame on a canvas of index 0, or of the transparency index
+    fill = lay["transparency"] if lay["transparency"] is not None else 0
+    canvas = np.full((H, W), fill, np.uint8)
+    if fw and fh:
+        rows = np.arange(fh)
+        if lay["interlace"]:
+            rows = np.concatenate([rows[0::8], rows[4::8], rows[2::4], rows[1::2]])
+        frame = canvas[y0:y0 + fh, x0:x0 + fw]
+        full, part = divmod(int(got), fw)
+        frame[rows[:full]] = idx[:full * fw].reshape(full, fw)
+        if part:
+            frame[rows[full], :part] = idx[full * fw:got]
+    if lay["palette"] is None:
+        return np.repeat(canvas[..., None], 3, axis=2)
+    return _palette_rgb(canvas, lay["palette"])
+
+
+# ---------------------------------------------------------------------------
+# TIFF: the first page, as Pillow's TiffImagePlugin opens it (libtiff for
+# every compression but none)
+# ---------------------------------------------------------------------------
+
+# field types -> struct codes (RATIONAL as two LONGs)
+_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d"}
+_TIFF_COMPRESSION = {1: "raw", 32773: "packbits", 5: "lzw", 8: "deflate", 32946: "deflate"}
+_TIFF_REFUSED_COMPRESSION = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
+                             7: "JPEG"}
+# (photometric, bits, extra samples) -> the pixel layout Pillow's OPEN_INFO
+# gives it: "bilevel", "grey", "grey16", "rgb", "rgba_assoc", "palette",
+# "cmyk"; the samples past the first ones are dropped by convert("RGB")
+_TIFF_LAYOUTS = {
+    (0, (1,), ()): "bilevel", (1, (1,), ()): "bilevel",
+    **{(p, (b,), ()): "grey" for p in (0, 1) for b in (2, 4, 8)},
+    (0, (16,), ()): "grey16", (1, (16,), ()): "grey16",
+    (1, (8, 8), (2,)): "grey",
+    (2, (8, 8, 8), ()): "rgb", (2, (8,) * 4, ()): "rgb", (2, (8,) * 4, (0,)): "rgb", (2, (8,) * 4, (2,)): "rgb",
+    (2, (8,) * 4, (999,)): "rgb", (2, (8,) * 5, (0, 0)): "rgb", (2, (8,) * 6, (0, 0, 0)): "rgb",
+    (2, (8,) * 5, (2, 0)): "rgb", (2, (8,) * 6, (2, 0, 0)): "rgb",
+    (2, (8,) * 4, (1,)): "rgba_assoc", (2, (8,) * 5, (1, 0)): "rgba_assoc", (2, (8,) * 6, (1, 0, 0)): "rgba_assoc",
+    (2, (16,) * 3, ()): "rgb", (2, (16,) * 4, ()): "rgb", (2, (16,) * 4, (0,)): "rgb", (2, (16,) * 4, (2,)): "rgb",
+    (2, (16,) * 4, (1,)): "rgba_assoc",
+    **{(3, (b,), ()): "palette" for b in (1, 2, 4, 8)}, (3, (8, 8), (0,)): "palette", (3, (8, 8), (2,)): "palette",
+    (5, (8,) * 4, ()): "cmyk", (5, (8,) * 5, (0,)): "cmyk", (5, (8,) * 6, (0, 0)): "cmyk", (5, (16,) * 4, ()): "cmyk",
+}
+
+
+def _tiff_ifd(read, path: str) -> dict:
+    """The first IFD's tags -> {tag: tuple of values}, with the image's
+    width and height (Pillow's size: swapped by Orientation 5-8, which the
+    port refuses)."""
+    head = read(0, 8)
+    order = "<" if head[:2] == b"II" else ">"
+    (off,) = struct.unpack_from(order + "I", head, 4)
+    cnt = read(off, 2)
+    if len(cnt) < 2:
+        raise ValueError(f"{path}: truncated TIFF directory")
+    (n,) = struct.unpack(order + "H", cnt)
+    raw = read(off + 2, 12 * n)
+    if len(raw) < 12 * n:
+        raise ValueError(f"{path}: truncated TIFF directory")
+    tags = {}
+    for i in range(n):
+        tag, typ, count = struct.unpack_from(order + "HHI", raw, 12 * i)
+        fmt = _TIFF_TYPES.get(typ)
+        if fmt is None:
+            continue
+        size = struct.calcsize(order + fmt) * count
+        inline = raw[12 * i + 8:12 * i + 12]
+        val = inline if size <= 4 else read(struct.unpack_from(order + "I", inline)[0], size)
+        if len(val) < size:
+            raise ValueError(f"{path}: truncated TIFF tag {tag}")
+        tags[tag] = struct.unpack(order + fmt * count, val[:size])
+    if 256 not in tags or 257 not in tags:
+        raise ValueError(f"{path}: TIFF without ImageWidth or ImageLength (PIL refuses it too)")
+    if tags.get(274, (1,))[0] in (5, 6, 7, 8):
+        raise ValueError(f"{path}: TIFF Orientation {tags[274][0]} (rows and columns swapped) is not supported")
+    return dict(tags=tags, order=order, width=int(tags[256][0]), height=int(tags[257][0]))
+
+
+def _decode_tiff(data: bytes, path: str) -> np.ndarray:
+    ifd = _tiff_ifd(_bytes_reader(data), path)
+    tags, order, W, H = ifd["tags"], ifd["order"], ifd["width"], ifd["height"]
+    ccode = tags.get(259, (1,))[0]
+    if ccode in _TIFF_REFUSED_COMPRESSION:
+        raise ValueError(f"{path}: TIFF with {_TIFF_REFUSED_COMPRESSION[ccode]} compression is not supported")
+    if ccode not in _TIFF_COMPRESSION:
+        raise ValueError(f"{path}: TIFF compression {ccode} is not supported")
+    compression = _TIFF_COMPRESSION[ccode]
+    photo = tags.get(262, (0,))[0]
+    if photo == 6:
+        raise ValueError(f"{path}: YCbCr TIFF is not supported")
+    if tags.get(266, (1,))[0] != 1:
+        raise ValueError(f"{path}: TIFF FillOrder {tags[266][0]} (bits LSB first) is not supported")
+    fmt = tags.get(339, (1,))
+    if any(v != 1 for v in fmt):
+        kind = "floating-point" if 3 in fmt else "signed-integer"
+        raise ValueError(f"{path}: TIFF with {kind} samples (SampleFormat {fmt}) is not supported")
+    bps, extra = tuple(tags.get(258, (1,))), tuple(tags.get(338, ()))
+    spp = tags.get(277, (1,))[0]
+    if spp < len(bps):
+        bps = bps[:spp]
+    elif spp > len(bps) == 1:
+        bps = bps * spp
+    layout = _TIFF_LAYOUTS.get((photo, bps, extra))
+    if len(bps) != spp or layout is None or (layout == "grey16" and (photo == 0 and order == ">")):
+        raise ValueError(f"{path}: TIFF pixel layout (photometric {photo}, bits {bps}, extra samples {extra}) is "
+                         "not supported")
+    planar = tags.get(284, (1,))[0] == 2 and spp > 1
+    if planar and (bps[0] != 8 or layout == "rgba_assoc"):
+        raise ValueError(f"{path}: planar TIFF at {bps[0]} bits or with associated alpha is not supported")
+    predictor = tags.get(317, (1,))[0] if compression in ("lzw", "deflate") else 1
+    if predictor not in (1, 2) or (predictor == 2 and bps[0] not in (8, 16)):
+        raise ValueError(f"{path}: TIFF predictor {predictor} at {bps[0]} bits is not supported (PIL refuses it too)")
+    samples = _tiff_samples(data, tags, order, W, H, bps[0], spp, planar, compression, predictor, path)
+    return _tiff_rgb(samples, layout, photo, tags, path)
+
+
+def _tiff_samples(data, tags, order, W, H, bits, spp, planar, compression, predictor, path) -> np.ndarray:
+    """The samples [H, W, spp] (uint16 at 16 bits) from the strips or tiles."""
+    if 273 in tags:
+        offsets, counts = tags[273], tags.get(279)
+        tw, th = W, tags.get(278, (H,))[0]
+    elif 324 in tags:
+        offsets, counts = tags[324], tags.get(325)
+        if 322 not in tags or 323 not in tags:
+            raise ValueError(f"{path}: tiled TIFF without TileWidth or TileLength (PIL refuses it too)")
+        tw, th = tags[322][0], tags[323][0]
+    else:
+        raise ValueError(f"{path}: TIFF without strips or tiles (PIL refuses it too)")
+    if compression != "raw" and counts is None:
+        raise ValueError(f"{path}: compressed TIFF without byte counts")
+    th = max(1, min(th, H)) if 273 in tags else th
+    if tw < 1 or th < 1:
+        raise ValueError(f"{path}: TIFF tiles of {tw}x{th} (PIL refuses them too)")
+    planes, per = (spp, 1) if planar else (1, spp)
+    across, down = -(-W // tw), -(-H // th)
+    if len(offsets) < across * down * planes:
+        raise ValueError(f"{path}: TIFF with {len(offsets)} strips or tiles for {across * down * planes}")
+    if compression == "raw" and 273 in tags and th == H and not planar:
+        offsets = offsets[-1:]  # Pillow reads one strip from the last offset
+    dtype = np.dtype(order + "u2") if bits == 16 else np.uint8
+    out = np.zeros((H, W, spp), np.uint16 if bits == 16 else np.uint8)
+    row_bytes = (tw * per * bits + 7) // 8
+    lib = _load()
+    k = 0
+    for p in range(planes):
+        for ty in range(down):
+            for tx in range(across):
+                y, x = ty * th, tx * tw
+                rows = min(th, H - y) if 273 in tags else th
+                need = rows * row_bytes
+                off = offsets[k]
+                src = data[off:off + (counts[k] if counts is not None and compression != "raw" else need)]
+                k += 1
+                if compression == "raw":
+                    buf = src
+                elif compression == "deflate":
+                    try:
+                        buf = zlib.decompress(src)
+                    except zlib.error as e:
+                        raise ValueError(f"{path}: corrupt TIFF Deflate data ({e})") from e
+                else:
+                    buf = np.empty(need, np.uint8)
+                    fn = lib.sfod_tiff_lzw if compression == "lzw" else lib.sfod_packbits
+                    rc = fn(src, len(src), buf.ctypes.data_as(_U8P), need)
+                    if rc == -2:
+                        raise ValueError(f"{path}: old-style (LSB-first) TIFF LZW is not supported")
+                    if rc < 0:
+                        raise ValueError(f"{path}: corrupt or short TIFF {compression} data")
+                    buf = buf.tobytes()
+                if len(buf) < need:
+                    raise ValueError(f"{path}: TIFF {compression} data ends before its strip or tile does")
+                chunk = np.frombuffer(buf[:need], np.uint8).reshape(rows, row_bytes)
+                if bits >= 8:
+                    chunk = chunk.view(dtype).reshape(rows, tw, per)
+                    if predictor == 2:  # horizontal differencing, modulo the sample size
+                        chunk = np.cumsum(chunk.astype(np.uint16 if bits == 16 else np.uint8), axis=1,
+                                          dtype=np.uint16 if bits == 16 else np.uint8)
+                else:  # 1, 2 or 4 bits: one sample a pixel, high bits first
+                    b = np.unpackbits(chunk, axis=1).reshape(rows, -1, bits)[:, :tw]
+                    chunk = (b * (1 << np.arange(bits - 1, -1, -1, dtype=np.uint8))).sum(2, dtype=np.uint8)[..., None]
+                hh, ww = min(rows, H - y), min(tw, W - x)
+                out[y:y + hh, x:x + ww, p:p + per] = chunk[:hh, :ww]
+    return out
+
+
+def _tiff_rgb(s: np.ndarray, layout: str, photo: int, tags: dict, path: str) -> np.ndarray:
+    """The samples as convert("RGB") gives the mode Pillow opens them as."""
+    if layout == "bilevel":
+        v = s[..., 0] * np.uint8(255)
+        return np.repeat((255 - v if photo == 0 else v)[..., None], 3, axis=2)
+    if layout == "grey":
+        bits = tags.get(258, (8,))[0]
+        v = s[..., 0] * np.uint8(255 // ((1 << bits) - 1))
+        return np.repeat((255 - v if photo == 0 else v)[..., None], 3, axis=2)
+    if layout == "grey16":  # "I;16" or "I;16B", clipped at 255 (no inversion, as Pillow opens it)
+        return np.repeat(np.minimum(s[..., :1], 255).astype(np.uint8), 3, axis=2)
+    if s.dtype == np.uint16:  # the 16-bit colour raw modes keep the high byte
+        s = (s >> 8).astype(np.uint8)
+    if layout == "palette":
+        if 320 not in tags:
+            raise ValueError(f"{path}: palette TIFF without ColorMap (PIL refuses it too)")
+        cmap = np.asarray(tags[320], np.uint16) // 256
+        n = len(cmap) // 3
+        return _palette_rgb(s[..., 0], cmap[:3 * n].reshape(3, n).T.astype(np.uint8))
+    if layout == "cmyk":  # Convert.c:cmyk2rgb
+        nk = 255 - s[..., 3:4].astype(np.int32)
+        t = s[..., :3].astype(np.int32) * nk + 128
+        return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+    rgb = s[..., :3]
+    if layout == "rgba_assoc":  # "RGBa": Unpack.c un-premultiplies, clipped
+        a = s[..., 3:4].astype(np.int32)
+        un = np.clip(rgb.astype(np.int32) * 255 // np.maximum(a, 1), 0, 255)
+        rgb = np.where(a == 0, 0, np.where(a == 255, rgb, un))
+    return np.ascontiguousarray(rgb, dtype=np.uint8)

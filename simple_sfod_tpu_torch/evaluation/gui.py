@@ -16,9 +16,10 @@ http.server alone:
                                                       (run_ui.py:298-394)
   /imgfile an image of the images dir, refused (403) outside it
 
-The browser's image size comes from the PNG or JPEG header
-(`data/native_codec.py:image_size`), not from an image library; another
-format is drawn at 640x480, as the JAX GUI draws an image it cannot open.
+The browser's image size comes from the image's header (PNG, JPEG, BMP,
+GIF, TIFF: `data/native_codec.py:image_size`), not from an image library;
+another format is drawn at 640x480, as the JAX GUI draws an image it cannot
+open.
 Given the same state every page is the JAX GUI's, byte for byte.
 
 Launch: python -m simple_sfod_tpu_torch.tools.metrics_gui [--port 8350].

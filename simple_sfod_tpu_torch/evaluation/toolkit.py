@@ -10,8 +10,8 @@ Supported formats:
 
 All readers return ({image_id: {"boxes" [N,4] xyxy, "classes" [N],
 ("scores" [N])}}, class_names) with contiguous class ids. YOLO's relative
-coordinates take each image's size from its PNG or JPEG header
-(`data/native_codec.py:image_size`), not from an image library.
+coordinates take each image's size from its header (PNG, JPEG, BMP, GIF
+or TIFF: `data/native_codec.py:image_size`), not from an image library.
 """
 
 from __future__ import annotations
@@ -120,8 +120,10 @@ def read_voc_dir(xml_dir: str, table: ClassTable) -> Dict:
 
 
 def _image_size(images_dir: str, stem: str) -> Tuple[int, int]:
-    """(w, h) of the image `stem` in images_dir, from its PNG or JPEG
-    header (another format raises ValueError)."""
+    """(w, h) of the image `stem` in images_dir, from its header as
+    `data/native_codec.py:image_size` reads every format the port decodes
+    (PIL's `size`, which the JAX toolkit reads); another format raises
+    ValueError."""
     from ..data.native_codec import image_size
 
     for ext in (".jpg", ".jpeg", ".png", ".bmp"):

@@ -1,9 +1,10 @@
 """Build and load the port's host (CPU) C++ libraries with plain g++.
 
   imgcodec  data/csrc/imgcodec.cpp (Pillow-exact bilinear resize, PNG
-            scanline reconstruction) and data/csrc/jpeg_decode.cpp (the
-            port's baseline JPEG decoder, bit-equal to libjpeg-turbo's with
-            PIL's settings); data/native_codec.py binds them
+            scanline reconstruction), data/csrc/jpeg_decode.cpp (the port's
+            JPEG decoder, bit-equal to libjpeg-turbo's with PIL's settings)
+            and data/csrc/containers.cpp (GIF and TIFF LZW, PackBits, BMP
+            RLE); data/native_codec.py binds them
   cocoeval  evaluation/csrc/cocoeval.cpp (the port's copy of the repo's
             native/cocoeval.cpp): the COCO metric in C++ (evaluation/native.py
             binds it)
@@ -32,7 +33,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 SOURCES = {
-    "imgcodec": (os.path.join(_PKG, "data", "csrc", "imgcodec.cpp"), os.path.join(_PKG, "data", "csrc", "jpeg_decode.cpp")),
+    "imgcodec": tuple(os.path.join(_PKG, "data", "csrc", f) for f in ("imgcodec.cpp", "jpeg_decode.cpp", "containers.cpp")),
     "cocoeval": (os.path.join(_PKG, "evaluation", "csrc", "cocoeval.cpp"),),
 }
 

@@ -12,10 +12,11 @@ package's, and `native_codec.decode` to Pillow. PNG files come from
 interlacing and tRNS, with a random filter type on each scanline.
 
 What stays refused raises a ValueError that names it: an invalid or
-out-of-order scan progression, a progressive file that libjpeg-turbo would
-smooth, JPEG with 2 components, BMP, GIF, TIFF and WebP, a PNG with an
-invalid bit depth or interlace method. The JPEG refusals that were there
-before (lossless, hierarchical, arithmetic-coded, 12-bit) are cases of
+out-of-order scan progression, JPEG with 2 components, WebP, a PNG with an
+invalid bit depth or interlace method. The cases once refused here (a
+progressive file that libjpeg-turbo smooths, BMP, GIF and TIFF) now decode
+as Pillow does (DECODED_NOW); tests/test_torch_image_containers.py holds
+their variants. The JPEG refusals (hierarchical, 12-bit) are cases of
 tests/test_torch_jpeg.py.
 """
 
@@ -369,22 +370,34 @@ REFUSED = {
     "progressive-ac-before-dc": (lambda: _reordered(range(1, 10)), "scan progression"),
     "progressive-dc-twice": (lambda: _reordered([0, 0, *range(1, 10)]), "scan progression"),
     "progressive-ss-after-se": (_ss_after_se, "scan progression"),
-    "progressive-unrefined": (lambda: drop_scans(PROGRESSIVE, 6), "block smoothing"),
     "two-components": (lambda: encode(smooth_image(8, 8, seed=1)[..., :2], ycc=False, jfif=False),
                        "2 or more than 4 components"),
-    "bmp": (lambda: _other_format("BMP"), "BMP is not supported"),
-    "gif": (lambda: _other_format("GIF"), "GIF is not supported"),
-    "tiff": (lambda: _other_format("TIFF"), "TIFF is not supported"),
     "webp": (lambda: _other_format("WEBP"), "WebP is not supported"),
     "png-palette-16bit": (lambda: _bad_ihdr(16, 3, 0), "bit depth 16 with colour type 3"),
     "png-interlace-method-2": (lambda: _bad_ihdr(8, 2, 2), "interlace method 2"),
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED))
-def test_refusals_name_the_feature(tmp_path, case):
+# refused until the port read them: they now decode as Pillow does
+DECODED_NOW = {
+    "progressive-unrefined": lambda: drop_scans(PROGRESSIVE, 6),
+    "bmp": lambda: _other_format("BMP"),
+    "gif": lambda: _other_format("GIF"),
+    "tiff": lambda: _other_format("TIFF"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED) + sorted(DECODED_NOW))
+def test_refusals_name_the_feature(tmp_path, case, monkeypatch):
     """The port's decode and its loader raise a ValueError naming what is
-    not read; no path falls back to another decoder."""
+    not read; no path falls back to another decoder. The cases of
+    DECODED_NOW decode equal to Pillow and to the JAX loader, which reads
+    them with PIL (its native codec switched off: on the smoothed file its
+    libjpeg smooths otherwise than Pillow's libjpeg-turbo)."""
+    if case in DECODED_NOW:
+        monkeypatch.setattr(jnc, "_DISABLED", True)
+        assert_reads_like_jax(DECODED_NOW[case](), tmp_path)
+        return
     make, message = REFUSED[case]
     path = str(tmp_path / "refused")
     with open(path, "wb") as f:
