@@ -218,7 +218,8 @@ Phases (each prints one progress line with its wall time):
  17. car      the paper's car-only source domains: the committed image
               fixtures (tests/torch_jpeg/: baseline, progressive, CMYK,
               YCCK, arithmetic-coded, block-smoothed and lossless JPEG;
-              tests/torch_containers/: BMP, GIF, TIFF) decoded by the
+              tests/torch_containers/: BMP, GIF, TIFF; tests/torch_webp/:
+              lossy, lossless, ALPH, VP8X, animated WebP) decoded by the
               port's codec bit-equal to the recorded SHA-256 of Pillow's
               RGB; decode (and decode + resize) ms of a 1914x1052 JPEG,
               baseline and progressive, beside a 1024x2048 PNG and KITTI's
@@ -248,9 +249,13 @@ Phases (each prints one progress line with its wall time):
               in eval_results.json, launches as counted from the code;
               test() images/s of the Sim10k source model; and its test()
               on 4 Sim10k frames rewritten as arithmetic-coded JPEG, BMP
-              and TIFF beside the same frames as the original JPEG files:
-              the loader's batches and the detections equal, 2 launches of
-              each kernel an image
+              and TIFF beside the same frames as the original JPEG files,
+              and on 4 Sim10k records as the committed WebP frames (lossy
+              quality 80, lossy + ALPH, a lossless 957x526 crop; their
+              decode and decode + resize ms beside the baseline JPEG's)
+              beside PNG twins of their decoded pixels: the loader's
+              batches and the detections equal, 2 launches of each kernel
+              an image
  18. da       domain-adversarial training: one float32 step of da, cda
               (ENTROPY_CONDITIONING), adaptive_teacher (the boundary step,
               with the instance classifier) and the source-free main YAML
@@ -1181,7 +1186,7 @@ def train_run(dtype: str, captured: list):
     return trainer, batch, metrics, wall, launches
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 50, tries: int = 2):
+def kernel_device_ms(fn, kernel: str, reps: int = 50, tries: int = 5):
     """The device ms a call of the kernels whose name holds `kernel`, from
     the profiler's kernel events over `reps` calls of fn. -> (ms, every
     kernel's ms). A window in which the profiler recorded no event of the
@@ -2274,6 +2279,11 @@ def wq_phase(smi: str):
 
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "torch_jpeg")
 CONTAINER_FIXTURES = os.path.join(ROOT, "tests", "torch_containers")
+WEBP_FIXTURES = os.path.join(ROOT, "tests", "torch_webp")
+# the Sim10k frame as WebP (tests/test_torch_webp.py writes them): timed
+# beside the baseline JPEG and read by test() beside their PNG twins
+WEBP_FRAMES = {"lossy q80": "sim10k_frame_0_q80.webp", "lossy + ALPH": "sim10k_frame_0_alpha.webp",
+               "lossless 957x526 crop": "sim10k_crop_lossless.webp"}
 # the TIFF compressions timed and decoded on the card
 TIFF_CODES = {"uncompressed": 1, "PackBits": 32773, "LZW": 5, "Deflate": 8}
 SMOOTHED_SCANS = 6  # scans of the progressive Sim10k frame kept for the block-smoothed timing
@@ -2312,13 +2322,13 @@ def jpeg_fixtures(directory: str = JPEG_FIXTURES) -> dict:
 
 
 def check_jpeg_fixtures() -> dict:
-    """Each committed JPEG, BMP, GIF and TIFF fixture decoded by the port's
-    codec on this host, its RGB's SHA-256 equal to Pillow's recorded one.
-    -> {name: kind} of the files checked."""
+    """Each committed JPEG, BMP, GIF, TIFF and WebP fixture decoded by the
+    port's codec on this host, its RGB's SHA-256 equal to Pillow's recorded
+    one. -> {name: kind} of the files checked."""
     import hashlib
 
     done = {}
-    for directory in (JPEG_FIXTURES, CONTAINER_FIXTURES):
+    for directory in (JPEG_FIXTURES, CONTAINER_FIXTURES, WEBP_FIXTURES):
         for name, rec in sorted(jpeg_fixtures(directory).items()):
             rgb = native_codec.decode(os.path.join(directory, name))
             check(list(rgb.shape) == rec["shape"] and hashlib.sha256(rgb.tobytes()).hexdigest() == rec["sha256"],
@@ -2429,11 +2439,50 @@ def write_format_frames(directory: str) -> dict:
     return out
 
 
+def twin_test(tr, d: str, label: str, pairs: list) -> tuple:
+    """test() of trainer tr on two datasets of the same frames, `pairs`
+    [(file of the first set, file of the second, (h, w))], their COCO
+    files under d: both test loaders give the same batches, both dumps the
+    same detections, 2 launches of each NMS kernel an image and set. ->
+    (launches, detections, AP50 of each set, seconds)."""
+    names = []
+    for side in (0, 1):
+        coco = {"images": [{"id": i + 1, "file_name": p[side], "height": p[2][0], "width": p[2][1]}
+                           for i, p in enumerate(pairs)],
+                "annotations": [{"id": i + 1, "image_id": i + 1, "category_id": 1, "bbox": [100.0, 200.0, 300.0, 150.0],
+                                 "area": 45000.0, "iscrowd": 0} for i in range(len(pairs))],
+                "categories": [{"id": 1, "name": "car"}]}
+        path = os.path.join(d, f"{label}_{side}.json")
+        with open(path, "w") as f:
+            json.dump(coco, f)
+        names.append(f"sim10k_{label}_{side}")
+        register_dataset(names[-1], path, "/")
+    batches = [list(build_test_loader(tr.cfg, n)) for n in names]
+    check(len(batches[0]) == len(batches[1]) and all(
+        np.array_equal(a["images"], b["images"]) and np.array_equal(a["scale"], b["scale"])
+        for a, b in zip(*batches)), f"{label}: the two sets' batches differ")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = tr.test(names)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = dict(_kernels.LAUNCHES)
+    check(all(c == 2 * 2 * len(pairs) for c in got.values()), f"{label} test(): launches {got}")
+    dumps = []
+    for n in names:
+        with open(os.path.join(tr.output_dir, "inference", n, "coco_instances_results.json")) as f:
+            dumps.append(sorted(json.load(f), key=lambda e: (e["image_id"], -e["score"], e["bbox"])))
+    check(dumps[0] == dumps[1] and len(dumps[0]) > 0, f"{label} test(): detections differ "
+          f"({len(dumps[0])} and {len(dumps[1])}, {match_dumps(*dumps)})")
+    for n in names:
+        DATASET_REGISTRY.pop(n, None)
+    return got, len(dumps[0]), (res[names[0]]["AP50"], res[names[1]]["AP50"]), secs
+
+
 def format_test(tr, formats: dict, root: str) -> tuple:
     """test() of trainer tr on the Sim10k frames 0, 1, 2 and 0 as the
     original JPEG files and rewritten (arithmetic-coded, BMP, TIFF LZW, TIFF
-    PackBits): both test loaders give the same batches, both dumps the same
-    detections. -> (launches, a line of numbers)."""
+    PackBits), through twin_test. -> (launches, a line of numbers)."""
     frames = [native_codec.decode(os.path.join(JPEG_FIXTURES, f"sim10k_frame_{i}.jpg")) for i in range(3)]
     d = os.path.join(root, "formats")
     rewritten = [formats["arithmetic JPEG"], os.path.join(d, "f1.bmp"), os.path.join(d, "f2.tif"),
@@ -2443,41 +2492,35 @@ def format_test(tr, formats: dict, root: str) -> tuple:
         with open(path, "wb") as f:
             f.write(data)
     originals = [os.path.join(JPEG_FIXTURES, f"sim10k_frame_{i}.jpg") for i in (0, 1, 2, 0)]
-    h, w = CAR_DOMAINS["sim10k"]["hw"]
-    names = []
-    for label, paths in (("original", originals), ("rewritten", rewritten)):
-        coco = {"images": [{"id": i + 1, "file_name": p, "height": h, "width": w} for i, p in enumerate(paths)],
-                "annotations": [{"id": i + 1, "image_id": i + 1, "category_id": 1, "bbox": [100.0, 200.0, 300.0, 150.0],
-                                 "area": 45000.0, "iscrowd": 0} for i in range(len(paths))],
-                "categories": [{"id": 1, "name": "car"}]}
-        path = os.path.join(d, f"{label}.json")
-        with open(path, "w") as f:
-            json.dump(coco, f)
-        names.append(f"sim10k_formats_{label}")
-        register_dataset(names[-1], path, "/")
-    batches = [list(build_test_loader(tr.cfg, n)) for n in names]
-    check(len(batches[0]) == len(batches[1]) and all(
-        np.array_equal(a["images"], b["images"]) and np.array_equal(a["scale"], b["scale"])
-        for a, b in zip(*batches)), "the rewritten frames' batches differ from the originals'")
-    _kernels.reset_launches()
-    t0 = time.perf_counter()
-    res = tr.test(names)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    got = dict(_kernels.LAUNCHES)
-    check(all(c == 2 * 2 * len(originals) for c in got.values()), f"format test(): launches {got}")
-    dumps = []
-    for n in names:
-        with open(os.path.join(tr.output_dir, "inference", n, "coco_instances_results.json")) as f:
-            dumps.append(sorted(json.load(f), key=lambda e: (e["image_id"], -e["score"], e["bbox"])))
-    check(dumps[0] == dumps[1] and len(dumps[0]) > 0, f"format test(): detections differ "
-          f"({len(dumps[0])} and {len(dumps[1])}, {match_dumps(*dumps)})")
-    for n in names:
-        DATASET_REGISTRY.pop(n, None)
+    hw = CAR_DOMAINS["sim10k"]["hw"]
+    got, n, ap50, secs = twin_test(tr, d, "formats", [(o, r, hw) for o, r in zip(originals, rewritten)])
     line = (f"test() of the Sim10k source model (VGG16-BN, {tr.cfg.TPU.CANVAS[0]}x{tr.cfg.TPU.CANVAS[1]}) on "
             f"{len(originals)} Sim10k frames as arithmetic JPEG, BMP, TIFF LZW and TIFF PackBits beside the original "
-            f"JPEG files: batches equal, {len(dumps[0])} detections equal (AP50 {res[names[0]]['AP50']:.4f} and "
-            f"{res[names[1]]['AP50']:.4f}), {secs:.2f} s for both sets, launches {got}")
+            f"JPEG files: batches equal, {n} detections equal (AP50 {ap50[0]:.4f} and {ap50[1]:.4f}), {secs:.2f} s "
+            f"for both sets, launches {got}")
+    return got, line
+
+
+def webp_test(tr, root: str) -> tuple:
+    """test() of trainer tr on 4 Sim10k records as the committed WebP
+    frames (lossy, lossy + ALPH, the lossless crop, lossy) beside the same
+    records as PNG files of the port's decoded pixels (encode_png), through
+    twin_test. -> (launches, a line of numbers)."""
+    d = os.path.join(root, "webp")
+    os.makedirs(d)
+    pairs = []
+    for i, kind in enumerate(("lossy q80", "lossy + ALPH", "lossless 957x526 crop", "lossy q80")):
+        src = os.path.join(WEBP_FIXTURES, WEBP_FRAMES[kind])
+        rgb = native_codec.decode(src)
+        twin = os.path.join(d, f"twin_{i}.png")
+        with open(twin, "wb") as f:
+            f.write(native_codec.encode_png(rgb, level=1))
+        check(np.array_equal(native_codec.decode(twin), rgb), f"{kind}: PNG twin differs")
+        pairs.append((src, twin, rgb.shape[:2]))
+    got, n, ap50, secs = twin_test(tr, d, "webp", pairs)
+    line = (f"test() of the Sim10k source model on 4 Sim10k records as WebP (lossy q80, lossy + ALPH, lossless "
+            f"957x526 crop, lossy q80) beside their PNG twins: batches equal, {n} detections equal (AP50 "
+            f"{ap50[0]:.4f} and {ap50[1]:.4f}), {secs:.2f} s for both sets, launches {got}")
     return got, line
 
 
@@ -2734,6 +2777,15 @@ def car_phase(smi: str):
         log(f"  the 1914x1052 Sim10k frame in each new form, one thread [{smi}]: decode ms (decode + resize to 600 "
             "px ms): " + ", ".join(f"{k} {d:.2f} ({b:.2f})" for k, (d, b) in fmt_ms.items())
             + f"; BMP and TIFF each decoded back to the frame, the arithmetic file to sim10k_frame_0.jpg's pixels")
+        webp_ms = {kind: decode_resize_ms(os.path.join(WEBP_FIXTURES, f)) for kind, f in WEBP_FRAMES.items()}
+        numbers["webp_decode_ms"] = {k: v[0] for k, v in webp_ms.items()}
+        numbers["webp_decode_resize_ms"] = {k: v[1] for k, v in webp_ms.items()}
+        per_px = (webp_ms["lossless 957x526 crop"][0] / (957 * 526)) / (jpeg_dec / (1914 * 1052))
+        log(f"  the Sim10k frame as WebP, one thread, median of 5 [{smi}]: decode ms (decode + resize to 600 px "
+            "ms): " + ", ".join(f"{k} {d:.2f} ({b:.2f})" for k, (d, b) in webp_ms.items())
+            + f"; beside the baseline JPEG's {jpeg_dec:.2f} ({jpeg_both:.2f}): lossy "
+            f"{webp_ms['lossy q80'][0] / jpeg_dec:.2f}x, lossy + ALPH {webp_ms['lossy + ALPH'][0] / jpeg_dec:.2f}x, "
+            f"lossless {per_px:.2f}x a pixel")
         log(f"  host decode on one thread [{smi}]: a 1914x1052 4:2:0 JPEG {jpeg_dec:.2f} ms, with the resize to "
             f"600 px {jpeg_both:.2f} ms; its progressive re-encoding {prog_dec:.2f} ms, with the resize "
             f"{prog_both:.2f} ms ({prog_dec / jpeg_dec:.2f}x the baseline's decode); a 1024x2048 PNG {png_dec:.2f} ms, "
@@ -2827,6 +2879,9 @@ def car_phase(smi: str):
         log(f"  test() of the Sim10k source model on cityscapes_car_val [{smi}]: {CAR_TEST_FRAMES} images in "
             f"{test_s:.2f} s ({CAR_TEST_FRAMES / test_s:.2f} images/s, decode and evaluation included)")
         got, line = format_test(tr, formats, root)
+        add(got)
+        log(f"  [{smi}] " + line)
+        got, line = webp_test(tr, root)
         add(got)
         log(f"  [{smi}] " + line)
         del tr

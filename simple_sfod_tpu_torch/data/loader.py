@@ -1,12 +1,12 @@
 """Host batch assembly (the port of `simple_sfod_tpu/data/loader.py`).
 
 File records are decoded and resized by the port's native codec
-(data/native_codec.py: PNG and, where built with libjpeg, JPEG; the
-Pillow-exact bilinear resample), array and synthetic records resized by the
-same resample, so neither PIL nor another decoder is needed. Each batch is a
-dict of fixed-shape numpy arrays: uint8 canvases (the device casts them),
-true sizes, per-axis resize scales, padded ground truth, image ids and the
-records' file sizes.
+(data/native_codec.py: PNG, JPEG, BMP, GIF, TIFF and WebP, by the port's
+own decoders; the Pillow-exact bilinear resample), array and synthetic
+records resized by the same resample, so neither PIL nor another decoder is
+needed. Each batch is a dict of fixed-shape numpy arrays: uint8 canvases
+(the device casts them), true sizes, per-axis resize scales, padded ground
+truth, image ids and the records' file sizes.
 
 Every random draw (the train stream's permutations and the per-image
 MIN_SIZE_TRAIN "choice") happens on the iterator thread in record order, so

@@ -1,10 +1,11 @@
 """ctypes binding of the port's host image codec (data/csrc/imgcodec.cpp,
-data/csrc/jpeg_decode.cpp and data/csrc/containers.cpp, built by
-host_libs.py): the loader's per-image work, decode and the detectron2
-shortest-edge resize, without PIL and without any system image library.
+data/csrc/jpeg_decode.cpp, data/csrc/containers.cpp, data/csrc/webp_vp8.cpp
+and data/csrc/webp_vp8l.cpp, built by host_libs.py): the loader's per-image
+work, decode and the detectron2 shortest-edge resize, without PIL and
+without any system image library.
 
   resize_bilinear  Pillow-BILINEAR-bit-exact resample of a uint8 array
-  decode           PNG, JPEG, BMP, GIF or TIFF file -> RGB uint8 [H, W, 3],
+  decode           PNG, JPEG, BMP, GIF, TIFF or WebP file -> RGB uint8 [H, W, 3],
                    the pixels of PIL's convert("RGB"). PNG: the chunks are
                    parsed here, the IDAT stream inflated by zlib and the
                    scanlines of each Adam7 pass (or of the whole image)
@@ -23,8 +24,14 @@ shortest-edge resize, without PIL and without any system image library.
                    page: strips or tiles, chunky or planar, none, PackBits,
                    LZW or Deflate, predictor 2) parsed here, their LZW,
                    PackBits and RLE decoded in C++, their samples mapped as
-                   Pillow's modes convert them. WebP, JPEG 2000, BigTIFF
-                   and the other formats PIL opens are refused by name
+                   Pillow's modes convert them. WebP (lossy VP8, lossless
+                   VP8L, the ALPH plane, VP8X with its metadata skipped,
+                   the first frame of an animated file on its canvas): the
+                   RIFF chunks parsed here as libwebp's demuxer accepts
+                   them, the frame decoded by the port's decoders, bit-equal
+                   to libwebp 1.6's RGBA with Pillow's settings, alpha
+                   decoded and dropped. JPEG 2000, BigTIFF and the other
+                   formats PIL opens are refused by name
   image_size       (height, width) of any of those from its header alone
   encode_png       RGB uint8 [H, W, 3] -> the bytes of a PNG file (zlib)
 
@@ -72,14 +79,31 @@ JPEG_ERRORS = {
     -12: "JPEG sampling factors out of range or too many blocks in an MCU",
     -14: "lossless JPEG in YCbCr or YCCK is not supported (libjpeg converts no colour losslessly and refuses it too)",
 }
+# sfod_webp_vp8_decode's and sfod_webp_vp8l_decode's codes
+# (data/csrc/webp_vp8.cpp, data/csrc/webp_vp8l.cpp)
+WEBP_ERRORS = {
+    -1: "the VP8 frame's data ends early (frame header, first partition or token partition sizes)",
+    -2: "corrupt VP8 frame header (no key-frame start code, an inter frame, a profile above 3, a hidden frame, "
+        "a first partition as long as the chunk, or a zero width or height)",
+    -3: "the VP8 first partition ends early (libwebp: premature end-of-partition0)",
+    -4: "a VP8 token partition ends early (libwebp: premature end-of-file)",
+    -5: "out of memory",
+    -6: "corrupt ALPH chunk (empty, or a compression method, pre-processing or reserved bits that libwebp refuses)",
+    -7: "the ALPH chunk's uncompressed alpha is shorter than the frame",
+    -8: "corrupt VP8L header (signature or version)",
+    -9: "corrupt VP8L bitstream (a transform, colour cache, prefix code or backward reference that libwebp refuses)",
+    -10: "the VP8L bitstream ends early",
+    -11: "corrupt lossless ALPH stream (a transform, colour cache, prefix code or backward reference that libwebp "
+         "refuses)",
+    -12: "the lossless ALPH stream ends early",
+}
 BMP_MAGIC = b"BM"
 GIF_MAGICS = (b"GIF87a", b"GIF89a")
 TIFF_MAGICS = (b"II*\x00", b"MM\x00*")
-READS = "PNG, JPEG, BMP, GIF and TIFF"
+READS = "PNG, JPEG, BMP, GIF, TIFF and WebP"
 # formats PIL opens that the port refuses, named in the refusal: (magic
 # prefix, its offset, name)
 _OTHER_FORMATS = (
-    (b"WEBP", 8, "WebP"),
     (b"\x00\x00\x00\x0cjP  \r\n\x87\n", 0, "JPEG 2000"),
     (b"\xff\x4f\xff\x51", 0, "JPEG 2000 (codestream)"),
     (b"II+\x00", 0, "BigTIFF"),
@@ -108,6 +132,14 @@ def _load() -> ctypes.CDLL:
             lib.sfod_png_unfilter.restype = ctypes.c_int
             lib.sfod_png_unfilter.argtypes = [_U8P, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _U8P]
             lib.sfod_image_free.argtypes = [ctypes.c_void_p]
+            i32 = ctypes.c_int32
+            lib.sfod_webp_vp8_decode.restype = i32
+            lib.sfod_webp_vp8_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p,
+                                                 ctypes.c_int64, _U8P, i32, i32, i32]
+            lib.sfod_webp_vp8l_decode.restype = i32
+            lib.sfod_webp_vp8l_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, _U8P, i32, i32, i32]
+            lib.sfod_webp_vp8l_transforms.restype = i32
+            lib.sfod_webp_vp8l_transforms.argtypes = [ctypes.c_char_p, ctypes.c_int64, i32, i32]
             i64 = ctypes.c_int64
             for fn, args in (("sfod_gif_lzw", [ctypes.c_char_p, i64, ctypes.c_int32, _U8P, i64]),
                              ("sfod_tiff_lzw", [ctypes.c_char_p, i64, _U8P, i64]),
@@ -133,7 +165,7 @@ def resize_bilinear(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
 
 
 def decode(path: str) -> np.ndarray:
-    """Decode a PNG, JPEG, BMP, GIF or TIFF file to RGB uint8 [H, W, 3].
+    """Decode a PNG, JPEG, BMP, GIF, TIFF or WebP file to RGB uint8 [H, W, 3].
     Raises on a file it cannot read or decode."""
     path = os.fspath(path)
     with open(path, "rb") as f:
@@ -152,6 +184,8 @@ def decode_bytes(data: bytes, name: str = "image") -> np.ndarray:
         return _decode_gif(data, name)
     if data.startswith(TIFF_MAGICS):
         return _decode_tiff(data, name)
+    if _is_webp(data):
+        return _decode_webp(data, name)
     raise ValueError(_unknown_format(data, name))
 
 
@@ -159,7 +193,7 @@ def _unknown_format(head: bytes, name: str) -> str:
     fmt = next((f for magic, at, f in _OTHER_FORMATS if head[at:at + len(magic)] == magic), None)
     if fmt is not None:
         return f"{name}: {fmt} is not supported (the port reads {READS})"
-    return f"{name}: not a PNG, JPEG, BMP, GIF or TIFF file (the formats the port reads)"
+    return f"{name}: not a PNG, JPEG, BMP, GIF, TIFF or WebP file (the formats the port reads)"
 
 
 def _decode_jpeg(data: bytes, path: str) -> np.ndarray:
@@ -178,10 +212,11 @@ def image_size(path: str) -> tuple:
     """(height, width) of an image file, read from its header without
     decoding a pixel: PNG's IHDR, JPEG's SOFn marker, BMP's info header,
     GIF's logical screen grown to its first frame (as PIL's size is), TIFF's
-    first IFD. Raises on other files."""
+    first IFD, WebP's canvas (VP8X's, else the VP8 or VP8L frame's).
+    Raises on other files."""
     path = os.fspath(path)
     with open(path, "rb") as f:
-        head = f.read(24)
+        head = f.read(30)
         if head.startswith(PNG_MAGIC):
             if head[12:16] != b"IHDR":
                 raise ValueError(f"{path}: PNG without IHDR")
@@ -198,6 +233,8 @@ def image_size(path: str) -> tuple:
         if head.startswith(TIFF_MAGICS):
             ifd = _tiff_ifd(read, path)
             return ifd["height"], ifd["width"]
+        if _is_webp(head):
+            return _webp_size(head, path)
         raise ValueError(_unknown_format(head, path))
 
 
@@ -789,3 +826,262 @@ def _tiff_rgb(s: np.ndarray, layout: str, photo: int, tags: dict, path: str) -> 
         un = np.clip(rgb.astype(np.int32) * 255 // np.maximum(a, 1), 0, 255)
         rgb = np.where(a == 0, 0, np.where(a == 255, rgb, un))
     return np.ascontiguousarray(rgb, dtype=np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# WebP, as Pillow's WebPImagePlugin opens it: libwebp's demuxer, then frame 0
+# through WebPAnimDecoder (RGBA, not premultiplied), then convert("RGB")
+# ---------------------------------------------------------------------------
+
+_WEBP_IMAGE_TAGS = (b"VP8 ", b"VP8L", b"VP8X")  # the first chunks PIL's _accept identifies
+_WEBP_MAX_CHUNK = 0xFFFFFFFF - 8 - 1  # libwebp's MAX_CHUNK_PAYLOAD
+_WEBP_MAX_AREA = 1 << 32  # MAX_IMAGE_AREA
+_WEBP_ANIMATION, _WEBP_ALPHA, _WEBP_VALID_FLAGS = 0x02, 0x10, 0x3E  # VP8X flags (ICCP, ALPHA, EXIF, XMP, ANIM)
+
+
+def _is_webp(head: bytes) -> bool:
+    return head[:4] == b"RIFF" and head[8:12] == b"WEBP"
+
+
+def _le(b: bytes) -> int:
+    return int.from_bytes(b, "little")
+
+
+def _vp8_frame_size(payload: bytes, chunk_size: int, path: str) -> tuple:
+    """VP8GetInfo: (width, height) of a key frame's header."""
+    if len(payload) < 10:
+        raise ValueError(f"{path}: truncated VP8 frame header")
+    bits = _le(payload[:3])
+    if (payload[3:6] != b"\x9d\x01\x2a" or bits & 1 or (bits >> 1) & 7 > 3 or not (bits >> 4) & 1
+            or bits >> 5 >= chunk_size):
+        raise ValueError(f"{path}: WebP decode failed: {WEBP_ERRORS[-2]}")
+    w, h = _le(payload[6:8]) & 0x3FFF, _le(payload[8:10]) & 0x3FFF
+    if not (w and h):
+        raise ValueError(f"{path}: WebP decode failed: {WEBP_ERRORS[-2]}")
+    return w, h
+
+
+def _vp8l_frame_size(payload: bytes, path: str) -> tuple:
+    """VP8LGetInfo: (width, height) from the 14-bit fields after the signature."""
+    if len(payload) < 5 or payload[0] != 0x2F or payload[4] >> 5:
+        raise ValueError(f"{path}: WebP decode failed: {WEBP_ERRORS[-8]}")
+    bits = _le(payload[1:5])
+    return (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+
+
+class _WebPDemux:
+    """The chunks of a complete WebP file as libwebp's WebPDemux walks them
+    (src/demux/demux.c: ParseSingleImage, StoreFrame, ParseVP8X,
+    ParseVP8XChunks, ParseAnimationFrame, IsValid*Format): what it refuses
+    raises, naming the reason. ICCP, EXIF, XMP and unknown chunks are
+    skipped; Pillow applies none of them to the pixels."""
+
+    def __init__(self, data: bytes, path: str):
+        self.path = path
+        if len(data) < 20:
+            self.refuse("truncated WebP file (shorter than its RIFF header and first chunk header)")
+        riff_size = _le(data[4:8])
+        if riff_size < 8 or riff_size > _WEBP_MAX_CHUNK:
+            self.refuse(f"WebP RIFF size {riff_size} is invalid")
+        self.end = riff_size + 8
+        if len(data) < self.end:
+            self.refuse(f"truncated WebP file ({len(data)} of the {self.end} bytes its RIFF header gives)")
+        self.data, self.pos = data[:self.end], 12  # libwebp reads nothing past the RIFF chunk
+        first = self.data[12:16]
+        if first not in _WEBP_IMAGE_TAGS:
+            self.refuse(f"RIFF WEBP file whose first chunk is {first!r}, not VP8, VP8L or VP8X: PIL does not "
+                        "identify it either")
+        self.frames, self.flags, self.canvas, self.ext, self.anim_chunks = [], 0, None, first == b"VP8X", 0
+        if self.ext:
+            self.parse_vp8x()
+        else:
+            self.parse_single_image()
+        self.validate()
+
+    def refuse(self, why: str):
+        raise ValueError(f"{self.path}: {why}")
+
+    def left(self) -> int:
+        return self.end - self.pos
+
+    def need(self, n: int, what: str):
+        if n > self.left():
+            self.refuse(f"truncated or corrupt WebP file ({what} runs past the RIFF chunk)")
+
+    def store_frame(self, frame: dict, min_size: int) -> None:
+        """StoreFrame: an optional ALPH and one VP8 or VP8L chunk from pos."""
+        if self.left() < 8 or self.left() < min_size:
+            self.refuse("truncated WebP file (a frame's chunks are missing)")
+        image = alpha = False
+        while True:
+            start = self.pos
+            tag, size = self.data[start:start + 4], _le(self.data[start + 4:start + 8])
+            if size > _WEBP_MAX_CHUNK:
+                self.refuse(f"WebP chunk {tag!r} size {size} is invalid")
+            padded = size + (size & 1)
+            self.pos += 8
+            self.need(padded, f"chunk {tag!r}")
+            if tag == b"VP8L" and alpha:
+                self.refuse("WebP frame with an ALPH chunk before VP8L (lossless carries its own alpha)")
+            if tag == b"ALPH" and not alpha:
+                alpha = True
+                frame["alpha"] = (start, self.data[self.pos:self.pos + size])
+            elif tag in (b"VP8 ", b"VP8L") and not image:
+                payload = self.data[self.pos:self.pos + padded]
+                w, h = (_vp8l_frame_size(payload, self.path) if tag == b"VP8L"
+                        else _vp8_frame_size(payload, size, self.path))
+                image = True
+                frame.update(tag=tag, offset=start, payload=payload, chunk_size=size, width=w, height=h)
+            else:
+                self.pos = start  # the frame ends before this chunk
+                return
+            self.pos += padded
+            if self.pos == self.end:
+                return
+            if self.left() < 8:
+                self.refuse("truncated or corrupt WebP file (a partial chunk header after a frame)")
+
+    def parse_single_image(self) -> None:
+        if self.frames:
+            self.refuse("WebP file with a second image outside ANMF chunks")
+        if self.left() < 8:
+            self.refuse("truncated WebP file (no image chunk)")
+        frame = {"x": 0, "y": 0}
+        self.store_frame(frame, 0)
+        if not self.flags & _WEBP_ALPHA:
+            frame.pop("alpha", None)  # an ALPH chunk without VP8X's alpha flag is ignored
+        if not self.ext and "tag" in frame:
+            self.canvas = (frame["width"], frame["height"])
+            if frame["tag"] == b"VP8L" and frame["payload"][4] & 0x10:  # VP8L's alpha_is_used bit
+                self.flags |= _WEBP_ALPHA
+        self.frames.append(frame)
+
+    def parse_vp8x(self) -> None:
+        size = _le(self.data[16:20])
+        if size > _WEBP_MAX_CHUNK or size < 10:
+            self.refuse(f"WebP VP8X chunk size {size} is invalid")
+        self.pos = 20
+        padded = size + (size & 1)
+        self.need(padded, "the VP8X chunk")
+        body = self.data[20:30]
+        self.flags = body[0]
+        self.canvas = (_le(body[4:7]) + 1, _le(body[7:10]) + 1)
+        if self.canvas[0] * self.canvas[1] >= _WEBP_MAX_AREA:
+            self.refuse(f"WebP canvas {self.canvas} is too large")
+        self.pos += padded
+        self.need(8, "the chunk after VP8X")
+        animation = bool(self.flags & _WEBP_ANIMATION)
+        while True:
+            start = self.pos
+            tag, size = self.data[start:start + 4], _le(self.data[start + 4:start + 8])
+            if size > _WEBP_MAX_CHUNK:
+                self.refuse(f"WebP chunk {tag!r} size {size} is invalid")
+            padded = size + (size & 1)
+            self.need(8 + padded, f"chunk {tag!r}")
+            if tag == b"VP8X":
+                self.refuse("WebP file with a second VP8X chunk")
+            if tag in (b"ALPH", b"VP8 ", b"VP8L"):
+                if self.anim_chunks or animation:
+                    self.refuse(f"animated WebP file with a {tag!r} chunk outside ANMF")
+                self.parse_single_image()
+            elif tag == b"ANIM":
+                if padded < 6:
+                    self.refuse("WebP ANIM chunk shorter than 6 bytes")
+                self.anim_chunks += 1
+                self.pos += 8 + padded
+            elif tag == b"ANMF":
+                if not self.anim_chunks:
+                    self.refuse("WebP ANMF chunk before ANIM")
+                self.parse_frame(padded, animation)
+            else:  # ICCP, EXIF, XMP and unknown chunks
+                self.pos += 8 + padded
+            if self.pos == self.end:
+                return
+            if self.left() < 8:
+                self.refuse("truncated or corrupt WebP file (a partial chunk header)")
+
+    def parse_frame(self, chunk_size: int, animation: bool) -> None:
+        """ParseAnimationFrame: offsets x2, then the frame's chunks (the
+        size comes from the bitstream, as libwebp takes it)."""
+        if chunk_size < 16:
+            self.refuse("WebP ANMF chunk shorter than its 16-byte header")
+        self.need(8 + chunk_size, "an ANMF chunk")
+        hdr = self.data[self.pos + 8:self.pos + 24]
+        frame = {"x": 2 * _le(hdr[0:3]), "y": 2 * _le(hdr[3:6])}
+        if (_le(hdr[6:9]) + 1) * (_le(hdr[9:12]) + 1) >= _WEBP_MAX_AREA:
+            self.refuse("WebP ANMF frame is too large")
+        self.pos += 24
+        start = self.pos
+        self.store_frame(frame, chunk_size - 16)
+        if self.pos - start > chunk_size - 16:
+            self.refuse("WebP ANMF chunk shorter than the frame it holds")
+        if animation and ("tag" in frame or "alpha" in frame):
+            if self.frames and "tag" not in self.frames[-1]:
+                self.refuse("WebP frame without an image chunk before another frame")
+            self.frames.append(frame)
+
+    def validate(self) -> None:
+        """IsValidSimpleFormat / IsValidExtendedFormat."""
+        if not self.frames:
+            self.refuse("WebP file without a frame")
+        if self.ext and self.flags & ~_WEBP_VALID_FLAGS:
+            self.refuse(f"WebP VP8X flags {self.flags:#04x} set reserved bits")
+        animation = self.ext and bool(self.flags & _WEBP_ANIMATION)
+        cw, ch = self.canvas
+        for f in self.frames:
+            if "tag" not in f:
+                self.refuse("WebP frame without a VP8 or VP8L chunk")
+            if "alpha" in f and f["alpha"][0] > f["offset"]:
+                self.refuse("WebP frame whose ALPH chunk follows its image")
+            if not animation:
+                if f["x"] or f["y"] or (f["width"], f["height"]) != (cw, ch):
+                    self.refuse(f"WebP frame {f['width']}x{f['height']} differs from the canvas {cw}x{ch}")
+            elif f["x"] + f["width"] > cw or f["y"] + f["height"] > ch:
+                self.refuse(f"WebP frame {f['width']}x{f['height']} at ({f['x']}, {f['y']}) leaves the canvas "
+                            f"{cw}x{ch}")
+
+
+def _decode_webp(data: bytes, path: str, rgba: bool = False) -> np.ndarray:
+    """Frame 0 of a WebP file on its canvas (transparent black elsewhere, as
+    WebPAnimDecoder starts each key frame): RGB, or, when rgba, the RGBA of
+    Pillow's image (opaque where the file has no alpha flag, as Pillow's
+    RGBX mode reads it)."""
+    demux = _WebPDemux(data, path)
+    f = demux.frames[0]
+    lib = _load()
+    w, h, payload = f["width"], f["height"], f["payload"]
+    frame = np.empty((h, w, 4 if rgba else 3), np.uint8)
+    out = frame.ctypes.data_as(_U8P)
+    if f["tag"] == b"VP8L":
+        rc = lib.sfod_webp_vp8l_decode(payload, len(payload), out, frame.shape[2], h, w)
+    else:
+        alpha = f["alpha"][1] if "alpha" in f else None
+        rc = lib.sfod_webp_vp8_decode(payload, len(payload), f["chunk_size"], alpha, len(alpha or b""), out,
+                                      frame.shape[2], h, w)
+    if rc != 0:
+        raise ValueError(f"{path}: WebP decode failed: {WEBP_ERRORS.get(rc, 'unknown error')} (code {rc})")
+    cw, ch = demux.canvas
+    if (cw, ch) != (w, h):
+        canvas = np.zeros((ch, cw, frame.shape[2]), np.uint8)
+        canvas[f["y"]:f["y"] + h, f["x"]:f["x"] + w] = frame
+        frame = canvas
+    if rgba and not demux.flags & _WEBP_ALPHA:
+        frame[..., 3] = 255
+    return frame
+
+
+def _webp_size(head: bytes, path: str) -> tuple:
+    """(height, width) of a WebP file's canvas from its first chunk."""
+    tag, payload = head[12:16], head[20:30]
+    if tag == b"VP8X":
+        if len(payload) < 10:
+            raise ValueError(f"{path}: truncated WebP file (its VP8X chunk is cut short)")
+        return _le(payload[7:10]) + 1, _le(payload[4:7]) + 1
+    if tag == b"VP8 ":
+        w, h = _vp8_frame_size(payload, _le(head[16:20]), path)
+        return h, w
+    if tag == b"VP8L":
+        w, h = _vp8l_frame_size(payload, path)
+        return h, w
+    raise ValueError(f"{path}: RIFF WEBP file whose first chunk is {tag!r}, not VP8, VP8L or VP8X: PIL does not "
+                     "identify it either")

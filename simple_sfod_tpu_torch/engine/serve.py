@@ -16,7 +16,7 @@ Pillow-exact resample, so no PIL), boxes mapped back to file coordinates by
 the per-axis inverse scale and clipped.
 
   GET  /          serving info (canvas, batch, classes, platforms)
-  POST /predict   body = a PNG, JPEG, BMP, GIF or TIFF file (data/native_codec.py) or a raw .npy
+  POST /predict   body = a PNG, JPEG, BMP, GIF, TIFF or WebP file (data/native_codec.py) or a raw .npy
                   HxWx3 uint8 array; optional ?min_score=S
                   -> {"width", "height", "detections": [{"box" xyxy in file
                      coords, "score", "class", "class_name"}, ...]}
@@ -303,8 +303,8 @@ class DetectionService:
         return {"width": ow, "height": oh, "detections": dets}
 
     def predict_bytes(self, raw: bytes, min_score: float = 0.0) -> Dict:
-        """Decode a PNG or JPEG file (the native codec) or a .npy uint8
-        array, then predict."""
+        """Decode an image file of a format that `native_codec.READS` names
+        (the native codec) or a .npy uint8 array, then predict."""
         if raw[:6] == b"\x93NUMPY":
             arr = np.load(io.BytesIO(raw), allow_pickle=False)
         else:

@@ -17,7 +17,7 @@ http.server alone:
   /imgfile an image of the images dir, refused (403) outside it
 
 The browser's image size comes from the image's header (PNG, JPEG, BMP,
-GIF, TIFF: `data/native_codec.py:image_size`), not from an image library;
+GIF, TIFF, WebP: `data/native_codec.py:image_size`), not from an image library;
 another format is drawn at 640x480, as the JAX GUI draws an image it cannot
 open.
 Given the same state every page is the JAX GUI's, byte for byte.

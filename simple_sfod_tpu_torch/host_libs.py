@@ -2,9 +2,11 @@
 
   imgcodec  data/csrc/imgcodec.cpp (Pillow-exact bilinear resize, PNG
             scanline reconstruction), data/csrc/jpeg_decode.cpp (the port's
-            JPEG decoder, bit-equal to libjpeg-turbo's with PIL's settings)
-            and data/csrc/containers.cpp (GIF and TIFF LZW, PackBits, BMP
-            RLE); data/native_codec.py binds them
+            JPEG decoder, bit-equal to libjpeg-turbo's with PIL's settings),
+            data/csrc/containers.cpp (GIF and TIFF LZW, PackBits, BMP RLE),
+            data/csrc/webp_vp8.cpp and data/csrc/webp_vp8l.cpp (the port's
+            lossy and lossless WebP decoders and the ALPH plane, bit-equal
+            to libwebp's); data/native_codec.py binds them
   cocoeval  evaluation/csrc/cocoeval.cpp (the port's copy of the repo's
             native/cocoeval.cpp): the COCO metric in C++ (evaluation/native.py
             binds it)
@@ -33,7 +35,8 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 SOURCES = {
-    "imgcodec": tuple(os.path.join(_PKG, "data", "csrc", f) for f in ("imgcodec.cpp", "jpeg_decode.cpp", "containers.cpp")),
+    "imgcodec": tuple(os.path.join(_PKG, "data", "csrc", f)
+                     for f in ("imgcodec.cpp", "jpeg_decode.cpp", "containers.cpp", "webp_vp8.cpp", "webp_vp8l.cpp")),
     "cocoeval": (os.path.join(_PKG, "evaluation", "csrc", "cocoeval.cpp"),),
 }
 

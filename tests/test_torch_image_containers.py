@@ -825,9 +825,10 @@ REFUSED = {
     "tiff-predictor-3": (lambda: tiff_file(rand((5, 6, 3), 2), 2, 8, compression=5, predictor=3), "predictor 3",
                          True),
     "bigtiff": (lambda: b"II+\x00\x08\x00\x00\x00" + bytes(32), "BigTIFF is not supported", False),
-    "webp": (_webp, "WebP is not supported", False),
+    "webp-first-chunk-alph": (lambda: _webp()[:12] + b"ALPH" + _webp()[16:], "first chunk is b'ALPH'", True),
+    "webp-truncated": (lambda: _webp()[:40], "truncated WebP file", True),
     "jpeg2000": (lambda: b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40), "JPEG 2000 is not supported", False),
-    "unknown": (lambda: b"P6\n2 2\n255\n" + bytes(12), "not a PNG, JPEG, BMP, GIF or TIFF file", False),
+    "unknown": (lambda: b"P6\n2 2\n255\n" + bytes(12), "not a PNG, JPEG, BMP, GIF, TIFF or WebP file", False),
 }
 
 
@@ -852,8 +853,8 @@ def test_refusals_name_the_feature(tmp_path, case):
 
 
 def test_refusals_say_what_the_port_reads(tmp_path):
-    for case in ("webp", "bigtiff", "jpeg2000"):
-        with pytest.raises(ValueError, match="the port reads PNG, JPEG, BMP, GIF and TIFF"):
+    for case in ("bigtiff", "jpeg2000"):
+        with pytest.raises(ValueError, match="the port reads PNG, JPEG, BMP, GIF, TIFF and WebP"):
             pnc.decode_bytes(REFUSED[case][0]())
         (tmp_path / case).write_bytes(REFUSED[case][0]())
         with pytest.raises(ValueError, match="is not supported"):

@@ -12,11 +12,11 @@ package's, and `native_codec.decode` to Pillow. PNG files come from
 interlacing and tRNS, with a random filter type on each scanline.
 
 What stays refused raises a ValueError that names it: an invalid or
-out-of-order scan progression, JPEG with 2 components, WebP, a PNG with an
+out-of-order scan progression, JPEG with 2 components, a PNG with an
 invalid bit depth or interlace method. The cases once refused here (a
-progressive file that libjpeg-turbo smooths, BMP, GIF and TIFF) now decode
-as Pillow does (DECODED_NOW); tests/test_torch_image_containers.py holds
-their variants. The JPEG refusals (hierarchical, 12-bit) are cases of
+progressive file that libjpeg-turbo smooths, BMP, GIF, TIFF and WebP) now
+decode as Pillow does (DECODED_NOW); tests/test_torch_image_containers.py
+and tests/test_torch_webp.py hold their variants. The JPEG refusals (hierarchical, 12-bit) are cases of
 tests/test_torch_jpeg.py.
 """
 
@@ -372,7 +372,6 @@ REFUSED = {
     "progressive-ss-after-se": (_ss_after_se, "scan progression"),
     "two-components": (lambda: encode(smooth_image(8, 8, seed=1)[..., :2], ycc=False, jfif=False),
                        "2 or more than 4 components"),
-    "webp": (lambda: _other_format("WEBP"), "WebP is not supported"),
     "png-palette-16bit": (lambda: _bad_ihdr(16, 3, 0), "bit depth 16 with colour type 3"),
     "png-interlace-method-2": (lambda: _bad_ihdr(8, 2, 2), "interlace method 2"),
 }
@@ -384,6 +383,7 @@ DECODED_NOW = {
     "bmp": lambda: _other_format("BMP"),
     "gif": lambda: _other_format("GIF"),
     "tiff": lambda: _other_format("TIFF"),
+    "webp": lambda: _other_format("WEBP"),
 }
 
 

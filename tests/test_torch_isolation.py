@@ -7,6 +7,7 @@ torch."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -150,8 +151,8 @@ def test_build_sources_lie_inside_the_package():
     of host_libs.py, the kernel libraries of ops/_kernels.py) is a file of
     the package itself, not of the repo around it."""
     sources = _build_sources()
-    assert {"host_libs:imgcodec:imgcodec.cpp", "host_libs:imgcodec:jpeg_decode.cpp", "host_libs:cocoeval:cocoeval.cpp",
-            "_kernels:nms"} <= set(sources)
+    assert {"host_libs:imgcodec:imgcodec.cpp", "host_libs:imgcodec:jpeg_decode.cpp", "host_libs:imgcodec:webp_vp8.cpp",
+            "host_libs:imgcodec:webp_vp8l.cpp", "host_libs:cocoeval:cocoeval.cpp", "_kernels:nms"} <= set(sources)
     outside = {k: p for k, p in sources.items()
                if os.path.commonpath([os.path.realpath(p), os.path.realpath(PKG)]) != os.path.realpath(PKG)}
     assert not outside, outside
@@ -160,8 +161,9 @@ def test_build_sources_lie_inside_the_package():
 
 def test_no_system_image_library():
     """The codec builds from the port's sources alone: no port source
-    includes libjpeg's (or libpng's) header, links -ljpeg, or calls nvjpeg,
-    and the g++ command line of the host libraries names nothing else."""
+    includes libjpeg's, libpng's or libwebp's headers, links -ljpeg or
+    -lwebp, or calls nvjpeg, and the g++ command line of the host libraries
+    names nothing else."""
     from simple_sfod_tpu_torch import host_libs
 
     texts = {}
@@ -172,10 +174,42 @@ def test_no_system_image_library():
                     texts[os.path.relpath(os.path.join(d, f), ROOT)] = fh.read()
     with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
         texts["chip_smoke.py"] = fh.read()
-    for needle in ("jpeglib.h", "png.h", "-ljpeg", "nvjpeg"):
+    for needle in ("jpeglib.h", "png.h", "-ljpeg", "nvjpeg", "-lwebp", "libwebp.so"):
         assert not [p for p, t in texts.items() if needle in t], needle
+    include = re.compile(r"#\s*include\s*[<\"](webp|png|jpeg|turbojpeg)")
+    assert not [p for p, t in texts.items() if include.search(t)]
+    for p in host_libs.SOURCES["imgcodec"]:
+        with open(p) as fh:
+            assert set(re.findall(r"#\s*include\s*<([^>]+)>", fh.read())) <= SYSTEM_HEADERS, p
     assert not [f for f in host_libs.CXX_FLAGS if f.startswith(("-l", "-D"))], host_libs.CXX_FLAGS
-    assert "jpeg_decode.cpp" in {os.path.basename(p) for p in host_libs.SOURCES["imgcodec"]}
+    assert {"jpeg_decode.cpp", "webp_vp8.cpp", "webp_vp8l.cpp"} <= {
+        os.path.basename(p) for p in host_libs.SOURCES["imgcodec"]}
+
+
+# the C++ standard library headers the codec's sources include
+SYSTEM_HEADERS = {"algorithm", "cmath", "cstddef", "cstdint", "cstdlib", "cstring", "new", "vector", "array",
+                  "cstdio", "limits", "memory", "utility", "functional", "numeric", "climits", "string"}
+
+
+def test_codec_build_line_names_no_library(tmp_path, monkeypatch):
+    """host_libs.build runs g++ with CXX_FLAGS, the output and the sources
+    of the codec and nothing else: no -l, -L or -I."""
+    from simple_sfod_tpu_torch import host_libs
+
+    argvs = []
+
+    def fake_run(argv, **kw):
+        argvs.append(list(argv))
+        return subprocess.CompletedProcess(argv, 0, "", "")
+
+    monkeypatch.setattr(host_libs.subprocess, "run", fake_run)
+    host_libs.build("imgcodec", build_dir=str(tmp_path))
+    (argv,) = argvs
+    srcs = list(host_libs.SOURCES["imgcodec"])
+    assert argv[1:1 + len(host_libs.CXX_FLAGS)] == list(host_libs.CXX_FLAGS)
+    assert argv[1 + len(host_libs.CXX_FLAGS)] == "-o" and argv[-len(srcs):] == srcs
+    assert len(argv) == 3 + len(host_libs.CXX_FLAGS) + len(srcs)
+    assert not [a for a in argv if a.startswith(("-l", "-L", "-I"))]
 
 
 POISONED = r"""

@@ -131,7 +131,7 @@ def test_image_size_equals_pil(tmp_path):
     for p in paths:
         with Image.open(p) as im:
             assert image_size(p)[::-1] == im.size, p
-    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, GIF or TIFF file"):
+    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, GIF, TIFF or WebP file"):
         image_size(os.path.join(fixtures, "fixtures.json"))
 
 
