@@ -219,7 +219,9 @@ Phases (each prints one progress line with its wall time):
               fixtures (tests/torch_jpeg/: baseline, progressive, CMYK,
               YCCK, arithmetic-coded, block-smoothed and lossless JPEG;
               tests/torch_containers/: BMP, GIF, TIFF; tests/torch_webp/:
-              lossy, lossless, ALPH, VP8X, animated WebP) decoded by the
+              lossy, lossless, ALPH, VP8X, animated WebP; tests/torch_tiff/:
+              BigTIFF, JPEG-compressed, CCITT, YCbCr, CIELab, float and
+              signed TIFF) decoded by the
               port's codec bit-equal to the recorded SHA-256 of Pillow's
               RGB; decode (and decode + resize) ms of a 1914x1052 JPEG,
               baseline and progressive, beside a 1024x2048 PNG and KITTI's
@@ -227,7 +229,10 @@ Phases (each prints one progress line with its wall time):
               arithmetic-coded (the committed transcoding), block-smoothed
               (its progressive file cut after 6 scans), as BMP and as TIFF
               uncompressed, PackBits, LZW and Deflate (written here, each
-              decoded back to the frame); 16 Sim10k records (the fixture frames, the
+              decoded back to the frame), and as TIFF JPEG-compressed (16-row
+              strips, shared JPEGTables), Group 4 and YCbCr 2x2 PackBits
+              (the last written here), each equal to Pillow's recorded
+              digest; 16 Sim10k records (the fixture frames, the
               progressive one among them, with seeded VOC boxes,
               converted by `python -m simple_sfod_tpu_torch.tools.sim10k_to_coco`'s
               main) and 16 KITTI records (seeded 375x1242 PNGs, two
@@ -253,7 +258,9 @@ Phases (each prints one progress line with its wall time):
               and on 4 Sim10k records as the committed WebP frames (lossy
               quality 80, lossy + ALPH, a lossless 957x526 crop; their
               decode and decode + resize ms beside the baseline JPEG's)
-              beside PNG twins of their decoded pixels: the loader's
+              and on 8 Sim10k records as TIFF (4 JPEG-compressed, 4 LZW
+              with Orientation 6, read turned) beside PNG twins of their
+              decoded pixels: the loader's
               batches and the detections equal, 2 launches of each kernel
               an image
  18. da       domain-adversarial training: one float32 step of da, cda
@@ -2280,6 +2287,12 @@ def wq_phase(smi: str):
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "torch_jpeg")
 CONTAINER_FIXTURES = os.path.join(ROOT, "tests", "torch_containers")
 WEBP_FIXTURES = os.path.join(ROOT, "tests", "torch_webp")
+TIFF_FIXTURES = os.path.join(ROOT, "tests", "torch_tiff")
+# the Sim10k frame as TIFF, timed beside the baseline JPEG: two committed
+# fixtures (tests/test_torch_tiff.py writes them) and one file this script
+# writes (ycbcr_tiff_bytes), each held to Pillow's digest in fixtures.json
+TIFF_FRAMES = {"JPEG YCbCr 4:2:0, 16-row strips": "sim10k_frame_0_jpeg.tif", "Group 4": "sim10k_frame_0_g4.tif",
+               "YCbCr 2x2 PackBits": "sim10k_frame_0_ycbcr22_packbits.tif"}
 # the Sim10k frame as WebP (tests/test_torch_webp.py writes them): timed
 # beside the baseline JPEG and read by test() beside their PNG twins
 WEBP_FRAMES = {"lossy q80": "sim10k_frame_0_q80.webp", "lossy + ALPH": "sim10k_frame_0_alpha.webp",
@@ -2328,8 +2341,10 @@ def check_jpeg_fixtures() -> dict:
     import hashlib
 
     done = {}
-    for directory in (JPEG_FIXTURES, CONTAINER_FIXTURES, WEBP_FIXTURES):
+    for directory in (JPEG_FIXTURES, CONTAINER_FIXTURES, WEBP_FIXTURES, TIFF_FIXTURES):
         for name, rec in sorted(jpeg_fixtures(directory).items()):
+            if not rec.get("committed", True):
+                continue  # a file this script writes (write_tiff_frames)
             rgb = native_codec.decode(os.path.join(directory, name))
             check(list(rgb.shape) == rec["shape"] and hashlib.sha256(rgb.tobytes()).hexdigest() == rec["sha256"],
                   f"{name}: decode differs from Pillow's recorded digest")
@@ -2367,17 +2382,15 @@ def tiff_strip(raw: bytes, compression: int) -> bytes:
     return raw
 
 
-def tiff_bytes(rgb: np.ndarray, compression: int, rows: int = 64) -> bytes:
-    """An 8-bit chunky RGB TIFF (little-endian) of rgb [H, W, 3] in strips of
-    `rows` rows, each coded by tiff_strip."""
-    h, w, _ = rgb.shape
-    strips = [tiff_strip(rgb[y:y + rows].tobytes(), compression) for y in range(0, h, rows)]
+def tiff_container(strips: list, tags: list) -> bytes:
+    """A little-endian TIFF of `strips` (each stored as given) with the IFD
+    `tags` [(tag, type 3 or 4, values)] and its StripOffsets and
+    StripByteCounts."""
     offsets, body = [], bytearray(b"II*\x00\x00\x00\x00\x00")
     for st in strips:
         offsets.append(len(body))
         body += st + bytes(len(st) % 2)
-    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]), (259, 3, [compression]), (262, 3, [2]),
-            (273, 4, offsets), (277, 3, [3]), (278, 4, [rows]), (279, 4, [len(st) for st in strips]), (284, 3, [1])]
+    tags = sorted(tags + [(273, 4, offsets), (279, 4, [len(st) for st in strips])])
     ifd_at = len(body)
     extra_at = ifd_at + 2 + 12 * len(tags) + 4
     ifd, extra = bytearray(struct.pack("<H", len(tags))), bytearray()
@@ -2390,6 +2403,52 @@ def tiff_bytes(rgb: np.ndarray, compression: int, rows: int = 64) -> bytes:
             extra += blob
     body[4:8] = struct.pack("<I", ifd_at)
     return bytes(body + ifd + b"\x00\x00\x00\x00" + extra)
+
+
+def tiff_bytes(rgb: np.ndarray, compression: int, rows: int = 64, orientation: int = 1) -> bytes:
+    """An 8-bit chunky RGB TIFF (little-endian) of rgb [H, W, 3] in strips of
+    `rows` rows, each coded by tiff_strip, with an Orientation tag unless 1."""
+    h, w, _ = rgb.shape
+    strips = [tiff_strip(rgb[y:y + rows].tobytes(), compression) for y in range(0, h, rows)]
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]), (259, 3, [compression]), (262, 3, [2]),
+            (277, 3, [3]), (278, 4, [rows]), (284, 3, [1])]
+    return tiff_container(strips, tags + ([(274, 3, [orientation])] if orientation != 1 else []))
+
+
+def jpeg_tiff_bytes(jpeg: bytes) -> bytes:
+    """A baseline JPEG file as a JPEG-compressed TIFF of one strip
+    (compression 7, YCbCr, YCbCrSubsampling from the frame header): libtiff
+    reads the whole stream, its tables included, as the strip."""
+    at = next(i for i in range(2, len(jpeg) - 1) if jpeg[i] == 0xFF and jpeg[i + 1] in (0xC0, 0xC1))
+    h, w = struct.unpack(">HH", jpeg[at + 5:at + 9])
+    factors = jpeg[at + 11]
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]), (259, 3, [7]), (262, 3, [6]), (277, 3, [3]),
+            (278, 4, [h]), (284, 3, [1]), (530, 3, [factors >> 4, factors & 15])]
+    return tiff_container([jpeg], tags)
+
+
+def ycbcr_tiff_bytes(rgb: np.ndarray, rows: int = 64) -> bytes:
+    """rgb [H, W, 3] as a YCbCr TIFF subsampled 2x2 (photometric 6,
+    YCbCrSubsampling 2 2), PackBits, in strips of `rows` rows: each 2x2 block
+    a data unit of its four Y samples and its mean Cb and Cr, by integer BT.601
+    arithmetic (edges replicated to whole blocks)."""
+    h, w, _ = rgb.shape
+    p = np.pad(rgb.astype(np.int64), ((0, -h % 2), (0, -w % 2), (0, 0)), mode="edge")
+    r, g, b = p[..., 0], p[..., 1], p[..., 2]
+    y = np.clip((77 * r + 150 * g + 29 * b + 128) >> 8, 0, 255)
+    cb = np.clip(((-43 * r - 85 * g + 128 * b + 128) >> 8) + 128, 0, 255)
+    cr = np.clip(((128 * r - 107 * g - 21 * b + 128) >> 8) + 128, 0, 255)
+    hh, ww = p.shape[0] // 2, p.shape[1] // 2
+
+    def mean(c):
+        return (c.reshape(hh, 2, ww, 2).sum(axis=(1, 3)) + 2) >> 2
+
+    units = np.concatenate([y.reshape(hh, 2, ww, 2).transpose(0, 2, 1, 3).reshape(hh, ww, 4), mean(cb)[..., None],
+                            mean(cr)[..., None]], axis=2).astype(np.uint8)
+    strips = [tiff_strip(units[y0 // 2:(y0 + rows) // 2].tobytes(), 32773) for y0 in range(0, h, rows)]
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]), (259, 3, [32773]), (262, 3, [6]), (277, 3, [3]),
+            (278, 4, [rows]), (284, 3, [1]), (530, 3, [2, 2])]
+    return tiff_container(strips, tags)
 
 
 def jpeg_first_scans(data: bytes, keep: int) -> bytes:
@@ -2521,6 +2580,66 @@ def webp_test(tr, root: str) -> tuple:
     line = (f"test() of the Sim10k source model on 4 Sim10k records as WebP (lossy q80, lossy + ALPH, lossless "
             f"957x526 crop, lossy q80) beside their PNG twins: batches equal, {n} detections equal (AP50 "
             f"{ap50[0]:.4f} and {ap50[1]:.4f}), {secs:.2f} s for both sets, launches {got}")
+    return got, line
+
+
+def write_tiff_frames(directory: str) -> dict:
+    """TIFF_FRAMES: the committed JPEG-in-TIFF and Group 4 frames, and the
+    YCbCr 2x2 PackBits frame written here from sim10k_frame_0.jpg, its
+    decode held to Pillow's recorded digest. -> {kind: path}."""
+    import hashlib
+
+    os.makedirs(directory)
+    record = jpeg_fixtures(TIFF_FIXTURES)
+    out = {}
+    for kind, name in TIFF_FRAMES.items():
+        out[kind] = os.path.join(TIFF_FIXTURES, name)
+        if not record[name]["committed"]:
+            frame = native_codec.decode(os.path.join(JPEG_FIXTURES, "sim10k_frame_0.jpg"))
+            out[kind] = os.path.join(directory, name)
+            with open(out[kind], "wb") as f:
+                f.write(ycbcr_tiff_bytes(frame))
+        rgb = native_codec.decode(out[kind])
+        check(hashlib.sha256(rgb.tobytes()).hexdigest() == record[name]["sha256"],
+              f"{name}: decode differs from Pillow's recorded digest")
+    return out
+
+
+def tiff_test(tr, root: str) -> tuple:
+    """test() of trainer tr on 8 Sim10k records as TIFF beside PNG twins of
+    the port's decoded pixels (encode_png), through twin_test: frames 0, 1,
+    2, 0 as JPEG-compressed TIFF (the committed 16-row-strip fixture, then
+    each committed JPEG file as the one strip of a YCbCr JPEG TIFF) and as
+    LZW RGB TIFF with Orientation 6 (read turned, 1914 rows by 1052).
+    -> (launches, a line of numbers)."""
+    d = os.path.join(root, "tiff")
+    os.makedirs(d)
+    frames = [os.path.join(JPEG_FIXTURES, f"sim10k_frame_{i}.jpg") for i in (0, 1, 2, 0)]
+    files = [os.path.join(TIFF_FIXTURES, TIFF_FRAMES["JPEG YCbCr 4:2:0, 16-row strips"])]
+    for i, src in enumerate(frames[1:], 1):
+        with open(src, "rb") as f:
+            files.append(os.path.join(d, f"jpeg_{i}.tif"))
+            data = jpeg_tiff_bytes(f.read())
+        with open(files[-1], "wb") as f:
+            f.write(data)
+    for i, src in enumerate(frames):
+        files.append(os.path.join(d, f"orientation6_{i}.tif"))
+        with open(files[-1], "wb") as f:
+            f.write(tiff_bytes(native_codec.decode(src), 5, orientation=6))
+    pairs = []
+    for i, path in enumerate(files):
+        rgb = native_codec.decode(path)
+        twin = os.path.join(d, f"twin_{i}.png")
+        with open(twin, "wb") as f:
+            f.write(native_codec.encode_png(rgb, level=1))
+        check(np.array_equal(native_codec.decode(twin), rgb), f"{path}: PNG twin differs")
+        check(native_codec.image_size(path) == rgb.shape[:2], f"{path}: image_size {native_codec.image_size(path)}")
+        pairs.append((path, twin, rgb.shape[:2]))
+    check(pairs[4][2] == CAR_DOMAINS["sim10k"]["hw"][::-1], f"Orientation 6 read as {pairs[4][2]}")
+    got, n, ap50, secs = twin_test(tr, d, "tiff", pairs)
+    line = (f"test() of the Sim10k source model on 8 Sim10k records as TIFF (frames 0, 1, 2, 0 JPEG-compressed, "
+            f"and LZW with Orientation 6, read as 1914x1052 portraits) beside their PNG twins: batches equal, {n} "
+            f"detections equal (AP50 {ap50[0]:.4f} and {ap50[1]:.4f}), {secs:.2f} s for both sets, launches {got}")
     return got, line
 
 
@@ -2786,6 +2905,14 @@ def car_phase(smi: str):
             + f"; beside the baseline JPEG's {jpeg_dec:.2f} ({jpeg_both:.2f}): lossy "
             f"{webp_ms['lossy q80'][0] / jpeg_dec:.2f}x, lossy + ALPH {webp_ms['lossy + ALPH'][0] / jpeg_dec:.2f}x, "
             f"lossless {per_px:.2f}x a pixel")
+        tiff_frames = write_tiff_frames(os.path.join(root, "tiff_frames"))
+        tiff_ms = {kind: decode_resize_ms(path) for kind, path in tiff_frames.items()}
+        numbers["tiff_decode_ms"] = {k: v[0] for k, v in tiff_ms.items()}
+        numbers["tiff_decode_resize_ms"] = {k: v[1] for k, v in tiff_ms.items()}
+        log(f"  the Sim10k frame as TIFF, one thread, median of 5 [{smi}]: decode ms (decode + resize to 600 px "
+            "ms): " + ", ".join(f"{k} {d:.2f} ({b:.2f}, {d / jpeg_dec:.2f}x the baseline JPEG's decode)"
+                                for k, (d, b) in tiff_ms.items())
+            + f"; the baseline JPEG {jpeg_dec:.2f} ({jpeg_both:.2f}); each decode equal to Pillow's recorded digest")
         log(f"  host decode on one thread [{smi}]: a 1914x1052 4:2:0 JPEG {jpeg_dec:.2f} ms, with the resize to "
             f"600 px {jpeg_both:.2f} ms; its progressive re-encoding {prog_dec:.2f} ms, with the resize "
             f"{prog_both:.2f} ms ({prog_dec / jpeg_dec:.2f}x the baseline's decode); a 1024x2048 PNG {png_dec:.2f} ms, "
@@ -2882,6 +3009,9 @@ def car_phase(smi: str):
         add(got)
         log(f"  [{smi}] " + line)
         got, line = webp_test(tr, root)
+        add(got)
+        log(f"  [{smi}] " + line)
+        got, line = tiff_test(tr, root)
         add(got)
         log(f"  [{smi}] " + line)
         del tr

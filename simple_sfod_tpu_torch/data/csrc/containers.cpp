@@ -9,6 +9,13 @@
 //                  first, 9 to 12 bits, the width growing one code early;
 //                  256 clears, 257 ends
 //   sfod_packbits  TIFF's PackBits (libtiff tif_packbits.c)
+//   sfod_ycbcr_units  TIFF's YCbCr data units to RGB as libtiff's RGBA
+//                  interface converts them (tif_getimage.c's putcontig8bit
+//                  YCbCr routines over TIFFYCbCrtoRGB's tables, given)
+//   sfod_lab_rgb   8-bit CIELab to RGB as Pillow 12's convert("RGB") gives it:
+//                  LittleCMS 2.17's optimised Lab -> sRGB transform, a 33^3
+//                  16-bit table (given) read by cmsintrp.c's
+//                  TetrahedralInterp16, FROM_16_TO_8 on the way out
 //   sfod_bmp_rle   BMP's RLE8 and RLE4 as Pillow 12's BmpRleDecoder reads
 //                  them (BmpImagePlugin.py), quirks included: a delta escape
 //                  reads two bytes more than its own two, an absolute run of
@@ -230,6 +237,90 @@ int64_t sfod_bmp_rle(const uint8_t* data, int64_t n, int64_t file_pos, int32_t w
   const int64_t len = static_cast<int64_t>(s.size());
   memcpy(out, s.data(), static_cast<size_t>(len < dest ? len : dest));
   return len;
+}
+
+// Convert a strip's or tile's YCbCr data units (rows of `across` units of
+// hs * vs luma samples, then Cb and Cr) to rows x width RGB pixels, out_stride
+// bytes a row: each pixel its own Y with its unit's Cb and Cr (chroma
+// replicated), converted by tif_color.c:TIFFYCbCrtoRGB over the tables
+// TIFFYCbCrToRGBInit builds (y_tab, cr_r, cb_b, cr_g, cb_g, 256 entries each).
+void sfod_ycbcr_units(const uint8_t* units, int32_t across, int32_t hs, int32_t vs, int32_t rows, int32_t width,
+                      const int32_t* y_tab, const int32_t* cr_r, const int32_t* cb_b, const int32_t* cr_g,
+                      const int32_t* cb_g, uint8_t* out, int64_t out_stride) {
+  const int unit = hs * vs + 2;
+  auto clamp = [](int32_t v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); };
+  for (int32_t r = 0; r < rows; r++) {
+    const uint8_t* row_units = units + static_cast<int64_t>(r / vs) * across * unit;
+    uint8_t* o = out + r * out_stride;
+    for (int32_t x = 0; x < width; x++) {
+      const uint8_t* u = row_units + static_cast<int64_t>(x / hs) * unit;
+      const int32_t yv = y_tab[u[(r % vs) * hs + x % hs]];
+      const int cb = u[hs * vs], cr = u[hs * vs + 1];
+      o[3 * x] = clamp(yv + cr_r[cr]);
+      o[3 * x + 1] = clamp(yv + ((cb_g[cb] + cr_g[cr]) >> 16));
+      o[3 * x + 2] = clamp(yv + cb_b[cb]);
+    }
+  }
+}
+
+// Convert n pixels of Pillow's "LAB" (L, a + 128, b + 128: the file's
+// signed a* and b* with their top bit flipped) to RGB through LittleCMS's
+// table clut [33][33][33][3] (L slowest): each channel widened as
+// FROM_8_TO_16, the cell found as _cmsToFixedDomain finds it, the
+// tetrahedron chosen and summed as TetrahedralInterp16 does, the result
+// narrowed as FROM_16_TO_8.
+void sfod_lab_rgb(const uint8_t* lab, int64_t n, const uint16_t* clut, uint8_t* out) {
+  constexpr int kGrid = 33, kOut = 3;
+  const int opta[3] = {kGrid * kGrid * kOut, kGrid * kOut, kOut};
+  for (int64_t i = 0; i < n; i++) {
+    int x0[3], r[3], one[3];
+    for (int c = 0; c < 3; c++) {
+      const int in = lab[3 * i + c] * 257;
+      const int a = in * (kGrid - 1);
+      const int f = a + (a + 0x7FFF) / 0xFFFF;  // _cmsToFixedDomain
+      x0[c] = f >> 16;
+      r[c] = f & 0xFFFF;
+      one[c] = in == 0xFFFF ? 0 : opta[c];
+    }
+    const uint16_t* t = clut + x0[0] * opta[0] + x0[1] * opta[1] + x0[2] * opta[2];
+    const int rx = r[0], ry = r[1], rz = r[2];
+    int X1 = one[0], Y1 = one[1], Z1 = one[2];
+    int kind;
+    if (rx >= ry) {
+      if (ry >= rz) {
+        Y1 += X1, Z1 += Y1, kind = 0;
+      } else if (rz >= rx) {
+        X1 += Z1, Y1 += X1, kind = 1;
+      } else {
+        Z1 += X1, Y1 += Z1, kind = 2;
+      }
+    } else {
+      if (rx >= rz) {
+        X1 += Y1, Z1 += X1, kind = 3;
+      } else if (ry >= rz) {
+        Z1 += Y1, X1 += Z1, kind = 4;
+      } else {
+        Y1 += Z1, X1 += Y1, kind = 5;
+      }
+    }
+    for (int k = 0; k < kOut; k++) {
+      int c1 = t[X1 + k], c2 = t[Y1 + k], c3 = t[Z1 + k];
+      const int c0 = t[k];
+      switch (kind) {
+        case 0: c3 -= c2, c2 -= c1, c1 -= c0; break;
+        case 1: c2 -= c1, c1 -= c3, c3 -= c0; break;
+        case 2: c2 -= c3, c3 -= c1, c1 -= c0; break;
+        case 3: c3 -= c1, c1 -= c2, c2 -= c0; break;
+        case 4: c1 -= c3, c3 -= c2, c2 -= c0; break;
+        default: c1 -= c2, c2 -= c3, c3 -= c0; break;
+      }
+      // cmsS15Fixed16Number arithmetic: int32, wrapping as it does
+      const int32_t rest = static_cast<int32_t>(static_cast<uint32_t>(c1) * rx + static_cast<uint32_t>(c2) * ry +
+                                                static_cast<uint32_t>(c3) * rz + 0x8001u);
+      const uint32_t v = static_cast<uint16_t>(c0 + ((rest + (rest >> 16)) >> 16));
+      out[3 * i + k] = static_cast<uint8_t>((v * 65281u + 8388608u) >> 24);
+    }
+  }
 }
 
 }  // extern "C"

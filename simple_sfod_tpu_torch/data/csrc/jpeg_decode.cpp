@@ -98,6 +98,8 @@ enum Code : int {
   kFractionalSampling = -11,
   kBadSampling = -12,
   kLosslessColour = -14,
+  kTiffSampling = -15,
+  kTiffTables = -16,
 };
 
 struct Refusal {
@@ -630,7 +632,9 @@ struct Decoder {
   bool saw_sof = false, saw_jfif = false, saw_adobe = false, first_scan = true, multi_scan = false;
   bool progressive = false, arithmetic = false, lossless = false;
   int adobe_transform = 0;
-  enum Colour { kGrey, kYCbCr, kRGB, kCMYK, kYCCK } colour = kGrey;
+  // kRaw: the components as stored (a TIFF's JCS_UNKNOWN)
+  enum Colour { kGrey, kYCbCr, kRGB, kCMYK, kYCCK, kRaw } colour = kGrey;
+  int forced_colour = -1;  // the colour space a TIFF sets over the markers' guess
   int W = 0, H = 0, hmax = 1, vmax = 1;
   std::vector<Component> comps;
 
@@ -793,7 +797,9 @@ struct Decoder {
   // jdapimin.c:default_decompress_parms (libjpeg-turbo 3: a 3-component
   // lossless file without JFIF or Adobe marker is taken for RGB)
   void guess_colour_space() {
-    if (comps.size() == 4) {
+    if (forced_colour >= 0) {
+      colour = static_cast<Colour>(forced_colour);
+    } else if (comps.size() == 4) {
       colour = saw_adobe && adobe_transform != 0 ? kYCCK : kCMYK;
     } else if (comps.size() == 3) {
       const bool rgb = saw_jfif    ? false
@@ -1330,6 +1336,29 @@ struct Decoder {
     }
   }
 
+  int out_channels() const { return colour == kRaw ? static_cast<int>(comps.size()) : 3; }
+
+  // a tables-only stream (a TIFF's JPEGTables: SOI, DQT and DHT segments,
+  // EOI), read as jpeg_read_header(require_image = FALSE) reads it
+  void run_tables() {
+    if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) refuse(kTiffTables);
+    pos = 2;
+    for (;;) {
+      const int m = next_marker();
+      if (m == 0xD9) return;
+      if (m == 0xC4) {
+        read_dht();
+      } else if (m == 0xDB) {
+        read_dqt();
+      } else if (m == 0xFE || (m >= 0xE0 && m <= 0xEF)) {
+        int len;
+        segment(&len);
+      } else {
+        refuse(kTiffTables);  // libtiff: "Bogus JPEGTables field"
+      }
+    }
+  }
+
   void run() {
     if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) refuse(kNotJpeg);
     pos = 2;
@@ -1396,8 +1425,12 @@ struct Decoder {
     const uint8_t* row[4] = {nullptr, nullptr, nullptr, nullptr};
     for (int y = 0; y < H; y++) {
       for (int i = 0; i < nc; i++) row[i] = upsample_row(comps[i], y, rows[i].data());
-      uint8_t* o = rgb_out + static_cast<size_t>(y) * W * 3;
+      uint8_t* o = rgb_out + static_cast<size_t>(y) * W * out_channels();
       switch (colour) {
+        case kRaw:
+          for (int x = 0; x < W; x++)
+            for (int i = 0; i < nc; i++) o[nc * x + i] = row[i][x];
+          break;
         case kGrey:
           for (int x = 0; x < W; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = row[0][x];
           break;
@@ -1624,6 +1657,54 @@ int sfod_jpeg_decode(const uint8_t* data, int64_t n, uint8_t** out, int32_t* h, 
     *out = buf;
     *h = dec.H;
     *w = dec.W;
+    return kOk;
+  } catch (const Refusal& r) {
+    return r.code;
+  } catch (const std::bad_alloc&) {
+    return kNoMemory;
+  }
+}
+
+// Decode one strip or tile of a JPEG-compressed TIFF (compression 7) as
+// libtiff's tif_jpeg.c has libjpeg decode it: the JPEGTables tag's tables
+// (nt bytes, or none) read first, then the strip's abbreviated stream.
+// to_rgb: YCbCr in one plane converted to RGB (JPEGCOLORMODE_RGB; libtiff
+// leaves libjpeg's fancy upsampling on); 0: the components as stored
+// (JCS_UNKNOWN), interleaved. The first component's sampling factors
+// must be (hs, vs) (unchecked when hs is 0), the others' 1x1, as
+// JPEGPreDecode requires. On success *out is malloc'd [h, w, nc] (release
+// with sfod_image_free) and 0 is returned; otherwise a negative code.
+int sfod_jpeg_decode_tiff(const uint8_t* tables, int64_t nt, const uint8_t* data, int64_t n, int32_t to_rgb,
+                          int32_t hs, int32_t vs, uint8_t** out, int32_t* h, int32_t* w, int32_t* nc) {
+  *out = nullptr;
+  try {
+    Decoder dec(data, static_cast<size_t>(n));
+    if (nt > 0) {
+      Decoder t(tables, static_cast<size_t>(nt));
+      t.run_tables();
+      memcpy(dec.qtables, t.qtables, sizeof(dec.qtables));
+      for (int i = 0; i < 4; i++) {
+        dec.qdefined[i] = t.qdefined[i];
+        dec.dc[i] = t.dc[i];
+        dec.ac[i] = t.ac[i];
+      }
+    }
+    dec.forced_colour = to_rgb ? Decoder::kYCbCr : Decoder::kRaw;
+    dec.run();
+    if (to_rgb && dec.comps.size() != 3) return kComponents;
+    for (size_t i = 0; i < dec.comps.size(); i++) {
+      const int want_h = i == 0 && hs > 0 ? hs : i == 0 && hs == 0 ? dec.comps[0].h : 1;
+      const int want_v = i == 0 && hs > 0 ? vs : i == 0 && hs == 0 ? dec.comps[0].v : 1;
+      if (dec.comps[i].h != want_h || dec.comps[i].v != want_v) return kTiffSampling;
+    }
+    const int channels = dec.out_channels();
+    uint8_t* buf = static_cast<uint8_t*>(malloc(static_cast<size_t>(dec.H) * dec.W * channels));
+    if (!buf) return kNoMemory;
+    dec.output(buf);
+    *out = buf;
+    *h = dec.H;
+    *w = dec.W;
+    *nc = channels;
     return kOk;
   } catch (const Refusal& r) {
     return r.code;

@@ -1,8 +1,8 @@
 """ctypes binding of the port's host image codec (data/csrc/imgcodec.cpp,
-data/csrc/jpeg_decode.cpp, data/csrc/containers.cpp, data/csrc/webp_vp8.cpp
-and data/csrc/webp_vp8l.cpp, built by host_libs.py): the loader's per-image
-work, decode and the detectron2 shortest-edge resize, without PIL and
-without any system image library.
+data/csrc/jpeg_decode.cpp, data/csrc/containers.cpp, data/csrc/ccitt.cpp,
+data/csrc/webp_vp8.cpp and data/csrc/webp_vp8l.cpp, built by host_libs.py):
+the loader's per-image work, decode and the detectron2 shortest-edge resize,
+without PIL and without any system image library.
 
   resize_bilinear  Pillow-BILINEAR-bit-exact resample of a uint8 array
   decode           PNG, JPEG, BMP, GIF, TIFF or WebP file -> RGB uint8 [H, W, 3],
@@ -19,18 +19,27 @@ without any system image library.
                    YCCK), bit-equal to what libjpeg-turbo and Pillow give;
                    hierarchical, arithmetic lossless and non-8-bit files
                    are refused, each by name. BMP (BmpImagePlugin's
-                   headers, depths, bitfield layouts and RLE), GIF (the
-                   first frame on the logical screen) and TIFF (the first
-                   page: strips or tiles, chunky or planar, none, PackBits,
-                   LZW or Deflate, predictor 2) parsed here, their LZW,
-                   PackBits and RLE decoded in C++, their samples mapped as
-                   Pillow's modes convert them. WebP (lossy VP8, lossless
-                   VP8L, the ALPH plane, VP8X with its metadata skipped,
-                   the first frame of an animated file on its canvas): the
-                   RIFF chunks parsed here as libwebp's demuxer accepts
-                   them, the frame decoded by the port's decoders, bit-equal
-                   to libwebp 1.6's RGBA with Pillow's settings, alpha
-                   decoded and dropped. JPEG 2000, BigTIFF and the other
+                   headers, depths, bitfield layouts and RLE) and GIF (the
+                   first frame on the logical screen) parsed here. TIFF: the
+                   first page of a classic or BigTIFF file, strips or tiles,
+                   chunky or planar, every pixel layout of Pillow's
+                   OPEN_INFO (1 to 32 bits, signed, unsigned and float
+                   samples, FillOrder 2, CIELab through LittleCMS's table
+                   as Pillow converts it); none, PackBits, LZW,
+                   Deflate (predictors 2 and 3), CCITT RLE, Group 3 and
+                   Group 4 (ccitt.cpp, after libtiff's tif_fax3.c), JPEG
+                   (the port's decoder, fed the JPEGTables tag) and YCbCr at
+                   every subsampling (libtiff's RGBA interface); each mapped
+                   as Pillow's raw modes convert them, then turned by the
+                   Orientation tag as Pillow turns it. WebP (lossy VP8,
+                   lossless VP8L, the ALPH plane, VP8X with its metadata
+                   skipped, the first frame of an animated file on its
+                   canvas): the RIFF chunks parsed here as libwebp's demuxer
+                   accepts them, the frame decoded by the port's decoders,
+                   bit-equal to libwebp 1.6's RGBA with Pillow's settings,
+                   alpha decoded and dropped. JPEG 2000, TIFF's LZMA, ZSTD,
+                   old-style JPEG, SGILog and ThunderScan compressions (and
+                   WebP, which PIL's libtiff refuses too), and the other
                    formats PIL opens are refused by name
   image_size       (height, width) of any of those from its header alone
   encode_png       RGB uint8 [H, W, 3] -> the bytes of a PNG file (zlib)
@@ -50,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import struct
 import threading
 import zlib
@@ -61,6 +71,7 @@ from .. import host_libs
 _lib = None
 _lock = threading.Lock()
 _U8P = ctypes.POINTER(ctypes.c_uint8)
+_I32P = ctypes.POINTER(ctypes.c_int32)
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 JPEG_MAGIC = b"\xff\xd8\xff"
 # sfod_jpeg_decode's codes (data/csrc/jpeg_decode.cpp: Code)
@@ -78,6 +89,9 @@ JPEG_ERRORS = {
     -11: "JPEG with fractional sampling factors is not supported (libjpeg refuses them too)",
     -12: "JPEG sampling factors out of range or too many blocks in an MCU",
     -14: "lossless JPEG in YCbCr or YCCK is not supported (libjpeg converts no colour losslessly and refuses it too)",
+    -15: "JPEG sampling factors other than the TIFF's YCbCrSubsampling, or subsampled planes that are not YCbCr "
+         "(libtiff refuses them: PIL too)",
+    -16: "bogus JPEGTables field (libtiff refuses it: PIL too)",
 }
 # sfod_webp_vp8_decode's and sfod_webp_vp8l_decode's codes
 # (data/csrc/webp_vp8.cpp, data/csrc/webp_vp8l.cpp)
@@ -99,15 +113,15 @@ WEBP_ERRORS = {
 }
 BMP_MAGIC = b"BM"
 GIF_MAGICS = (b"GIF87a", b"GIF89a")
-TIFF_MAGICS = (b"II*\x00", b"MM\x00*")
+# Pillow's TIFF prefixes: classic (with the two byte-swapped version words it
+# accepts) and BigTIFF
+TIFF_MAGICS = (b"II*\x00", b"MM\x00*", b"MM*\x00", b"II\x00*", b"II+\x00", b"MM\x00+")
 READS = "PNG, JPEG, BMP, GIF, TIFF and WebP"
 # formats PIL opens that the port refuses, named in the refusal: (magic
 # prefix, its offset, name)
 _OTHER_FORMATS = (
     (b"\x00\x00\x00\x0cjP  \r\n\x87\n", 0, "JPEG 2000"),
     (b"\xff\x4f\xff\x51", 0, "JPEG 2000 (codestream)"),
-    (b"II+\x00", 0, "BigTIFF"),
-    (b"MM\x00+", 0, "BigTIFF"),
 )
 # the bit depths each PNG colour type allows
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
@@ -138,6 +152,16 @@ def _load() -> ctypes.CDLL:
                                                  ctypes.c_int64, _U8P, i32, i32, i32]
             lib.sfod_webp_vp8l_decode.restype = i32
             lib.sfod_webp_vp8l_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, _U8P, i32, i32, i32]
+            lib.sfod_jpeg_decode_tiff.restype = i32
+            lib.sfod_jpeg_decode_tiff.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
+                                                  i32, i32, i32, ctypes.POINTER(_U8P)] + [ctypes.POINTER(i32)] * 3
+            lib.sfod_ccitt_decode.restype = i32
+            lib.sfod_ccitt_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, i32, i32, i32, i32, i32, _U8P,
+                                              ctypes.c_int64]
+            lib.sfod_ycbcr_units.restype = None
+            lib.sfod_ycbcr_units.argtypes = [ctypes.c_char_p] + [i32] * 5 + [_I32P] * 5 + [_U8P, ctypes.c_int64]
+            lib.sfod_lab_rgb.restype = None
+            lib.sfod_lab_rgb.argtypes = [_U8P, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint16), _U8P]
             lib.sfod_webp_vp8l_transforms.restype = i32
             lib.sfod_webp_vp8l_transforms.argtypes = [ctypes.c_char_p, ctypes.c_int64, i32, i32]
             i64 = ctypes.c_int64
@@ -212,7 +236,8 @@ def image_size(path: str) -> tuple:
     """(height, width) of an image file, read from its header without
     decoding a pixel: PNG's IHDR, JPEG's SOFn marker, BMP's info header,
     GIF's logical screen grown to its first frame (as PIL's size is), TIFF's
-    first IFD, WebP's canvas (VP8X's, else the VP8 or VP8L frame's).
+    first IFD, swapped by an Orientation of 5-8 (the oriented size, Pillow's
+    after load), WebP's canvas (VP8X's, else the VP8 or VP8L frame's).
     Raises on other files."""
     path = os.fspath(path)
     with open(path, "rb") as f:
@@ -629,149 +654,279 @@ def _decode_gif(data: bytes, path: str) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# TIFF: the first page, as Pillow's TiffImagePlugin opens it (libtiff for
-# every compression but none)
+# TIFF: the first page, as Pillow's TiffImagePlugin opens it (its raw decoder
+# for uncompressed files, libtiff through TiffDecode.c for every other
+# compression), then turned upright as ImageOps.exif_transpose turns it
 # ---------------------------------------------------------------------------
 
-# field types -> struct codes (RATIONAL as two LONGs)
-_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d"}
-_TIFF_COMPRESSION = {1: "raw", 32773: "packbits", 5: "lzw", 8: "deflate", 32946: "deflate"}
-_TIFF_REFUSED_COMPRESSION = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
-                             7: "JPEG"}
-# (photometric, bits, extra samples) -> the pixel layout Pillow's OPEN_INFO
-# gives it: "bilevel", "grey", "grey16", "rgb", "rgba_assoc", "palette",
-# "cmyk"; the samples past the first ones are dropped by convert("RGB")
-_TIFF_LAYOUTS = {
-    (0, (1,), ()): "bilevel", (1, (1,), ()): "bilevel",
-    **{(p, (b,), ()): "grey" for p in (0, 1) for b in (2, 4, 8)},
-    (0, (16,), ()): "grey16", (1, (16,), ()): "grey16",
-    (1, (8, 8), (2,)): "grey",
-    (2, (8, 8, 8), ()): "rgb", (2, (8,) * 4, ()): "rgb", (2, (8,) * 4, (0,)): "rgb", (2, (8,) * 4, (2,)): "rgb",
-    (2, (8,) * 4, (999,)): "rgb", (2, (8,) * 5, (0, 0)): "rgb", (2, (8,) * 6, (0, 0, 0)): "rgb",
-    (2, (8,) * 5, (2, 0)): "rgb", (2, (8,) * 6, (2, 0, 0)): "rgb",
-    (2, (8,) * 4, (1,)): "rgba_assoc", (2, (8,) * 5, (1, 0)): "rgba_assoc", (2, (8,) * 6, (1, 0, 0)): "rgba_assoc",
-    (2, (16,) * 3, ()): "rgb", (2, (16,) * 4, ()): "rgb", (2, (16,) * 4, (0,)): "rgb", (2, (16,) * 4, (2,)): "rgb",
-    (2, (16,) * 4, (1,)): "rgba_assoc",
-    **{(3, (b,), ()): "palette" for b in (1, 2, 4, 8)}, (3, (8, 8), (0,)): "palette", (3, (8, 8), (2,)): "palette",
-    (5, (8,) * 4, ()): "cmyk", (5, (8,) * 5, (0,)): "cmyk", (5, (8,) * 6, (0, 0)): "cmyk", (5, (16,) * 4, ()): "cmyk",
+BIGTIFF_MAGICS = (b"II+\x00", b"MM\x00+")
+# field types -> struct codes (RATIONAL as two LONGs, IFD as LONG, IFD8 as LONG8)
+_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d",
+               13: "I", 16: "Q", 17: "q", 18: "Q"}
+_TIFF_COMPRESSION = {1: "raw", 2: "ccitt_rle", 3: "group3", 4: "group4", 5: "lzw", 7: "jpeg", 8: "deflate",
+                     32771: "ccitt_rlew", 32773: "packbits", 32946: "deflate"}
+# compressions Pillow names and the port refuses: the first six Pillow reads
+# (ROADMAP.md §1 queues them); the libtiff Pillow 12.1 bundles has no WebP
+_TIFF_REFUSED_COMPRESSION = {34925: "LZMA", 50000: "ZSTD", 6: "old-style JPEG", 34676: "SGILog", 34677: "SGILog24",
+                             32809: "ThunderScan", 50001: "WebP"}
+# the CCITT decoders of data/csrc/ccitt.cpp (sfod_ccitt_decode's kind)
+_CCITT_KIND = {"ccitt_rle": 0, "ccitt_rlew": 1, "group3": 2, "group4": 4}
+CCITT_ERRORS = {
+    -1: "the CCITT data ends before the strip or tile does (libtiff: premature EOF)",
+    -2: "CCITT run-length buffer overflow (libtiff refuses the strip)",
+    -3: "the Group 4 data ends before the strip or tile does (libtiff leaves the rest of it unwritten)",
 }
+# Pillow 12.1's TiffImagePlugin.OPEN_INFO: (byte orders, photometric,
+# SampleFormat, FillOrder, bits, extra samples) -> (mode, raw mode). Its key
+# set is the rule: a file whose key is missing is refused as PIL refuses it
+# ("unknown pixel mode")
+_OPEN_INFO_ROWS = {
+    ("<>", 0, (1,), 1, (1,), ()): ("1", "1;I"), ("<>", 0, (1,), 2, (1,), ()): ("1", "1;IR"),
+    ("<>", 1, (1,), 1, (1,), ()): ("1", "1"), ("<>", 1, (1,), 2, (1,), ()): ("1", "1;R"),
+    ("<>", 0, (1,), 1, (2,), ()): ("L", "L;2I"), ("<>", 0, (1,), 2, (2,), ()): ("L", "L;2IR"),
+    ("<>", 1, (1,), 1, (2,), ()): ("L", "L;2"), ("<>", 1, (1,), 2, (2,), ()): ("L", "L;2R"),
+    ("<>", 0, (1,), 1, (4,), ()): ("L", "L;4I"), ("<>", 0, (1,), 2, (4,), ()): ("L", "L;4IR"),
+    ("<>", 1, (1,), 1, (4,), ()): ("L", "L;4"), ("<>", 1, (1,), 2, (4,), ()): ("L", "L;4R"),
+    ("<>", 0, (1,), 1, (8,), ()): ("L", "L;I"), ("<>", 0, (1,), 2, (8,), ()): ("L", "L;IR"),
+    ("<>", 1, (1,), 1, (8,), ()): ("L", "L"), ("<>", 1, (2,), 1, (8,), ()): ("L", "L"),
+    ("<>", 1, (1,), 2, (8,), ()): ("L", "L;R"),
+    ("<", 1, (1,), 1, (12,), ()): ("I;16", "I;12"),
+    ("<", 0, (1,), 1, (16,), ()): ("I;16", "I;16"), ("<", 1, (1,), 1, (16,), ()): ("I;16", "I;16"),
+    (">", 1, (1,), 1, (16,), ()): ("I;16B", "I;16B"), ("<", 1, (1,), 2, (16,), ()): ("I;16", "I;16R"),
+    ("<", 1, (2,), 1, (16,), ()): ("I", "I;16S"), (">", 1, (2,), 1, (16,), ()): ("I", "I;16BS"),
+    ("<", 0, (3,), 1, (32,), ()): ("F", "F;32F"), (">", 0, (3,), 1, (32,), ()): ("F", "F;32BF"),
+    ("<", 1, (1,), 1, (32,), ()): ("I", "I;32N"), ("<", 1, (2,), 1, (32,), ()): ("I", "I;32S"),
+    (">", 1, (2,), 1, (32,), ()): ("I", "I;32BS"),
+    ("<", 1, (3,), 1, (32,), ()): ("F", "F;32F"), (">", 1, (3,), 1, (32,), ()): ("F", "F;32BF"),
+    ("<>", 1, (1,), 1, (8, 8), (2,)): ("LA", "LA"),
+    ("<>", 2, (1,), 1, (8, 8, 8), ()): ("RGB", "RGB"), ("<>", 2, (1,), 2, (8, 8, 8), ()): ("RGB", "RGB;R"),
+    ("<>", 2, (1,), 1, (8,) * 4, ()): ("RGBA", "RGBA"), ("<>", 2, (1,), 1, (8,) * 4, (0,)): ("RGB", "RGBX"),
+    ("<>", 2, (1,), 1, (8,) * 5, (0, 0)): ("RGB", "RGBXX"), ("<>", 2, (1,), 1, (8,) * 6, (0, 0, 0)): ("RGB", "RGBXXX"),
+    ("<>", 2, (1,), 1, (8,) * 4, (1,)): ("RGBA", "RGBa"), ("<>", 2, (1,), 1, (8,) * 5, (1, 0)): ("RGBA", "RGBaX"),
+    ("<>", 2, (1,), 1, (8,) * 6, (1, 0, 0)): ("RGBA", "RGBaXX"), ("<>", 2, (1,), 1, (8,) * 4, (2,)): ("RGBA", "RGBA"),
+    ("<>", 2, (1,), 1, (8,) * 5, (2, 0)): ("RGBA", "RGBAX"), ("<>", 2, (1,), 1, (8,) * 6, (2, 0, 0)): ("RGBA", "RGBAXX"),
+    ("<>", 2, (1,), 1, (8,) * 4, (999,)): ("RGBA", "RGBA"),
+    ("<", 2, (1,), 1, (16,) * 3, ()): ("RGB", "RGB;16L"), (">", 2, (1,), 1, (16,) * 3, ()): ("RGB", "RGB;16B"),
+    ("<", 2, (1,), 1, (16,) * 4, ()): ("RGBA", "RGBA;16L"), (">", 2, (1,), 1, (16,) * 4, ()): ("RGBA", "RGBA;16B"),
+    ("<", 2, (1,), 1, (16,) * 4, (0,)): ("RGB", "RGBX;16L"), (">", 2, (1,), 1, (16,) * 4, (0,)): ("RGB", "RGBX;16B"),
+    ("<", 2, (1,), 1, (16,) * 4, (1,)): ("RGBA", "RGBa;16L"), (">", 2, (1,), 1, (16,) * 4, (1,)): ("RGBA", "RGBa;16B"),
+    ("<", 2, (1,), 1, (16,) * 4, (2,)): ("RGBA", "RGBA;16L"), (">", 2, (1,), 1, (16,) * 4, (2,)): ("RGBA", "RGBA;16B"),
+    ("<>", 3, (1,), 1, (1,), ()): ("P", "P;1"), ("<>", 3, (1,), 2, (1,), ()): ("P", "P;1R"),
+    ("<>", 3, (1,), 1, (2,), ()): ("P", "P;2"), ("<>", 3, (1,), 2, (2,), ()): ("P", "P;2R"),
+    ("<>", 3, (1,), 1, (4,), ()): ("P", "P;4"), ("<>", 3, (1,), 2, (4,), ()): ("P", "P;4R"),
+    ("<>", 3, (1,), 1, (8,), ()): ("P", "P"), ("<>", 3, (1,), 1, (8, 8), (0,)): ("P", "PX"),
+    ("<>", 3, (1,), 1, (8, 8), (2,)): ("PA", "PA"), ("<>", 3, (1,), 2, (8,), ()): ("P", "P;R"),
+    ("<>", 5, (1,), 1, (8,) * 4, ()): ("CMYK", "CMYK"), ("<>", 5, (1,), 1, (8,) * 5, (0,)): ("CMYK", "CMYKX"),
+    ("<>", 5, (1,), 1, (8,) * 6, (0, 0)): ("CMYK", "CMYKXX"),
+    ("<", 5, (1,), 1, (16,) * 4, ()): ("CMYK", "CMYK;16L"), (">", 5, (1,), 1, (16,) * 4, ()): ("CMYK", "CMYK;16B"),
+    ("<>", 6, (1,), 1, (8,), ()): ("L", "L"), ("<>", 6, (1,), 1, (8, 8, 8), ()): ("RGB", "RGBX"),
+    ("<>", 8, (1,), 1, (8, 8, 8), ()): ("LAB", "LAB"),
+}
+_TIFF_OPEN_INFO = {(o,) + k[1:]: v for k, v in _OPEN_INFO_ROWS.items() for o in k[0]}
+# Pillow's convert("RGB") of an "I" or "F" raw mode: the sample type
+_TIFF_NUMERIC = {"I;16S": "i2", "I;16BS": "i2", "I;32N": "i4", "I;32S": "i4", "I;32BS": "i4", "F;32F": "f4",
+                 "F;32BF": "f4"}
+# the raw modes whose byte order Pillow takes from the file while libtiff
+# hands it native (little-endian) samples: compressed, they read byte-swapped
+_TIFF_SWAPPED_BY_PILLOW = ("I;16BS", "I;32BS", "F;32BF")
+# ImageOps.exif_transpose: Orientation -> the transposition of the decoded image
+_ORIENT = {
+    2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1], 5: lambda a: a.transpose(1, 0, 2),
+    6: lambda a: a.transpose(1, 0, 2)[:, ::-1], 7: lambda a: a[::-1, ::-1].transpose(1, 0, 2),
+    8: lambda a: a.transpose(1, 0, 2)[::-1],
+}
+# the FillOrder 2 raw modes Pillow's raw decoder has no unpacker for
+_TIFF_RAW_MISSING = ("L;IR", "P;1R", "P;2R", "P;4R")
+# the one-band raw modes Pillow's raw decoder reads a plane of a planar file
+# with (the raw mode's letter of that plane), and the bands of each mode
+# (libtiff's planes are unpacked band by band)
+_TIFF_RAW_BANDS = {"RGB": "RGB", "RGBA": "RGBA", "CMYK": "CMYK", "P": "P", "LAB": "LAB"}
+_MODE_BANDS = {"1": 1, "L": 1, "LA": 2, "P": 1, "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4, "I;16": 1, "I;16B": 1, "I": 1,
+               "F": 1, "LAB": 3}
+_XMP_ORIENTATION = re.compile(rb'tiff:Orientation(="|>)([0-9])')
+_BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
 def _tiff_ifd(read, path: str) -> dict:
-    """The first IFD's tags -> {tag: tuple of values}, with the image's
-    width and height (Pillow's size: swapped by Orientation 5-8, which the
-    port refuses)."""
-    head = read(0, 8)
+    """The first IFD, classic or BigTIFF, as Pillow's ImageFileDirectory_v2
+    reads it: {tag: tuple of values}, the byte order, the XMP packet and
+    JPEGTables as bytes, the Orientation Pillow applies (the tag, else XMP's
+    tiff:Orientation, as Image.getexif finds it) and the image's (width,
+    height) once oriented, as Pillow's size is after load."""
+    head = read(0, 16)
     order = "<" if head[:2] == b"II" else ">"
-    (off,) = struct.unpack_from(order + "I", head, 4)
-    cnt = read(off, 2)
-    if len(cnt) < 2:
+    big = head[:4] in BIGTIFF_MAGICS
+    if head[:4] == b"MM\x00+":  # Pillow tests byte 2 for 43 and reads this as a classic header
+        raise ValueError(f"{path}: big-endian BigTIFF is not supported (PIL refuses it too)")
+    if big and len(head) < 16 or len(head) < 8:
+        raise ValueError(f"{path}: truncated TIFF header")
+    (off,) = struct.unpack_from(order + ("Q" if big else "I"), head, 8 if big else 4)
+    count_fmt, entry, inline_size = ("Q", 20, 8) if big else ("H", 12, 4)
+    cnt = read(off, struct.calcsize(count_fmt))
+    if len(cnt) < struct.calcsize(count_fmt):
         raise ValueError(f"{path}: truncated TIFF directory")
-    (n,) = struct.unpack(order + "H", cnt)
-    raw = read(off + 2, 12 * n)
-    if len(raw) < 12 * n:
+    (n,) = struct.unpack(order + count_fmt, cnt)
+    raw = read(off + len(cnt), entry * n)
+    if len(raw) < entry * n:
         raise ValueError(f"{path}: truncated TIFF directory")
-    tags = {}
+    tags, blobs = {}, {}
     for i in range(n):
-        tag, typ, count = struct.unpack_from(order + "HHI", raw, 12 * i)
+        tag, typ = struct.unpack_from(order + "HH", raw, entry * i)
+        (count,) = struct.unpack_from(order + ("Q" if big else "I"), raw, entry * i + 4)
         fmt = _TIFF_TYPES.get(typ)
         if fmt is None:
             continue
         size = struct.calcsize(order + fmt) * count
-        inline = raw[12 * i + 8:12 * i + 12]
-        val = inline if size <= 4 else read(struct.unpack_from(order + "I", inline)[0], size)
+        inline = raw[entry * i + entry - inline_size:entry * (i + 1)]
+        val = inline if size <= inline_size else read(struct.unpack(order + ("Q" if big else "I"), inline)[0], size)
         if len(val) < size:
             raise ValueError(f"{path}: truncated TIFF tag {tag}")
+        if tag in (347, 700):
+            blobs[tag] = bytes(val[:size])
         tags[tag] = struct.unpack(order + fmt * count, val[:size])
     if 256 not in tags or 257 not in tags:
         raise ValueError(f"{path}: TIFF without ImageWidth or ImageLength (PIL refuses it too)")
-    if tags.get(274, (1,))[0] in (5, 6, 7, 8):
-        raise ValueError(f"{path}: TIFF Orientation {tags[274][0]} (rows and columns swapped) is not supported")
-    return dict(tags=tags, order=order, width=int(tags[256][0]), height=int(tags[257][0]))
+    width, height = int(tags[256][0]), int(tags[257][0])
+    if 274 in tags:  # Pillow reads a one-value tag's first value, whatever its count
+        orientation = tags[274][0]
+    else:
+        m = _XMP_ORIENTATION.search(blobs.get(700, b""))
+        orientation = int(m[2]) if m else 1
+    if orientation in (5, 6, 7, 8):
+        width, height = height, width
+    return dict(tags=tags, blobs=blobs, order=order, width=width, height=height, orientation=orientation)
 
 
-def _decode_tiff(data: bytes, path: str) -> np.ndarray:
-    ifd = _tiff_ifd(_bytes_reader(data), path)
-    tags, order, W, H = ifd["tags"], ifd["order"], ifd["width"], ifd["height"]
+def _tiff_layout(ifd: dict, path: str) -> dict:
+    """TiffImageFile._setup: the compression, Pillow's OPEN_INFO key and
+    its (mode, raw mode), or the refusal that names what is not read."""
+    tags = ifd["tags"]
     ccode = tags.get(259, (1,))[0]
     if ccode in _TIFF_REFUSED_COMPRESSION:
-        raise ValueError(f"{path}: TIFF with {_TIFF_REFUSED_COMPRESSION[ccode]} compression is not supported")
+        why = " (PIL refuses it too: the libtiff it bundles is built without WebP)" if ccode == 50001 else ""
+        raise ValueError(f"{path}: TIFF with {_TIFF_REFUSED_COMPRESSION[ccode]} compression is not supported{why}")
     if ccode not in _TIFF_COMPRESSION:
-        raise ValueError(f"{path}: TIFF compression {ccode} is not supported")
-    compression = _TIFF_COMPRESSION[ccode]
+        raise ValueError(f"{path}: TIFF compression {ccode} is not supported (PIL refuses it too)")
     photo = tags.get(262, (0,))[0]
-    if photo == 6:
-        raise ValueError(f"{path}: YCbCr TIFF is not supported")
-    if tags.get(266, (1,))[0] != 1:
-        raise ValueError(f"{path}: TIFF FillOrder {tags[266][0]} (bits LSB first) is not supported")
-    fmt = tags.get(339, (1,))
-    if any(v != 1 for v in fmt):
-        kind = "floating-point" if 3 in fmt else "signed-integer"
-        raise ValueError(f"{path}: TIFF with {kind} samples (SampleFormat {fmt}) is not supported")
+    fill = tags.get(266, (1,))[0]
+    fmt = tuple(tags.get(339, (1,)))
+    if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
+        fmt = (1,)
     bps, extra = tuple(tags.get(258, (1,))), tuple(tags.get(338, ()))
     spp = tags.get(277, (1,))[0]
     if spp < len(bps):
         bps = bps[:spp]
     elif spp > len(bps) == 1:
         bps = bps * spp
-    layout = _TIFF_LAYOUTS.get((photo, bps, extra))
-    if len(bps) != spp or layout is None or (layout == "grey16" and (photo == 0 and order == ">")):
-        raise ValueError(f"{path}: TIFF pixel layout (photometric {photo}, bits {bps}, extra samples {extra}) is "
-                         "not supported")
-    planar = tags.get(284, (1,))[0] == 2 and spp > 1
-    if planar and (bps[0] != 8 or layout == "rgba_assoc"):
-        raise ValueError(f"{path}: planar TIFF at {bps[0]} bits or with associated alpha is not supported")
-    predictor = tags.get(317, (1,))[0] if compression in ("lzw", "deflate") else 1
-    if predictor not in (1, 2) or (predictor == 2 and bps[0] not in (8, 16)):
-        raise ValueError(f"{path}: TIFF predictor {predictor} at {bps[0]} bits is not supported (PIL refuses it too)")
-    samples = _tiff_samples(data, tags, order, W, H, bps[0], spp, planar, compression, predictor, path)
-    return _tiff_rgb(samples, layout, photo, tags, path)
+    key = (ifd["order"], photo, fmt, fill, bps, extra)
+    if len(bps) != spp or key not in _TIFF_OPEN_INFO:
+        raise ValueError(f"{path}: TIFF pixel layout (photometric {photo}, SampleFormat {fmt}, FillOrder {fill}, "
+                         f"bits {bps}, extra samples {extra}) is not supported (PIL refuses it too: unknown pixel "
+                         "mode)")
+    mode, raw = _TIFF_OPEN_INFO[key]
+    compression = _TIFF_COMPRESSION[ccode]
+    planar = tags.get(284, (1,))[0] == 2
+    lay = dict(compression=compression, photo=photo, fill=fill, bits=bps[0], spp=spp, mode=mode, raw=raw,
+               planar=planar and spp > 1, t4=tags.get(292, (0,))[0])
+    if compression != "raw":
+        if fill == 2:  # libtiff undoes the fill order itself: Pillow reads the FillOrder 1 raw mode
+            lay["raw"] = _TIFF_OPEN_INFO[key[:3] + (1,) + key[4:]][1]
+        if compression in _CCITT_KIND and bps != (1,):
+            raise ValueError(f"{path}: CCITT TIFF at {bps[0]} bits a sample (libtiff refuses it: PIL too)")
+        predictor = tags.get(317, (1,))[0] if compression in ("lzw", "deflate") else 1
+        if predictor == 2 and bps[0] not in (8, 16, 32) or predictor == 3 and (fmt != (3,) or bps[0] != 32) or \
+                predictor not in (1, 2, 3):
+            raise ValueError(f"{path}: TIFF predictor {predictor} at {bps[0]} bits, SampleFormat {fmt} is not "
+                             "supported (PIL refuses it too)")
+        lay["predictor"] = predictor
+        if lay["planar"] and not extra and raw.startswith("RGBA"):
+            lay["raw"] = "RGBa" + raw[4:]  # Pillow reads libtiff's planes as associated alpha then
+        if lay["planar"] and spp > _MODE_BANDS[mode] and 324 not in tags:  # its tile reader takes the first planes
+            raise ValueError(f"{path}: planar TIFF of {spp} planes for the {_MODE_BANDS[mode]} bands of mode {mode} "
+                             "is not supported (PIL refuses it too)")
+    elif raw in _TIFF_RAW_MISSING or lay["planar"] and any(ch not in _TIFF_RAW_BANDS.get(mode, "") for ch in raw[:spp]):
+        raise ValueError(f"{path}: uncompressed TIFF in raw mode {raw!r}{' by planes' if lay['planar'] else ''} is not "
+                         "supported (PIL refuses it too: unknown raw mode)")
+    return lay
 
 
-def _tiff_samples(data, tags, order, W, H, bits, spp, planar, compression, predictor, path) -> np.ndarray:
-    """The samples [H, W, spp] (uint16 at 16 bits) from the strips or tiles."""
+def _decode_tiff(data: bytes, path: str) -> np.ndarray:
+    ifd = _tiff_ifd(_bytes_reader(data), path)
+    lay = _tiff_layout(ifd, path)
+    if lay["photo"] == 6 and lay["spp"] == 3 and lay["compression"] != "raw":
+        rgb = _tiff_ycbcr(data, ifd, lay, path)  # libjpeg's RGB, or libtiff's RGBA interface
+    else:
+        rgb = _tiff_rgb(_tiff_samples(data, ifd, lay, path), lay, ifd["tags"], path)
+    turn = _ORIENT.get(ifd["orientation"])
+    return np.ascontiguousarray(turn(rgb) if turn else rgb)
+
+
+def _tiff_grid(ifd: dict, lay: dict, path: str) -> dict:
+    """The strips or tiles: offsets, byte counts, their size, how many across
+    and down, the planes."""
+    tags = ifd["tags"]
+    W, H = int(tags[256][0]), int(tags[257][0])
     if 273 in tags:
-        offsets, counts = tags[273], tags.get(279)
+        offsets, counts, tiled = tags[273], tags.get(279), False
         tw, th = W, tags.get(278, (H,))[0]
     elif 324 in tags:
-        offsets, counts = tags[324], tags.get(325)
+        offsets, counts, tiled = tags[324], tags.get(325), True
         if 322 not in tags or 323 not in tags:
             raise ValueError(f"{path}: tiled TIFF without TileWidth or TileLength (PIL refuses it too)")
         tw, th = tags[322][0], tags[323][0]
     else:
         raise ValueError(f"{path}: TIFF without strips or tiles (PIL refuses it too)")
-    if compression != "raw" and counts is None:
+    if lay["compression"] != "raw" and counts is None:
         raise ValueError(f"{path}: compressed TIFF without byte counts")
-    th = max(1, min(th, H)) if 273 in tags else th
+    rows_tag = th
+    th = max(1, min(th, H)) if not tiled else th
     if tw < 1 or th < 1:
         raise ValueError(f"{path}: TIFF tiles of {tw}x{th} (PIL refuses them too)")
-    planes, per = (spp, 1) if planar else (1, spp)
+    planes = lay["spp"] if lay["planar"] else 1
     across, down = -(-W // tw), -(-H // th)
     if len(offsets) < across * down * planes:
         raise ValueError(f"{path}: TIFF with {len(offsets)} strips or tiles for {across * down * planes}")
-    if compression == "raw" and 273 in tags and th == H and not planar:
+    if lay["compression"] == "raw" and not tiled and rows_tag == H and not lay["planar"]:
         offsets = offsets[-1:]  # Pillow reads one strip from the last offset
-    dtype = np.dtype(order + "u2") if bits == 16 else np.uint8
-    out = np.zeros((H, W, spp), np.uint16 if bits == 16 else np.uint8)
-    row_bytes = (tw * per * bits + 7) // 8
+    return dict(W=W, H=H, tw=tw, th=th, tiled=tiled, offsets=offsets, counts=counts, planes=planes, across=across,
+                down=down)
+
+
+def _tiff_chunks(data: bytes, g: dict, lay: dict, need_of, path: str):
+    """Each strip or tile: (plane, y, x, its rows, its bytes), decompressed
+    (libtiff reverses the bits of FillOrder 2 data first, CCITT and JPEG
+    aside) unless JPEG, whose streams come as stored. need_of(y, x, rows)
+    gives the bytes it must yield."""
+    compression, tw = lay["compression"], g["tw"]
     lib = _load()
     k = 0
-    for p in range(planes):
-        for ty in range(down):
-            for tx in range(across):
-                y, x = ty * th, tx * tw
-                rows = min(th, H - y) if 273 in tags else th
-                need = rows * row_bytes
-                off = offsets[k]
-                src = data[off:off + (counts[k] if counts is not None and compression != "raw" else need)]
+    for p in range(g["planes"]):
+        for ty in range(g["down"]):
+            for tx in range(g["across"]):
+                y, x = ty * g["th"], tx * tw
+                rows = min(g["th"], g["H"] - y) if not g["tiled"] else g["th"]
+                need = need_of(y, x, rows)
+                off = g["offsets"][k]
+                src = data[off:off + (g["counts"][k] if g["counts"] is not None and compression != "raw" else need)]
                 k += 1
-                if compression == "raw":
+                if lay["fill"] == 2 and compression not in _CCITT_KIND and compression != "jpeg":
+                    src = _BIT_REVERSE[np.frombuffer(src, np.uint8)].tobytes()
+                if compression in ("raw", "jpeg"):
                     buf = src
                 elif compression == "deflate":
                     try:
                         buf = zlib.decompress(src)
                     except zlib.error as e:
                         raise ValueError(f"{path}: corrupt TIFF Deflate data ({e})") from e
+                elif compression in _CCITT_KIND:
+                    buf = np.zeros(need, np.uint8)
+                    kind = _CCITT_KIND[compression] + (compression == "group3" and bool(lay["t4"] & 1))
+                    rc = lib.sfod_ccitt_decode(src, len(src), kind, int(lay["fill"] == 2), off & 1, tw, rows,
+                                               buf.ctypes.data_as(_U8P), need // rows)
+                    if rc != 0:
+                        raise ValueError(f"{path}: TIFF {compression} decode failed: "
+                                         f"{CCITT_ERRORS.get(rc, 'unknown error')} (code {rc})")
+                    buf = buf.tobytes()
                 else:
                     buf = np.empty(need, np.uint8)
                     fn = lib.sfod_tiff_lzw if compression == "lzw" else lib.sfod_packbits
@@ -781,51 +936,296 @@ def _tiff_samples(data, tags, order, W, H, bits, spp, planar, compression, predi
                     if rc < 0:
                         raise ValueError(f"{path}: corrupt or short TIFF {compression} data")
                     buf = buf.tobytes()
-                if len(buf) < need:
+                if compression != "jpeg" and len(buf) < need:
+                    if compression == "raw":
+                        raise ValueError(f"{path}: truncated TIFF strip or tile (PIL refuses it too: image file is "
+                                         "truncated)")
                     raise ValueError(f"{path}: TIFF {compression} data ends before its strip or tile does")
-                chunk = np.frombuffer(buf[:need], np.uint8).reshape(rows, row_bytes)
-                if bits >= 8:
-                    chunk = chunk.view(dtype).reshape(rows, tw, per)
-                    if predictor == 2:  # horizontal differencing, modulo the sample size
-                        chunk = np.cumsum(chunk.astype(np.uint16 if bits == 16 else np.uint8), axis=1,
-                                          dtype=np.uint16 if bits == 16 else np.uint8)
-                else:  # 1, 2 or 4 bits: one sample a pixel, high bits first
-                    b = np.unpackbits(chunk, axis=1).reshape(rows, -1, bits)[:, :tw]
-                    chunk = (b * (1 << np.arange(bits - 1, -1, -1, dtype=np.uint8))).sum(2, dtype=np.uint8)[..., None]
-                hh, ww = min(rows, H - y), min(tw, W - x)
-                out[y:y + hh, x:x + ww, p:p + per] = chunk[:hh, :ww]
+                yield p, y, x, rows, buf
+
+
+def _unpack_bits(chunk: np.ndarray, bits: int, n: int) -> np.ndarray:
+    """Rows of samples of `bits` bits packed high bits first -> [rows, n]."""
+    b = np.unpackbits(chunk, axis=1)[:, :n * bits].reshape(chunk.shape[0], n, bits)
+    return (b.astype(np.uint16) << np.arange(bits - 1, -1, -1, dtype=np.uint16)).sum(2, dtype=np.uint16)
+
+
+def _tiff_samples(data: bytes, ifd: dict, lay: dict, path: str) -> np.ndarray:
+    """The samples [H, W, spp] of the first page: uint8, or native uint16
+    (12 and 16 bits) or uint32 (32 bits) holding the values the file's byte
+    order gives. Uncompressed data is read as Pillow's raw decoder reads it:
+    each tile's rows inside the image, at the stride Pillow gives a tile at
+    the right edge; a plane of a planar file by a one-band 8-bit raw mode (a
+    16-bit plane's bytes taken as samples); YCbCr as RGBX (four bytes a
+    pixel)."""
+    g = _tiff_grid(ifd, lay, path)
+    if lay["compression"] == "jpeg":
+        return _tiff_jpeg_samples(data, g, lay, ifd, path)
+    W, H, tw, bits, spp = g["W"], g["H"], g["tw"], lay["bits"], lay["spp"]
+    raw = lay["compression"] == "raw"
+    per = 1 if lay["planar"] else spp
+    sum_bits = bits * spp
+    if raw and (lay["planar"] or lay["photo"] == 6):
+        bits, per = 8, 1 if lay["planar"] else 4
+    word = 8 if bits <= 8 else 16 if bits <= 16 else 32
+    order = np.dtype(ifd["order"] + f"u{word // 8}")
+    out = np.zeros((H, W, max(spp, per)), np.dtype(f"u{word // 8}"))
+    full = (tw * per * bits + 7) // 8  # a tile row's bytes as libtiff decodes it
+
+    def layout(y, x, rows):
+        """(rows, stride, bytes of a row's pixels inside the image)"""
+        if not raw:
+            return rows, full, full
+        cw = min(tw, W - x)
+        nbytes = (cw * per * bits + 7) // 8
+        stride = int(tw * sum_bits / 8 / (spp if lay["planar"] else 1)) if x + tw > W else nbytes
+        if stride < nbytes:
+            raise ValueError(f"{path}: TIFF tile rows shorter than their pixels (PIL refuses them too)")
+        return min(rows, H - y), stride, nbytes
+
+    def need_of(y, x, rows):
+        rows, stride, nbytes = layout(y, x, rows)
+        return (rows - 1) * stride + nbytes if raw else rows * stride
+
+    predictor = lay.get("predictor", 1)
+    for p, y, x, rows, buf in _tiff_chunks(data, g, lay, need_of, path):
+        rows, stride, nbytes = layout(y, x, rows)
+        flat = np.frombuffer(buf[:(rows - 1) * stride + nbytes] + bytes(stride - nbytes), np.uint8)
+        chunk = flat.reshape(rows, stride)[:, :nbytes]
+        n = nbytes * 8 // (bits * per) if raw else tw
+        if predictor == 3:
+            chunk = _float_predictor(chunk, tw * per).view(np.uint32).reshape(rows, tw, per)
+        elif bits in (8, 16, 32):
+            chunk = np.ascontiguousarray(chunk[:, :n * per * bits // 8]).view(order).reshape(rows, n, per)
+            chunk = chunk.astype(out.dtype)
+            if predictor == 2:  # horizontal differencing, modulo the sample size
+                chunk = np.cumsum(chunk, axis=1, dtype=chunk.dtype)
+        else:  # 1, 2, 4 or 12 bits: one sample a pixel, high bits first
+            chunk = _unpack_bits(chunk, bits, n)[..., None]
+        hh, ww = min(rows, H - y), min(chunk.shape[1], W - x)
+        out[y:y + hh, x:x + ww, p:p + per] = chunk[:hh, :ww]
     return out
 
 
-def _tiff_rgb(s: np.ndarray, layout: str, photo: int, tags: dict, path: str) -> np.ndarray:
+def _float_predictor(rows: np.ndarray, n: int) -> np.ndarray:
+    """libtiff's fpAcc (predictor 3) over rows of n 32-bit samples: the bytes
+    summed along the row, then each sample's bytes gathered from the four
+    byte planes (most significant first) -> native float32 [rows, n]."""
+    acc = np.cumsum(rows[:, :4 * n], axis=1, dtype=np.uint8)
+    return np.ascontiguousarray(acc.reshape(rows.shape[0], 4, n)[:, ::-1].transpose(0, 2, 1)).view(np.float32)[..., 0]
+
+
+def _tiff_rgb(s: np.ndarray, lay: dict, tags: dict, path: str) -> np.ndarray:
     """The samples as convert("RGB") gives the mode Pillow opens them as."""
-    if layout == "bilevel":
-        v = s[..., 0] * np.uint8(255)
-        return np.repeat((255 - v if photo == 0 else v)[..., None], 3, axis=2)
-    if layout == "grey":
-        bits = tags.get(258, (8,))[0]
-        v = s[..., 0] * np.uint8(255 // ((1 << bits) - 1))
-        return np.repeat((255 - v if photo == 0 else v)[..., None], 3, axis=2)
-    if layout == "grey16":  # "I;16" or "I;16B", clipped at 255 (no inversion, as Pillow opens it)
-        return np.repeat(np.minimum(s[..., :1], 255).astype(np.uint8), 3, axis=2)
-    if s.dtype == np.uint16:  # the 16-bit colour raw modes keep the high byte
+    mode, raw, compression = lay["mode"], lay["raw"], lay["compression"]
+    grey = None
+    if s.shape[2] == 4 and lay["photo"] == 6:  # YCbCr read as RGBX by Pillow's raw decoder
+        return np.ascontiguousarray(s[..., :3])
+    if mode == "1":
+        grey = s[..., 0] * np.uint8(255)
+        if raw.startswith("1;I"):
+            grey = 255 - grey
+    elif mode in ("L", "LA"):
+        bits = lay["bits"]
+        grey = s[..., 0] * np.uint8(255 // ((1 << bits) - 1)) if bits < 8 else s[..., 0]
+        if ";" in raw and "I" in raw.split(";")[1]:
+            grey = 255 - grey
+    elif mode.startswith("I;16"):
+        grey = np.minimum(s[..., 0], 255).astype(np.uint8)
+    elif mode in ("I", "F"):
+        kind = _TIFF_NUMERIC[raw]
+        v = s[..., 0].astype(f"u{kind[1]}")
+        if compression != "raw" and raw in _TIFF_SWAPPED_BY_PILLOW:
+            v = v.byteswap()
+        v = v.view(kind)
+        if mode == "I":
+            grey = np.clip(v, 0, 255).astype(np.uint8)
+        else:  # Convert.c: f2l, NaN landing on 0 as the cast does on x86
+            grey = np.clip(np.nan_to_num(v, nan=0.0, posinf=255.0, neginf=0.0), 0, 255).astype(np.uint8)
+    if grey is not None:
+        return np.repeat(grey[..., None], 3, axis=2)
+    if s.dtype != np.uint8:  # the 16-bit colour raw modes keep the high byte
         s = (s >> 8).astype(np.uint8)
-    if layout == "palette":
+    if mode in ("P", "PA"):
         if 320 not in tags:
             raise ValueError(f"{path}: palette TIFF without ColorMap (PIL refuses it too)")
         cmap = np.asarray(tags[320], np.uint16) // 256
         n = len(cmap) // 3
         return _palette_rgb(s[..., 0], cmap[:3 * n].reshape(3, n).T.astype(np.uint8))
-    if layout == "cmyk":  # Convert.c:cmyk2rgb
+    if mode == "LAB":  # LittleCMS converts Pillow's offset a* and b*: the raw mode flips the file's
+        lab = np.ascontiguousarray(s[..., :3])  # signed ones, a plane's one-band unpacker does not
+        if not lay["planar"]:
+            lab = lab ^ np.array([0, 128, 128], np.uint8)
+        return _lab_rgb(lab)
+    if mode == "CMYK":  # Convert.c:cmyk2rgb
         nk = 255 - s[..., 3:4].astype(np.int32)
         t = s[..., :3].astype(np.int32) * nk + 128
         return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
     rgb = s[..., :3]
-    if layout == "rgba_assoc":  # "RGBa": Unpack.c un-premultiplies, clipped
+    if raw.startswith("RGBa"):  # Unpack.c un-premultiplies, clipped
         a = s[..., 3:4].astype(np.int32)
         un = np.clip(rgb.astype(np.int32) * 255 // np.maximum(a, 1), 0, 255)
         rgb = np.where(a == 0, 0, np.where(a == 255, rgb, un))
     return np.ascontiguousarray(rgb, dtype=np.uint8)
+
+
+def _lab_rgb(lab: np.ndarray) -> np.ndarray:
+    """Pillow's "LAB" [H, W, 3] -> RGB as its convert("RGB") gives it
+    (ImageCms: LittleCMS's Lab -> sRGB transform; data/lab_srgb_clut.bin is
+    its 33^3 table, read out of LittleCMS 2.17 by
+    tests/torch_tiff_coders.py:littlecms_lab_clut; the interpolation is
+    csrc/containers.cpp:sfod_lab_rgb)."""
+    global _LAB_CLUT
+    if _LAB_CLUT is None:
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "lab_srgb_clut.bin"), "rb") as f:
+            _LAB_CLUT = np.frombuffer(zlib.decompress(f.read()), "<u2").astype(np.uint16)
+    out = np.empty(lab.shape, np.uint8)
+    _load().sfod_lab_rgb(np.ascontiguousarray(lab, np.uint8).ctypes.data_as(_U8P), lab.size // 3,
+                         _LAB_CLUT.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), out.ctypes.data_as(_U8P))
+    return out
+
+
+_LAB_CLUT = None
+
+
+def _tiff_jpeg_samples(data: bytes, g: dict, lay: dict, ifd: dict, path: str, rgb: bool = False,
+                       sampling=(1, 1)) -> np.ndarray:
+    """JPEG compression (7): each strip or tile an abbreviated JPEG stream
+    after the JPEGTables tag's tables, as tif_jpeg.c feeds libjpeg. libtiff
+    asks libjpeg for RGB only for YCbCr in one plane (Pillow's
+    JPEGCOLORMODE_RGB); every other file comes out as stored, no colour
+    transform whatever marker the stream carries (JCS_UNKNOWN). -> [H, W, 3]
+    RGB when rgb, else the samples [H, W, spp]."""
+    if lay["bits"] != 8:
+        raise ValueError(f"{path}: JPEG-compressed TIFF at {lay['bits']} bits is not supported (PIL refuses it too)")
+    lib = _load()
+    tables = ifd["blobs"].get(347, b"")
+    W, H = g["W"], g["H"]
+    nc = 3 if rgb else 1 if lay["planar"] else lay["spp"]
+    out = np.zeros((H, W, 3 if rgb else lay["spp"]), np.uint8)
+    hs, vs = sampling
+    for p, y, x, rows, src in _tiff_chunks(data, g, lay, lambda y, x, rows: 0, path):
+        seg_w, seg_h = g["tw"], rows
+        px = _U8P()
+        h, w, c = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+        rc = lib.sfod_jpeg_decode_tiff(tables, len(tables), src, len(src), int(rgb), hs, vs, ctypes.byref(px),
+                                       ctypes.byref(h), ctypes.byref(w), ctypes.byref(c))
+        if rc != 0:
+            raise ValueError(f"{path}: TIFF JPEG decode failed: {JPEG_ERRORS.get(rc, 'unknown error')} (code {rc})")
+        arr = np.ctypeslib.as_array(px, shape=(h.value, w.value, c.value)).copy()
+        lib.sfod_image_free(px)
+        if c.value != nc:
+            raise ValueError(f"{path}: TIFF JPEG stream with {c.value} components for {nc} (libtiff refuses it: "
+                             "PIL too)")
+        last_strip = not g["tiled"] and y + rows >= H
+        if w.value != seg_w or h.value < seg_h or (h.value > seg_h and not last_strip):
+            raise ValueError(f"{path}: TIFF JPEG stream of {w.value}x{h.value} for a {seg_w}x{seg_h} strip or tile "
+                             "(libtiff refuses it: PIL too)")
+        hh, ww = min(seg_h, H - y), min(seg_w, W - x)
+        out[y:y + hh, x:x + ww, p:p + arr.shape[2]] = arr[:hh, :ww]
+    return out
+
+
+def _ycbcr_tables(tags: dict) -> tuple:
+    """tif_color.c:TIFFYCbCrToRGBInit's tables from YCbCrCoefficients and
+    ReferenceBlackWhite (libtiff's defaults when absent), in its float32
+    arithmetic: (Y_tab, Cr_r_tab, Cb_b_tab, Cr_g_tab, Cb_g_tab)."""
+    f32 = np.float32
+
+    def rational(tag, default):
+        v = tags.get(tag)
+        if v is None:
+            return [f32(x) for x in default]
+        return [f32(0) if v[i + 1] == 0 else f32(v[i]) / f32(v[i + 1]) for i in range(0, len(v), 2)]
+
+    luma = rational(529, (0.299, 0.587, 0.114))
+    rbw = rational(532, (0, 255, 128, 255, 128, 255))
+    if any(np.isnan(v) for v in luma) or luma[1] == 0 or len(luma) < 3:
+        raise ValueError("invalid YCbCrCoefficients (libtiff refuses them: PIL too)")
+    if len(rbw) < 6 or not all(f32(-0x7FFFFFFF + 128) < v < f32(0x7FFFFFFF) for v in rbw):
+        raise ValueError("invalid ReferenceBlackWhite (libtiff refuses it: PIL too)")
+
+    def fix(v):
+        return np.int64(np.int32(np.float64(v) * 65536.0 + 0.5))
+
+    def clamp(v, lo, hi):
+        return f32(lo) if not v >= lo else f32(hi) if v > hi else v
+
+    f1 = f32(2) - f32(2) * luma[0]
+    d1 = fix(clamp(f1, f32(0), f32(2)))
+    f2 = luma[0] * f1 / luma[1]
+    d2 = -fix(clamp(f2, f32(0), f32(2)))
+    f3 = f32(2) - f32(2) * luma[2]
+    d3 = fix(clamp(f3, f32(0), f32(2)))
+    f4 = luma[2] * f3 / luma[1]
+    d4 = -fix(clamp(f4, f32(0), f32(2)))
+
+    def code2v(c, rb, rw, cr):  # the sample minus int32(RB), times CR, over RW - RB
+        den = rw - rb if rw - rb != 0 else f32(1)
+        return (f32(c - int(rb)) * f32(cr)) / den
+
+    def clampw(v):
+        lo, hi = f32(-128 * 32), f32(128 * 32)
+        return np.int64(np.int32(lo if v < lo else hi if v > hi else v))
+
+    x = np.arange(-128, 128)
+    cr = np.array([clampw(code2v(int(i), rbw[4] - f32(128), rbw[5] - f32(128), 127)) for i in x], np.int64)
+    cb = np.array([clampw(code2v(int(i), rbw[2] - f32(128), rbw[3] - f32(128), 127)) for i in x], np.int64)
+    y_tab = np.array([clampw(code2v(int(i) + 128, rbw[0], rbw[1], 255)) for i in x], np.int64)
+    half = np.int64(1 << 15)
+    return y_tab, (d1 * cr + half) >> 16, (d3 * cb + half) >> 16, d2 * cr, d4 * cb + half
+
+
+def _tiff_ycbcr(data: bytes, ifd: dict, lay: dict, path: str) -> np.ndarray:
+    """A YCbCr file, compressed: JPEG in one plane through libjpeg's YCbCr
+    -> RGB; anything else as Pillow reads it through libtiff's RGBA
+    interface (tif_getimage.c): data units of YCbCrSubsampling's h x v luma
+    samples and one Cb and Cr (planes only at 1 x 1), chroma replicated over
+    the unit, converted by TIFFYCbCrtoRGB."""
+    tags = ifd["tags"]
+    g = _tiff_grid(ifd, lay, path)
+    sub = tags.get(530)
+    if lay["compression"] == "jpeg" and not lay["planar"]:
+        sampling = (sub[0], sub[1]) if sub else (0, 0)
+        return _tiff_jpeg_samples(data, g, lay, ifd, path, rgb=True, sampling=sampling)
+    hs, vs = (sub[0], sub[1]) if sub else (2, 2)
+    if (hs, vs) not in ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (4, 2), (4, 4)) or lay["planar"] and (hs, vs) != (1, 1):
+        raise ValueError(f"{path}: YCbCr TIFF with subsampling {hs}x{vs}{' in planes' if lay['planar'] else ''} "
+                         "(libtiff's RGBA interface refuses it: PIL too)")
+    tables = [np.ascontiguousarray(t, np.int32) for t in _ycbcr_tables(tags)]
+    lib = _load()
+    W, H, tw = g["W"], g["H"], g["tw"]
+
+    def convert(units: bytes, across: int, rows: int, width: int) -> np.ndarray:
+        pix = np.empty((rows, width, 3), np.uint8)
+        lib.sfod_ycbcr_units(units, across, hs, vs, rows, width, *[t.ctypes.data_as(_I32P) for t in tables],
+                             pix.ctypes.data_as(_U8P), width * 3)
+        return pix
+
+    if lay["planar"]:  # putseparate8bitYCbCr11tile: the planes' samples are 1 x 1 units
+        return convert(_tiff_samples(data, ifd, lay, path).tobytes(), W, H, W)
+    units_across = -(-tw // hs)
+    unit = hs * vs + 2
+    row_bytes = units_across * unit  # a row of units: vs rows of pixels
+    # the predictor's row: TIFFScanlineSize (a unit row over vs) for strips, TIFFTileRowSize for tiles
+    pred_row = tw * 3 if g["tiled"] else row_bytes // vs
+
+    def need_of(y, x, rows):
+        return -(-rows // vs) * row_bytes
+
+    out = np.zeros((H, W, 3), np.uint8)
+    for _, y, x, rows, buf in _tiff_chunks(data, g, lay, need_of, path):
+        if lay["predictor"] == 2:  # horAcc8, stride 3, over rows of pred_row bytes
+            n = need_of(y, x, rows)
+            if n % pred_row or pred_row % 3:
+                raise ValueError(f"{path}: YCbCr TIFF whose predictor rows do not divide its strips or tiles "
+                                 "(libtiff refuses it: PIL too)")
+            acc = np.frombuffer(buf[:n], np.uint8).reshape(n // pred_row, pred_row // 3, 3)
+            buf = np.cumsum(acc, axis=1, dtype=np.uint8).tobytes()
+        pix = convert(buf, units_across, rows, tw)
+        hh, ww = min(rows, H - y), min(tw, W - x)
+        out[y:y + hh, x:x + ww] = pix[:hh, :ww]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@
   imgcodec  data/csrc/imgcodec.cpp (Pillow-exact bilinear resize, PNG
             scanline reconstruction), data/csrc/jpeg_decode.cpp (the port's
             JPEG decoder, bit-equal to libjpeg-turbo's with PIL's settings),
-            data/csrc/containers.cpp (GIF and TIFF LZW, PackBits, BMP RLE),
-            data/csrc/webp_vp8.cpp and data/csrc/webp_vp8l.cpp (the port's
+            data/csrc/containers.cpp (GIF and TIFF LZW, PackBits, BMP RLE,
+            TIFF's YCbCr units and LittleCMS's Lab -> sRGB interpolation),
+            data/csrc/ccitt.cpp (TIFF's CCITT RLE, Group 3 and Group 4, after
+            libtiff's tif_fax3.c), data/csrc/webp_vp8.cpp and data/csrc/webp_vp8l.cpp (the port's
             lossy and lossless WebP decoders and the ALPH plane, bit-equal
             to libwebp's); data/native_codec.py binds them
   cocoeval  evaluation/csrc/cocoeval.cpp (the port's copy of the repo's
@@ -36,7 +38,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 SOURCES = {
     "imgcodec": tuple(os.path.join(_PKG, "data", "csrc", f)
-                     for f in ("imgcodec.cpp", "jpeg_decode.cpp", "containers.cpp", "webp_vp8.cpp", "webp_vp8l.cpp")),
+                     for f in ("imgcodec.cpp", "jpeg_decode.cpp", "containers.cpp", "ccitt.cpp", "webp_vp8.cpp",
+                               "webp_vp8l.cpp")),
     "cocoeval": (os.path.join(_PKG, "evaluation", "csrc", "cocoeval.cpp"),),
 }
 

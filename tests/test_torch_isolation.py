@@ -161,9 +161,9 @@ def test_build_sources_lie_inside_the_package():
 
 def test_no_system_image_library():
     """The codec builds from the port's sources alone: no port source
-    includes libjpeg's, libpng's or libwebp's headers, links -ljpeg or
-    -lwebp, or calls nvjpeg, and the g++ command line of the host libraries
-    names nothing else."""
+    includes libjpeg's, libpng's, libwebp's or libtiff's headers, links
+    -ljpeg, -lwebp or -ltiff, or calls nvjpeg, and the g++ command line of
+    the host libraries names nothing else."""
     from simple_sfod_tpu_torch import host_libs
 
     texts = {}
@@ -174,16 +174,37 @@ def test_no_system_image_library():
                     texts[os.path.relpath(os.path.join(d, f), ROOT)] = fh.read()
     with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
         texts["chip_smoke.py"] = fh.read()
-    for needle in ("jpeglib.h", "png.h", "-ljpeg", "nvjpeg", "-lwebp", "libwebp.so"):
+    for needle in ("jpeglib.h", "png.h", "-ljpeg", "nvjpeg", "-lwebp", "libwebp.so", "tiffio.h", "-ltiff",
+                   "libtiff.so"):
         assert not [p for p, t in texts.items() if needle in t], needle
-    include = re.compile(r"#\s*include\s*[<\"](webp|png|jpeg|turbojpeg)")
+    include = re.compile(r"#\s*include\s*[<\"](webp|png|jpeg|turbojpeg|tiff)")
     assert not [p for p, t in texts.items() if include.search(t)]
     for p in host_libs.SOURCES["imgcodec"]:
         with open(p) as fh:
             assert set(re.findall(r"#\s*include\s*<([^>]+)>", fh.read())) <= SYSTEM_HEADERS, p
     assert not [f for f in host_libs.CXX_FLAGS if f.startswith(("-l", "-D"))], host_libs.CXX_FLAGS
-    assert {"jpeg_decode.cpp", "webp_vp8.cpp", "webp_vp8l.cpp"} <= {
+    assert {"jpeg_decode.cpp", "webp_vp8.cpp", "webp_vp8l.cpp", "ccitt.cpp"} <= {
         os.path.basename(p) for p in host_libs.SOURCES["imgcodec"]}
+
+
+def test_tiff_decoders_are_the_ports_own():
+    """TIFF's codecs (LZW, PackBits, CCITT, JPEG through the port's JPEG
+    decoder) are sources of the imgcodec library: none includes a TIFF,
+    JPEG or zlib header of the system, and native_codec.py reaches no
+    other decoder (no PIL, tifffile, imagecodecs or ctypes.util lookup)."""
+    from simple_sfod_tpu_torch import host_libs
+
+    names = {os.path.basename(p) for p in host_libs.SOURCES["imgcodec"]}
+    assert {"containers.cpp", "ccitt.cpp", "jpeg_decode.cpp"} <= names
+    for p in host_libs.SOURCES["imgcodec"]:
+        with open(p) as fh:
+            headers = set(re.findall(r"#\s*include\s*[<\"]([^>\"]+)[>\"]", fh.read()))
+        assert not {h for h in headers if re.match(r"(tiff|tiffio|tiffconf|jpeglib|zlib)\.h$", h)}, (p, headers)
+        assert headers <= SYSTEM_HEADERS, (p, headers)
+    with open(os.path.join(PKG, "data", "native_codec.py")) as fh:
+        text = fh.read()
+    for needle in ("import PIL", "from PIL", "tifffile", "imagecodecs", "ctypes.util", "find_library"):
+        assert needle not in text, needle
 
 
 # the C++ standard library headers the codec's sources include
