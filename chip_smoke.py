@@ -221,7 +221,7 @@ Phases (each prints one progress line with its wall time):
               tests/torch_containers/: BMP, GIF, TIFF; tests/torch_webp/:
               lossy, lossless, ALPH, VP8X, animated WebP; tests/torch_tiff/:
               BigTIFF, JPEG-compressed, CCITT, YCbCr, CIELab, float and
-              signed TIFF) decoded by the
+              signed TIFF, LZMA and ZSTD with predictor 2) decoded by the
               port's codec bit-equal to the recorded SHA-256 of Pillow's
               RGB; decode (and decode + resize) ms of a 1914x1052 JPEG,
               baseline and progressive, beside a 1024x2048 PNG and KITTI's
@@ -230,9 +230,10 @@ Phases (each prints one progress line with its wall time):
               (its progressive file cut after 6 scans), as BMP and as TIFF
               uncompressed, PackBits, LZW and Deflate (written here, each
               decoded back to the frame), and as TIFF JPEG-compressed (16-row
-              strips, shared JPEGTables), Group 4 and YCbCr 2x2 PackBits
-              (the last written here), each equal to Pillow's recorded
-              digest; 16 Sim10k records (the fixture frames, the
+              strips, shared JPEGTables), Group 4, YCbCr 2x2 PackBits and
+              old-style JPEG (the last two written here), and its 960x528
+              crop as LZMA and ZSTD with predictor 2 (ms and MB/s), each
+              equal to Pillow's recorded digest; 16 Sim10k records (the fixture frames, the
               progressive one among them, with seeded VOC boxes,
               converted by `python -m simple_sfod_tpu_torch.tools.sim10k_to_coco`'s
               main) and 16 KITTI records (seeded 375x1242 PNGs, two
@@ -259,8 +260,9 @@ Phases (each prints one progress line with its wall time):
               quality 80, lossy + ALPH, a lossless 957x526 crop; their
               decode and decode + resize ms beside the baseline JPEG's)
               and on 8 Sim10k records as TIFF (4 JPEG-compressed, 4 LZW
-              with Orientation 6, read turned) beside PNG twins of their
-              decoded pixels: the loader's
+              with Orientation 6, read turned), on 4 as old-style JPEG TIFF
+              and on 2 as the LZMA and ZSTD crops, each beside PNG twins of
+              their decoded pixels: the loader's
               batches and the detections equal, 2 launches of each kernel
               an image
  18. da       domain-adversarial training: one float32 step of da, cda
@@ -2288,11 +2290,17 @@ JPEG_FIXTURES = os.path.join(ROOT, "tests", "torch_jpeg")
 CONTAINER_FIXTURES = os.path.join(ROOT, "tests", "torch_containers")
 WEBP_FIXTURES = os.path.join(ROOT, "tests", "torch_webp")
 TIFF_FIXTURES = os.path.join(ROOT, "tests", "torch_tiff")
-# the Sim10k frame as TIFF, timed beside the baseline JPEG: two committed
-# fixtures (tests/test_torch_tiff.py writes them) and one file this script
-# writes (ycbcr_tiff_bytes), each held to Pillow's digest in fixtures.json
+# the Sim10k frame as TIFF, timed beside the baseline JPEG: committed
+# fixtures (tests/test_torch_tiff.py writes them; the LZMA and ZSTD files
+# are the frame's central 960x528 crop) and files this script writes
+# (TIFF_WRITTEN), each held to Pillow's digest in fixtures.json
 TIFF_FRAMES = {"JPEG YCbCr 4:2:0, 16-row strips": "sim10k_frame_0_jpeg.tif", "Group 4": "sim10k_frame_0_g4.tif",
-               "YCbCr 2x2 PackBits": "sim10k_frame_0_ycbcr22_packbits.tif"}
+               "YCbCr 2x2 PackBits": "sim10k_frame_0_ycbcr22_packbits.tif",
+               "old-style JPEG": "sim10k_frame_0_ojpeg.tif",
+               "LZMA 960x528 crop, predictor 2": "sim10k_crop_lzma_pred2.tif",
+               "ZSTD 960x528 crop, predictor 2": "sim10k_crop_zstd_pred2.tif"}
+# the crops' decoded bytes, for their MB/s
+TIFF_CROP_BYTES = 528 * 960 * 3
 # the Sim10k frame as WebP (tests/test_torch_webp.py writes them): timed
 # beside the baseline JPEG and read by test() beside their PNG twins
 WEBP_FRAMES = {"lossy q80": "sim10k_frame_0_q80.webp", "lossy + ALPH": "sim10k_frame_0_alpha.webp",
@@ -2424,6 +2432,20 @@ def jpeg_tiff_bytes(jpeg: bytes) -> bytes:
     factors = jpeg[at + 11]
     tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]), (259, 3, [7]), (262, 3, [6]), (277, 3, [3]),
             (278, 4, [h]), (284, 3, [1]), (530, 3, [factors >> 4, factors & 15])]
+    return tiff_container([jpeg], tags)
+
+
+def ojpeg_tiff_bytes(jpeg: bytes) -> bytes:
+    """A baseline JPEG file as an old-style JPEG TIFF (compression 6) of
+    one strip, with no encoder: the file stored once, named by
+    JPEGInterchangeFormat (513, 514) and by the strip, which starts at the
+    stream's start (libtiff's tif_ojpeg.c reads the markers there and the
+    scan after them); YCbCr, YCbCrSubsampling from the frame header."""
+    at = next(i for i in range(2, len(jpeg) - 1) if jpeg[i] == 0xFF and jpeg[i + 1] in (0xC0, 0xC1))
+    h, w = struct.unpack(">HH", jpeg[at + 5:at + 9])
+    factors = jpeg[at + 11]
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]), (259, 3, [6]), (262, 3, [6]), (277, 3, [3]),
+            (278, 4, [h]), (284, 3, [1]), (513, 4, [8]), (514, 4, [len(jpeg)]), (530, 3, [factors >> 4, factors & 15])]
     return tiff_container([jpeg], tags)
 
 
@@ -2567,26 +2589,24 @@ def webp_test(tr, root: str) -> tuple:
     twin_test. -> (launches, a line of numbers)."""
     d = os.path.join(root, "webp")
     os.makedirs(d)
-    pairs = []
-    for i, kind in enumerate(("lossy q80", "lossy + ALPH", "lossless 957x526 crop", "lossy q80")):
-        src = os.path.join(WEBP_FIXTURES, WEBP_FRAMES[kind])
-        rgb = native_codec.decode(src)
-        twin = os.path.join(d, f"twin_{i}.png")
-        with open(twin, "wb") as f:
-            f.write(native_codec.encode_png(rgb, level=1))
-        check(np.array_equal(native_codec.decode(twin), rgb), f"{kind}: PNG twin differs")
-        pairs.append((src, twin, rgb.shape[:2]))
-    got, n, ap50, secs = twin_test(tr, d, "webp", pairs)
+    kinds = ("lossy q80", "lossy + ALPH", "lossless 957x526 crop", "lossy q80")
+    got, n, ap50, secs = twin_test(tr, d, "webp", png_twins(d, [os.path.join(WEBP_FIXTURES, WEBP_FRAMES[k])
+                                                                for k in kinds]))
     line = (f"test() of the Sim10k source model on 4 Sim10k records as WebP (lossy q80, lossy + ALPH, lossless "
             f"957x526 crop, lossy q80) beside their PNG twins: batches equal, {n} detections equal (AP50 "
             f"{ap50[0]:.4f} and {ap50[1]:.4f}), {secs:.2f} s for both sets, launches {got}")
     return got, line
 
 
+# the TIFF_FRAMES files this script writes from sim10k_frame_0.jpg's bytes
+TIFF_WRITTEN = {"sim10k_frame_0_ycbcr22_packbits.tif": lambda jpeg: ycbcr_tiff_bytes(native_codec.decode_bytes(jpeg)),
+                "sim10k_frame_0_ojpeg.tif": ojpeg_tiff_bytes}
+
+
 def write_tiff_frames(directory: str) -> dict:
-    """TIFF_FRAMES: the committed JPEG-in-TIFF and Group 4 frames, and the
-    YCbCr 2x2 PackBits frame written here from sim10k_frame_0.jpg, its
-    decode held to Pillow's recorded digest. -> {kind: path}."""
+    """TIFF_FRAMES: the committed fixtures, and the TIFF_WRITTEN frames
+    written here, each decode held to Pillow's recorded digest. ->
+    {kind: path}."""
     import hashlib
 
     os.makedirs(directory)
@@ -2595,10 +2615,11 @@ def write_tiff_frames(directory: str) -> dict:
     for kind, name in TIFF_FRAMES.items():
         out[kind] = os.path.join(TIFF_FIXTURES, name)
         if not record[name]["committed"]:
-            frame = native_codec.decode(os.path.join(JPEG_FIXTURES, "sim10k_frame_0.jpg"))
+            with open(os.path.join(JPEG_FIXTURES, "sim10k_frame_0.jpg"), "rb") as f:
+                data = TIFF_WRITTEN[name](f.read())
             out[kind] = os.path.join(directory, name)
             with open(out[kind], "wb") as f:
-                f.write(ycbcr_tiff_bytes(frame))
+                f.write(data)
         rgb = native_codec.decode(out[kind])
         check(hashlib.sha256(rgb.tobytes()).hexdigest() == record[name]["sha256"],
               f"{name}: decode differs from Pillow's recorded digest")
@@ -2626,21 +2647,55 @@ def tiff_test(tr, root: str) -> tuple:
         files.append(os.path.join(d, f"orientation6_{i}.tif"))
         with open(files[-1], "wb") as f:
             f.write(tiff_bytes(native_codec.decode(src), 5, orientation=6))
-    pairs = []
-    for i, path in enumerate(files):
-        rgb = native_codec.decode(path)
-        twin = os.path.join(d, f"twin_{i}.png")
-        with open(twin, "wb") as f:
-            f.write(native_codec.encode_png(rgb, level=1))
-        check(np.array_equal(native_codec.decode(twin), rgb), f"{path}: PNG twin differs")
-        check(native_codec.image_size(path) == rgb.shape[:2], f"{path}: image_size {native_codec.image_size(path)}")
-        pairs.append((path, twin, rgb.shape[:2]))
+    pairs = png_twins(d, files)
     check(pairs[4][2] == CAR_DOMAINS["sim10k"]["hw"][::-1], f"Orientation 6 read as {pairs[4][2]}")
     got, n, ap50, secs = twin_test(tr, d, "tiff", pairs)
     line = (f"test() of the Sim10k source model on 8 Sim10k records as TIFF (frames 0, 1, 2, 0 JPEG-compressed, "
             f"and LZW with Orientation 6, read as 1914x1052 portraits) beside their PNG twins: batches equal, {n} "
             f"detections equal (AP50 {ap50[0]:.4f} and {ap50[1]:.4f}), {secs:.2f} s for both sets, launches {got}")
     return got, line
+
+
+def png_twins(d: str, files: list) -> list:
+    """[(file, a PNG of the port's decoded pixels of it (encode_png), (h,
+    w))] for twin_test, each twin decoded back to its file's pixels and
+    image_size held to the decode's size."""
+    pairs = []
+    for i, path in enumerate(files):
+        rgb = native_codec.decode(path)
+        twin = os.path.join(d, f"twin_{i}_{os.path.basename(path)}.png")
+        with open(twin, "wb") as f:
+            f.write(native_codec.encode_png(rgb, level=1))
+        check(np.array_equal(native_codec.decode(twin), rgb), f"{path}: PNG twin differs")
+        check(native_codec.image_size(path) == rgb.shape[:2], f"{path}: image_size {native_codec.image_size(path)}")
+        pairs.append((path, twin, rgb.shape[:2]))
+    return pairs
+
+
+def tiff_codec_test(tr, root: str) -> list:
+    """test() of trainer tr, through twin_test, on Sim10k frames 0, 1, 2, 0
+    as old-style JPEG TIFF (each committed JPEG file wrapped by
+    ojpeg_tiff_bytes) and on 2 records as the committed LZMA and ZSTD crops,
+    each set beside PNG twins of the port's decoded pixels. -> [(launches,
+    a line of numbers)] a set."""
+    d = os.path.join(root, "tiff_codecs")
+    os.makedirs(d)
+    files = []
+    for i in (0, 1, 2, 0):
+        files.append(os.path.join(d, f"ojpeg_{len(files)}_{i}.tif"))
+        with open(os.path.join(JPEG_FIXTURES, f"sim10k_frame_{i}.jpg"), "rb") as f:
+            data = ojpeg_tiff_bytes(f.read())
+        with open(files[-1], "wb") as f:
+            f.write(data)
+    crops = [os.path.join(TIFF_FIXTURES, TIFF_FRAMES[k]) for k in TIFF_FRAMES if "crop" in k]
+    out = []
+    for label, what, paths in (("ojpeg", "frames 0, 1, 2, 0 as old-style JPEG TIFF", files),
+                               ("lzma_zstd", "the 960x528 crop as LZMA and as ZSTD TIFF, predictor 2", crops)):
+        got, n, ap50, secs = twin_test(tr, d, label, png_twins(d, paths))
+        out.append((got, f"test() of the Sim10k source model on {len(paths)} Sim10k records, {what}, beside their "
+                         f"PNG twins: batches equal, {n} detections equal (AP50 {ap50[0]:.4f} and {ap50[1]:.4f}), "
+                         f"{secs:.2f} s for both sets, launches {got}"))
+    return out
 
 
 def car_boxes(rng: np.random.RandomState, hw, k: int) -> list:
@@ -2909,8 +2964,10 @@ def car_phase(smi: str):
         tiff_ms = {kind: decode_resize_ms(path) for kind, path in tiff_frames.items()}
         numbers["tiff_decode_ms"] = {k: v[0] for k, v in tiff_ms.items()}
         numbers["tiff_decode_resize_ms"] = {k: v[1] for k, v in tiff_ms.items()}
+        numbers["tiff_crop_decode_mb_s"] = {k: TIFF_CROP_BYTES / 1e3 / d for k, (d, _) in tiff_ms.items() if "crop" in k}
         log(f"  the Sim10k frame as TIFF, one thread, median of 5 [{smi}]: decode ms (decode + resize to 600 px "
-            "ms): " + ", ".join(f"{k} {d:.2f} ({b:.2f}, {d / jpeg_dec:.2f}x the baseline JPEG's decode)"
+            "ms): " + ", ".join(f"{k} {d:.2f} ({b:.2f}, {d / jpeg_dec:.2f}x the baseline JPEG's decode"
+                                + (f", {TIFF_CROP_BYTES / 1e3 / d:.1f} MB/s decoded" if "crop" in k else "") + ")"
                                 for k, (d, b) in tiff_ms.items())
             + f"; the baseline JPEG {jpeg_dec:.2f} ({jpeg_both:.2f}); each decode equal to Pillow's recorded digest")
         log(f"  host decode on one thread [{smi}]: a 1914x1052 4:2:0 JPEG {jpeg_dec:.2f} ms, with the resize to "
@@ -3014,6 +3071,9 @@ def car_phase(smi: str):
         got, line = tiff_test(tr, root)
         add(got)
         log(f"  [{smi}] " + line)
+        for got, line in tiff_codec_test(tr, root):
+            add(got)
+            log(f"  [{smi}] " + line)
         del tr
     finally:
         for b in background:

@@ -5,13 +5,19 @@
 //   sfod_gif_lzw   GIF's LZW (GifDecode.c in Pillow): codes LSB first, from
 //                  the minimum code size + 1 bits up to 12, clear and end
 //                  codes, a full table kept until the next clear
-//   sfod_tiff_lzw  TIFF's LZW (libtiff tif_lzw.c, new style): codes MSB
+//   sfod_tiff_lzw  TIFF's LZW (libtiff tif_lzw.c): new style, codes MSB
 //                  first, 9 to 12 bits, the width growing one code early;
-//                  256 clears, 257 ends
+//                  old style (LZWDecodeCompat, a strip whose first bytes are
+//                  00 and an odd byte), codes LSB first, the width growing
+//                  when the table reaches it; 256 clears, 257 ends
+//   sfod_thunderscan  TIFF's ThunderScan 4-bit coding (tif_thunder.c), row
+//                  by row: runs, 2- and 3-bit deltas and raw nibbles
 //   sfod_packbits  TIFF's PackBits (libtiff tif_packbits.c)
 //   sfod_ycbcr_units  TIFF's YCbCr data units to RGB as libtiff's RGBA
 //                  interface converts them (tif_getimage.c's putcontig8bit
-//                  YCbCr routines over TIFFYCbCrtoRGB's tables, given)
+//                  YCbCr routines over TIFFYCbCrtoRGB's tables, given);
+//                  sfod_ycbcr_planes the same from the planes the units
+//                  are cut from (old-style JPEG's raw components)
 //   sfod_lab_rgb   8-bit CIELab to RGB as Pillow 12's convert("RGB") gives it:
 //                  LittleCMS 2.17's optimised Lab -> sRGB transform, a 33^3
 //                  16-bit table (given) read by cmsintrp.c's
@@ -114,11 +120,16 @@ int64_t sfod_gif_lzw(const uint8_t* data, int64_t n, int32_t min_size, uint8_t* 
 }
 
 // Decode a TIFF strip or tile of LZW data into exactly cap bytes. Returns
-// cap, or -1 for a code beyond the table, -2 for the old-style (LSB-first)
-// coding, -3 when the codes end before cap bytes (libtiff: "Not enough
-// data").
-int64_t sfod_tiff_lzw(const uint8_t* data, int64_t n, uint8_t* out, int64_t cap) {
-  if (n >= 2 && data[0] == 0 && (data[1] & 1)) return -2;  // tif_lzw.c: LZWPreDecode's compat test
+// cap, or -1 for a code beyond the table, -3 when the codes end before cap
+// bytes (libtiff: "Not enough data"). old_style 1 decodes by
+// LZWDecodeCompat's rules (tif_lzw.c), which libtiff keeps for a whole image
+// once its first strip starts 00, then a byte with its low bit set
+// (LZWPreDecode's test): codes LSB first, the width growing one code later
+// than the new style's (when the entry 2^n - 1 has been added), the table
+// kept growing past 4096 entries at 12 bits up to libtiff's 5119
+// ("Corrupted LZW table" beyond).
+int64_t sfod_tiff_lzw(const uint8_t* data, int64_t n, uint8_t* out, int64_t cap, int32_t old_style) {
+  const bool compat = old_style != 0;
   static thread_local LzwTable t;
   t.init(256);
   constexpr int kClear = 256, kEoi = 257, kFirst = 258;
@@ -128,11 +139,20 @@ int64_t sfod_tiff_lzw(const uint8_t* data, int64_t n, uint8_t* out, int64_t cap)
   int64_t pos = 0, written = 0;
   while (written < cap) {
     while (bits < size && pos < n) {
-      acc = (acc << 8) | data[pos++];
+      if (compat)
+        acc |= static_cast<uint64_t>(data[pos++]) << bits;
+      else
+        acc = (acc << 8) | data[pos++];
       bits += 8;
     }
     if (bits < size) break;
-    const int code = static_cast<int>((acc >> (bits - size)) & ((1u << size) - 1));
+    int code;
+    if (compat) {
+      code = static_cast<int>(acc & ((1u << size) - 1));
+      acc >>= size;
+    } else {
+      code = static_cast<int>((acc >> (bits - size)) & ((1u << size) - 1));
+    }
     bits -= size;
     if (code == kClear) {
       size = 9;
@@ -154,13 +174,80 @@ int64_t sfod_tiff_lzw(const uint8_t* data, int64_t n, uint8_t* out, int64_t cap)
     t.first[next] = t.first[prev];
     t.length[next] = t.length[prev] + 1;
     next++;
-    if (next > (1 << size) - 2 && size < kMaxBits) size++;  // one code early
+    if (size < kMaxBits && (compat ? next > (1 << size) - 1 : next > (1 << size) - 2)) size++;
     const int64_t room = cap - written;
     t.write(code, out + written, room);
     written += t.length[code] < room ? t.length[code] : room;
     prev = code;
   }
   return written == cap ? cap : -3;
+}
+
+// Decode a strip or tile of ThunderScan data (4-bit samples) into rows of
+// `width` pixels, two a byte high nibble first, `stride` bytes a row, as
+// tif_thunder.c:ThunderDecodeRow does: each row starts from pixel 0 and
+// reads on from where the last one stopped; a run is written only where it
+// ends inside the row (libtiff's overflow test). Returns 0, or -3
+// for a row whose codes run out before its end (libtiff: "Not enough
+// data") and -4 for one they overshoot ("Too much data").
+int64_t sfod_thunderscan(const uint8_t* data, int64_t n, int32_t width, int32_t rows, int64_t stride,
+                         uint8_t* out) {
+  static const int kDelta2[4] = {0, 1, 0, -1};
+  static const int kDelta3[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  int64_t pos = 0;
+  for (int32_t r = 0; r < rows; r++) {
+    uint8_t* op = out + r * stride;
+    const int64_t maxpixels = width;
+    int64_t npixels = 0;
+    unsigned lastpixel = 0;
+    auto set = [&](unsigned v) {
+      lastpixel = v & 0xF;
+      if (npixels < maxpixels) {
+        if (npixels++ & 1)
+          *op++ |= static_cast<uint8_t>(lastpixel);
+        else
+          op[0] = static_cast<uint8_t>(lastpixel << 4);
+      }
+    };
+    while (pos < n && npixels < maxpixels) {
+      const int b = data[pos++];
+      switch (b & 0xC0) {
+        case 0x00: {  // a run of the last pixel, b's low 6 bits long
+          int k = b;
+          if (npixels & 1) {
+            op[0] |= static_cast<uint8_t>(lastpixel);
+            lastpixel = *op++;
+            npixels++;
+            k--;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += k;
+          if (npixels <= maxpixels)
+            for (; k > 0; k -= 2) *op++ = static_cast<uint8_t>(lastpixel);
+          if (k == -1) *--op &= 0xF0;
+          lastpixel &= 0xF;
+          break;
+        }
+        case 0x40:  // three 2-bit deltas, 2 skips
+          for (int sh = 4; sh >= 0; sh -= 2) {
+            const int dl = (b >> sh) & 3;
+            if (dl != 2) set(static_cast<unsigned>(static_cast<int>(lastpixel) + kDelta2[dl]));
+          }
+          break;
+        case 0x80:  // two 3-bit deltas, 4 skips
+          for (int sh = 3; sh >= 0; sh -= 3) {
+            const int dl = (b >> sh) & 7;
+            if (dl != 4) set(static_cast<unsigned>(static_cast<int>(lastpixel) + kDelta3[dl]));
+          }
+          break;
+        default:  // a raw nibble
+          set(static_cast<unsigned>(b));
+      }
+    }
+    if (npixels != maxpixels) return npixels < maxpixels ? -3 : -4;
+  }
+  return 0;
 }
 
 // Decode PackBits into exactly cap bytes. Returns cap, or -3 when the data
@@ -259,6 +346,33 @@ void sfod_ycbcr_units(const uint8_t* units, int32_t across, int32_t hs, int32_t 
       o[3 * x] = clamp(yv + cr_r[cr]);
       o[3 * x + 1] = clamp(yv + ((cb_g[cb] + cr_g[cr]) >> 16));
       o[3 * x + 2] = clamp(yv + cb_b[cb]);
+    }
+  }
+}
+
+// Convert YCbCr planes (Y at full resolution, Cb and Cr subsampled hs x
+// vs, each plane row `stride` bytes apart) to rows x width RGB pixels as
+// sfod_ycbcr_units converts the data units they make: each pixel its own Y
+// with its unit's Cb and Cr, through TIFFYCbCrtoRGB's tables.
+void sfod_ycbcr_planes(const uint8_t* y, int64_t y_stride, const uint8_t* cb, const uint8_t* cr, int64_t c_stride,
+                       int32_t hs, int32_t vs, int32_t rows, int32_t width, const int32_t* y_tab, const int32_t* cr_r,
+                       const int32_t* cb_b, const int32_t* cr_g, const int32_t* cb_g, uint8_t* out) {
+  auto clamp = [](int32_t v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); };
+  for (int32_t r = 0; r < rows; r++) {
+    const uint8_t* yr = y + r * y_stride;
+    const uint8_t* cbr = cb + (r / vs) * c_stride;
+    const uint8_t* crr = cr + (r / vs) * c_stride;
+    uint8_t* o = out + static_cast<int64_t>(r) * width * 3;
+    for (int32_t x0 = 0, u = 0; x0 < width; x0 += hs, u++) {
+      const int c_b = cbr[u], c_r = crr[u];
+      const int32_t rr = cr_r[c_r], gg = (cb_g[c_b] + cr_g[c_r]) >> 16, bb = cb_b[c_b];
+      const int32_t end = x0 + hs < width ? x0 + hs : width;
+      for (int32_t x = x0; x < end; x++) {
+        const int32_t yv = y_tab[yr[x]];
+        o[3 * x] = clamp(yv + rr);
+        o[3 * x + 1] = clamp(yv + gg);
+        o[3 * x + 2] = clamp(yv + bb);
+      }
     }
   }
 }

@@ -1403,7 +1403,9 @@ struct Decoder {
         if (!c.scanned) refuse(kCorrupt);  // its samples would be libjpeg's uninitialised buffer
   }
 
-  void output(uint8_t* rgb_out) {
+  // each component's samples into c.plane (bw * 8 by bh * 8), the IDCT of
+  // every block inside the image (libjpeg's "useful" blocks)
+  void transform() {
     const bool smooth = smoothing_ok();
     for (auto& c : comps) {
       if (lossless) continue;  // the scans wrote the samples
@@ -1419,6 +1421,10 @@ struct Decoder {
       }
       std::vector<int16_t>().swap(c.coef);
     }
+  }
+
+  void output(uint8_t* rgb_out) {
+    transform();
     const int nc = static_cast<int>(comps.size());
     std::vector<std::vector<uint8_t>> rows(nc);
     for (int i = 0; i < nc; i++) rows[i].resize(static_cast<size_t>(comps[i].bw) * 8 * hmax + 16);
@@ -1705,6 +1711,63 @@ int sfod_jpeg_decode_tiff(const uint8_t* tables, int64_t nt, const uint8_t* data
     *h = dec.H;
     *w = dec.W;
     *nc = channels;
+    return kOk;
+  } catch (const Refusal& r) {
+    return r.code;
+  } catch (const std::bad_alloc&) {
+    return kNoMemory;
+  }
+}
+
+// Decode an old-style JPEG TIFF's stream (compression 6, rebuilt by the
+// caller as libtiff's tif_ojpeg.c hands it to libjpeg) as tif_ojpeg.c has
+// libjpeg decode it. interleave 0: libjpeg's raw data interface
+// (raw_data_out), the components at their own resolution, no upsampling
+// and no colour transform: *out holds each component's plane in turn,
+// dims[4 * i ..] its sampling factors h and v and its plane's width and
+// height (whole blocks of whole MCUs). interleave 1: the components
+// upsampled as libjpeg's scanline interface gives them under JCS_UNKNOWN
+// (what tif_ojpeg.c reads for one component, or for sampling factors a TIFF
+// cannot state), interleaved [H, W, nc]. *nc, *h and *w give the component
+// count and the image's size. Returns 0 or a negative code; *out is
+// malloc'd (release with sfod_image_free).
+int sfod_jpeg_decode_ojpeg(const uint8_t* data, int64_t n, int32_t interleave, uint8_t** out, int32_t* nc,
+                           int32_t* dims, int32_t* h, int32_t* w) {
+  *out = nullptr;
+  try {
+    Decoder dec(data, static_cast<size_t>(n));
+    dec.forced_colour = Decoder::kRaw;
+    dec.run();
+    if (dec.lossless || dec.progressive || dec.arithmetic) return kCorrupt;
+    const int count = static_cast<int>(dec.comps.size());
+    size_t total = 0;
+    if (interleave) {
+      total = static_cast<size_t>(dec.H) * dec.W * count;
+    } else {
+      for (const auto& c : dec.comps) total += static_cast<size_t>(c.bw) * 8 * c.bh * 8;
+    }
+    uint8_t* buf = static_cast<uint8_t*>(malloc(total));
+    if (!buf) return kNoMemory;
+    if (interleave) {
+      dec.output(buf);
+    } else {
+      dec.transform();
+      size_t at = 0;
+      for (int i = 0; i < count; i++) {
+        const auto& c = dec.comps[i];
+        const size_t size = static_cast<size_t>(c.bw) * 8 * c.bh * 8;
+        memcpy(buf + at, c.plane.data(), size);
+        at += size;
+        dims[4 * i] = c.h;
+        dims[4 * i + 1] = c.v;
+        dims[4 * i + 2] = c.bw * 8;
+        dims[4 * i + 3] = c.bh * 8;
+      }
+    }
+    *out = buf;
+    *nc = count;
+    *h = dec.H;
+    *w = dec.W;
     return kOk;
   } catch (const Refusal& r) {
     return r.code;

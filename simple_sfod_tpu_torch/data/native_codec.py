@@ -1,6 +1,7 @@
 """ctypes binding of the port's host image codec (data/csrc/imgcodec.cpp,
 data/csrc/jpeg_decode.cpp, data/csrc/containers.cpp, data/csrc/ccitt.cpp,
-data/csrc/webp_vp8.cpp and data/csrc/webp_vp8l.cpp, built by host_libs.py):
+data/csrc/webp_vp8.cpp, data/csrc/webp_vp8l.cpp, data/csrc/xz.cpp and
+data/csrc/zstd.cpp, built by host_libs.py):
 the loader's per-image work, decode and the detectron2 shortest-edge resize,
 without PIL and without any system image library.
 
@@ -25,21 +26,24 @@ without PIL and without any system image library.
                    chunky or planar, every pixel layout of Pillow's
                    OPEN_INFO (1 to 32 bits, signed, unsigned and float
                    samples, FillOrder 2, CIELab through LittleCMS's table
-                   as Pillow converts it); none, PackBits, LZW,
-                   Deflate (predictors 2 and 3), CCITT RLE, Group 3 and
+                   as Pillow converts it); none, PackBits, LZW (old style
+                   too), Deflate, LZMA (xz.cpp: LZMA2, Delta and the BCJ
+                   filters) and ZSTD (zstd.cpp), with predictors 2 and 3,
+                   ThunderScan, CCITT RLE, Group 3 and
                    Group 4 (ccitt.cpp, after libtiff's tif_fax3.c), JPEG
-                   (the port's decoder, fed the JPEGTables tag) and YCbCr at
-                   every subsampling (libtiff's RGBA interface); each mapped
-                   as Pillow's raw modes convert them, then turned by the
-                   Orientation tag as Pillow turns it. WebP (lossy VP8,
+                   (the port's decoder, fed the JPEGTables tag), old-style
+                   JPEG (tif_ojpeg.c's stream rebuilt here, decoded by the
+                   port's decoder into libjpeg's raw components) and YCbCr
+                   at every subsampling (libtiff's RGBA interface); each
+                   mapped as Pillow's raw modes convert them, then turned by
+                   the Orientation tag as Pillow turns it. WebP (lossy VP8,
                    lossless VP8L, the ALPH plane, VP8X with its metadata
                    skipped, the first frame of an animated file on its
                    canvas): the RIFF chunks parsed here as libwebp's demuxer
                    accepts them, the frame decoded by the port's decoders,
                    bit-equal to libwebp 1.6's RGBA with Pillow's settings,
-                   alpha decoded and dropped. JPEG 2000, TIFF's LZMA, ZSTD,
-                   old-style JPEG, SGILog and ThunderScan compressions (and
-                   WebP, which PIL's libtiff refuses too), and the other
+                   alpha decoded and dropped. JPEG 2000, TIFF's SGILog and
+                   WebP compressions (PIL refuses both too) and the other
                    formats PIL opens are refused by name
   image_size       (height, width) of any of those from its header alone
   encode_png       RGB uint8 [H, W, 3] -> the bytes of a PNG file (zlib)
@@ -160,13 +164,23 @@ def _load() -> ctypes.CDLL:
                                               ctypes.c_int64]
             lib.sfod_ycbcr_units.restype = None
             lib.sfod_ycbcr_units.argtypes = [ctypes.c_char_p] + [i32] * 5 + [_I32P] * 5 + [_U8P, ctypes.c_int64]
+            lib.sfod_ycbcr_planes.restype = None
+            lib.sfod_ycbcr_planes.argtypes = [_U8P, ctypes.c_int64, _U8P, _U8P, ctypes.c_int64] + [i32] * 4 + \
+                [_I32P] * 5 + [_U8P]
             lib.sfod_lab_rgb.restype = None
             lib.sfod_lab_rgb.argtypes = [_U8P, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint16), _U8P]
             lib.sfod_webp_vp8l_transforms.restype = i32
             lib.sfod_webp_vp8l_transforms.argtypes = [ctypes.c_char_p, ctypes.c_int64, i32, i32]
             i64 = ctypes.c_int64
+            lib.sfod_jpeg_decode_ojpeg.restype = i32
+            lib.sfod_jpeg_decode_ojpeg.argtypes = [ctypes.c_char_p, ctypes.c_int64, i32, ctypes.POINTER(_U8P),
+                                                   ctypes.POINTER(i32), _I32P, ctypes.POINTER(i32),
+                                                   ctypes.POINTER(i32)]
             for fn, args in (("sfod_gif_lzw", [ctypes.c_char_p, i64, ctypes.c_int32, _U8P, i64]),
-                             ("sfod_tiff_lzw", [ctypes.c_char_p, i64, _U8P, i64]),
+                             ("sfod_tiff_lzw", [ctypes.c_char_p, i64, _U8P, i64, ctypes.c_int32]),
+                             ("sfod_xz_decode", [ctypes.c_char_p, i64, _U8P, i64]),
+                             ("sfod_zstd_decode", [ctypes.c_char_p, i64, _U8P, i64]),
+                             ("sfod_thunderscan", [ctypes.c_char_p, i64, i32, i32, i64, _U8P]),
                              ("sfod_packbits", [ctypes.c_char_p, i64, _U8P, i64]),
                              ("sfod_bmp_rle", [ctypes.c_char_p, i64, i64, ctypes.c_int32, ctypes.c_int32,
                                                ctypes.c_int32, _U8P])):
@@ -663,12 +677,38 @@ BIGTIFF_MAGICS = (b"II+\x00", b"MM\x00+")
 # field types -> struct codes (RATIONAL as two LONGs, IFD as LONG, IFD8 as LONG8)
 _TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d",
                13: "I", 16: "Q", 17: "q", 18: "Q"}
-_TIFF_COMPRESSION = {1: "raw", 2: "ccitt_rle", 3: "group3", 4: "group4", 5: "lzw", 7: "jpeg", 8: "deflate",
-                     32771: "ccitt_rlew", 32773: "packbits", 32946: "deflate"}
-# compressions Pillow names and the port refuses: the first six Pillow reads
-# (ROADMAP.md §1 queues them); the libtiff Pillow 12.1 bundles has no WebP
-_TIFF_REFUSED_COMPRESSION = {34925: "LZMA", 50000: "ZSTD", 6: "old-style JPEG", 34676: "SGILog", 34677: "SGILog24",
-                             32809: "ThunderScan", 50001: "WebP"}
+_TIFF_COMPRESSION = {1: "raw", 2: "ccitt_rle", 3: "group3", 4: "group4", 5: "lzw", 6: "ojpeg", 7: "jpeg",
+                     8: "deflate", 32771: "ccitt_rlew", 32773: "packbits", 32809: "thunderscan", 32946: "deflate",
+                     34925: "lzma", 50000: "zstd"}
+# compressions Pillow names and refuses too: SGILog (its LogL and LogLuv
+# photometrics have no OPEN_INFO mode, and libtiff decodes SGILog under no
+# other) and WebP (the libtiff Pillow 12.1 bundles is built without it)
+_TIFF_REFUSED_COMPRESSION = {34676: "SGILog", 34677: "SGILog24", 50001: "WebP"}
+# the compressions libtiff runs its predictor (tif_predict.c) after
+_TIFF_PREDICTED = ("lzw", "deflate", "lzma", "zstd")
+# sfod_xz_decode's and sfod_zstd_decode's codes (data/csrc/xz.cpp,
+# data/csrc/zstd.cpp)
+XZ_ERRORS = {
+    -1: "not an .xz stream (liblzma refuses it: PIL too)",
+    -2: "corrupt .xz data or options liblzma refuses (PIL refuses it too)",
+    -3: "the .xz stream or the strip's data ends before the strip or tile does (libtiff: not enough data; PIL "
+        "refuses it too)",
+    -5: "out of memory",
+    -6: "an .xz block's integrity check does not match its data (PIL refuses it too)",
+}
+ZSTD_ERRORS = {
+    -1: "not a zstd frame (libzstd refuses it: PIL too)",
+    -2: "corrupt zstd data (PIL refuses it too)",
+    -3: "the zstd frame or the strip's data ends before the strip or tile does (libtiff: not enough data; PIL "
+        "refuses it too)",
+    -4: "a zstd frame that needs a dictionary (libtiff loads none: PIL refuses it too)",
+    -5: "a zstd window above 2^27 + 1 bytes (libzstd's default limit: PIL refuses it too)",
+    -6: "the zstd content checksum does not match (PIL refuses it too)",
+    -7: "out of memory",
+}
+THUNDERSCAN_ERRORS = {-3: "not enough data for a row (libtiff refuses it: PIL too)",
+                      -4: "too much data for a row (libtiff refuses it: PIL too)"}
+_SGILOG_PHOTOMETRIC = {32844: "LogL", 32845: "LogLuv"}
 # the CCITT decoders of data/csrc/ccitt.cpp (sfod_ccitt_decode's kind)
 _CCITT_KIND = {"ccitt_rle": 0, "ccitt_rlew": 1, "group3": 2, "group4": 4}
 CCITT_ERRORS = {
@@ -802,12 +842,21 @@ def _tiff_layout(ifd: dict, path: str) -> dict:
     its (mode, raw mode), or the refusal that names what is not read."""
     tags = ifd["tags"]
     ccode = tags.get(259, (1,))[0]
+    photo = tags.get(262, (0,))[0]
     if ccode in _TIFF_REFUSED_COMPRESSION:
-        why = " (PIL refuses it too: the libtiff it bundles is built without WebP)" if ccode == 50001 else ""
-        raise ValueError(f"{path}: TIFF with {_TIFF_REFUSED_COMPRESSION[ccode]} compression is not supported{why}")
+        name = _TIFF_REFUSED_COMPRESSION[ccode]
+        if ccode == 50001:
+            why = "PIL refuses it too: the libtiff it bundles is built without WebP"
+        elif photo in _SGILOG_PHOTOMETRIC:
+            why = f"PIL refuses it too: unknown pixel mode for photometric {photo} ({_SGILOG_PHOTOMETRIC[photo]})"
+        else:
+            why = (f"PIL refuses it too: libtiff refuses photometric {photo} for SGILog, which it decodes only "
+                   "under LogL or LogLuv photometric")
+        raise ValueError(f"{path}: TIFF with {name} compression is not supported ({why})")
     if ccode not in _TIFF_COMPRESSION:
         raise ValueError(f"{path}: TIFF compression {ccode} is not supported (PIL refuses it too)")
-    photo = tags.get(262, (0,))[0]
+    if ccode == 6:  # TiffImagePlugin: "old style jpeg compression images most certainly are YCbCr"
+        photo = 6
     fill = tags.get(266, (1,))[0]
     fmt = tuple(tags.get(339, (1,)))
     if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
@@ -833,7 +882,10 @@ def _tiff_layout(ifd: dict, path: str) -> dict:
             lay["raw"] = _TIFF_OPEN_INFO[key[:3] + (1,) + key[4:]][1]
         if compression in _CCITT_KIND and bps != (1,):
             raise ValueError(f"{path}: CCITT TIFF at {bps[0]} bits a sample (libtiff refuses it: PIL too)")
-        predictor = tags.get(317, (1,))[0] if compression in ("lzw", "deflate") else 1
+        if compression == "thunderscan" and bps != (4,):
+            raise ValueError(f"{path}: ThunderScan TIFF at {bps[0]} bits a sample (libtiff decodes 4 bits only: "
+                             "PIL refuses it too)")
+        predictor = tags.get(317, (1,))[0] if compression in _TIFF_PREDICTED else 1
         if predictor == 2 and bps[0] not in (8, 16, 32) or predictor == 3 and (fmt != (3,) or bps[0] != 32) or \
                 predictor not in (1, 2, 3):
             raise ValueError(f"{path}: TIFF predictor {predictor} at {bps[0]} bits, SampleFormat {fmt} is not "
@@ -853,7 +905,9 @@ def _tiff_layout(ifd: dict, path: str) -> dict:
 def _decode_tiff(data: bytes, path: str) -> np.ndarray:
     ifd = _tiff_ifd(_bytes_reader(data), path)
     lay = _tiff_layout(ifd, path)
-    if lay["photo"] == 6 and lay["spp"] == 3 and lay["compression"] != "raw":
+    if lay["compression"] == "ojpeg":
+        rgb = _tiff_ojpeg(data, ifd, lay, path)
+    elif lay["photo"] == 6 and lay["spp"] == 3 and lay["compression"] != "raw":
         rgb = _tiff_ycbcr(data, ifd, lay, path)  # libjpeg's RGB, or libtiff's RGBA interface
     else:
         rgb = _tiff_rgb(_tiff_samples(data, ifd, lay, path), lay, ifd["tags"], path)
@@ -899,7 +953,7 @@ def _tiff_chunks(data: bytes, g: dict, lay: dict, need_of, path: str):
     gives the bytes it must yield."""
     compression, tw = lay["compression"], g["tw"]
     lib = _load()
-    k = 0
+    k, old_style = 0, None
     for p in range(g["planes"]):
         for ty in range(g["down"]):
             for tx in range(g["across"]):
@@ -909,7 +963,7 @@ def _tiff_chunks(data: bytes, g: dict, lay: dict, need_of, path: str):
                 off = g["offsets"][k]
                 src = data[off:off + (g["counts"][k] if g["counts"] is not None and compression != "raw" else need)]
                 k += 1
-                if lay["fill"] == 2 and compression not in _CCITT_KIND and compression != "jpeg":
+                if lay["fill"] == 2 and compression not in _CCITT_KIND and compression not in ("jpeg", "ojpeg"):
                     src = _BIT_REVERSE[np.frombuffer(src, np.uint8)].tobytes()
                 if compression in ("raw", "jpeg"):
                     buf = src
@@ -927,12 +981,32 @@ def _tiff_chunks(data: bytes, g: dict, lay: dict, need_of, path: str):
                         raise ValueError(f"{path}: TIFF {compression} decode failed: "
                                          f"{CCITT_ERRORS.get(rc, 'unknown error')} (code {rc})")
                     buf = buf.tobytes()
+                elif compression == "thunderscan":
+                    buf = np.zeros(need, np.uint8)
+                    rc = lib.sfod_thunderscan(src, len(src), tw, rows, need // rows, buf.ctypes.data_as(_U8P))
+                    if rc < 0:
+                        raise ValueError(f"{path}: TIFF ThunderScan decode failed: {THUNDERSCAN_ERRORS[rc]}")
+                    buf = buf.tobytes()
+                elif compression in ("lzma", "zstd"):
+                    buf = np.empty(need, np.uint8)
+                    fn = lib.sfod_xz_decode if compression == "lzma" else lib.sfod_zstd_decode
+                    rc = fn(src, len(src), buf.ctypes.data_as(_U8P), need)
+                    if rc < 0:
+                        raise ValueError(f"{path}: TIFF {compression.upper()} decode failed: "
+                                         f"{(XZ_ERRORS if compression == 'lzma' else ZSTD_ERRORS)[rc]} (code {rc})")
+                    buf = buf.tobytes()
+                elif compression == "lzw":
+                    # LZWPreDecode picks the style at the first strip read
+                    # and keeps its decoder for the rest of the image
+                    if old_style is None:
+                        old_style = len(src) >= 2 and src[0] == 0 and src[1] & 1 == 1
+                    buf = np.empty(need, np.uint8)
+                    if lib.sfod_tiff_lzw(src, len(src), buf.ctypes.data_as(_U8P), need, int(old_style)) < 0:
+                        raise ValueError(f"{path}: corrupt or short TIFF {compression} data")
+                    buf = buf.tobytes()
                 else:
                     buf = np.empty(need, np.uint8)
-                    fn = lib.sfod_tiff_lzw if compression == "lzw" else lib.sfod_packbits
-                    rc = fn(src, len(src), buf.ctypes.data_as(_U8P), need)
-                    if rc == -2:
-                        raise ValueError(f"{path}: old-style (LSB-first) TIFF LZW is not supported")
+                    rc = lib.sfod_packbits(src, len(src), buf.ctypes.data_as(_U8P), need)
                     if rc < 0:
                         raise ValueError(f"{path}: corrupt or short TIFF {compression} data")
                     buf = buf.tobytes()
@@ -1176,6 +1250,15 @@ def _ycbcr_tables(tags: dict) -> tuple:
     return y_tab, (d1 * cr + half) >> 16, (d3 * cb + half) >> 16, d2 * cr, d4 * cb + half
 
 
+def _ycbcr_units_rgb(units: bytes, across: int, hs: int, vs: int, rows: int, width: int, tables) -> np.ndarray:
+    """rows x width RGB pixels of YCbCr data units (csrc/containers.cpp:
+    sfod_ycbcr_units over `tables`, _ycbcr_tables' as int32)."""
+    pix = np.empty((rows, width, 3), np.uint8)
+    _load().sfod_ycbcr_units(units, across, hs, vs, rows, width, *[t.ctypes.data_as(_I32P) for t in tables],
+                             pix.ctypes.data_as(_U8P), width * 3)
+    return pix
+
+
 def _tiff_ycbcr(data: bytes, ifd: dict, lay: dict, path: str) -> np.ndarray:
     """A YCbCr file, compressed: JPEG in one plane through libjpeg's YCbCr
     -> RGB; anything else as Pillow reads it through libtiff's RGBA
@@ -1192,15 +1275,11 @@ def _tiff_ycbcr(data: bytes, ifd: dict, lay: dict, path: str) -> np.ndarray:
     if (hs, vs) not in ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (4, 2), (4, 4)) or lay["planar"] and (hs, vs) != (1, 1):
         raise ValueError(f"{path}: YCbCr TIFF with subsampling {hs}x{vs}{' in planes' if lay['planar'] else ''} "
                          "(libtiff's RGBA interface refuses it: PIL too)")
-    tables = [np.ascontiguousarray(t, np.int32) for t in _ycbcr_tables(tags)]
-    lib = _load()
     W, H, tw = g["W"], g["H"], g["tw"]
+    tables = [np.ascontiguousarray(t, np.int32) for t in _ycbcr_tables(tags)]
 
     def convert(units: bytes, across: int, rows: int, width: int) -> np.ndarray:
-        pix = np.empty((rows, width, 3), np.uint8)
-        lib.sfod_ycbcr_units(units, across, hs, vs, rows, width, *[t.ctypes.data_as(_I32P) for t in tables],
-                             pix.ctypes.data_as(_U8P), width * 3)
-        return pix
+        return _ycbcr_units_rgb(units, across, hs, vs, rows, width, tables)
 
     if lay["planar"]:  # putseparate8bitYCbCr11tile: the planes' samples are 1 x 1 units
         return convert(_tiff_samples(data, ifd, lay, path).tobytes(), W, H, W)
@@ -1226,6 +1305,262 @@ def _tiff_ycbcr(data: bytes, ifd: dict, lay: dict, path: str) -> np.ndarray:
         hh, ww = min(rows, H - y), min(tw, W - x)
         out[y:y + hh, x:x + ww] = pix[:hh, :ww]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Old-style JPEG (compression 6), as libtiff's tif_ojpeg.c has libjpeg read
+# it: its header markers read from the JPEGInterchangeFormat stream and on
+# into the strips (OJPEGReadHeaderInfoSec), or its tables from the
+# JPEGQTables, JPEGDCTables and JPEGACTables tags; a stream rebuilt from them
+# (OJPEGWriteStream: SOI, the tables, DRI, SOF, SOS, then the scan's data,
+# the strips after it with an RST marker between two, EOI); the components
+# read raw (raw_data_out) as YCbCr data units of the frame's sampling,
+# which Pillow converts through libtiff's RGBA interface
+# ---------------------------------------------------------------------------
+
+OJPEG_ERRORS = {
+    "missing": "the JPEG data ends inside its markers (libtiff refuses it: PIL too)",
+    "marker": "an unknown marker in the JPEG data (libtiff refuses it: PIL too)",
+    "corrupt": "corrupt JPEG markers or tables (libtiff refuses them: PIL too)",
+    "tables": "no JPEG tables: neither an SOF marker nor the JPEGQTables tag (libtiff refuses it: PIL too)",
+    "size": "a JPEG frame whose size or component count is not the image's (libtiff refuses it: PIL too)",
+    "sampling": "JPEG sampling factors other than the YCbCrSubsampling libtiff takes from the frame (libtiff "
+                "refuses them: PIL too)",
+    "strips": "strips whose rows are not a whole number of JPEG MCU rows (libtiff refuses them: PIL too)",
+}
+
+
+def _ojpeg_parts(data: bytes, tags: dict) -> tuple:
+    """OJPEGReadBufferFill's sources: ([the JPEGInterchangeFormat stream,
+    if its offset lies in the file, then each strip's bytes (an offset past
+    the file: none; a byte count of 0 or past the file: to its end)], the
+    index of the first strip)."""
+    size = len(data)
+    parts = []
+    jif = tags.get(513, (0,))[0]
+    if 0 < jif < size:
+        n = tags.get(514, (0,))[0]
+        parts.append(data[jif:jif + (n if 0 < n and jif + n <= size else size - jif)])
+    first = len(parts)
+    counts = tags.get(279)
+    for k, off in enumerate(tags[273]):
+        if not 0 < off < size:
+            parts.append(b"")
+            continue
+        c = counts[k] if counts is not None and k < len(counts) else 0
+        parts.append(data[off:off + (c if 0 < c and off + c <= size else size - off)])
+    return parts, first
+
+
+def _ojpeg_header(src: bytes, spp: int, sub: tuple, W: int, H: int, path: str) -> dict:
+    """OJPEGReadHeaderInfoSec over the joined sources: the DQT, DHT, DRI,
+    SOF and SOS markers up to SOS, each checked as libtiff checks it."""
+    def refuse(kind):
+        raise ValueError(f"{path}: old-style JPEG TIFF: {OJPEG_ERRORS[kind]}")
+
+    def word(p):
+        if p + 2 > len(src):
+            refuse("missing")
+        return (src[p] << 8) | src[p + 1]
+
+    h = dict(q={}, dc={}, ac={}, dri=None, sof=None, sos=None, end=0)
+    pos = 0
+    while pos < len(src) and src[pos] == 0xFF:
+        pos += 1
+        while pos < len(src) and src[pos] == 0xFF:
+            pos += 1
+        if pos >= len(src):
+            refuse("missing")
+        m = src[pos]
+        pos += 1
+        if m == 0xD8:
+            continue
+        n = word(pos)
+        if m == 0xFE or 0xE0 <= m <= 0xEF:
+            if n < 2:
+                refuse("corrupt")
+        elif m == 0xDD:
+            if n != 4:
+                refuse("corrupt")
+            h["dri"] = word(pos + 2)
+        elif m == 0xDB:
+            if n <= 2:
+                refuse("corrupt")
+            p, left = pos + 2, n - 2
+            while left > 0:
+                if left < 65 or p + 65 > len(src) or src[p] & 15 > 3:
+                    refuse("corrupt")
+                h["q"][src[p] & 15] = b"\xff\xdb\x00\x43" + src[p:p + 65]
+                p, left = p + 65, left - 65
+        elif m == 0xC4:
+            if n <= 2 or pos + n > len(src):
+                refuse("corrupt" if n <= 2 else "missing")
+            o = src[pos + 2]
+            if o >> 4 not in (0, 1) or o & 15 > 3:
+                refuse("corrupt")
+            (h["ac"] if o >> 4 else h["dc"])[o & 15] = b"\xff\xc4" + src[pos:pos + n]
+        elif m in (0xC0, 0xC1, 0xC3):
+            if h["sof"] is not None or n < 11 or (n - 8) % 3:
+                refuse("corrupt")
+            nc = (n - 8) // 3
+            if pos + n > len(src):
+                refuse("missing")
+            if nc != spp or src[pos + 2] != 8 or src[pos + 7] != nc:
+                refuse("size")
+            y, x = word(pos + 3), word(pos + 5)
+            if (y < H) or (x < W) or x > W:
+                refuse("size")
+            comps = [tuple(src[pos + 8 + 3 * i:pos + 11 + 3 * i]) for i in range(nc)]
+            h["sof"] = dict(marker=m, y=y, x=x, comps=comps)
+        elif m == 0xDA:
+            if n != 6 + 2 * spp or pos + n > len(src) or src[pos + 2] != spp:
+                refuse("corrupt" if pos + n <= len(src) else "missing")
+            h["sos"] = [tuple(src[pos + 3 + 2 * i:pos + 5 + 2 * i]) for i in range(spp)]
+            h["end"] = pos + n
+            return h
+        else:
+            refuse("marker")
+        pos += n
+    h["end"] = pos
+    return h
+
+
+def _ojpeg_tag_tables(data: bytes, tags: dict, h: dict, spp: int, path: str) -> None:
+    """OJPEGReadHeaderInfoSecTables*: the tables of the JPEGQTables,
+    JPEGDCTables and JPEGACTables tags (one offset a component, a component
+    sharing the previous one's table where the offsets repeat)."""
+    for tag, kind in ((519, "q"), (520, "dc"), (521, "ac")):
+        offs = tags.get(tag)
+        if not offs or offs[0] == 0:
+            raise ValueError(f"{path}: old-style JPEG TIFF: {OJPEG_ERRORS['tables']}")
+        sel = []
+        for m in range(spp):
+            off = offs[m] if m < len(offs) else 0
+            if off != 0 and (m == 0 or off != offs[m - 1]):
+                if any(offs[k] == off for k in range(m - 1)):
+                    raise ValueError(f"{path}: old-style JPEG TIFF: {OJPEG_ERRORS['corrupt']}")
+                if kind == "q":
+                    body = data[off:off + 64]
+                    if len(body) < 64:
+                        raise ValueError(f"{path}: old-style JPEG TIFF: {OJPEG_ERRORS['missing']}")
+                    h["q"][m] = b"\xff\xdb\x00\x43" + bytes([m]) + body
+                else:
+                    counts = data[off:off + 16]
+                    total = sum(counts)
+                    if len(counts) < 16 or total > 255 or off + 16 + total > len(data):
+                        raise ValueError(f"{path}: old-style JPEG TIFF: {OJPEG_ERRORS['corrupt']}")
+                    cls = m if kind == "dc" else 16 | m
+                    h[kind][m] = (b"\xff\xc4" + struct.pack(">H", 19 + total) + bytes([cls]) + counts
+                                  + data[off + 16:off + 16 + total])
+                sel.append(m)
+            else:
+                sel.append(sel[-1] if sel else 0)
+        h[kind + "_sel"] = sel
+
+
+def _tiff_ojpeg(data: bytes, ifd: dict, lay: dict, path: str) -> np.ndarray:
+    tags = ifd["tags"]
+    W, H, spp = int(tags[256][0]), int(tags[257][0]), lay["spp"]
+    if 273 not in tags:
+        raise ValueError(f"{path}: old-style JPEG TIFF in tiles is not supported")
+    if lay["planar"]:
+        raise ValueError(f"{path}: old-style JPEG TIFF in planes is not supported")
+    if lay["bits"] != 8:
+        raise ValueError(f"{path}: old-style JPEG TIFF at {lay['bits']} bits (libtiff refuses it: PIL too)")
+    # the photometric libtiff keeps (tif_dirread.c's OJPEG hacks: missing or
+    # RGB is taken for YCbCr)
+    photo = tags.get(262, (6,))[0]
+    photo = 6 if photo == 2 else photo
+    if spp == 3 and photo != 6:
+        raise ValueError(f"{path}: old-style JPEG TIFF of 3 samples under photometric {photo} is not supported")
+    if spp == 1 and photo not in (0, 1):
+        raise ValueError(f"{path}: old-style JPEG TIFF of 1 sample under photometric {photo} (libtiff's RGBA "
+                         "interface refuses YCbCr of one sample: PIL too)")
+    parts, first = _ojpeg_parts(data, tags)
+    src = b"".join(parts)
+    tag_sub = tuple(tags.get(530, (2, 2))[:2]) if spp == 3 else (1, 1)
+    h = _ojpeg_header(src, spp, tag_sub, W, H, path)
+    # OJPEGSubsamplingCorrect: the frame's sampling stands; sampling a TIFF
+    # cannot state is left to libjpeg's upsampling (1 x 1 units)
+    hs, vs, forced = tag_sub[0], tag_sub[1], False
+    if h["sof"] is not None and spp == 3:
+        comps = h["sof"]["comps"]
+        hs, vs = comps[0][1] >> 4, comps[0][1] & 15
+        if hs not in (1, 2, 4) or vs not in (1, 2, 4) or any(c[1] != 0x11 for c in comps[1:]):
+            hs, vs, forced = 1, 1, True
+    rps = min(tags.get(278, (H,))[0], H)
+    restart = tags.get(515, (0,))[0] & 0xFFFF  # tif_ojpeg.c keeps it in 16 bits
+    if rps < H:
+        if hs not in (1, 2, 4) or vs not in (1, 2, 4) or rps % (8 * vs):
+            raise ValueError(f"{path}: old-style JPEG TIFF: {OJPEG_ERRORS['strips']}")
+        restart = (-(-W // (8 * hs)) * (rps // (8 * vs))) & 0xFFFF
+    if h["dri"] is not None:
+        restart = h["dri"]
+    if h["sof"] is None:  # the tables and frame from the tags
+        _ojpeg_tag_tables(data, tags, h, spp, path)
+        hv = [(hs << 4) | vs] + [0x11] * (spp - 1)
+        h["sof"] = dict(marker=0xC0, y=H, x=W, comps=[(i, hv[i], h["q_sel"][i]) for i in range(spp)])
+        h["sos"] = [(i, (h["dc_sel"][i] << 4) | h["ac_sel"][i]) for i in range(spp)]
+    sof = h["sof"]
+    if h["sos"] is None:  # libtiff's SOS then names component 0, which libjpeg refuses
+        raise ValueError(f"{path}: old-style JPEG TIFF: {OJPEG_ERRORS['corrupt']}")
+    stream = [b"\xff\xd8"]
+    stream += [h["q"][k] for k in sorted(h["q"])] + [h["dc"][k] for k in sorted(h["dc"])]
+    stream += [h["ac"][k] for k in sorted(h["ac"])]
+    if restart:
+        stream.append(b"\xff\xdd\x00\x04" + struct.pack(">H", restart))
+    stream.append(bytes([0xFF, sof["marker"], 0, 8 + 3 * spp, 8]) + struct.pack(">HHB", sof["y"] & 0xFFFF,
+                                                                                  sof["x"] & 0xFFFF, spp)
+                  + b"".join(bytes(c) for c in sof["comps"]))
+    stream.append(bytes([0xFF, 0xDA, 0, 6 + 2 * spp, spp]) + b"".join(bytes(c) for c in h["sos"]) + b"\x00\x3f\x00")
+    # the scan: the rest of the source the header ended in, then the strips
+    # after it, an RST marker after each strip that has a strip after it
+    cut, k = h["end"], 0
+    while k < len(parts) and cut >= len(parts[k]) and k < len(parts) - 1:
+        cut -= len(parts[k])
+        k += 1
+    rst = 0
+    for j in range(k, len(parts)):
+        chunk = parts[j][cut:] if j == k else parts[j]
+        if not chunk:
+            continue
+        stream.append(chunk)
+        if j >= first and j + 1 < len(parts):
+            stream.append(bytes([0xFF, 0xD0 + rst]))
+            rst = (rst + 1) % 8
+    stream.append(b"\xff\xd9")
+    jpeg = b"".join(stream)
+    lib = _load()
+    px = _U8P()
+    nc, hh, ww = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    dims = np.zeros(16, np.int32)
+    interleave = spp == 1 or forced
+    rc = lib.sfod_jpeg_decode_ojpeg(jpeg, len(jpeg), int(interleave), ctypes.byref(px), ctypes.byref(nc),
+                                    dims.ctypes.data_as(_I32P), ctypes.byref(hh), ctypes.byref(ww))
+    if rc != 0:
+        raise ValueError(f"{path}: TIFF old-style JPEG decode failed: {JPEG_ERRORS.get(rc, 'unknown error')} "
+                         f"(code {rc})")
+    try:
+        if interleave:
+            pix = np.ctypeslib.as_array(px, shape=(hh.value, ww.value, nc.value))[:H, :W].copy()
+            if spp == 1:
+                return np.repeat(pix, 3, axis=2)
+            tables = [np.ascontiguousarray(t, np.int32) for t in _ycbcr_tables(tags)]
+            return _ycbcr_units_rgb(pix.reshape(H, W * 3).tobytes(), W, 1, 1, H, W, tables)  # 1 x 1 units
+        # the units of OJPEGDecodeRaw, converted from the planes they are cut from
+        (yw, yh), (cw, ch) = dims[2:4], dims[6:8]
+        if dims[6:8].tolist() != dims[10:12].tolist() or yw < -(-W // hs) * hs or yh < -(-H // vs) * vs or \
+                cw < -(-W // hs) or ch < -(-H // vs):
+            raise ValueError(f"{path}: old-style JPEG TIFF: {OJPEG_ERRORS['sampling']}")
+        base = ctypes.addressof(px.contents)
+        tables = [np.ascontiguousarray(t, np.int32) for t in _ycbcr_tables(tags)]
+        rgb = np.empty((H, W, 3), np.uint8)
+        lib.sfod_ycbcr_planes(px, int(yw), ctypes.cast(base + int(yw * yh), _U8P),
+                              ctypes.cast(base + int(yw * yh + cw * ch), _U8P), int(cw), hs, vs, H, W,
+                              *[t.ctypes.data_as(_I32P) for t in tables], rgb.ctypes.data_as(_U8P))
+        return rgb
+    finally:
+        lib.sfod_image_free(px)
 
 
 # ---------------------------------------------------------------------------

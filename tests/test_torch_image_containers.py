@@ -29,6 +29,7 @@ fixtures.json records the SHA-256 of Pillow's RGB of each.
 import hashlib
 import io
 import json
+import lzma
 import math
 import os
 import struct
@@ -51,6 +52,7 @@ from simple_sfod_tpu.data.loader import DetectionLoader as JaxLoader  # noqa: E4
 from simple_sfod_tpu_torch.data import native_codec as pnc  # noqa: E402
 from simple_sfod_tpu_torch.data.loader import DetectionLoader  # noqa: E402
 from test_torch_jpeg import drop_scans, encode, jpeg_parts, pillow_jpeg, smooth_image  # noqa: E402
+import torch_tiff_coders as tc  # noqa: E402
 from torch_jpeg_coders import lossless_jpeg  # noqa: E402
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_containers")
@@ -812,11 +814,8 @@ REFUSED = {
                                          lzw=bytes([0x04, 0xFF, 0xFF, 0xFF])), "corrupt LZW", True),
     "tiff-jpeg": (lambda: _tiff_tags("rgb8", {259: 7}), "TIFF JPEG decode failed: not a JPEG stream", True),
     "tiff-float": (lambda: _tiff_tags("grey8", {339: 3}), r"SampleFormat \(3,\), FillOrder 1, bits \(8,\)", True),
-    "tiff-lzma": (lambda: _tiff_tags("rgb8", {259: 34925}), "TIFF with LZMA compression", False),
-    "tiff-zstd": (lambda: _tiff_tags("rgb8", {259: 50000}), "TIFF with ZSTD compression", False),
-    "tiff-old-style-jpeg": (lambda: _tiff_tags("rgb8", {259: 6}), "TIFF with old-style JPEG compression", False),
-    "tiff-sgilog": (lambda: _tiff_tags("rgb8", {259: 34676}), "TIFF with SGILog compression", False),
-    "tiff-thunderscan": (lambda: _tiff_tags("grey4-min-is-white", {259: 32809}), "TIFF with ThunderScan", False),
+    "tiff-sgilog": (lambda: _tiff_tags("rgb8", {259: 34676}),
+                    r"TIFF with SGILog compression is not supported \(PIL refuses it too", True),
     "tiff-webp": (lambda: _tiff_tags("rgb8", {259: 50001}), "TIFF with WebP compression", True),
     "tiff-rgb16-fill-order-2": (lambda: tiff_case("rgb16", more_tags=[(266, 3, [2])]), "unknown pixel mode", True),
     "bigtiff-big-endian": (lambda: b"MM\x00+\x00\x08\x00\x00" + bytes(32), "big-endian BigTIFF", True),
@@ -833,11 +832,43 @@ REFUSED = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED))
+def _tiff_coded(case: str, compression: int, coder) -> bytes:
+    """TIFF[case]'s samples (as tiff_case writes them) with their strips
+    coded by `coder` and stored as `compression`."""
+    COMPRESS[compression] = coder
+    try:
+        return tiff_case(case, compression)
+    finally:
+        del COMPRESS[compression]
+
+
+def _grey4_rows(raw: bytes, w: int = 22) -> np.ndarray:
+    """The 4-bit pixels [rows, w] of a strip packed two a byte."""
+    b = np.frombuffer(raw, np.uint8).reshape(-1, (w + 1) // 2)
+    return np.stack([b >> 4, b & 15], axis=2).reshape(b.shape[0], -1)[:, :w]
+
+
+# refused before the port read TIFF's LZMA, ZSTD, old-style JPEG and
+# ThunderScan compressions, decoded now: the same files as their refusals
+# checked (TIFF["rgb8"] and TIFF["grey4-min-is-white"]), their strips coded
+# as the compression tag says, equal to Pillow and to the JAX loader
+DECODED_NOW = {
+    "tiff-lzma": lambda: _tiff_coded("rgb8", 34925, lzma.compress),
+    "tiff-zstd": lambda: _tiff_coded("rgb8", 50000, lambda b: tc.zstd_frame([("raw", b)])),
+    "tiff-old-style-jpeg": lambda: tc.ojpeg_tiff(smooth_image(13, 22, seed=0, noise=30), layout="strips"),
+    "tiff-thunderscan": lambda: _tiff_coded("grey4-min-is-white", 32809, lambda b: tc.thunderscan(_grey4_rows(b))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED) + sorted(DECODED_NOW))
 def test_refusals_name_the_feature(tmp_path, case):
     """The port's decode and loader raise a ValueError naming what is not
     read, and the message says what the port reads; Pillow raises on the
-    same bytes where the port's refusal is PIL's own."""
+    same bytes where the port's refusal is PIL's own. The cases of
+    DECODED_NOW decode as Pillow decodes them."""
+    if case in DECODED_NOW:
+        assert_reads_like_pillow(DECODED_NOW[case](), tmp_path, "now.tif")
+        return
     make, message, pillow_refuses = REFUSED[case]
     data = make()
     path = str(tmp_path / "refused")

@@ -21,8 +21,12 @@ FILES = sorted(
     os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")
 ) + [os.path.join(ROOT, "chip_smoke.py")]
 # `tools` is the repo's JAX-side tools/ directory (the port's tools are
-# relative imports of simple_sfod_tpu_torch/tools/)
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "simple_sfod_tpu", "tools"}
+# relative imports of simple_sfod_tpu_torch/tools/); the port decodes TIFF's
+# LZMA and ZSTD with its own C++ (data/csrc/xz.cpp, zstd.cpp), not Python's
+# lzma, zstandard, zstd or Python 3.14's compression.zstd, which the card's
+# machine may lack
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "simple_sfod_tpu", "tools", "lzma", "zstandard", "zstd",
+             "compression"}
 LAZY = {"yaml", "PIL"}
 
 

@@ -5,7 +5,11 @@ make: any IFD in either byte order or as BigTIFF (`container`), samples at
 (`tiff`), YCbCr data units at every subsampling with its coefficient and
 reference tags (`ycbcr_tiff`), and JPEG-compressed TIFF from Pillow's JPEG
 streams split into a shared JPEGTables segment and abbreviated strips or
-tiles (`jpeg_tiff`). `littlecms_lab_clut` reads the table of Pillow's
+tiles (`jpeg_tiff`), and the codings of tests/test_torch_tiff_codecs.py
+that no writer at hand makes: old-style LSB-first LZW (`lzw_compat`),
+ThunderScan (`thunderscan`), old-style JPEG TIFF from Pillow's JPEG
+streams (`ojpeg_tiff`) and zstd frames of raw and RLE blocks, skippable
+frames and XXH64 checksums (`zstd_frame`). `littlecms_lab_clut` reads the table of Pillow's
 Lab -> sRGB transform out of the LittleCMS library Pillow bundles; it
 writes simple_sfod_tpu_torch/data/lab_srgb_clut.bin:
 
@@ -15,6 +19,7 @@ writes simple_sfod_tpu_torch/data/lab_srgb_clut.bin:
 import ctypes
 import glob
 import io
+import lzma
 import os
 import struct
 import zlib
@@ -286,3 +291,466 @@ def littlecms_lab_clut() -> np.ndarray:
 def write_lab_clut() -> None:
     with open(LAB_CLUT, "wb") as f:
         f.write(zlib.compress(littlecms_lab_clut().astype("<u2").tobytes(), 9))
+
+
+# ---------------------------------------------------------------------------
+# old-style LZW, ThunderScan, old-style JPEG and zstd frames
+# ---------------------------------------------------------------------------
+
+
+def lzw_compat(data: bytes, clear_at: int = 4093, widths: set = None) -> bytes:
+    """Old-style TIFF LZW (libtiff's LZWDecodeCompat): codes LSB first, 256
+    clears (so a strip starts 00 and an odd byte), 257 ends; the width
+    grows when the decoder's table reaches 2^n entries, one code later than
+    the new style; a clear code once the table holds clear_at entries. The
+    code widths used are added to `widths`."""
+    out, acc, nbits = bytearray(), 0, 0
+
+    def put(code, size):
+        nonlocal acc, nbits
+        if widths is not None:
+            widths.add(size)
+        acc |= code << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+
+    table, nxt, size, fresh = {}, 258, 9, True
+    put(256, size)
+    w = None
+
+    def emit(code):
+        nonlocal nxt, size, fresh
+        put(code, size)
+        if not fresh:
+            nxt += 1
+            if nxt > (1 << size) - 1 and size < 12:
+                size += 1
+        fresh = False
+
+    for k in data:
+        if w is None:
+            w = k
+            continue
+        if (w, k) in table:
+            w = table[(w, k)]
+            continue
+        emit(w)
+        table[(w, k)] = len(table) + 258
+        if len(table) + 258 >= clear_at:
+            put(256, size)
+            table, nxt, size, fresh = {}, 258, 9, True
+        w = k
+    if w is not None:
+        emit(w)
+    put(257, size)
+    if nbits:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+_T2 = {0: 0, 1: 1, -1: 3}
+_T3 = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+
+
+def thunderscan(rows: np.ndarray, run_to_end: bool = False) -> bytes:
+    """ThunderScan coding (tif_thunder.c) of 4-bit rows [h, w]: each row from
+    pixel 0 (last pixel 0): runs of the last pixel, three 2-bit deltas, two
+    3-bit deltas, or a raw nibble; the skip codes pad a delta code at a row's
+    end. A run never reaches a row's end exactly (libtiff writes nothing for
+    such a run) unless run_to_end."""
+    out = bytearray()
+    for row in np.asarray(rows, np.int64):
+        w, i, last = len(row), 0, 0
+        while i < w:
+            run = 0
+            while i + run < w and row[i + run] == last and run < 63:
+                run += 1
+            if run >= 2 and (run_to_end or i + run < w):
+                out.append(run)
+                i += run
+                continue
+            if i + run == w and run >= 2 and not run_to_end:
+                run -= 1
+                if run >= 2:
+                    out.append(run)
+                    i += run
+                    continue
+            d = [int(row[j]) - prev for j, prev in zip(range(i, min(i + 3, w)), [last] + list(row[i:i + 2]))]
+            if len(d) and all(x in _T2 for x in d[:3]) and (len(d) == 3 or i + len(d) == w):
+                codes = [_T2[x] for x in d] + [2] * (3 - len(d))
+                out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2])
+                i += len(d)
+                last = int(row[i - 1])
+                continue
+            d = d[:2]
+            if all(x in _T3 for x in d) and (len(d) == 2 or i + len(d) == w):
+                codes = [_T3[x] for x in d] + [4] * (2 - len(d))
+                out.append(0x80 | codes[0] << 3 | codes[1])
+                i += len(d)
+                last = int(row[i - 1])
+                continue
+            out.append(0xC0 | int(row[i]))
+            last = int(row[i])
+            i += 1
+    return bytes(out)
+
+
+def jpeg_scan_segments(jpeg: bytes) -> tuple:
+    """(the stream up to and with its SOS segment, [the entropy-coded data of
+    each restart interval, its RST markers taken out], the EOI)."""
+    segs = jpeg_segments(jpeg)
+    scan = segs[-1][1]
+    n = struct.unpack(">H", scan[2:4])[0]
+    head = jpeg[:len(jpeg) - len(scan)] + scan[:2 + n]
+    body = scan[2 + n:]
+    assert body.endswith(b"\xff\xd9")
+    body = body[:-2]
+    parts, start, i = [], 0, 0
+    while i < len(body) - 1:
+        if body[i] == 0xFF and 0xD0 <= body[i + 1] <= 0xD7:
+            parts.append(body[start:i])
+            start = i = i + 2
+            continue
+        i += 1
+    parts.append(body[start:])
+    return head, parts
+
+
+def jpeg_tables(jpeg: bytes) -> tuple:
+    """The baseline tables of a JPEG stream: ({id: 64 zigzag bytes},
+    {(class, id): 16 counts + symbols})."""
+    q, huff = {}, {}
+    for m, seg in jpeg_segments(jpeg):
+        if m == 0xDB:
+            p = 4
+            while p < len(seg):
+                q[seg[p] & 15] = seg[p + 1:p + 65]
+                p += 65
+        elif m == 0xC4:
+            p = 4
+            while p < len(seg):
+                total = sum(seg[p + 1:p + 17])
+                huff[(seg[p] >> 4, seg[p] & 15)] = seg[p + 1:p + 17 + total]
+                p += 17 + total
+    return q, huff
+
+
+def ojpeg_tiff(rgb: np.ndarray, layout: str = "jif-scan", subsampling: int = 2, rows_per_strip=None, grey=False,
+               photometric=None, subsampling_tag=None, quality=85, more_tags=(), order="<") -> bytes:
+    """An old-style JPEG TIFF (compression 6) of rgb [h, w, 3] from Pillow's
+    JPEG of it (subsampling 0, 1, 2: 4:4:4, 4:2:2, 4:2:0; grey: mode "L"),
+    with a restart marker every rows_per_strip rows, each strip one restart
+    interval with its marker taken out, as tif_ojpeg.c expects. layout:
+      jif-scan   the JPEG whole at JPEGInterchangeFormat, the strips in its scan
+      jif-start  the same, the one strip at the stream's start
+      strips     no JPEGInterchangeFormat: the first strip carries the markers
+      tables     no markers at all: JPEGQTables, JPEGDCTables, JPEGACTables
+                 (and JPEGRestartInterval, JPEGProc 1) give the tables"""
+    h, w, _ = rgb.shape
+    rps = rows_per_strip or h
+    vs = 1 if grey or subsampling in (0, 1) else 2
+    kw = dict(quality=quality)
+    if not grey:
+        kw["subsampling"] = subsampling
+    if rps < h:
+        kw["restart_marker_rows"] = rps // (8 * vs)
+    jpeg = pillow_jpeg(rgb, "L" if grey else "RGB", **kw)
+    head, parts = jpeg_scan_segments(jpeg)
+    assert len(parts) == -(-h // rps), (len(parts), h, rps)
+    spp = 1 if grey else 3
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * spp), 259: (3, [6]), 277: (3, [spp]), 278: (4, [rps]),
+            284: (3, [1])}
+    tags[262] = (3, [photometric if photometric is not None else (1 if grey else 6)])
+    if not grey:
+        sof = next(s for m, s in jpeg_segments(jpeg) if m == 0xC0)
+        tags[530] = (3, list(subsampling_tag or (sof[11] >> 4, sof[11] & 15)))
+    blob = bytearray()  # what the IFD's offsets point into, placed after the header
+
+    def put(b: bytes) -> int:
+        at = 8 + len(blob)
+        blob.extend(b)
+        if len(blob) % 2:
+            blob.append(0)
+        return at
+
+    if layout in ("jif-scan", "jif-start"):
+        jif = put(jpeg)
+        tags[513], tags[514] = (4, [jif]), (4, [len(jpeg)])
+        scan = jif + len(head)
+        offs, counts, pos = [], [], scan
+        for k, part in enumerate(parts):
+            offs.append(pos)
+            counts.append(len(part))
+            pos += len(part) + 2
+        if layout == "jif-start":
+            assert len(parts) == 1
+            offs, counts = [jif], [len(jpeg)]
+    elif layout == "strips":
+        offs = [put(head + parts[0])] + [put(p) for p in parts[1:]]
+        counts = [len(head) + len(parts[0])] + [len(p) for p in parts[1:]]
+    else:
+        q, huff = jpeg_tables(jpeg)
+        qo = [put(q[0])] + ([put(q[1])] * 2 if not grey else [])
+        dco = [put(huff[(0, 0)])] + ([put(huff[(0, 1)])] * 2 if not grey else [])
+        aco = [put(huff[(1, 0)])] + ([put(huff[(1, 1)])] * 2 if not grey else [])
+        tags.update({512: (3, [1]), 519: (4, qo), 520: (4, dco), 521: (4, aco)})
+        dri = next((s for m, s in jpeg_segments(jpeg) if m == 0xDD), None)
+        if dri is not None:
+            tags[515] = (3, [struct.unpack(">H", dri[4:6])[0]])
+        offs = [put(p) for p in parts]
+        counts = [len(p) for p in parts]
+    tags[273], tags[279] = (4, offs), (4, counts)
+    for tag, typ, vals in more_tags:
+        tags[tag] = (typ, list(vals))
+    return _ifd_after(bytes(blob), tags, order)
+
+
+def _ifd_after(blob: bytes, tags: dict, order: str) -> bytes:
+    """A classic TIFF: the header, `blob` (at offset 8, holding whatever
+    the tags' offsets point at), then the IFD and its out-of-line values."""
+    body = bytearray(8) + blob
+    if len(body) % 2:
+        body.append(0)
+    ifd_at = len(body)
+    n = len(tags)
+    value_at = ifd_at + 2 + 12 * n + 4
+    ifd, values = bytearray(struct.pack(order + "H", n)), bytearray()
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        blob_v = struct.pack(order + _CODES[typ] * len(vals), *vals)
+        count = len(vals) // 2 if typ == 5 else len(vals)
+        ifd += struct.pack(order + "HHI", tag, typ, count)
+        if len(blob_v) <= 4:
+            ifd += blob_v + bytes(4 - len(blob_v))
+        else:
+            ifd += struct.pack(order + "I", value_at + len(values))
+            values += blob_v + bytes(len(blob_v) % 2)
+    body[:8] = (b"II*\x00" if order == "<" else b"MM\x00*") + struct.pack(order + "I", ifd_at)
+    return bytes(body + ifd + struct.pack(order + "I", 0) + values)
+
+
+_P1, _P2, _P3, _P4, _P5 = (11400714785074694791, 14029467366897019727, 1609587929392839161, 9650029242287828579,
+                           2870177450012600261)
+_M64 = (1 << 64) - 1
+
+
+def xxh64(data: bytes, seed: int = 0) -> int:
+    """XXH64, the hash whose low 32 bits end a zstd frame with a checksum."""
+    def rotl(x, r):
+        return ((x << r) | (x >> (64 - r))) & _M64
+
+    def rnd(acc, lane):
+        return rotl((acc + lane * _P2) & _M64, 31) * _P1 & _M64
+
+    def lane(i, k=8):
+        return int.from_bytes(data[i:i + k], "little")
+
+    n, i = len(data), 0
+    if n >= 32:
+        v = [(seed + _P1 + _P2) & _M64, (seed + _P2) & _M64, seed, (seed - _P1) & _M64]
+        while i + 32 <= n:
+            v = [rnd(v[k], lane(i + 8 * k)) for k in range(4)]
+            i += 32
+        h = (rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12) + rotl(v[3], 18)) & _M64
+        for x in v:
+            h = ((h ^ rnd(0, x)) * _P1 + _P4) & _M64
+    else:
+        h = (seed + _P5) & _M64
+    h = (h + n) & _M64
+    while i + 8 <= n:
+        h = (rotl(h ^ rnd(0, lane(i)), 27) * _P1 + _P4) & _M64
+        i += 8
+    if i + 4 <= n:
+        h = (rotl(h ^ (lane(i, 4) * _P1 & _M64), 23) * _P2 + _P3) & _M64
+        i += 4
+    while i < n:
+        h = rotl(h ^ (data[i] * _P5 & _M64), 11) * _P1 & _M64
+        i += 1
+    h ^= h >> 33
+    h = h * _P2 & _M64
+    h ^= h >> 29
+    h = h * _P3 & _M64
+    return h ^ (h >> 32)
+
+
+def zstd_frame(blocks, checksum=False, content_size=None, window_log=17, single=False, dict_id=None) -> bytes:
+    """A zstd frame (RFC 8878) of hand-made blocks: ("raw", bytes), ("rle",
+    byte, count), or ("compressed", block body) as another encoder made it;
+    the last block marked last. With checksum, the low 32 bits of the
+    content's XXH64 follow; content_size and single give the frame content
+    size field and the single-segment flag."""
+    content = bytearray()
+    fcs_code = 0 if content_size is None else (1 if content_size < 65536 + 256 and content_size >= 256 else
+                                               0 if single and content_size < 256 else 2)
+    fhd = (fcs_code << 6) | (0x20 if single else 0) | (0x04 if checksum else 0)
+    if dict_id is not None:
+        fhd |= 3
+    out = bytearray(b"\x28\xb5\x2f\xfd") + bytes([fhd])
+    if not single:
+        out.append((window_log - 10) << 3)
+    if dict_id is not None:
+        out += struct.pack("<I", dict_id)
+    if content_size is not None:
+        out += (struct.pack("<B", content_size) if fcs_code == 0 else
+                struct.pack("<H", content_size - 256) if fcs_code == 1 else struct.pack("<I", content_size))
+    for k, b in enumerate(blocks):
+        last = k == len(blocks) - 1
+        if b[0] == "raw":
+            out += struct.pack("<I", (len(b[1]) << 3) | last)[:3] + b[1]
+            content += b[1]
+        elif b[0] == "rle":
+            out += struct.pack("<I", (b[2] << 3) | 2 | last)[:3] + bytes([b[1]])
+            content += bytes([b[1]]) * b[2]
+        else:
+            out += struct.pack("<I", (len(b[1]) << 3) | 4 | last)[:3] + b[1]
+            content += b[2]
+    if checksum:
+        out += struct.pack("<I", xxh64(bytes(content)) & 0xFFFFFFFF)
+    return bytes(out)
+
+
+def skippable_frame(payload: bytes, nibble: int = 0) -> bytes:
+    return struct.pack("<II", 0x184D2A50 | nibble, len(payload)) + payload
+
+
+_LIT = {0: "raw", 1: "rle", 2: "huffman", 3: "treeless"}
+_SEQ = {0: "predefined", 1: "rle", 2: "fse", 3: "repeat"}
+
+
+def zstd_modes(data: bytes) -> set:
+    """What the zstd frames of a strip use, from their headers alone:
+    "block-raw", "block-rle", "block-compressed", "literals-<type>[-1|-4]"
+    (streams), "huffman-<fse|direct>", "<ll|of|ml>-<mode>" of each compressed
+    block's sequences section, "sequences-none", "checksum", "content-size",
+    "single-segment"; skippable frames are stepped over, and anything that
+    is not a frame ends the walk."""
+    seen, pos = set(), 0
+    while pos + 5 <= len(data):
+        magic = int.from_bytes(data[pos:pos + 4], "little")
+        if magic & 0xFFFFFFF0 == 0x184D2A50:
+            pos += 8 + int.from_bytes(data[pos + 4:pos + 8], "little")
+            continue
+        if magic != 0xFD2FB528:
+            break
+        fhd, fcs = data[pos + 4], data[pos + 4] >> 6
+        pos += 5 + (not fhd & 0x20) + (0, 1, 2, 4)[fhd & 3]
+        pos += (1 if fhd & 0x20 else 0) if fcs == 0 else 1 << fcs
+        seen |= {m for m, on in (("checksum", fhd & 4), ("content-size", fcs or fhd & 0x20),
+                                 ("single-segment", fhd & 0x20)) if on}
+        while pos + 3 <= len(data):
+            bh = int.from_bytes(data[pos:pos + 3], "little")
+            kind, size = (bh >> 1) & 3, bh >> 3
+            body = data[pos + 3:pos + 3 + (1 if kind == 1 else size)]
+            pos += 3 + (1 if kind == 1 else size)
+            if kind == 3:
+                return seen
+            seen.add("block-" + ("raw", "rle", "compressed")[kind])
+            if kind == 2:
+                seen |= _zstd_block_modes(body)
+            if bh & 1:
+                pos += 4 if fhd & 4 else 0
+                break
+    return seen
+
+
+def _zstd_block_modes(body: bytes) -> set:
+    seen = set()
+    lt, fmt = body[0] & 3, (body[0] >> 2) & 3
+    if lt < 2:
+        hs = (1, 2, 1, 3)[fmt]
+        used = hs + ((body[0] >> 3 if hs == 1 else int.from_bytes(body[:hs], "little") >> 4) if lt == 0 else 1)
+        seen.add("literals-" + _LIT[lt])
+    else:
+        hs = (3, 3, 4, 5)[fmt]
+        lhc = int.from_bytes(body[:5], "little")
+        used = hs + ((lhc >> 14) & 0x3FF, (lhc >> 14) & 0x3FF, (lhc >> 18) & 0x3FFF, (lhc >> 22) & 0x3FFFF)[fmt]
+        seen.add(f"literals-{_LIT[lt]}-{1 if fmt == 0 else 4}")
+        if lt == 2:
+            seen.add("huffman-" + ("direct" if body[hs] >= 128 else "fse"))
+    nseq = body[used]
+    if nseq == 0:
+        seen.add("sequences-none")
+    else:
+        m = body[used + (1 if nseq < 128 else 2 if nseq < 255 else 3)]
+        seen |= {f"ll-{_SEQ[m >> 6]}", f"of-{_SEQ[(m >> 4) & 3]}", f"ml-{_SEQ[(m >> 2) & 3]}"}
+    return seen
+
+
+def _vli(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append(v & 0x7F | 0x80)
+        v >>= 7
+    return bytes(out + bytes([v]))
+
+
+def _read_vli(b: bytes, p: int) -> tuple:
+    v, k = 0, 0
+    while True:
+        v |= (b[p] & 0x7F) << (7 * k)
+        k += 1
+        p += 1
+        if not b[p - 1] & 0x80:
+            return v, p
+
+
+def liblzma_xz(data: bytes, filters, check: int = lzma.CHECK_CRC64) -> bytes:
+    """An .xz stream of data from the liblzma Pillow bundles (5.8), through
+    lzma_stream_buffer_encode: filters [(id, value)] before LZMA2 preset 6,
+    value a Delta's distance or a BCJ filter's start offset (None: no
+    options). For the BCJ filters Python's lzma module does not name (ARM64,
+    RISC-V)."""
+    import PIL
+
+    libs = glob.glob(os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs", "liblzma-*"))
+    lib = ctypes.CDLL(libs[0])
+
+    class Filter(ctypes.Structure):
+        _fields_ = [("id", ctypes.c_uint64), ("options", ctypes.c_void_p)]
+
+    lzma2 = ctypes.create_string_buffer(256)  # lzma_options_lzma, filled by the preset
+    assert lib.lzma_lzma_preset(lzma2, 6) == 0
+    keep = [lzma2]
+    chain = (Filter * (len(filters) + 2))()
+    for i, (fid, value) in enumerate(filters):
+        opt = None
+        if value is not None:  # lzma_options_bcj {start_offset}; lzma_options_delta {type BYTE, dist}
+            keep.append(ctypes.create_string_buffer(struct.pack("<II", 0, value) if fid == 3 else
+                                                    struct.pack("<I", value), 64))
+            opt = ctypes.cast(keep[-1], ctypes.c_void_p)
+        chain[i] = Filter(fid, opt)
+    chain[len(filters)] = Filter(lzma.FILTER_LZMA2, ctypes.cast(lzma2, ctypes.c_void_p))
+    chain[len(filters) + 1] = Filter(2 ** 64 - 1, None)
+    out = ctypes.create_string_buffer(len(data) * 2 + 4096)
+    pos = ctypes.c_size_t(0)
+    lib.lzma_stream_buffer_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_char_p,
+                                              ctypes.c_size_t, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t),
+                                              ctypes.c_size_t]
+    assert lib.lzma_stream_buffer_encode(chain, check, None, data, len(data), out, ctypes.byref(pos), len(out)) == 0
+    return out.raw[:pos.value]
+
+
+def xz_blocks(parts, check=lzma.CHECK_CRC64, filters=None) -> bytes:
+    """One .xz stream ("The .xz File Format" 1.2.1) of a block a part, each
+    block as Python's lzma writes it, under one index and footer."""
+    blocks, records = b"", []
+    for part in parts:
+        s = lzma.compress(part, check=check, filters=filters)
+        backward = (struct.unpack("<I", s[-8:-4])[0] + 1) * 4
+        at = len(s) - 12 - backward
+        blocks += s[12:at]
+        n, p = _read_vli(s, at + 1)
+        for _ in range(n):
+            unpadded, p = _read_vli(s, p)
+            size, p = _read_vli(s, p)
+            records.append((unpadded, size))
+    index = b"\x00" + _vli(len(records)) + b"".join(_vli(u) + _vli(c) for u, c in records)
+    index += bytes(-len(index) % 4)
+    index += struct.pack("<I", zlib.crc32(index))
+    flags = bytes([0, check])
+    footer = struct.pack("<I", len(index) // 4 - 1) + flags
+    return (b"\xfd7zXZ\x00" + flags + struct.pack("<I", zlib.crc32(flags)) + blocks + index
+            + struct.pack("<I", zlib.crc32(footer)) + footer + b"YZ")
