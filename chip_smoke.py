@@ -221,9 +221,10 @@ Phases (each prints one progress line with its wall time):
               tests/torch_containers/: BMP, GIF, TIFF; tests/torch_webp/:
               lossy, lossless, ALPH, VP8X, animated WebP; tests/torch_tiff/:
               BigTIFF, JPEG-compressed, CCITT, YCbCr, CIELab, float and
-              signed TIFF, LZMA and ZSTD with predictor 2) decoded by the
-              port's codec bit-equal to the recorded SHA-256 of Pillow's
-              RGB; decode (and decode + resize) ms of a 1914x1052 JPEG,
+              signed TIFF, LZMA and ZSTD with predictor 2;
+              tests/torch_raster/: Netpbm, PFM, DIB, ICO, CUR, QOI, SGI,
+              PCX, DCX, TGA) decoded by the port's codec bit-equal to the
+              recorded SHA-256 of Pillow's RGB; decode (and decode + resize) ms of a 1914x1052 JPEG,
               baseline and progressive, beside a 1024x2048 PNG and KITTI's
               Adam7 and 16-bit PNGs on one thread, and of the Sim10k frame
               arithmetic-coded (the committed transcoding), block-smoothed
@@ -233,7 +234,9 @@ Phases (each prints one progress line with its wall time):
               strips, shared JPEGTables), Group 4, YCbCr 2x2 PackBits and
               old-style JPEG (the last two written here), and its 960x528
               crop as LZMA and ZSTD with predictor 2 (ms and MB/s), each
-              equal to Pillow's recorded digest; 16 Sim10k records (the fixture frames, the
+              equal to Pillow's recorded digest, and as raw PPM, 16-bit PGM,
+              DIB, QOI, SGI RLE, PCX and RLE TGA (written here, each decoded
+              back to the frame; ms and MB/s); 16 Sim10k records (the fixture frames, the
               progressive one among them, with seeded VOC boxes,
               converted by `python -m simple_sfod_tpu_torch.tools.sim10k_to_coco`'s
               main) and 16 KITTI records (seeded 375x1242 PNGs, two
@@ -261,7 +264,8 @@ Phases (each prints one progress line with its wall time):
               decode and decode + resize ms beside the baseline JPEG's)
               and on 8 Sim10k records as TIFF (4 JPEG-compressed, 4 LZW
               with Orientation 6, read turned), on 4 as old-style JPEG TIFF
-              and on 2 as the LZMA and ZSTD crops, each beside PNG twins of
+              and on 2 as the LZMA and ZSTD crops, and on 4 as raw PPM,
+              QOI, PCX and RLE TGA, each beside PNG twins of
               their decoded pixels: the loader's
               batches and the detections equal, 2 launches of each kernel
               an image
@@ -2290,6 +2294,7 @@ JPEG_FIXTURES = os.path.join(ROOT, "tests", "torch_jpeg")
 CONTAINER_FIXTURES = os.path.join(ROOT, "tests", "torch_containers")
 WEBP_FIXTURES = os.path.join(ROOT, "tests", "torch_webp")
 TIFF_FIXTURES = os.path.join(ROOT, "tests", "torch_tiff")
+RASTER_FIXTURES = os.path.join(ROOT, "tests", "torch_raster")
 # the Sim10k frame as TIFF, timed beside the baseline JPEG: committed
 # fixtures (tests/test_torch_tiff.py writes them; the LZMA and ZSTD files
 # are the frame's central 960x528 crop) and files this script writes
@@ -2343,13 +2348,14 @@ def jpeg_fixtures(directory: str = JPEG_FIXTURES) -> dict:
 
 
 def check_jpeg_fixtures() -> dict:
-    """Each committed JPEG, BMP, GIF, TIFF and WebP fixture decoded by the
+    """Each committed JPEG, BMP, GIF, TIFF, WebP, Netpbm, DIB, ICO, CUR,
+    QOI, SGI, PCX, DCX and TGA fixture decoded by the
     port's codec on this host, its RGB's SHA-256 equal to Pillow's recorded
     one. -> {name: kind} of the files checked."""
     import hashlib
 
     done = {}
-    for directory in (JPEG_FIXTURES, CONTAINER_FIXTURES, WEBP_FIXTURES, TIFF_FIXTURES):
+    for directory in (JPEG_FIXTURES, CONTAINER_FIXTURES, WEBP_FIXTURES, TIFF_FIXTURES, RASTER_FIXTURES):
         for name, rec in sorted(jpeg_fixtures(directory).items()):
             if not rec.get("committed", True):
                 continue  # a file this script writes (write_tiff_frames)
@@ -2479,6 +2485,145 @@ def jpeg_first_scans(data: bytes, keep: int) -> bytes:
     leave unrefined."""
     at = [i for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] == 0xDA]
     return data[:at[keep]] + b"\xff\xd9"
+
+
+# ---- the Sim10k frame as Netpbm, DIB, QOI, SGI, PCX and TGA, written here (the
+# card's machine has no Pillow); each writer is vectorised, a few hundred ms
+# at 1914x1052
+
+
+def ppm_bytes(rgb: np.ndarray) -> bytes:
+    """A raw PPM (P6, maxval 255) of rgb [H, W, 3]."""
+    h, w, _ = rgb.shape
+    return b"P6\n%d %d\n255\n" % (w, h) + np.ascontiguousarray(rgb, np.uint8).tobytes()
+
+
+def pgm16_values(rgb: np.ndarray) -> np.ndarray:
+    """The 16-bit grey samples pgm16_bytes stores: twice the frame's luma,
+    0..510, so that Pillow's mode I clips about half of them at 255."""
+    c = rgb.astype(np.int64)
+    luma = (c[..., 0] * 299 + c[..., 1] * 587 + c[..., 2] * 114 + 500) // 1000
+    return (2 * luma).astype(np.uint16)
+
+
+def pgm16_bytes(rgb: np.ndarray) -> bytes:
+    """A raw PGM (P5, maxval 65535: Pillow reads it as I;16B) of
+    pgm16_values(rgb)."""
+    h, w, _ = rgb.shape
+    return b"P5\n%d %d\n65535\n" % (w, h) + pgm16_values(rgb).astype(">u2").tobytes()
+
+
+def dib_bytes(rgb: np.ndarray) -> bytes:
+    """bmp_bytes without its 14-byte file header: a DIB."""
+    return bmp_bytes(rgb)[14:]
+
+
+def _variable_ops(keys: np.ndarray, ops: np.ndarray, lens: np.ndarray) -> bytes:
+    """The first lens[i] bytes of each row of ops [n, k], in the order of keys."""
+    order = np.argsort(keys, kind="stable")
+    ops, lens = ops[order], lens[order]
+    return ops[np.arange(ops.shape[1])[None, :] < lens[:, None]].tobytes()
+
+
+def qoi_bytes(rgb: np.ndarray) -> bytes:
+    """A QOI file (3 channels) of rgb: QOI_OP_RUN over repeats of the
+    previous pixel (62 at most an op), QOI_OP_DIFF, QOI_OP_LUMA or
+    QOI_OP_RGB otherwise (this writer leaves the index op out)."""
+    h, w, _ = rgb.shape
+    px = rgb.reshape(-1, 3).astype(np.int16)
+    prev = np.vstack([np.zeros((1, 3), np.int16), px[:-1]])
+    same = np.all(px == prev, axis=1)
+    d = (px - prev + 128) % 256 - 128
+    dr, dg, db = d[:, 0], d[:, 1], d[:, 2]
+    is_diff = np.all((d >= -2) & (d <= 1), axis=1)
+    is_luma = ~is_diff & (dg >= -32) & (dg <= 31) & (dr - dg >= -8) & (dr - dg <= 7) & (db - dg >= -8) & (db - dg <= 7)
+    ops = np.zeros((len(px), 4), np.uint8)
+    lens = np.full(len(px), 4, np.int64)
+    ops[:, 0] = 0xFE
+    ops[:, 1:] = px
+    ops[is_luma, 0] = (0x80 | (dg + 32))[is_luma]
+    ops[is_luma, 1] = (((dr - dg + 8) << 4) | (db - dg + 8))[is_luma]
+    lens[is_luma] = 2
+    ops[is_diff, 0] = (0x40 | ((dr + 2) << 4) | ((dg + 2) << 2) | (db + 2))[is_diff]
+    lens[is_diff] = 1
+    keep = ~same
+    # the runs: each block of repeats coded 62 pixels an op
+    edge = np.diff(np.concatenate([[0], same.astype(np.int8), [0]]))
+    starts, ends = np.flatnonzero(edge == 1), np.flatnonzero(edge == -1)
+    n_ops = -(-(ends - starts) // 62)
+    run_start = np.repeat(starts, n_ops) + 62 * (np.arange(n_ops.sum()) - np.repeat(np.cumsum(n_ops) - n_ops, n_ops))
+    run_len = np.minimum(62, np.repeat(ends, n_ops) - run_start)
+    run_ops = np.zeros((len(run_start), 4), np.uint8)
+    run_ops[:, 0] = 0xC0 | (run_len - 1)
+    body = _variable_ops(np.concatenate([np.flatnonzero(keep), run_start]), np.concatenate([ops[keep], run_ops]),
+                         np.concatenate([lens[keep], np.ones(len(run_start), np.int64)]))
+    return b"qoif" + struct.pack(">IIBB", w, h, 3, 0) + body + bytes(7) + b"\x01"
+
+
+def _chunked_rows(rows: np.ndarray, k: int, head) -> np.ndarray:
+    """Each row of rows [n, m] as literal chunks of up to k samples, each
+    after its header byte head(count) -> [n, bytes]."""
+    n, m = rows.shape
+    full, rest = divmod(m, k)
+    parts = []
+    for c in range(full + (rest > 0)):
+        cnt = min(k, m - c * k)
+        parts += [np.full((n, 1), head(cnt), np.uint8), rows[:, c * k:c * k + cnt]]
+    return np.concatenate(parts, axis=1)
+
+
+def sgi_rle_bytes(rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB SGI file, RLE: each row of each channel (bottom row
+    first) as copy chunks of up to 127 samples and a zero chunk, after the
+    offset and length tables."""
+    h, w, _ = rgb.shape
+    planes = np.ascontiguousarray(rgb[::-1].transpose(2, 0, 1)).reshape(3 * h, w)
+    rows = np.concatenate([_chunked_rows(planes, 127, lambda c: 0x80 | c), np.zeros((3 * h, 1), np.uint8)], axis=1)
+    n = rows.shape[1]
+    head = struct.pack(">HBBHHHH", 474, 1, 1, 3, w, h, 3).ljust(512, b"\x00")
+    first = 512 + 8 * 3 * h
+    tables = np.concatenate([first + n * np.arange(3 * h), np.full(3 * h, n)]).astype(">u4")
+    return head + tables.tobytes() + rows.tobytes()
+
+
+def pcx_bytes(rgb: np.ndarray) -> bytes:
+    """A PCX (version 5, 8 bits x 3 planes) of rgb: each line the R, G and B
+    planes, each byte of 0xC0 or above coded as a run of one, the rest as
+    literals."""
+    h, w, _ = rgb.shape
+    stride = w + w % 2
+    lines = np.zeros((h, 3, stride), np.uint8)
+    lines[:, :, :w] = rgb.transpose(0, 2, 1)
+    flat = lines.reshape(-1)
+    hi = flat >= 0xC0
+    lens = 1 + hi.astype(np.int64)
+    ends = np.cumsum(lens)
+    out = np.empty(ends[-1], np.uint8)
+    out[(ends - lens)[hi]] = 0xC1
+    out[ends - 1] = flat
+    head = bytearray(128)
+    head[0:4] = bytes([10, 5, 1, 8])
+    struct.pack_into("<HHHHHH", head, 4, 0, 0, w - 1, h - 1, 72, 72)
+    head[65] = 3
+    struct.pack_into("<HH", head, 66, stride, 1)
+    return bytes(head) + out.tobytes()
+
+
+def tga_rle_bytes(rgb: np.ndarray) -> bytes:
+    """A 24-bit run-length TGA (type 10, bottom row first) of rgb: each row
+    as literal packets of up to 128 pixels."""
+    h, w, _ = rgb.shape
+    rows = np.ascontiguousarray(rgb[::-1, :, ::-1]).reshape(h, w, 3)
+    parts = []
+    for c in range(0, w, 128):
+        cnt = min(128, w - c)
+        parts += [np.full((h, 1), cnt - 1, np.uint8), rows[:, c:c + cnt].reshape(h, -1)]
+    return struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, w, h, 24, 0) + np.concatenate(parts, 1).tobytes()
+
+
+# the raster forms timed on the card: kind -> writer
+RASTER_WRITERS = {"PPM raw": ppm_bytes, "PGM 16-bit": pgm16_bytes, "DIB": dib_bytes, "QOI": qoi_bytes,
+                  "SGI RLE": sgi_rle_bytes, "PCX 8-bit x 3 planes": pcx_bytes, "TGA RLE": tga_rle_bytes}
 
 
 def decode_resize_ms(path: str, reps: int = 5) -> tuple:
@@ -2696,6 +2841,44 @@ def tiff_codec_test(tr, root: str) -> list:
                          f"PNG twins: batches equal, {n} detections equal (AP50 {ap50[0]:.4f} and {ap50[1]:.4f}), "
                          f"{secs:.2f} s for both sets, launches {got}"))
     return out
+
+
+def write_raster_frames(directory: str) -> dict:
+    """The Sim10k frame in each RASTER_WRITERS form under directory, each
+    decoded back to the frame (the 16-bit PGM to its samples clipped at 255,
+    as Pillow's mode I converts them). -> {kind: path}."""
+    os.makedirs(directory)
+    frame = native_codec.decode(os.path.join(JPEG_FIXTURES, "sim10k_frame_0.jpg"))
+    out = {}
+    for kind, write in RASTER_WRITERS.items():
+        out[kind] = os.path.join(directory, kind.replace(" ", "_"))
+        with open(out[kind], "wb") as f:
+            f.write(write(frame))
+        rgb = native_codec.decode(out[kind])
+        want = np.repeat(np.minimum(pgm16_values(frame), 255).astype(np.uint8)[..., None], 3, 2) \
+            if kind == "PGM 16-bit" else frame
+        check(np.array_equal(rgb, want), f"{kind}: decode differs from the frame")
+        check(native_codec.image_size(out[kind]) == frame.shape[:2], f"{kind}: image_size")
+    return out
+
+
+def raster_test(tr, root: str) -> tuple:
+    """test() of trainer tr, through twin_test, on Sim10k frames 0, 1, 2, 0
+    as raw PPM, QOI, PCX (8 bits x 3 planes) and RLE TGA beside PNG twins
+    of their decoded pixels. -> (launches, a line of numbers)."""
+    d = os.path.join(root, "raster")
+    os.makedirs(d)
+    files = []
+    for i, (kind, write) in zip((0, 1, 2, 0), (("ppm", ppm_bytes), ("qoi", qoi_bytes), ("pcx", pcx_bytes),
+                                               ("tga", tga_rle_bytes))):
+        files.append(os.path.join(d, f"frame_{len(files)}_{i}.{kind}"))
+        with open(files[-1], "wb") as f:
+            f.write(write(native_codec.decode(os.path.join(JPEG_FIXTURES, f"sim10k_frame_{i}.jpg"))))
+    got, n, ap50, secs = twin_test(tr, d, "raster", png_twins(d, files))
+    line = (f"test() of the Sim10k source model on 4 Sim10k records as raw PPM, QOI, PCX and RLE TGA (frames 0, 1, "
+            f"2, 0) beside their PNG twins: batches equal, {n} detections equal (AP50 {ap50[0]:.4f} and "
+            f"{ap50[1]:.4f}), {secs:.2f} s for both sets, launches {got}")
+    return got, line
 
 
 def car_boxes(rng: np.random.RandomState, hw, k: int) -> list:
@@ -2970,6 +3153,18 @@ def car_phase(smi: str):
                                 + (f", {TIFF_CROP_BYTES / 1e3 / d:.1f} MB/s decoded" if "crop" in k else "") + ")"
                                 for k, (d, b) in tiff_ms.items())
             + f"; the baseline JPEG {jpeg_dec:.2f} ({jpeg_both:.2f}); each decode equal to Pillow's recorded digest")
+        raster = write_raster_frames(os.path.join(root, "raster_frames"))
+        raster_ms = {kind: decode_resize_ms(path) for kind, path in raster.items()}
+        frame_bytes = 1914 * 1052 * 3
+        numbers["raster_decode_ms"] = {k: v[0] for k, v in raster_ms.items()}
+        numbers["raster_decode_resize_ms"] = {k: v[1] for k, v in raster_ms.items()}
+        numbers["raster_decode_mb_s"] = {k: frame_bytes / 1e3 / v[0] for k, v in raster_ms.items()}
+        log(f"  the Sim10k frame as Netpbm, DIB, QOI, SGI, PCX and TGA (written here), one thread, median of 5 "
+            f"[{smi}]: decode ms (decode + resize to 600 px ms): "
+            + ", ".join(f"{k} {d:.2f} ({b:.2f}, {d / jpeg_dec:.2f}x the baseline JPEG's decode, "
+                        f"{frame_bytes / 1e3 / d:.1f} MB/s decoded)" for k, (d, b) in raster_ms.items())
+            + f"; the baseline JPEG {jpeg_dec:.2f} ({jpeg_both:.2f}); each decoded back to the frame (the 16-bit PGM "
+            "to its samples clipped at 255)")
         log(f"  host decode on one thread [{smi}]: a 1914x1052 4:2:0 JPEG {jpeg_dec:.2f} ms, with the resize to "
             f"600 px {jpeg_both:.2f} ms; its progressive re-encoding {prog_dec:.2f} ms, with the resize "
             f"{prog_both:.2f} ms ({prog_dec / jpeg_dec:.2f}x the baseline's decode); a 1024x2048 PNG {png_dec:.2f} ms, "
@@ -3074,6 +3269,9 @@ def car_phase(smi: str):
         for got, line in tiff_codec_test(tr, root):
             add(got)
             log(f"  [{smi}] " + line)
+        got, line = raster_test(tr, root)
+        add(got)
+        log(f"  [{smi}] " + line)
         del tr
     finally:
         for b in background:

@@ -1,8 +1,9 @@
 """Host batch assembly (the port of `simple_sfod_tpu/data/loader.py`).
 
 File records are decoded and resized by the port's native codec
-(data/native_codec.py: PNG, JPEG, BMP, GIF, TIFF and WebP, by the port's
-own decoders; the Pillow-exact bilinear resample), array and synthetic
+(data/native_codec.py: PNG, JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm, ICO,
+CUR, QOI, SGI, PCX, DCX and TGA, by the port's own decoders; the
+Pillow-exact bilinear resample), array and synthetic
 records resized by the same resample, so neither PIL nor another decoder is
 needed. Each batch is a dict of fixed-shape numpy arrays: uint8 canvases
 (the device casts them), true sizes, per-axis resize scales, padded ground

@@ -1,13 +1,17 @@
 """ctypes binding of the port's host image codec (data/csrc/imgcodec.cpp,
 data/csrc/jpeg_decode.cpp, data/csrc/containers.cpp, data/csrc/ccitt.cpp,
-data/csrc/webp_vp8.cpp, data/csrc/webp_vp8l.cpp, data/csrc/xz.cpp and
-data/csrc/zstd.cpp, built by host_libs.py):
+data/csrc/webp_vp8.cpp, data/csrc/webp_vp8l.cpp, data/csrc/xz.cpp,
+data/csrc/zstd.cpp and data/csrc/raster.cpp, built by host_libs.py):
 the loader's per-image work, decode and the detectron2 shortest-edge resize,
 without PIL and without any system image library.
 
   resize_bilinear  Pillow-BILINEAR-bit-exact resample of a uint8 array
-  decode           PNG, JPEG, BMP, GIF, TIFF or WebP file -> RGB uint8 [H, W, 3],
-                   the pixels of PIL's convert("RGB"). PNG: the chunks are
+  decode           a file of a format READS names -> RGB uint8 [H, W, 3],
+                   the pixels of PIL's convert("RGB"), the format found as
+                   Image.open finds it (its plugins' tests in Image.ID
+                   order, the next tried where one's header parser rejects
+                   the file). Netpbm, DIB, ICO, CUR, QOI, SGI, PCX, DCX and
+                   TGA: data/raster_formats.py. PNG: the chunks are
                    parsed here, the IDAT stream inflated by zlib and the
                    scanlines of each Adam7 pass (or of the whole image)
                    reconstructed in C++; every colour type and bit depth
@@ -42,9 +46,11 @@ without PIL and without any system image library.
                    canvas): the RIFF chunks parsed here as libwebp's demuxer
                    accepts them, the frame decoded by the port's decoders,
                    bit-equal to libwebp 1.6's RGBA with Pillow's settings,
-                   alpha decoded and dropped. JPEG 2000, TIFF's SGILog and
-                   WebP compressions (PIL refuses both too) and the other
-                   formats PIL opens are refused by name
+                   alpha decoded and dropped. TIFF's SGILog and WebP
+                   compressions (PIL refuses both too) and the other formats
+                   PIL opens (PSD and DDS queued for a later slice; EPS, WMF,
+                   MPEG, BUFR, GRIB and HDF5, which PIL cannot load here
+                   either) are refused by name
   image_size       (height, width) of any of those from its header alone
   encode_png       RGB uint8 [H, W, 3] -> the bytes of a PNG file (zlib)
 
@@ -120,19 +126,117 @@ GIF_MAGICS = (b"GIF87a", b"GIF89a")
 # Pillow's TIFF prefixes: classic (with the two byte-swapped version words it
 # accepts) and BigTIFF
 TIFF_MAGICS = (b"II*\x00", b"MM\x00*", b"MM*\x00", b"II\x00*", b"II+\x00", b"MM\x00+")
-READS = "PNG, JPEG, BMP, GIF, TIFF and WebP"
-# formats PIL opens that the port refuses, named in the refusal: (magic
-# prefix, its offset, name)
-_OTHER_FORMATS = (
-    (b"\x00\x00\x00\x0cjP  \r\n\x87\n", 0, "JPEG 2000"),
-    (b"\xff\x4f\xff\x51", 0, "JPEG 2000 (codestream)"),
-)
+READS = "PNG, JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm (PBM, PGM, PPM, PFM), ICO, CUR, QOI, SGI, PCX, DCX and TGA"
+_READS_OR = READS.replace(" and TGA", " or TGA")
+# formats PIL opens that the port refuses, named in the refusal: their
+# plugins' _accept tests (and, where that test is weak, the first checks of
+# their _open), at their places in Image.ID; each takes (the file's first 16
+# bytes, a reader of the file)
+_OTHER_FORMATS = {
+    "AVIF": lambda h, r: h[4:8] == b"ftyp" and h[8:12] in (b"avif", b"avis", b"mif1", b"msf1"),
+    "BLP": lambda h, r: h.startswith((b"BLP1", b"BLP2")),
+    "BUFR": lambda h, r: h.startswith((b"BUFR", b"ZCZC")),
+    "DDS": lambda h, r: h.startswith(b"DDS "),
+    "EPS": lambda h, r: h.startswith(b"%!PS") or h[:4] == b"\xc5\xd0\xd3\xc6",
+    "FITS": lambda h, r: h.startswith(b"SIMPLE"),
+    "FLI": lambda h, r: _fli_opens(r(0, 128)),
+    "FTEX": lambda h, r: h.startswith(b"FTEX"),
+    "GBR": lambda h, r: _gbr_opens(r(0, 24)),
+    "GRIB": lambda h, r: len(h) >= 8 and h.startswith(b"GRIB") and h[7] == 1,
+    "HDF5": lambda h, r: h.startswith(b"\x89HDF\r\n\x1a\n"),
+    "JPEG 2000 (codestream)": lambda h, r: h.startswith(b"\xff\x4f\xff\x51"),
+    "JPEG 2000": lambda h, r: h.startswith(b"\x00\x00\x00\x0cjP  \r\n\x87\n"),
+    "ICNS": lambda h, r: h.startswith(b"icns"),
+    "IPTC": lambda h, r: _iptc_opens(r),
+    "McIdas": lambda h, r: h.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04"),
+    "MPEG": lambda h, r: h.startswith(b"\x00\x00\x01\xb3"),
+    "MSP": lambda h, r: h.startswith((b"DanM", b"LinS")),
+    "PCD": lambda h, r: r(2048, 4) == b"PCD_",
+    "PIXAR": lambda h, r: h.startswith(b"\x80\xe8\x00\x00"),
+    "PSD": lambda h, r: h.startswith(b"8BPS"),
+    "SUN": lambda h, r: h[:4] == b"\x59\xa6\x6a\x95",
+    "WMF": lambda h, r: h.startswith((b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00")),
+    "XBM": lambda h, r: h.lstrip().startswith(b"#define"),
+    "XPM": lambda h, r: h.startswith(b"/* XPM */"),
+    "XV thumbnail": lambda h, r: h.startswith(b"P7 332"),
+}
+
+
+def _iptc_opens(read) -> bool:
+    """IptcImageFile._open (no _accept test): its fields walked up to the
+    image data (8, 10). Where Pillow raises (a field length byte above 132,
+    an unknown compression) this raises; where the walk finds the mode and
+    size fields the file opens as IPTC; anything else passes it on."""
+    info, pos = {}, 0
+    while True:
+        s = read(pos, 5)
+        if not s.strip(b"\x00"):
+            break
+        if len(s) < 4 or s[0] != 0x1C or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+            return False
+        tag, pos = (s[1], s[2]), pos + 5
+        if s[3] > 132:
+            raise ValueError("illegal field length in IPTC/NAA file")
+        if s[3] > 128:  # the length in the next bytes, after the header's fifth
+            ext = read(pos, s[3] - 128)
+            size, pos = int.from_bytes((bytes(4) + ext)[-4:], "big"), pos + len(ext)
+        elif s[3] == 128:
+            size = 0
+        elif len(s) < 5:
+            return False
+        else:
+            size = struct.unpack_from(">H", s, 3)[0]
+        if tag == (8, 10):
+            break
+        info[tag] = read(pos, size)
+        pos += size
+    if len(info.get((3, 60), b"")) < 2 or (3, 20) not in info or (3, 30) not in info:
+        return False
+    if int.from_bytes((bytes(4) + info.get((3, 120), b""))[-4:], "big") not in (1, 5):
+        raise ValueError("unknown IPTC image compression")
+    return True
+
+
+def _gbr_opens(s: bytes) -> bool:
+    """GbrImagePlugin's _accept and the header checks of its _open."""
+    if len(s) < 20:
+        return False
+    size, version, w, h, depth = struct.unpack_from(">5I", s)
+    return size >= 20 and version in (1, 2) and w != 0 and h != 0 and depth in (1, 4) and \
+        (version == 1 or s[20:24] == b"GIMP")
+
+
+def _fli_opens(s: bytes) -> bool:
+    """FliImagePlugin's _accept and the zero fields its _open checks."""
+    return len(s) >= 16 and s[4:6] in (b"\x11\xaf", b"\x12\xaf") and s[14:16] in (b"\x00\x00", b"\x03\x00") and \
+        s[20:22] == bytes(2) and s[42:80] == bytes(38) and s[88:] == bytes(40)
+
+
+_NEXT_SLICE = ("PSD", "DDS")  # queued: read in a later slice
+# formats Pillow 12.1 opens but cannot load on a machine like the card's
+_PIL_CANNOT_LOAD = {"EPS": "it needs Ghostscript", "WMF": "it loads WMF on Windows only", "MPEG": "it has no decoder",
+                    "BUFR": "no BUFR handler is installed", "GRIB": "no GRIB handler is installed",
+                    "HDF5": "no HDF5 handler is installed"}
+# Image.ID: the order Image.open tries its plugins in (Image.preinit's six,
+# then the rest); IM, IMT and SPIDER, which have no _accept test and open
+# only text headers or SPIDER's header floats, are left out
+_ORDER = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "AVIF", "BLP", "BUFR", "CUR", "PCX", "DCX", "DDS", "EPS", "FITS",
+          "FLI", "FTEX", "GBR", "GRIB", "HDF5", "JPEG 2000 (codestream)", "JPEG 2000", "ICNS", "ICO", "IPTC", "McIdas",
+          "MPEG", "TIFF", "MSP", "PCD", "PIXAR", "PSD", "QOI", "SGI", "SUN", "TGA", "WEBP", "WMF", "XBM", "XPM",
+          "XV thumbnail")
 # the bit depths each PNG colour type allows
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 # the Adam7 passes: (x0, y0, dx, dy)
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # the JPEG frame markers that carry the image size (all SOFn)
 _SOF_MARKERS = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+class Reject(ValueError):
+    """A plugin's _open fails the way Image.open passes over (SyntaxError,
+    IndexError, TypeError, KeyError, EOFError, struct.error, or no size):
+    the next format in Image.ID order is tried. A ValueError still, where a
+    caller reaches one format alone."""
 
 
 def _load() -> ctypes.CDLL:
@@ -183,9 +287,15 @@ def _load() -> ctypes.CDLL:
                              ("sfod_thunderscan", [ctypes.c_char_p, i64, i32, i32, i64, _U8P]),
                              ("sfod_packbits", [ctypes.c_char_p, i64, _U8P, i64]),
                              ("sfod_bmp_rle", [ctypes.c_char_p, i64, i64, ctypes.c_int32, ctypes.c_int32,
-                                               ctypes.c_int32, _U8P])):
+                                               ctypes.c_int32, _U8P]),
+                             ("sfod_pcx_rle", [ctypes.c_char_p, i64, i64, i64, _U8P]),
+                             ("sfod_tga_rle", [ctypes.c_char_p, i64, i32, i64, i64, _U8P])):
                 getattr(lib, fn).restype = i64
                 getattr(lib, fn).argtypes = args
+            lib.sfod_sgi_rle.restype = i32
+            lib.sfod_sgi_rle.argtypes = [ctypes.c_char_p, i64, i32, i32, i32, i32, _U8P]
+            lib.sfod_qoi.restype = i32
+            lib.sfod_qoi.argtypes = [ctypes.c_char_p, i64, i64, i32, _U8P]
             _lib = lib
         return _lib
 
@@ -203,35 +313,62 @@ def resize_bilinear(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
 
 
 def decode(path: str) -> np.ndarray:
-    """Decode a PNG, JPEG, BMP, GIF, TIFF or WebP file to RGB uint8 [H, W, 3].
+    """Decode an image file of a format READS names to RGB uint8 [H, W, 3].
     Raises on a file it cannot read or decode."""
     path = os.fspath(path)
     with open(path, "rb") as f:
-        return decode_bytes(f.read(), path)
+        return _decode(f.read(), path, on_disk=True)
 
 
 def decode_bytes(data: bytes, name: str = "image") -> np.ndarray:
     """Decode the bytes of an image file (`name` labels errors)."""
-    if data.startswith(PNG_MAGIC):
-        return _decode_png(data, name)
-    if data.startswith(JPEG_MAGIC):
-        return _decode_jpeg(data, name)
-    if data.startswith(BMP_MAGIC):
-        return _decode_bmp(data, name)
-    if data.startswith(GIF_MAGICS):
-        return _decode_gif(data, name)
-    if data.startswith(TIFF_MAGICS):
-        return _decode_tiff(data, name)
-    if _is_webp(data):
-        return _decode_webp(data, name)
-    raise ValueError(_unknown_format(data, name))
+    return _decode(data, name, on_disk=False)
 
 
-def _unknown_format(head: bytes, name: str) -> str:
-    fmt = next((f for magic, at, f in _OTHER_FORMATS if head[at:at + len(magic)] == magic), None)
+def _decode(data: bytes, name: str, on_disk: bool) -> np.ndarray:
+    src = _raster.Source.of_bytes(data, on_disk)
+    fmt, lay = _identify(src, name)
+    if fmt in _raster.PLUGINS:
+        return _raster.PLUGINS[fmt][2](src, lay, name)
+    return _DECODERS[fmt][1](data, name)
+
+
+def _identify(src, name: str) -> tuple:
+    """Image.open's walk through its plugins: (the first format whose test
+    accepts the file's first 16 bytes and whose header parser does not
+    reject it, that parser's layout). A format the port does not read is
+    refused by name."""
+    head = src.read(0, 16)
+    for fmt in _ORDER:
+        if fmt in _OTHER_FORMATS:
+            try:
+                opens = _OTHER_FORMATS[fmt](head, src.read)
+            except ValueError as e:
+                raise ValueError(f"{name}: {fmt} plugin's header check fails: {e} (PIL refuses it too)") from e
+            if opens:
+                raise ValueError(_unknown_format(head, name, fmt))
+        elif fmt in _DECODERS:
+            if _DECODERS[fmt][0](head):
+                return fmt, None
+        else:
+            accept, opener, _ = _raster.PLUGINS[fmt]
+            if accept is None or accept(head):
+                try:
+                    return fmt, opener(src, name)
+                except Reject:
+                    continue
+    raise ValueError(_unknown_format(head, name))
+
+
+def _unknown_format(head: bytes, name: str, fmt: str = None) -> str:
+    if fmt in _NEXT_SLICE:
+        return f"{name}: {fmt} is not supported yet (the port reads PSD and DDS in a later slice; it reads {READS})"
+    if fmt in _PIL_CANNOT_LOAD:
+        return (f"{name}: {fmt} is not supported (PIL opens it but cannot load it either: {_PIL_CANNOT_LOAD[fmt]}; the "
+                f"port reads {READS})")
     if fmt is not None:
         return f"{name}: {fmt} is not supported (the port reads {READS})"
-    return f"{name}: not a PNG, JPEG, BMP, GIF, TIFF or WebP file (the formats the port reads)"
+    return f"{name}: not a {_READS_OR} file (the formats the port reads)"
 
 
 def _decode_jpeg(data: bytes, path: str) -> np.ndarray:
@@ -247,34 +384,40 @@ def _decode_jpeg(data: bytes, path: str) -> np.ndarray:
 
 
 def image_size(path: str) -> tuple:
-    """(height, width) of an image file, read from its header without
-    decoding a pixel: PNG's IHDR, JPEG's SOFn marker, BMP's info header,
-    GIF's logical screen grown to its first frame (as PIL's size is), TIFF's
-    first IFD, swapped by an Orientation of 5-8 (the oriented size, Pillow's
-    after load), WebP's canvas (VP8X's, else the VP8 or VP8L frame's).
+    """(height, width) of an image file as Pillow's open gives its size,
+    read from its header without decoding a pixel: PNG's IHDR, JPEG's SOFn
+    marker, BMP's and DIB's info header, GIF's logical screen grown to its
+    first frame, TIFF's first IFD, swapped by an Orientation of 5-8 (the
+    oriented size, Pillow's after load), WebP's canvas (VP8X's, else the VP8
+    or VP8L frame's), the Netpbm, QOI, SGI, PCX, DCX, TGA and CUR headers
+    (CUR's bitmap at half its height). An ICO is decoded, as Pillow's open
+    loads it: the size is its entry's own, whatever its directory says.
     Raises on other files."""
     path = os.fspath(path)
     with open(path, "rb") as f:
-        head = f.read(30)
-        if head.startswith(PNG_MAGIC):
+        src = _raster.Source(_file_reader(f), os.fstat(f.fileno()).st_size, True)
+        fmt, lay = _identify(src, path)
+        if fmt == "ICO":
+            return _raster.ico_decode(src, lay, path).shape[:2]
+        if fmt in _raster.PLUGINS:
+            return lay["size"]
+        head, read = src.read(0, 30), src.read
+        if fmt == "PNG":
             if head[12:16] != b"IHDR":
                 raise ValueError(f"{path}: PNG without IHDR")
             w, h = struct.unpack(">II", head[16:24])
             return int(h), int(w)
-        if head.startswith(JPEG_MAGIC):
+        if fmt == "JPEG":
             return _jpeg_size(f, path)
-        read = _file_reader(f)
-        if head.startswith(BMP_MAGIC):
+        if fmt == "BMP":
             hdr = _bmp_header(read, path)
             return hdr["height"], hdr["width"]
-        if head.startswith(GIF_MAGICS):
+        if fmt == "GIF":
             return _gif_layout(read, path)["size"]
-        if head.startswith(TIFF_MAGICS):
+        if fmt == "TIFF":
             ifd = _tiff_ifd(read, path)
             return ifd["height"], ifd["width"]
-        if _is_webp(head):
-            return _webp_size(head, path)
-        raise ValueError(_unknown_format(head, path))
+        return _webp_size(head, path)
 
 
 def _file_reader(f):
@@ -336,9 +479,18 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
     pos, ihdr, plte, idat = 8, None, None, []
     while pos + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if idat and kind != b"IDAT":  # the image data ends; Pillow reads no further chunk for the pixels
+            break
         chunk = data[pos + 8:pos + 8 + n]
         if len(chunk) != n:
+            if kind == b"IDAT":  # the last data cut short: Pillow decodes what it holds
+                idat.append(chunk)
+                break
             raise ValueError(f"{path}: truncated PNG chunk {kind!r}")
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if not idat and kind != b"IDAT" and crc != struct.pack(">I", zlib.crc32(kind + chunk)):
+            # PngImageFile._open checks the CRC of each chunk before the first IDAT
+            raise ValueError(f"{path}: broken PNG file (bad header checksum in {kind!r}; PIL refuses it too)")
         pos += 12 + n
         if kind == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", chunk)
@@ -358,11 +510,14 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
         raise ValueError(f"{path}: PNG bit depth {depth} with colour type {ctype} is not valid")
     if interlace not in (0, 1):
         raise ValueError(f"{path}: PNG interlace method {interlace} is not valid")
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    need = sum(ph * ((pw * channels * depth + 7) // 8 + 1) for pw, ph in _png_passes(w, h, interlace) if pw)
+    try:  # Pillow's decoder stops at the last scanline, before the stream's end and Adler-32 check
+        raw = np.frombuffer(zlib.decompressobj().decompress(b"".join(idat), need), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"{path}: corrupt PNG image data ({e})") from e
     pix = np.empty((h, w, channels), np.uint16 if depth == 16 else np.uint8)
     off = 0
-    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
-        pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+    for (x0, y0, dx, dy), (pw, ph) in zip(ADAM7 if interlace else ((0, 0, 1, 1),), _png_passes(w, h, interlace)):
         if pw and ph:  # a pass without pixels has no scanlines
             samples, off = _png_pass(raw, off, pw, ph, channels, depth, ctype, path)
             pix[y0::dy, x0::dx] = samples
@@ -381,6 +536,12 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
     if ctype in (0, 4):
         return np.repeat(pix[..., :1], 3, axis=2)
     return np.ascontiguousarray(pix[..., :3])
+
+
+def _png_passes(w: int, h: int, interlace: int) -> list:
+    """(width, height) of each pass: Adam7's seven, or the whole image."""
+    return [(max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy)))
+            for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),))]
 
 
 def _png_pass(raw, off, pw, ph, channels, depth, ctype, path):
@@ -429,18 +590,27 @@ _BMP_BITFIELDS = {
 _RAW_BITS = {"1": 1, "P;1": 1, "P;4": 4, "P": 8, "L": 8, "BGR;15": 16, "BGR;16": 16, "BGR": 24}
 
 
-def _bmp_header(read, path: str) -> dict:
-    """BmpImageFile._bitmap: size, raw mode, palette and pixel data layout."""
-    head = read(0, 18)
-    if len(head) < 18:
-        raise ValueError(f"{path}: truncated BMP header")
-    offset, hsize = struct.unpack_from("<I", head, 10)[0], struct.unpack_from("<I", head, 14)[0]
+def _bmp_header(read, path: str, at: int = None) -> dict:
+    """BmpImageFile._bitmap: size, raw mode, palette and pixel data layout.
+    at: the offset of a DIB's info header (DibImageFile, an ICO or CUR
+    entry), which has no file header: its pixels start where its palette,
+    or its masks, end."""
+    if at is None:
+        head = read(0, 18)
+        if len(head) < 18:
+            raise ValueError(f"{path}: truncated BMP header")
+        offset, hsize, base = struct.unpack_from("<I", head, 10)[0], struct.unpack_from("<I", head, 14)[0], 14
+    else:
+        head = read(at, 4)
+        if len(head) < 4:
+            raise Reject(f"{path}: truncated DIB header")  # struct.error in Pillow: the next plugin is tried
+        offset, hsize, base = None, struct.unpack("<I", head)[0], at
     if hsize not in _BMP_HEADERS:
         raise ValueError(f"{path}: BMP header size {hsize} is not supported (PIL refuses it too)")
-    hd = read(18, hsize - 4)
+    hd = read(base + 4, hsize - 4)
     if len(hd) < hsize - 4:
         raise ValueError(f"{path}: truncated BMP header")
-    pos, masks, colors = 14 + hsize, None, 0
+    pos, masks, colors = base + hsize, None, 0
     if hsize == 12:  # BITMAPCOREHEADER (OS/2 1.x): 16-bit size, 3-byte palette entries
         width, height, _, bits = struct.unpack_from("<HHHH", hd)
         comp, pad, direction = 0, 3, -1
@@ -457,7 +627,7 @@ def _bmp_header(read, path: str) -> dict:
             else:
                 m = read(pos, 12)
                 if len(m) < 12:
-                    raise ValueError(f"{path}: truncated BMP bitfield masks")
+                    raise Reject(f"{path}: truncated BMP bitfield masks")  # struct.error: the next plugin is tried
                 masks, pos = struct.unpack("<III", m) + (0,), pos + 12
     colors = colors or 1 << bits
     if offset == 14 + hsize and bits <= 8:
@@ -480,22 +650,31 @@ def _bmp_header(read, path: str) -> dict:
         raise ValueError(f"{path}: BMP compression {comp} is not supported (PIL refuses it too)")
     palette = None
     if mode == "P":
-        if not 0 < colors <= 256:
+        if not 0 < colors <= 65536:
             raise ValueError(f"{path}: BMP palette of {colors} colours is not supported (PIL refuses it too)")
         pal = read(pos, pad * colors)
+        pos += len(pal)
         grey = all(pal[i * pad:i * pad + 3] == bytes([v & 255]) * 3
                    for i, v in enumerate((0, 255) if colors == 2 else range(colors)))
         if grey:  # a grey palette is dropped: mode "1" or "L" of the raw indices
             mode = raw = "1" if colors == 2 else "L"
         else:
             n = len(pal) // pad
+            if n > 256:
+                raise ValueError(f"{path}: BMP palette of {n} colours is not supported (PIL refuses it too: invalid "
+                                 "palette size)")
             palette = np.frombuffer(pal[:n * pad], np.uint8).reshape(n, pad)[:, 2::-1]
-    return dict(width=int(width), height=int(height), bits=bits, offset=offset, direction=direction, mode=mode,
-                raw=raw, rle=rle, rle4=comp == 2, palette=palette)
+    return dict(width=int(width), height=int(height), bits=bits, offset=pos if offset is None else offset,
+                direction=direction, mode=mode, raw=raw, rle=rle, rle4=comp == 2, palette=palette)
 
 
 def _decode_bmp(data: bytes, path: str) -> np.ndarray:
-    hdr = _bmp_header(_bytes_reader(data), path)
+    return _bmp_pixels(data, _bmp_header(_bytes_reader(data), path), path)
+
+
+def _bmp_pixels(data: bytes, hdr: dict, path: str) -> np.ndarray:
+    """The RGB of the bitmap _bmp_header describes (its height may be cut to
+    the top half of a doubled ICO or CUR bitmap, as Pillow cuts the tile)."""
     w, h, mode, raw = hdr["width"], hdr["height"], hdr["mode"], hdr["raw"]
     if w == 0 or h == 0:
         raise ValueError(f"{path}: BMP of size {w}x{h}")
@@ -514,10 +693,14 @@ def _decode_bmp(data: bytes, path: str) -> np.ndarray:
         need = (w * _RAW_BITS.get(raw, 32) + 7) // 8
         if stride < need:
             raise ValueError(f"{path}: BMP rows shorter than its {mode} pixels (PIL refuses it too)")
-        body = data[hdr["offset"]:hdr["offset"] + stride * h]
-        if len(body) < stride * (h - 1) + need:
+        have = max(0, min(stride * h, len(data) - hdr["offset"]))
+        if have < stride * (h - 1) + need:
             raise ValueError(f"{path}: truncated BMP pixel data")
-        rows = np.frombuffer(body + bytes(stride * h - len(body)), np.uint8).reshape(h, stride)[:, :need]
+        if have == stride * h:
+            rows = np.frombuffer(data, np.uint8, stride * h, hdr["offset"]).reshape(h, stride)[:, :need]
+        else:  # the last row's padding cut off
+            body = data[hdr["offset"]:] + bytes(stride * h - have)
+            rows = np.frombuffer(body, np.uint8).reshape(h, stride)[:, :need]
         pix = _bmp_unpack(rows, w, raw)
     if hdr["direction"] == -1:
         pix = pix[::-1]
@@ -544,6 +727,8 @@ def _bmp_unpack(rows: np.ndarray, w: int, raw: str) -> np.ndarray:
         g = ((p >> 5) & (63 if six else 31)) * 255 // (63 if six else 31)
         return np.stack([r, g, (p & 31) * 255 // 31], axis=-1).astype(np.uint8)
     px = rows[:, :w * len(raw.split(";")[0])].reshape(rows.shape[0], w, -1)
+    if raw.startswith("BGR"):  # BGR, BGRX, BGRA: a view
+        return px[..., 2::-1]
     return px[..., [raw.index(c) for c in "RGB"]]
 
 
@@ -783,6 +968,13 @@ _TIFF_RAW_MISSING = ("L;IR", "P;1R", "P;2R", "P;4R")
 _TIFF_RAW_BANDS = {"RGB": "RGB", "RGBA": "RGBA", "CMYK": "CMYK", "P": "P", "LAB": "LAB"}
 _MODE_BANDS = {"1": 1, "L": 1, "LA": 2, "P": 1, "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4, "I;16": 1, "I;16B": 1, "I": 1,
                "F": 1, "LAB": 3}
+# the tags libtiff's TIFFReadDirectory refuses a directory for when stored
+# with count 0 (Pillow reads such a tag as absent; its raw decoder never
+# meets libtiff); RowsPerStrip only in a tiled file
+_LIBTIFF_COUNTED = {258: "BitsPerSample", 277: "SamplesPerPixel", 278: "RowsPerStrip", 280: "MinSampleValue",
+                    281: "MaxSampleValue", 284: "PlanarConfiguration", 322: "TileWidth", 323: "TileLength",
+                    324: "TileOffsets", 325: "TileByteCounts", 339: "SampleFormat", 340: "SMinSampleValue",
+                    341: "SMaxSampleValue"}
 _XMP_ORIENTATION = re.compile(rb'tiff:Orientation(="|>)([0-9])')
 _BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
@@ -809,12 +1001,15 @@ def _tiff_ifd(read, path: str) -> dict:
     raw = read(off + len(cnt), entry * n)
     if len(raw) < entry * n:
         raise ValueError(f"{path}: truncated TIFF directory")
-    tags, blobs = {}, {}
+    tags, blobs, empty = {}, {}, set()
     for i in range(n):
         tag, typ = struct.unpack_from(order + "HH", raw, entry * i)
         (count,) = struct.unpack_from(order + ("Q" if big else "I"), raw, entry * i + 4)
         fmt = _TIFF_TYPES.get(typ)
         if fmt is None:
+            continue
+        if count == 0:  # Pillow skips a tag without data: it reads as absent
+            empty.add(tag)
             continue
         size = struct.calcsize(order + fmt) * count
         inline = raw[entry * i + entry - inline_size:entry * (i + 1)]
@@ -834,7 +1029,7 @@ def _tiff_ifd(read, path: str) -> dict:
         orientation = int(m[2]) if m else 1
     if orientation in (5, 6, 7, 8):
         width, height = height, width
-    return dict(tags=tags, blobs=blobs, order=order, width=width, height=height, orientation=orientation)
+    return dict(tags=tags, blobs=blobs, order=order, width=width, height=height, orientation=orientation, empty=empty)
 
 
 def _tiff_layout(ifd: dict, path: str) -> dict:
@@ -878,6 +1073,10 @@ def _tiff_layout(ifd: dict, path: str) -> dict:
     lay = dict(compression=compression, photo=photo, fill=fill, bits=bps[0], spp=spp, mode=mode, raw=raw,
                planar=planar and spp > 1, t4=tags.get(292, (0,))[0])
     if compression != "raw":
+        refused = sorted(ifd["empty"] & _LIBTIFF_COUNTED.keys() - ({278} if 324 not in tags else set()))
+        if refused:
+            raise ValueError(f"{path}: TIFF {_LIBTIFF_COUNTED[refused[0]]} tag stored with count 0 (libtiff "
+                             "refuses the directory: PIL too)")
         if fill == 2:  # libtiff undoes the fill order itself: Pillow reads the FillOrder 1 raw mode
             lay["raw"] = _TIFF_OPEN_INFO[key[:3] + (1,) + key[4:]][1]
         if compression in _CCITT_KIND and bps != (1,):
@@ -1820,3 +2019,16 @@ def _webp_size(head: bytes, path: str) -> tuple:
         return h, w
     raise ValueError(f"{path}: RIFF WEBP file whose first chunk is {tag!r}, not VP8, VP8L or VP8X: PIL does not "
                      "identify it either")
+
+
+# the formats of this module in Image.ID: (its _accept test, the decoder)
+_DECODERS = {
+    "BMP": (lambda h: h.startswith(BMP_MAGIC), _decode_bmp),
+    "GIF": (lambda h: h.startswith(GIF_MAGICS), _decode_gif),
+    "JPEG": (lambda h: h.startswith(JPEG_MAGIC), _decode_jpeg),
+    "PNG": (lambda h: h.startswith(PNG_MAGIC), _decode_png),
+    "TIFF": (lambda h: h.startswith(TIFF_MAGICS), _decode_tiff),
+    "WEBP": (_is_webp, _decode_webp),
+}
+
+from . import raster_formats as _raster  # noqa: E402  (it reads this module's BMP and PNG decoders)

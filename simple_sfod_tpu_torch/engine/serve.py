@@ -16,7 +16,8 @@ Pillow-exact resample, so no PIL), boxes mapped back to file coordinates by
 the per-axis inverse scale and clipped.
 
   GET  /          serving info (canvas, batch, classes, platforms)
-  POST /predict   body = a PNG, JPEG, BMP, GIF, TIFF or WebP file (data/native_codec.py) or a raw .npy
+  POST /predict   body = an image file of a format native_codec.READS names (PNG, JPEG, BMP, DIB, GIF,
+                  TIFF, WebP, Netpbm, ICO, CUR, QOI, SGI, PCX, DCX, TGA) or a raw .npy
                   HxWx3 uint8 array; optional ?min_score=S
                   -> {"width", "height", "detections": [{"box" xyxy in file
                      coords, "score", "class", "class_name"}, ...]}

@@ -16,8 +16,8 @@ http.server alone:
                                                       (run_ui.py:298-394)
   /imgfile an image of the images dir, refused (403) outside it
 
-The browser's image size comes from the image's header (PNG, JPEG, BMP,
-GIF, TIFF, WebP: `data/native_codec.py:image_size`), not from an image library;
+The browser's image size comes from the image's header (any format
+`data/native_codec.py:image_size` reads), not from an image library;
 another format is drawn at 640x480, as the JAX GUI draws an image it cannot
 open.
 Given the same state every page is the JAX GUI's, byte for byte.

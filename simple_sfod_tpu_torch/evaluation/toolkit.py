@@ -10,8 +10,10 @@ Supported formats:
 
 All readers return ({image_id: {"boxes" [N,4] xyxy, "classes" [N],
 ("scores" [N])}}, class_names) with contiguous class ids. YOLO's relative
-coordinates take each image's size from its header (PNG, JPEG, BMP, GIF,
-TIFF or WebP: `data/native_codec.py:image_size`), not from an image library.
+coordinates take each image's size from its header (any format
+`data/native_codec.py:image_size` reads, the image file's bytes deciding
+as Image.open decides: a DIB under a .bmp name, say), not from an image
+library.
 """
 
 from __future__ import annotations

@@ -11,7 +11,9 @@
             lossy and lossless WebP decoders and the ALPH plane, bit-equal
             to libwebp's), data/csrc/xz.cpp and data/csrc/zstd.cpp (TIFF's
             LZMA and ZSTD compressions: the port's own .xz/LZMA2 and zstd
-            decoders, after liblzma and libzstd as libtiff drives them);
+            decoders, after liblzma and libzstd as libtiff drives them),
+            data/csrc/raster.cpp (the run-length loops of PCX, TGA and
+            SGI and QOI's ops, as Pillow's decoders read them);
             data/native_codec.py binds them
   cocoeval  evaluation/csrc/cocoeval.cpp (the port's copy of the repo's
             native/cocoeval.cpp): the COCO metric in C++ (evaluation/native.py
@@ -43,7 +45,7 @@ CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 SOURCES = {
     "imgcodec": tuple(os.path.join(_PKG, "data", "csrc", f)
                      for f in ("imgcodec.cpp", "jpeg_decode.cpp", "containers.cpp", "ccitt.cpp", "webp_vp8.cpp",
-                               "webp_vp8l.cpp", "xz.cpp", "zstd.cpp")),
+                               "webp_vp8l.cpp", "xz.cpp", "zstd.cpp", "raster.cpp")),
     "cocoeval": (os.path.join(_PKG, "evaluation", "csrc", "cocoeval.cpp"),),
 }
 

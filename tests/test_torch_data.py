@@ -250,7 +250,7 @@ def test_decode_raises_on_bad_files(tmp_path):
     with pytest.raises(OSError):
         pnc.decode(str(tmp_path / "missing.png"))
     (tmp_path / "x.bin").write_bytes(b"hello, not an image")
-    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, GIF, TIFF or WebP file"):
+    with pytest.raises(ValueError, match=r"not a PNG, JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm \(PBM, PGM, PPM, PFM\), ICO, CUR, QOI, SGI, PCX, DCX or TGA file"):
         pnc.decode(str(tmp_path / "x.bin"))
     (tmp_path / "g.jpg").write_bytes(b"\xff\xd8\xffgarbage")
     with pytest.raises(ValueError, match="JPEG decode failed"):

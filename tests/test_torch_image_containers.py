@@ -828,7 +828,9 @@ REFUSED = {
     "jpeg2000": (lambda: b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40), "JPEG 2000 is not supported", False),
     "jpeg2000-codestream": (lambda: b"\xff\x4f\xff\x51" + bytes(40), r"JPEG 2000 \(codestream\) is not supported",
                             False),
-    "unknown": (lambda: b"P6\n2 2\n255\n" + bytes(12), "not a PNG, JPEG, BMP, GIF, TIFF or WebP file", False),
+    "unknown": (lambda: b"P7\n2 2\n255\n" + bytes(12), r"not a PNG, JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm \(PBM, PGM, PPM, PFM\), ICO, CUR, QOI, SGI, PCX, DCX or TGA file", True),
+    "psd": (lambda: b"8BPS\x00\x01" + bytes(40), "PSD is not supported yet", False),
+    "dds": (lambda: b"DDS |\x00\x00\x00" + bytes(120), "DDS is not supported yet", False),
 }
 
 
@@ -857,6 +859,8 @@ DECODED_NOW = {
     "tiff-zstd": lambda: _tiff_coded("rgb8", 50000, lambda b: tc.zstd_frame([("raw", b)])),
     "tiff-old-style-jpeg": lambda: tc.ojpeg_tiff(smooth_image(13, 22, seed=0, noise=30), layout="strips"),
     "tiff-thunderscan": lambda: _tiff_coded("grey4-min-is-white", 32809, lambda b: tc.thunderscan(_grey4_rows(b))),
+    # the PPM that stood for an unknown file before the port read Netpbm
+    "ppm-formerly-unknown": lambda: b"P6\n2 2\n255\n" + bytes(12),
 }
 
 
@@ -885,8 +889,9 @@ def test_refusals_name_the_feature(tmp_path, case):
 
 
 def test_refusals_say_what_the_port_reads(tmp_path):
-    for case in ("jpeg2000-codestream", "jpeg2000"):
-        with pytest.raises(ValueError, match="the port reads PNG, JPEG, BMP, GIF, TIFF and WebP"):
+    for case in ("jpeg2000-codestream", "jpeg2000", "psd", "dds"):
+        with pytest.raises(ValueError, match=r"reads PNG, JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm \(PBM, PGM, PPM, "
+                                             r"PFM\), ICO, CUR, QOI, SGI, PCX, DCX and TGA"):
             pnc.decode_bytes(REFUSED[case][0]())
         (tmp_path / case).write_bytes(REFUSED[case][0]())
         with pytest.raises(ValueError, match="is not supported"):

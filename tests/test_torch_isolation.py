@@ -24,9 +24,10 @@ FILES = sorted(
 # relative imports of simple_sfod_tpu_torch/tools/); the port decodes TIFF's
 # LZMA and ZSTD with its own C++ (data/csrc/xz.cpp, zstd.cpp), not Python's
 # lzma, zstandard, zstd or Python 3.14's compression.zstd, which the card's
-# machine may lack
+# machine may lack; and it reads images with its own decoders, through no
+# image library (imageio, OpenCV, scikit-image)
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "simple_sfod_tpu", "tools", "lzma", "zstandard", "zstd",
-             "compression"}
+             "compression", "imageio", "cv2", "skimage"}
 LAZY = {"yaml", "PIL"}
 
 
@@ -156,7 +157,8 @@ def test_build_sources_lie_inside_the_package():
     the package itself, not of the repo around it."""
     sources = _build_sources()
     assert {"host_libs:imgcodec:imgcodec.cpp", "host_libs:imgcodec:jpeg_decode.cpp", "host_libs:imgcodec:webp_vp8.cpp",
-            "host_libs:imgcodec:webp_vp8l.cpp", "host_libs:cocoeval:cocoeval.cpp", "_kernels:nms"} <= set(sources)
+            "host_libs:imgcodec:webp_vp8l.cpp", "host_libs:imgcodec:raster.cpp", "host_libs:cocoeval:cocoeval.cpp",
+            "_kernels:nms"} <= set(sources)
     outside = {k: p for k, p in sources.items()
                if os.path.commonpath([os.path.realpath(p), os.path.realpath(PKG)]) != os.path.realpath(PKG)}
     assert not outside, outside
@@ -187,7 +189,7 @@ def test_no_system_image_library():
         with open(p) as fh:
             assert set(re.findall(r"#\s*include\s*<([^>]+)>", fh.read())) <= SYSTEM_HEADERS, p
     assert not [f for f in host_libs.CXX_FLAGS if f.startswith(("-l", "-D"))], host_libs.CXX_FLAGS
-    assert {"jpeg_decode.cpp", "webp_vp8.cpp", "webp_vp8l.cpp", "ccitt.cpp"} <= {
+    assert {"jpeg_decode.cpp", "webp_vp8.cpp", "webp_vp8l.cpp", "ccitt.cpp", "raster.cpp"} <= {
         os.path.basename(p) for p in host_libs.SOURCES["imgcodec"]}
 
 

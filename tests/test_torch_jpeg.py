@@ -515,7 +515,7 @@ def test_image_size_reads_headers_only(tmp_path):
     for name in ("a.jpg", "a.png", "p.jpg"):
         assert pnc.image_size(str(tmp_path / name)) == (13, 29)
     (tmp_path / "x.bin").write_bytes(b"not an image")
-    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, GIF, TIFF or WebP file"):
+    with pytest.raises(ValueError, match=r"not a PNG, JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm \(PBM, PGM, PPM, PFM\), ICO, CUR, QOI, SGI, PCX, DCX or TGA file"):
         pnc.image_size(str(tmp_path / "x.bin"))
 
 

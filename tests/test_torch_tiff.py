@@ -148,6 +148,75 @@ def test_orientation_from_xmp_and_ignored_values(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# a tag stored with count 0: the fault repaired (the port raised IndexError
+# on its first value; Pillow's ImageFileDirectory_v2 skips a tag without
+# data, so it reads as absent)
+# ---------------------------------------------------------------------------
+
+GREY4 = smooth_image(4, 4, seed=3, noise=40)[..., :1].astype(np.int64)
+COUNT0 = {"compression": 259, "orientation": 274, "photometric": 262, "planar-configuration": 284, "fill-order": 266}
+
+
+@pytest.mark.parametrize("name", sorted(COUNT0))
+def test_count_0_tag_reads_as_absent(tmp_path, name):
+    """A 4x4 grey strip with Compression, Orientation, Photometric (then
+    MinIsWhite: the image comes back inverted), PlanarConfiguration or
+    FillOrder stored with count 0 decodes as Pillow decodes it; image_size
+    is Pillow's size."""
+    data = tc.tiff(GREY4, 1, 8, more_tags=[(COUNT0[name], 3, [])])
+    got = assert_reads_like_pillow(data, tmp_path, "count0.tif")
+    if name == "photometric":
+        np.testing.assert_array_equal(got[..., 0], 255 - GREY4[..., 0])
+
+
+@pytest.mark.parametrize("tag", [256, 257])
+def test_count_0_image_width_or_length_is_refused(tmp_path, tag):
+    """Without its ImageWidth or ImageLength Pillow identifies no image;
+    the port raises a ValueError naming the tags, from decode and
+    image_size, not an IndexError."""
+    data = tc.tiff(GREY4, 1, 8, more_tags=[(tag, 4, [])])
+    with pytest.raises(Exception):
+        pillow_rgb(data)
+    (tmp_path / "w.tif").write_bytes(data)
+    for call in (lambda: pnc.decode_bytes(data), lambda: pnc.image_size(str(tmp_path / "w.tif"))):
+        with pytest.raises(ValueError, match="TIFF without ImageWidth or ImageLength"):
+            call()
+
+
+LIBTIFF_COUNTED = (258, 277, 278, 280, 281, 284, 317, 322, 323, 324, 325, 339, 340, 341)
+COUNT0_SWEEP = [("grey8", t) for t in (258, 273, 277, 278, 279, 339, 700)] + \
+    [(k, t) for k in ("grey8-lzw", "grey8-deflate-tiles") for t in LIBTIFF_COUNTED] + \
+    [("rgb8-lzw-predictor", t) for t in (258, 277, 317, 338, 339)] + [("palette4", t) for t in (258, 320)] + \
+    [("ycbcr-lzw", t) for t in (530, 529, 532)] + [("grey8", t) for t in (266, 292, 347)]
+
+
+def _count0_base(kind: str, tag: int) -> bytes:
+    img = smooth_image(6, 10, seed=4, noise=30)
+    empty = [(tag, 1 if tag in (347, 700) else 5 if tag in (529, 532) else 3, [])]
+    if kind == "grey8":
+        return tc.tiff(img[..., :1].astype(np.int64), 1, 8, rows_per_strip=3, more_tags=empty)
+    if kind == "grey8-lzw":
+        return tc.tiff(img[..., :1].astype(np.int64), 1, 8, tiff_lzw, 5, rows_per_strip=3, more_tags=empty)
+    if kind == "grey8-deflate-tiles":
+        return tc.tiff(img[..., :1].astype(np.int64), 1, 8, tc.deflate, 8, tile=(16, 16), more_tags=empty)
+    if kind == "rgb8-lzw-predictor":
+        return tc.tiff(img.astype(np.int64), 2, 8, tiff_lzw, 5, predictor=2, extra=(), more_tags=empty)
+    if kind == "palette4":
+        cmap = np.stack([np.arange(16) * 4000, np.arange(16)[::-1] * 4000, np.full(16, 30000)], 1)
+        return tc.tiff((img[..., :1] // 16).astype(np.int64), 3, 4, colormap=cmap, more_tags=empty)
+    return tc.ycbcr_tiff((6, 10), 2, 2, seed=4, compress=tiff_lzw, compression=5, more_tags=empty)
+
+
+@pytest.mark.parametrize("kind,tag", COUNT0_SWEEP, ids=[f"{k}-{t}" for k, t in COUNT0_SWEEP])
+def test_count_0_sweep_agrees_with_pillow(tmp_path, kind, tag):
+    """Every other tag the port reads, stored with count 0: the pixels
+    Pillow gives where it reads the file, a ValueError where it raises
+    (libtiff, which decodes every compressed file, refuses a directory with
+    a per-sample or layout tag of count 0)."""
+    assert_agrees(_count0_base(kind, tag), tmp_path, "sweep.tif")
+
+
+# ---------------------------------------------------------------------------
 # BigTIFF
 # ---------------------------------------------------------------------------
 

@@ -131,7 +131,7 @@ def test_image_size_equals_pil(tmp_path):
     for p in paths:
         with Image.open(p) as im:
             assert image_size(p)[::-1] == im.size, p
-    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, GIF, TIFF or WebP file"):
+    with pytest.raises(ValueError, match=r"not a PNG, JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm \(PBM, PGM, PPM, PFM\), ICO, CUR, QOI, SGI, PCX, DCX or TGA file"):
         image_size(os.path.join(fixtures, "fixtures.json"))
 
 

@@ -471,7 +471,7 @@ def test_truncated_files_are_refused(tmp_path, cut):
 REFUSED_RIFF = {
     "first-chunk-alph": (lambda d: d[:12] + b"ALPH" + d[16:], "first chunk is b'ALPH'"),
     "first-chunk-other": (lambda d: d[:12] + b"JUNK" + d[16:], "first chunk is b'JUNK'"),
-    "riff-wave": (lambda d: d[:8] + b"WAVE" + d[12:], "not a PNG, JPEG, BMP, GIF, TIFF or WebP file"),
+    "riff-wave": (lambda d: d[:8] + b"WAVE" + d[12:], r"not a PNG, JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm \(PBM, PGM, PPM, PFM\), ICO, CUR, QOI, SGI, PCX, DCX or TGA file"),
     "vp8-inter-frame": (lambda d: d[:20] + bytes([d[20] | 1]) + d[21:], "corrupt VP8 frame header"),
     "vp8l-version": (lambda d: d, "corrupt VP8L header"),
 }
